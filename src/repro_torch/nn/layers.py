@@ -1,0 +1,148 @@
+"""Primitive NN layers: dense, norms, the scalar MLP.
+
+Weights keep the JAX package's ``(d_in, d_out)`` layout with ``y = x @ w``,
+so the bridge copies every leaf as it is. The modules are parameter
+containers (named like the JAX leaves) that the plain functions read;
+constructors allocate (``device="meta"`` allocates nothing) and
+``reset_parameters(generator)`` draws the values, as ``repro/nn/params.py``
+does: lecun truncated normal for weights, zeros for biases, ones for norm
+scales.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+ACTS = {
+    "relu": F.relu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "none": lambda x: x,
+}
+
+
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
+                  scale: float = 1.0) -> torch.Tensor:
+    """scale/sqrt(fan_in) · N(0, 1) truncated to [-2, 2], fan_in the
+    product of all but the last dim (``repro/nn/params.boxed``, "lecun").
+    Drawn on the CPU from ``generator`` and copied into ``w``."""
+    fan_in = math.prod(w.shape[:-1]) if w.dim() >= 2 else w.shape[0]
+    v = torch.empty(w.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        w.copy_(v * (scale / math.sqrt(max(fan_in, 1))))
+    return w
+
+
+# ---------------------------------------------------------------- dense
+def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None):
+    y = x @ w
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, use_bias: bool = False,
+                 device=None):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
+        self.b = (nn.Parameter(torch.empty(d_out, device=device))
+                  if use_bias else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        lecun_normal_(self.w, generator)
+        if self.b is not None:
+            nn.init.zeros_(self.b)
+
+
+# ---------------------------------------------------------------- norms
+def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(dt)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dt)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, device=device))
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.scale)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, device=device))
+        self.bias = nn.Parameter(torch.empty(d, device=device))
+
+    def reset_parameters(self, generator=None) -> None:
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.bias)
+
+
+# ---------------------------------------------------------------- scalar MLP
+class MLPLayer(Dense):
+    """One MLP layer: dense with bias, plus an optional layernorm (``ln``)
+    applied before the activation — the JAX leaf layout {w, b, ln}."""
+
+    def __init__(self, d_in: int, d_out: int, *, use_layernorm: bool,
+                 device=None):
+        super().__init__(d_in, d_out, use_bias=True, device=device)
+        self.ln = LayerNorm(d_out, device=device) if use_layernorm else None
+
+
+class MLP(nn.Module):
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+
+
+def mlp_init(d_in, d_hidden, d_out, n_layers, *, use_layernorm=True,
+             device=None) -> MLP:
+    """n_layers >= 1 linear layers with activations between (none on
+    output); a layernorm after every hidden layer when ``use_layernorm``."""
+    dims = [d_in] + [d_hidden] * (n_layers - 1) + [d_out]
+    return MLP([MLPLayer(dims[i], dims[i + 1],
+                         use_layernorm=use_layernorm and i < n_layers - 1,
+                         device=device)
+                for i in range(n_layers)])
+
+
+def mlp_apply(p: MLP, x, act="relu"):
+    """x: (..., d_in) -> (..., d_out)."""
+    f = ACTS[act]
+    n = len(p.layers)
+    for i, lp in enumerate(p.layers):
+        x = dense(lp.w, x, lp.b)
+        if i < n - 1:
+            if lp.ln is not None:
+                x = layernorm(lp.ln.scale, lp.ln.bias, x)
+            x = f(x)
+    return x
+
+
+def reset_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter of ``module`` in module order."""
+    for m in module.modules():
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters(generator)
