@@ -1,36 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; exits non-zero without a
-card or outside a checkout of this repository. Phases, one line each:
+card or outside a checkout of this repository. Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN;
 2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. kernels: each kernel against its plain torch version on the card, at
-   the serving shapes and one ragged shape, and its time (CUDA events,
+   the main paths' shapes and one ragged shape, and its time (CUDA events,
    median of 50 runs, L2 evicted before each) beside the plain version's,
    one PyTorch library call's, and the bound (bytes or operations over the
-   card's published peak rate); each wrapper refuses an input that
-   requires grad;
+   card's published peak rate); the whole FD-TNO backward against autograd
+   through the plain ``ref.fd_tno_ref``; ``hilbert_window`` is
+   differentiable, standalone ``fd_mul`` and ``fd_khat_grad`` refuse an
+   input that requires grad;
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
-   ``generate``; the kernels' launch counts are read from this phase;
-5. check: the kernel-path forward over the generated sequences reproduces
-   every decoded token whose top-2 logit margin exceeds 1e-3, and the
-   smoke-size model gives the same logits on the card as on the CPU;
-6. a JSON line with each kernel's numbers, then the card's name and power
+   ``generate``; the serving launch counts are read from this phase;
+5. train: the same model, from seed 0, takes 30 AdamW steps through the
+   port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step);
+   the training launch counts are read from this phase;
+6. check: the kernel-path forward over the generated sequences reproduces
+   every decoded token whose top-2 logit margin exceeds 1e-3; the
+   smoke-size model gives the same logits, step-0 gradients and three
+   training losses on the card as on the CPU; a run stopped at step 2 and
+   restored from its checkpoint into a fresh model ends bitwise where an
+   uninterrupted run ends;
+7. a JSON line with each kernel's numbers, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -47,6 +58,7 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
 PROMPTS, PROMPT_LEN, GEN_LEN = 8, 448, 64
 MARGIN = 1e-3
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 30, 512, 8
 
 
 def _peaks(name: str):
@@ -161,12 +173,45 @@ def phase_kernels(peaks) -> dict:
             peaks=peaks)
         print(f"[kernel] fd_mul x̂ ({b}, {d}, {f}) complex64: {e}", flush=True)
         out.setdefault("fd_mul", e)
-    # forward-only: an input that requires grad is refused, not detached
+    # fd_khat_grad at the training shape: ĝ, x̂ (8, 512, 513) complex64,
+    # d=512, n=512; and a ragged one. Reads ĝ and x̂ once, writes (d, n+1):
+    # 8·(2·b·d·f + d·f) bytes; 8 flops per complex product-add.
+    for b, d, f in ((8, 512, 513), (3, 37, 45)):  # odd row: scalar path
+        gh = torch.randn(b, d, f, dtype=torch.complex64, device="cuda",
+                         generator=g)
+        xh = torch.randn(b, d, f, dtype=torch.complex64, device="cuda",
+                         generator=g)
+        got, want = fd_fused.fd_khat_grad(gh, xh), ref.fd_khat_grad_ref(gh, xh)
+        e = _kernel_entry(
+            "fd_khat_grad", "src/repro/kernels/fd_fused.py:238",
+            torch.view_as_real(got), torch.view_as_real(want),
+            lambda: fd_fused.fd_khat_grad(gh, xh),
+            lambda: ref.fd_khat_grad_ref(gh, xh),
+            lambda: torch.einsum("bdf,bdf->df", gh, xh.conj()),
+            nbytes=8 * (2 * gh.numel() + d * f), nops=8 * gh.numel(),
+            peaks=peaks)
+        print(f"[kernel] fd_khat_grad ĝ, x̂ ({b}, {d}, {f}) complex64: {e}",
+              flush=True)
+        out.setdefault("fd_khat_grad", e)
+    check_fd_tno_backward(g)
+    # hilbert_window is differentiable (self-adjoint: its gradient is the
+    # window of the cotangent); standalone fd_mul and fd_khat_grad are
+    # forward-only and refuse an input that requires grad, not detach it
     kt = torch.randn(4, 8, device="cuda", requires_grad=True)
+    win = fd_fused.hilbert_window(kt, 4)
+    cot = torch.randn(4, 8, device="cuda", generator=g)
+    (dkt,) = torch.autograd.grad(win, kt, cot)
+    if win.grad_fn is None or not torch.equal(
+            dkt, ref.hilbert_window_ref(cot, 4)):
+        raise AssertionError("hilbert_window's gradient is not the window "
+                             "of the cotangent")
+    print("[kernel] hilbert_window is differentiable: gradient = window of "
+          "the cotangent", flush=True)
     x = torch.randn(2, 4, 5, dtype=torch.complex64, device="cuda")
-    calls = {"hilbert_window": lambda: fd_fused.hilbert_window(kt, 4),
-             "fd_mul": lambda: fd_fused.fd_mul(
-                 x, x[0].clone().requires_grad_())}
+    calls = {"fd_mul": lambda: fd_fused.fd_mul(
+                 x, x[0].clone().requires_grad_()),
+             "fd_khat_grad": lambda: fd_fused.fd_khat_grad(
+                 x, x.clone().requires_grad_())}
     for name, call in calls.items():
         try:
             call()
@@ -176,6 +221,36 @@ def phase_kernels(peaks) -> dict:
         else:
             raise AssertionError(f"{name} accepted an input requiring grad")
     return out
+
+
+def check_fd_tno_backward(g) -> None:
+    """The whole FDTNO backward (conj-spectrum fd_mul, fd_khat_grad, the
+    window twice, the irfft adjoint) at the training shape, x (8, 512, 512)
+    fp32 and khat_real (512, 513), against torch.autograd through the plain
+    ref.fd_tno_ref on the card: dx and dkhat_real within 1e-5 × max (the
+    fp32 tier: the batch sums run in another order)."""
+    from repro_torch.kernels import fd_fused, ops, ref
+    b, n, d = 8, 512, 512
+    x = torch.randn(b, n, d, device="cuda", generator=g, requires_grad=True)
+    k = torch.randn(d, n + 1, device="cuda", generator=g, requires_grad=True)
+    cot = torch.randn(b, n, d, device="cuda", generator=g)
+    fd_fused.reset_counters()
+    got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
+    ran = dict(fd_fused.counters, **fd_fused.op_counters)
+    want = torch.autograd.grad(ref.fd_tno_ref(x, k), (x, k), cot)
+    errs = []
+    for name, a, w in zip(("dx", "dkhat_real"), got, want):
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        errs.append(f"{name} max abs err {err:.3e} (scale {scale:.3e})")
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"FDTNO backward {name}: {err} > 1e-5 x "
+                                 f"{scale}")
+    if ran != {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1,
+               "fwd": 1, "bwd": 1}:
+        raise AssertionError(f"FDTNO forward + backward launched {ran}")
+    print(f"[kernel] FDTNO backward x ({b}, {n}, {d}) vs autograd through "
+          f"ref.fd_tno_ref: {'; '.join(errs)} (limit 1e-5 x scale); "
+          f"launches {ran}", flush=True)
 
 
 # --------------------------------------------------------------- phase 4
@@ -233,7 +308,8 @@ def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
           f"{decode_tps:.1f} tok/s; wall {wall:.3f} s", flush=True)
     print(f"[serve] kernel launches: prefill {in_prefill}, prefill + "
           f"generate {launches}", flush=True)
-    for name, count in in_prefill.items():
+    for name in ("hilbert_window", "fd_mul"):
+        count = in_prefill[name]
         if count < cfg.n_layers:
             raise AssertionError(f"{name} launched {count} times in prefill,"
                                  f" < one per layer ({cfg.n_layers})")
@@ -241,6 +317,121 @@ def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
 
 
 # --------------------------------------------------------------- phase 5
+def _train_setup(cfg, device, seed: int, steps: int, warmup: int):
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+    model = init_model(cfg, torch.Generator().manual_seed(seed),
+                       device=device)
+    ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=warmup, total_steps=steps)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    return model, opt, make_train_step(cfg, ocfg)
+
+
+def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
+    """Returns the launch counts of the training run."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import fd_fused
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    model, opt, step_fn = _train_setup(cfg, device, 0, steps, warmup=5)
+    trainer = Trainer(
+        TrainerConfig(total_steps=steps, log_every=10), step_fn,
+        DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0),
+        log=lambda line: print(line, flush=True))
+    torch.cuda.reset_peak_memory_stats(device)
+    fd_fused.reset_counters()
+    t0 = time.perf_counter()
+    opt, end = trainer.run(model, opt)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(fd_fused.counters)
+    bwd = fd_fused.op_counters["bwd"]
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(m["loss"]) for m in trainer.metrics_history]
+    step_ms = statistics.median(trainer.step_seconds[5:]) * 1e3
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(f"[train] {cfg.name}: {end} AdamW steps of {batch} x {seq} tokens "
+          f"in {wall:.3f} s; median step after step 5 {step_ms:.3f} ms "
+          f"({batch * seq / step_ms * 1e3:.0f} tokens/s); loss step 0 "
+          f"{losses[0]:.6f}, step {end - 1} {losses[-1]:.6f} (mean of the "
+          f"last 5 {statistics.mean(losses[-5:]):.6f}); "
+          f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)",
+          flush=True)
+    print(f"[train] kernel launches per step {per_step}; FDTNO backwards "
+          f"{bwd} ({bwd / steps} per step)", flush=True)
+    if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
+        raise AssertionError(f"training losses {losses}")
+    if not statistics.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    if not launches["fd_khat_grad"] == bwd == cfg.n_layers * steps:
+        raise AssertionError(f"fd_khat_grad launched {launches['fd_khat_grad']}"
+                             f" times with {bwd} FDTNO backwards in {steps} "
+                             f"steps of {cfg.n_layers} layers")
+    return launches
+
+
+# --------------------------------------------------------------- phase 6
+def check_train_card_vs_cpu(small, device) -> None:
+    """Same init and batches on the card and on the CPU: step-0 gradients
+    within 1e-4 × max|g| per leaf and three training losses within 1e-4
+    relative (the fp32 matmul sums run in another order in cuBLAS)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.launch.steps import loss_and_grads
+    dcfg = DataConfig(vocab=small.vocab, seq_len=64, global_batch=2, seed=1)
+    runs = {}
+    for dev in ("cpu", device):
+        model, opt, step_fn = _train_setup(small, dev, 3, 3, warmup=1)
+        batches = [{k: torch.from_numpy(v).to(dev, torch.long)
+                    for k, v in batch_at(dcfg, i).items()} for i in range(3)]
+        _, _, grads = loss_and_grads(model, small, batches[0])
+        losses = []
+        for bt in batches:
+            opt, m = step_fn(model, opt, bt)
+            losses.append(float(m["loss"]))
+        runs[dev] = ({k: v.cpu() for k, v in grads.items()}, losses)
+    (g_cpu, l_cpu), (g_dev, l_dev) = runs["cpu"], runs[device]
+    worst = max(float((g_dev[k] - g_cpu[k]).abs().max())
+                / float(g_cpu[k].abs().max()) for k in g_cpu)
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
+    print(f"[check] smoke training card vs CPU: step-0 grads worst leaf "
+          f"{worst:.3e} x max|g| (limit 1e-4), losses {l_dev} vs {l_cpu}, "
+          f"max rel err {lerr:.3e} (limit 1e-4)", flush=True)
+    if not (worst <= 1e-4 and lerr <= 1e-4):
+        raise AssertionError("card training differs from the CPU's")
+
+
+def check_checkpoint_resume(small, device) -> None:
+    """A run checkpointed at step 2 and restored into a fresh model and
+    optimizer ends, after one more step, bitwise where an uninterrupted
+    three-step run ends."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    dcfg = DataConfig(vocab=small.vocab, seq_len=64, global_batch=2, seed=2)
+
+    def run(total, ckpt_dir, seed):
+        model, opt, step_fn = _train_setup(small, device, seed, 3, warmup=1)
+        tr = Trainer(TrainerConfig(total_steps=total, ckpt_dir=ckpt_dir,
+                                   ckpt_every=2, log_every=0), step_fn, dcfg)
+        opt, start = tr.try_restore(model, opt)
+        opt, end = tr.run(model, opt, start)
+        return model, opt, start, end
+
+    whole, whole_opt, _, _ = run(3, None, seed=4)
+    with tempfile.TemporaryDirectory() as d:
+        run(2, d, seed=4)
+        resumed, res_opt, start, end = run(3, d, seed=5)   # other init
+    same = all(torch.equal(a, b) for a, b in
+               zip(whole.parameters(), resumed.parameters()))
+    same_opt = all(torch.equal(whole_opt.mu[k], res_opt.mu[k])
+                   and torch.equal(whole_opt.nu[k], res_opt.nu[k])
+                   for k in whole_opt.mu)
+    print(f"[check] checkpoint at step 2, restored into a fresh model "
+          f"(resumed at {start}, ended at {end}): parameters bitwise equal "
+          f"to an uninterrupted run: {same}; moments: {same_opt}", flush=True)
+    if not (start == 2 and end == 3 and same and same_opt):
+        raise AssertionError("the resumed run differs from the uninterrupted")
+
+
 def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
     from repro_torch.configs import reduce_for_smoke
     from repro_torch.models.transformer import forward, init_model
@@ -275,6 +466,8 @@ def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
           f"err {err:.3e} (limit 1e-4)", flush=True)
     if not err <= 1e-4:
         raise AssertionError(f"card logits differ from CPU by {err}")
+    check_train_card_vs_cpu(small, device)
+    check_checkpoint_resume(small, device)
 
 
 def main() -> int:
@@ -287,11 +480,23 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(peaks)
     cfg = get_config("fd-tnn-lm-wt103")
-    model, prompt_len, seqs, launches = phase_serve(
+    model, prompt_len, seqs, serve_launches = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
+    train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
+                                 TRAIN_BATCH)
     phase_check(cfg, model, prompt_len, seqs, "cuda")
+    # each path must have gone through each of its kernels
+    paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
+             "train": (train_launches, tuple(kernels))}
+    for path, (counts, names) in paths.items():
+        for name in names:
+            if not counts[name] > 0:
+                raise AssertionError(f"{name} not launched on the {path} "
+                                     "path")
     for name, e in kernels.items():
-        e["launches"] = launches[name]
+        e["launches"] = serve_launches[name] + train_launches[name]
+        e["launches_by_path"] = {"serve": serve_launches[name],
+                                 "train": train_launches[name]}
     print(f"[peaks] {peak_name} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} TFLOP/s fp32")
     print(json.dumps({"kernels": list(kernels.values())}))

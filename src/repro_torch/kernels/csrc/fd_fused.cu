@@ -1,7 +1,8 @@
-// Hand-written Hopper (sm_90a) kernels of the causal FD-TNO forward, bound
-// to PyTorch through a plain C interface (ctypes) by
-// src/repro_torch/kernels/fd_fused.py. Both are elementwise, so both are
-// bound by device-memory bytes, never by arithmetic.
+// Hand-written Hopper (sm_90a) kernels of the causal FD-TNO forward and
+// backward, bound to PyTorch through a plain C interface (ctypes) by
+// src/repro_torch/kernels/fd_fused.py. All three are elementwise or a short
+// reduction over the batch, so all are bound by device-memory bytes, never
+// by arithmetic.
 //
 // hilbert_window  replaces src/repro/kernels/fd_fused.py _window_kernel /
 //   _window_call (hilbert_window_pallas): out[c, t] = kt[c, t] * w(t) on
@@ -31,6 +32,25 @@
 //   read from memory once and the rows' loads are independent and in
 //   flight together; 16-byte loads and stores (two complex values) when
 //   the row length is even, neighbouring threads on neighbouring addresses.
+//   The backward runs it again with the conjugate spectrum (the wrapper
+//   passes a physically conjugated k, never a conj view).
+//
+// fd_khat_grad  replaces src/repro/kernels/fd_fused.py _khat_grad_kernel /
+//   _khat_grad_call (fd_khat_grad_pallas): d[j] = sum_b g[b, j] * conj(x[b, j])
+//   on the channel-major (b, d, n+1) complex64 spectra of the backward,
+//   into a fresh (d, n+1) complex64 tensor that goes straight into irfft.
+//   The Pallas kernel accumulates the batch over an innermost sequential
+//   grid axis into its resident output block; Hopper blocks run in no
+//   order, so the batch sum is a loop inside the thread instead.
+//   Bound: 8 bytes x 2 b row read + 8 bytes x row written, 8 flops per
+//   complex product-add. At (8, 512, 513): 33,619,968 + 2,101,248 =
+//   35,721,216 bytes, 10.66 us at 3.35 TB/s (the byte count of fd_mul).
+//   Design: one thread per pair of output elements loops over b with fp32
+//   accumulators; 16-byte loads and stores (two complex values) when the
+//   row length is even, neighbouring threads on neighbouring addresses,
+//   as fd_mul_vec2; a scalar path for odd rows and misaligned pointers.
+//   No atomics: every output element is summed by one thread in batch
+//   order 0..b-1, so the gradient is bitwise the same from run to run.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -116,6 +136,48 @@ __global__ void fd_mul_scalar(const float2* __restrict__ x,
   }
 }
 
+// Re and Im of g * conj(x), added into (re, im).
+__device__ __forceinline__ void acc_gconjx(float2 g, float2 x, float& re,
+                                           float& im) {
+  re += g.x * x.x + g.y * x.y;
+  im += g.y * x.x - g.x * x.y;
+}
+
+// One thread per output pair (two complex values per float4), looping over
+// the batch rows in order: a fixed sum order and no atomics.
+__global__ void fd_khat_grad_vec2(const float4* __restrict__ g,
+                                  const float4* __restrict__ x,
+                                  float4* __restrict__ out, long long b,
+                                  long long row2) {
+  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       j < row2; j += (long long)gridDim.x * blockDim.x) {
+    float lr = 0.f, li = 0.f, hr = 0.f, hi = 0.f;
+#pragma unroll 4
+    for (long long bi = 0; bi < b; ++bi) {
+      const float4 a = g[bi * row2 + j];
+      const float4 c = x[bi * row2 + j];
+      acc_gconjx(make_float2(a.x, a.y), make_float2(c.x, c.y), lr, li);
+      acc_gconjx(make_float2(a.z, a.w), make_float2(c.z, c.w), hr, hi);
+    }
+    out[j] = make_float4(lr, li, hr, hi);
+  }
+}
+
+__global__ void fd_khat_grad_scalar(const float2* __restrict__ g,
+                                    const float2* __restrict__ x,
+                                    float2* __restrict__ out, long long b,
+                                    long long row) {
+  for (long long j = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       j < row; j += (long long)gridDim.x * blockDim.x) {
+    float re = 0.f, im = 0.f;
+#pragma unroll 4
+    for (long long bi = 0; bi < b; ++bi) {
+      acc_gconjx(g[bi * row + j], x[bi * row + j], re, im);
+    }
+    out[j] = make_float2(re, im);
+  }
+}
+
 dim3 grid_for(long long cols, long long rows) {
   long long gx = (cols + kThreads - 1) / kThreads;
   if (gx < 1) gx = 1;
@@ -163,6 +225,27 @@ int fd_mul_c64(const void* x, const void* k, void* y, long long b,
     fd_mul_scalar<<<grid_for(row, 1), kThreads, 0, s>>>(
         static_cast<const float2*>(x), static_cast<const float2*>(k),
         static_cast<float2*>(y), b, row);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g, x: (b, row) contiguous complex64; out: (row,) contiguous complex64.
+// Returns cudaGetLastError().
+int fd_khat_grad_c64(const void* g, const void* x, void* out, long long b,
+                     long long row, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = row % 2 == 0 &&
+                   reinterpret_cast<uintptr_t>(g) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec) {
+    fd_khat_grad_vec2<<<grid_for(row / 2, 1), kThreads, 0, s>>>(
+        static_cast<const float4*>(g), static_cast<const float4*>(x),
+        static_cast<float4*>(out), b, row / 2);
+  } else {
+    fd_khat_grad_scalar<<<grid_for(row, 1), kThreads, 0, s>>>(
+        static_cast<const float2*>(g), static_cast<const float2*>(x),
+        static_cast<float2*>(out), b, row);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,8 +13,10 @@ def fd_tno(x, khat_real):
     + per-channel spectral multiply + (i)rfft staging, as one op.
 
     x (b, n, d); khat_real (d, n+1) — the RPE's raw real frequency
-    response on the rfft grid (no decay bias). On the card the lag window
-    and the complex multiply are the CUDA kernels of ``csrc/fd_fused.cu``
-    around cuFFT, forward-only for now; on the CPU it is plain torch with
-    autograd."""
+    response on the rfft grid (no decay bias). Differentiable in both
+    arguments (``fd_fused.FDTNO``): on the card the forward runs the lag
+    window and the complex multiply as the CUDA kernels of
+    ``csrc/fd_fused.cu`` around cuFFT, and the backward runs the multiply
+    with the spectrum conjugated, the ``fd_khat_grad`` reduction and the
+    window again; on the CPU the same op runs their plain versions."""
     return fd_fused.fd_tno(x, khat_real)

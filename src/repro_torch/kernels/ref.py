@@ -36,6 +36,25 @@ def fd_mul_ref(xhat: torch.Tensor, khat: torch.Tensor) -> torch.Tensor:
     return torch.complex(yr, yi)
 
 
+def fd_khat_grad_planes_ref(gr, gi, xr, xi):
+    """Kernel-spectrum cotangent on planes: Σ_b ĝ ⊙ conj(x̂), reduced over
+    the leading (batch) axis. gr, gi, xr, xi: (b, F, d) → (dkr, dki) fp32
+    (F, d) each, as ``repro/kernels/ref.py:fd_khat_grad_ref``."""
+    gr, gi, xr, xi = gr.float(), gi.float(), xr.float(), xi.float()
+    return (torch.sum(gr * xr + gi * xi, dim=0),
+            torch.sum(gi * xr - gr * xi, dim=0))
+
+
+def fd_khat_grad_ref(ghat: torch.Tensor, xhat: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``fd_khat_grad`` kernel on complex64 tensors:
+    Σ_b ĝ[b] ⊙ conj(x̂[b]) for ĝ, x̂ of one shape (b, ...), e.g. the
+    channel-major (b, d, n+1) spectra; returns (...) complex64. The same
+    real arithmetic as the kernel, through :func:`fd_khat_grad_planes_ref`."""
+    dr, di = fd_khat_grad_planes_ref(ghat.real, ghat.imag,
+                                     xhat.real, xhat.imag)
+    return torch.complex(dr, di)
+
+
 def causal_spectrum_ref(khat_real: torch.Tensor) -> torch.Tensor:
     """(d, n+1) real response → complex (d, n+1) causal spectrum
     ``khat - i·H{khat}`` via the lag window (plain version of

@@ -5,12 +5,15 @@
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
 one card. Parameter names follow the JAX tree, with the scanned
-``blocks/sub0`` stack unrolled into ``layers.<i>``.
+``blocks/sub0`` stack unrolled into ``layers.<i>``. The loss keeps the JAX
+package's sequence chunking of the logits (``torch.utils.checkpoint`` in
+place of ``jax.checkpoint``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.block import TNNBlockConfig, gtu_apply, gtu_init
 from repro_torch.core.tno import TNOConfig
@@ -85,6 +88,7 @@ class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
         _check_supported(cfg)
+        self.cfg = cfg          # read by bridge/checkpoint for the JAX layout
         d, v = cfg.d_model, cfg.vocab_padded
         self.embed = nn.Parameter(torch.empty(v, d, device=device))
         self.unembed = nn.Parameter(torch.empty(d, v, device=device))
@@ -120,11 +124,55 @@ def unembed(params: Model, cfg: ArchConfig, x):
     return x @ params.unembed.to(x.dtype)
 
 
-def forward(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens (b, s) -> logits (b, s, V_pad). (The JAX function also
-    returns the MoE aux loss, which is 0 for dense FFNs.)"""
+def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
+    """tokens (b, s) -> hidden (b, s, d) after the final norm."""
     x = embed_tokens(params, cfg, tokens)
     for (mixer, _), layer in zip(cfg.layers_spec, params.layers):
         x = layer_apply(layer, cfg, mixer, x)
-    x = rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
-    return unembed(params, cfg, x)
+    return rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
+
+
+def forward(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
+    """tokens (b, s) -> logits (b, s, V_pad). (The JAX function also
+    returns the MoE aux loss, which is 0 for dense FFNs.)"""
+    return unembed(params, cfg, backbone(params, cfg, tokens))
+
+
+def _ce_terms(cfg: ArchConfig, logits, labels):
+    """Sum of per-token (lse - ll). logits fp32 (b, c, V_pad); labels
+    (b, c). Padded vocab columns are -1e30 before the log-sum-exp."""
+    pad_mask = torch.arange(cfg.vocab_padded,
+                            device=logits.device) < cfg.vocab
+    logits = torch.where(pad_mask, logits, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.sum(lse - ll)
+
+
+def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
+            aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over batch["tokens"] / batch["labels"]
+    (b, s) -> (loss, {"nll", "aux"}). The logits are sequence-chunked
+    exactly when the JAX package chunks them (``loss_chunk`` set, s > c and
+    s % c == 0): each chunk reduces to a scalar and is recomputed in the
+    backward, so at most (b, loss_chunk, V) logits are live. The aux term
+    (MoE load balance) is 0 for dense FFNs."""
+    x = backbone(params, cfg, batch["tokens"])
+    labels = batch["labels"]
+    b, s, _ = x.shape
+
+    def chunk_nll(xc, lc):
+        return _ce_terms(cfg, unembed(params, cfg, xc).float(), lc)
+
+    c = cfg.loss_chunk
+    if c and s > c and s % c == 0:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(0, s, c):
+            total = total + checkpoint(chunk_nll, x[:, i:i + c],
+                                       labels[:, i:i + c],
+                                       use_reentrant=False)
+    else:
+        total = chunk_nll(x, labels)
+    nll = total / (b * s)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
