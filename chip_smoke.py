@@ -23,8 +23,9 @@ card or outside a checkout of this repository. Phases:
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
    ``generate``; the serving launch counts are read from this phase;
 5. train: the same model, from seed 0, takes 30 AdamW steps through the
-   port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step);
-   the training launch counts are read from this phase;
+   port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step):
+   5 warm-up steps, then a resume whose wall over the other 25 gives the
+   tokens/s; the training launch counts are read from this phase;
 6. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
@@ -58,7 +59,7 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
 PROMPTS, PROMPT_LEN, GEN_LEN = 8, 448, 64
 MARGIN = 1e-3
-TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH = 30, 512, 8
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP = 30, 512, 8, 5
 
 
 def _peaks(name: str):
@@ -329,36 +330,51 @@ def _train_setup(cfg, device, seed: int, steps: int, warmup: int):
 
 
 def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
-    """Returns the launch counts of the training run."""
+    """Returns the launch counts of the training run. The run is two
+    ``Trainer.run`` calls on one model: steps 0..TRAIN_WARMUP-1, then a
+    resume to ``steps``, whose wall (data, pre-step clone, step and
+    logging, to a synchronise) gives the throughput."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import fd_fused
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     model, opt, step_fn = _train_setup(cfg, device, 0, steps, warmup=5)
-    trainer = Trainer(
-        TrainerConfig(total_steps=steps, log_every=10), step_fn,
-        DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0),
-        log=lambda line: print(line, flush=True))
+    data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
+
+    def trainer(total):
+        return Trainer(TrainerConfig(total_steps=total, log_every=10), step_fn,
+                       data, log=lambda line: print(line, flush=True))
+    warm, timed = trainer(TRAIN_WARMUP), trainer(steps)
     torch.cuda.reset_peak_memory_stats(device)
     fd_fused.reset_counters()
     t0 = time.perf_counter()
-    opt, end = trainer.run(model, opt)
+    opt, _ = warm.run(model, opt)
     _sync(device)
-    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    opt, end = timed.run(model, opt, TRAIN_WARMUP)
+    _sync(device)
+    t2 = time.perf_counter()
     launches = dict(fd_fused.counters)
     bwd = fd_fused.op_counters["bwd"]
     peak = torch.cuda.max_memory_allocated(device)
-    losses = [float(m["loss"]) for m in trainer.metrics_history]
-    step_ms = statistics.median(trainer.step_seconds[5:]) * 1e3
-    per_step = {k: v / steps for k, v in launches.items()}
+    losses = [float(m["loss"])
+              for m in warm.metrics_history + timed.metrics_history]
+    step_ms = statistics.median(timed.step_seconds) * 1e3
+    window = t2 - t1
+    tok_s = (end - TRAIN_WARMUP) * batch * seq / window
+    first_ms = [round(t * 1e3, 3) for t in warm.step_seconds]
     print(f"[train] {cfg.name}: {end} AdamW steps of {batch} x {seq} tokens "
-          f"in {wall:.3f} s; median step after step 5 {step_ms:.3f} ms "
-          f"({batch * seq / step_ms * 1e3:.0f} tokens/s); loss step 0 "
+          f"in {t2 - t0:.3f} s (steps 0-{TRAIN_WARMUP - 1}: {t1 - t0:.3f} s, "
+          f"train_step ms {first_ms}); steps {TRAIN_WARMUP}-{end - 1}: "
+          f"{window:.3f} s, {window / (end - TRAIN_WARMUP) * 1e3:.3f} ms a "
+          f"step, {tok_s:.0f} tokens/s (median train_step {step_ms:.3f} ms, "
+          f"max {max(timed.step_seconds) * 1e3:.3f} ms); loss step 0 "
           f"{losses[0]:.6f}, step {end - 1} {losses[-1]:.6f} (mean of the "
           f"last 5 {statistics.mean(losses[-5:]):.6f}); "
           f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)",
           flush=True)
-    print(f"[train] kernel launches per step {per_step}; FDTNO backwards "
-          f"{bwd} ({bwd / steps} per step)", flush=True)
+    print(f"[train] kernel launches per step "
+          f"{ {k: v / steps for k, v in launches.items()} }; FDTNO "
+          f"backwards {bwd} ({bwd / steps} per step)", flush=True)
     if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
         raise AssertionError(f"training losses {losses}")
     if not statistics.mean(losses[-5:]) < losses[0]:

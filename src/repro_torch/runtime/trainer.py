@@ -12,9 +12,9 @@
   data pipeline is stateless, so a retried step re-reads the same batch.
   The port's ``train_step`` updates parameters and optimizer state in
   place, so a failed attempt may leave them half-updated: before each step
-  the trainer clones both on their device (``retry_copy``; the counterpart
-  of the JAX trainer's ``undonated_retry_copy``, one device copy of the
-  state per step) and copies the clone back before a retry.
+  the trainer always clones both on their device (one device copy of the
+  state per step; the JAX trainer's ``undonated_retry_copy`` plays this
+  part for donated buffers) and copies the clone back before a retry.
 * **NaN guard** — a non-finite loss fails the attempt and retries; a
   persistent one raises. Either way the pre-step clone is copied back
   first, so no non-finite update stays in the parameters.
@@ -54,10 +54,6 @@ class TrainerConfig:
     straggler_factor: float = 3.0
     ema_alpha: float = 0.1
     log_every: int = 10
-    # clone the state on its device before each step and copy it back
-    # before a retry or after a failed step (see the module docstring);
-    # off only for runs that accept a half-updated state on failure
-    retry_copy: bool = True
 
 
 class StragglerMonitor:
@@ -202,11 +198,10 @@ class Trainer:
 
     def _step_with_retry(self, step: int, model, opt, batch):
         last_err: Optional[BaseException] = None
-        backup = (self._snapshot(model, opt) if self.cfg.retry_copy
-                  else None)
+        backup = self._snapshot(model, opt)
         for attempt in range(self.cfg.max_retries + 1):
             try:
-                if attempt > 0 and backup is not None:
+                if attempt > 0:
                     self._copy_back(backup, model, opt)
                 if self.failure_hook is not None:
                     self.failure_hook(step, attempt)
@@ -224,8 +219,7 @@ class Trainer:
             except (FloatingPointError, RuntimeError, ValueError) as e:
                 last_err = e
                 self.log(f"[trainer] step {step} attempt {attempt} failed: {e}")
-        if backup is not None:
-            self._copy_back(backup, model, opt)
+        self._copy_back(backup, model, opt)
         raise RuntimeError(
             f"step {step} failed after {self.cfg.max_retries + 1} attempts"
         ) from last_err

@@ -290,10 +290,11 @@ def test_straggler_monitor_flags_outliers():
     assert not mon.observe(6, 1.0)                 # EMA not poisoned
 
 
-def _fault_after_update_run(retry_copy: bool):
-    """Three real train_steps of the tiny model in which the first attempt
-    of step 1 fails after its in-place update; returns (final params, the
-    params of a clean three-step run)."""
+def test_trainer_retry_after_in_place_update_starts_from_pre_step_state():
+    """The port's step updates in place: a fault after the update must not
+    leak into the retry. With the pre-step clone, three real train_steps
+    whose step 1 fails once after its update end exactly where a clean
+    three-step run ends."""
     cfg, model, opt = _tiny_model()
     ocfg = adamw.OptConfig(lr=1e-2, warmup_steps=0, total_steps=3)
     opt = adamw.init(ocfg, dict(model.named_parameters()))
@@ -307,29 +308,15 @@ def _fault_after_update_run(retry_copy: bool):
             raise RuntimeError("fault after the in-place update")
         return out
 
-    tr = _trainer(None, 3, faulty, retry_copy=retry_copy)
+    tr = _trainer(None, 3, faulty)
     tr.run(model, opt)
     assert calls["n"] == 4                         # one retry
     _, clean, copt = _tiny_model()
     copt = adamw.init(ocfg, dict(clean.named_parameters()))
     _trainer(None, 3, make_train_step(cfg, ocfg)).run(clean, copt)
-    return dict(model.named_parameters()), dict(clean.named_parameters())
-
-
-def test_trainer_retry_after_in_place_update_starts_from_pre_step_state():
-    """The port's step updates in place: a fault after the update must not
-    leak into the retry. With the pre-step clone the run ends exactly where
-    a clean run ends."""
-    got, want = _fault_after_update_run(retry_copy=True)
-    for k in want:
-        assert torch.equal(got[k], want[k]), k
-
-
-def test_trainer_retry_unsafe_without_retry_copy():
-    """The hazard the clone exists for: without it the retry replays the
-    step on half-updated state and the run ends elsewhere."""
-    got, want = _fault_after_update_run(retry_copy=False)
-    assert any(not torch.equal(got[k], want[k]) for k in want)
+    want = dict(clean.named_parameters())
+    for k, p in model.named_parameters():
+        assert torch.equal(p, want[k]), k
 
 
 # ------------------------------------------------------------------ launch
@@ -352,3 +339,22 @@ def test_launch_train_unported_mixer_raises():
     with pytest.raises(NotImplementedError, match="baseline TNO"):
         train_launch.main(["--arch", "tnn-lm-wt103", "--smoke", "--device",
                            "cpu", "--steps", "1"])
+
+
+@pytest.mark.parametrize("mixer", ["tno", "ski", "fd"])
+def test_launch_train_mixer_override_keeps_fd_layers(mixer):
+    """``--mixer`` replaces attention and local mixers only
+    (``models/config.layers_spec``), as in the JAX package: on
+    fd-tnn-lm-wt103 every layer stays FD, and the step trains through
+    FDTNO (the baseline and SKI mixers are reached through ``--arch``)."""
+    jcfg = dataclasses.replace(jreduce(jget_config(ARCH)),
+                               mixer_override=mixer)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(ARCH)),
+                              mixer_override=mixer)
+    assert cfg.layers_spec == tuple(map(tuple, jcfg.layers_spec))
+    assert all(m == "fd" for m, _ in cfg.layers_spec)
+    fd_fused.reset_counters()
+    assert train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                              "--mixer", mixer, "--steps", "1", "--seq-len",
+                              "16", "--global-batch", "2"]) == 0
+    assert fd_fused.op_counters == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}

@@ -11,19 +11,25 @@ a step), takes three warm-up steps, then traces with ``torch.profiler``
 * ``step``: three whole ``train_step`` calls;
 * ``loss_and_grads``: the forward, the loss and the backward of one step;
 * ``optimizer``: one ``adamw.step`` on those gradients;
-* ``retry_copy``: the Trainer's pre-step clone of parameters and
-  optimizer state.
+* ``pre_step_clone``: the Trainer's clone of parameters and optimizer
+  state before each step;
+* ``data``: ``batch_at`` of one step and its copy to the card.
 
 For each region it prints the host wall time (ending in a synchronise),
 the device busy time, the idle share, the device event count and the top
-kernels by device time. Needs a CUDA card; exits non-zero without one.
+kernels by device time. Then, untraced (the profiler's host overhead
+inflates short regions), the median wall of five runs of ``train_step``,
+``pre_step_clone`` and ``data``: the parts of one ``Trainer.run`` step.
+Needs a CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -60,8 +66,11 @@ def main(argv=None) -> int:
     state = {"opt": adamw.init(ocfg, params)}
     step_fn = make_train_step(cfg, ocfg)
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8, seed=0)
-    batches = [{k: torch.from_numpy(v).to("cuda", torch.long)
-                for k, v in batch_at(dcfg, i).items()} for i in range(6)]
+
+    def data(i):
+        return {k: torch.from_numpy(v).to("cuda", torch.long)
+                for k, v in batch_at(dcfg, i).items()}
+    batches = [data(i) for i in range(6)]
 
     def steps(bs):
         for b in bs:
@@ -78,8 +87,24 @@ def main(argv=None) -> int:
     regions = [trace("step", lambda: steps(batches[3:])),
                trace("loss_and_grads", grads),
                trace("optimizer", optimizer),
-               trace("retry_copy",
-                     lambda: Trainer._snapshot(model, state["opt"]))]
+               trace("pre_step_clone",
+                     lambda: Trainer._snapshot(model, state["opt"])),
+               trace("data", lambda: data(6))]
+    untraced = {
+        "train_step": lambda i: steps(batches[i % 6:i % 6 + 1]),
+        "pre_step_clone": lambda i: Trainer._snapshot(model, state["opt"]),
+        "data": lambda i: data(7 + i)}
+    for name, fn in untraced.items():
+        walls = []
+        for i in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(i)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"[untraced] {name}: median {statistics.median(walls):.3f} ms "
+              f"of {[round(w, 3) for w in walls]}")
+        regions.append({"region": f"untraced {name}", "walls_ms": walls})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
