@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch port's serving, training and SKI scoring paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -9,15 +9,19 @@ card or outside a checkout of this repository. Phases:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN;
-2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``,
+   one ``nvcc`` per source, all started together;
 3. kernels: each kernel against its plain torch version on the card, at
-   the main paths' shapes and one ragged shape, and its time (CUDA events,
+   the main paths' shapes and ragged ones, and its time (CUDA events,
    median of 50 runs, L2 evicted before each) beside the plain version's,
-   one PyTorch library call's, and the bound (bytes or operations over the
-   card's published peak rate); the whole FD-TNO backward against autograd
-   through the plain ``ref.fd_tno_ref``; ``hilbert_window`` is
-   differentiable, standalone ``fd_mul`` and ``fd_khat_grad`` refuse an
-   input that requires grad;
+   one PyTorch library call's (where one computes the same function), and
+   the bound (bytes or operations over the card's published peak rate);
+   the whole FD-TNO backward against autograd through the plain
+   ``ref.fd_tno_ref``; ``hilbert_window`` is differentiable, standalone
+   ``fd_mul`` and ``fd_khat_grad`` refuse an input that requires grad;
+   the SKI kernels ``interp_reduce`` and ``ski_fused_pass2`` at the SKI
+   scoring shape (causal and bidirectional taps), ragged, n < m, r = n
+   and m = 1;
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
@@ -26,13 +30,20 @@ card or outside a checkout of this repository. Phases:
    port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step):
    5 warm-up steps, then a resume whose wall over the other 25 gives the
    tokens/s; the training launch counts are read from this phase;
-6. check: the kernel-path forward over the generated sequences reproduces
+6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
+   scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
+   evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
+   and 6 ``ski_fused_pass2`` launches a forward, card vs CPU logits and
+   loss on 1 × 512 tokens, peak memory; with grad enabled the forward
+   raises on the card and runs no plain version; one op-level line times
+   ``ops.ski_fused_tno`` against ``ops.fd_tno`` at (8, 512, 512);
+7. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
    training losses on the card as on the CPU; a run stopped at step 2 and
    restored from its checkpoint into a fresh model ends bitwise where an
    uninterrupted run ends;
-7. a JSON line with each kernel's numbers, then the card's name and power
+8. a JSON line with each kernel's numbers, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -60,6 +71,9 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
 PROMPTS, PROMPT_LEN, GEN_LEN = 8, 448, 64
 MARGIN = 1e-3
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP = 30, 512, 8, 5
+SCORE_BATCH, SCORE_SEQ, SCORE_REPS = 8, 512, 20
+FD_SRC = "src/repro_torch/kernels/csrc/fd_fused.cu"
+SKI_SRC = "src/repro_torch/kernels/csrc/ski.cu"
 
 
 def _peaks(name: str):
@@ -115,25 +129,26 @@ def phase_device() -> str:
 def phase_build() -> None:
     from repro_torch.kernels import backend
     t0 = time.perf_counter()
-    path = backend.build()
-    print(f"[build] {path.name} built in {time.perf_counter() - t0:.2f} s",
-          flush=True)
+    paths = backend.build()
+    print(f"[build] {', '.join(p.name for p in paths)} built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
 # --------------------------------------------------------------- phase 3
 def _kernel_entry(name, replaces, got, want, fn, plain, library, nbytes,
-                  nops, peaks):
+                  nops, peaks, tol=1e-6, source=FD_SRC):
+    """Check ``got`` within ``tol`` × max|want| and time the kernel, its
+    plain version and the library call (None: there is none)."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    if not err <= 1e-6 * scale:
-        raise AssertionError(f"{name}: max abs err {err} > 1e-6 x {scale}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
     bw, flops = peaks
     t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fd_fused.cu",
-            "replaces": replaces, "max_abs_err": err,
-            "ms": time_ms(fn), "plain_ms": time_ms(plain),
-            "library_ms": time_ms(library),
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "tolerance": tol,
+            "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "library_ms": None if library is None else time_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -252,6 +267,63 @@ def check_fd_tno_backward(g) -> None:
     print(f"[kernel] FDTNO backward x ({b}, {n}, {d}) vs autograd through "
           f"ref.fd_tno_ref: {'; '.join(errs)} (limit 1e-5 x scale); "
           f"launches {ran}", flush=True)
+
+
+#: SKI kernel shapes (label, b, n, d, r, m, left): the scoring path with
+#: causal and bidirectional taps, ragged, n < m, r = n (h = 1), one tap
+SKI_SHAPES = (("path", 8, 512, 512, 64, 32, 0),
+              ("path bidirectional", 8, 512, 512, 64, 32, 16),
+              ("ragged", 3, 37, 45, 11, 4, 2), ("n<m", 2, 3, 5, 3, 4, 0),
+              ("r=n", 2, 64, 40, 64, 8, 3), ("m=1", 2, 40, 33, 7, 1, 0))
+
+
+def phase_ski_kernels(peaks, device="cuda") -> dict:
+    """interp_reduce (1e-6 × max|plain|) and ski_fused_pass2 (1e-5 ×
+    max|plain|: the Gram and the conv sum in another order than the plain
+    einsum and shift-adds) against their plain versions at SKI_SHAPES.
+    Returns the entries at the scoring path's shape."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ref, ski_fused
+    g = torch.Generator(device=device).manual_seed(1)
+    out = {}
+    for label, b, n, d, r, m, left in SKI_SHAPES:
+        x = torch.randn(b, n, d, device=device, generator=g)
+        z = torch.randn(b, r, d, device=device, generator=g)
+        a = torch.randn(d, r, r, device=device, generator=g)
+        f = torch.randn(d, m, device=device, generator=g)
+        lo, w_lo, _ = ski.make_inducing(n, r, device)
+        w = ref.dense_interp_matrix(lo, w_lo, r)
+        nnz_w = int((w != 0).sum())           # W's non-zeros at this (n, r)
+        e = _kernel_entry(
+            "interp_reduce", "src/repro/kernels/interp_matvec.py:65",
+            interp_matvec.interp_reduce(x, lo, w_lo, r),
+            ref.interp_reduce_ref(x, lo, w_lo, r),
+            lambda: interp_matvec.interp_reduce(x, lo, w_lo, r),
+            lambda: ref.interp_reduce_ref(x, lo, w_lo, r),
+            lambda: torch.einsum("nr,bnd->brd", w, x),
+            nbytes=4 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
+            peaks=peaks, tol=1e-6, source=SKI_SRC)
+        print(f"[kernel] interp_reduce {label} x ({b}, {n}, {d}), r={r}: {e}",
+              flush=True)
+        if label == "path":
+            out["interp_reduce"] = e
+        # conv 2·b·n·d·m, Gram 2·b·d·r², expansion 2·2·b·n·d flops; x, z,
+        # A, f read once, y written once
+        e = _kernel_entry(
+            "ski_fused_pass2", "src/repro/kernels/ski_fused.py:143",
+            ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
+            ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
+            lambda: ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
+            lambda: ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
+            None,
+            nbytes=4 * (2 * x.numel() + z.numel() + a.numel() + f.numel()),
+            nops=2 * b * d * (n * m + r * r + 2 * n), peaks=peaks, tol=1e-5,
+            source=SKI_SRC)
+        print(f"[kernel] ski_fused_pass2 {label} x ({b}, {n}, {d}), r={r}, "
+              f"m={m}, left={left}: {e}", flush=True)
+        if label == "path":
+            out["ski_fused_pass2"] = e
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -386,7 +458,167 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
     return launches
 
 
-# --------------------------------------------------------------- phase 6
+# ------------------------------------------------------------ SKI scoring
+def _ski_batch(cfg, b: int, s: int, device):
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s + 1))).to(device)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def _refuses_grad_forward(model, cfg, tokens) -> None:
+    """With grad enabled the SKI op raises on the card before any launch,
+    and no plain version runs instead."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.transformer import forward
+    plain_calls = []
+    saved = {k: getattr(ref, k) for k in (
+        "ski_fused_tno_ref", "interp_reduce_ref", "ski_fused_pass2_ref")}
+
+    def spy(name):
+        def call(*a, **kw):
+            plain_calls.append(name)
+            return saved[name](*a, **kw)
+        return call
+
+    ops.reset_ski_counters()
+    try:
+        for k in saved:
+            setattr(ref, k, spy(k))
+        with torch.enable_grad():
+            forward(model, cfg, tokens)
+    except NotImplementedError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a SKI forward with grad enabled ran on the card")
+    finally:
+        for k, v in saved.items():
+            setattr(ref, k, v)
+    counts = ops.ski_counters()
+    if plain_calls or any(counts.values()):
+        raise AssertionError(f"grad-enabled SKI forward ran plain versions "
+                             f"{plain_calls} or kernels {counts}")
+    print(f"[score] a forward with grad enabled raises on the card, no plain "
+          f"version and no kernel ran: {msg}", flush=True)
+
+
+def _profile_forward(fwd, model, tokens, device, reps: int = 3) -> None:
+    """Where a scoring forward's time goes: ``torch.profiler`` over
+    ``reps`` forwards (traced, so the wall is inflated), the device-busy
+    share of the wall and the kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fwd(model, tokens)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[score] traced: {reps} forwards, wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy:.3f} ms, idle share "
+          f"{1 - busy / (wall * 1e3):.3f}; top kernels by device time: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                      f"ms x{e.count}" for e in top), flush=True)
+
+
+def phase_ski_score(device) -> dict:
+    """The full-width SKI scoring path. Returns its launch counts (one
+    forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.models.transformer import init_model, loss_fn
+    cfg = get_config("ski-tnn-lm-wt103")
+    model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    fwd = make_forward(cfg)
+    print(f"[score] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"r={cfg.tno_rank}, m={cfg.tno_filter}, vocab {cfg.vocab}, "
+          f"{sum(p.numel() for p in model.parameters())} parameters; "
+          f"{SCORE_BATCH} x {SCORE_SEQ} tokens", flush=True)
+    fwd(model, batch["tokens"])                        # warm-up
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    ops.reset_ski_counters()
+    logits = fwd(model, batch["tokens"])
+    _sync(device)
+    launches = ops.ski_counters()
+    peak = torch.cuda.max_memory_allocated(device)
+    if launches != {"interp_reduce": cfg.n_layers,
+                    "ski_fused_pass2": cfg.n_layers}:
+        raise AssertionError(f"one SKI forward launched {launches}")
+    if not (logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab_padded)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"SKI logits {tuple(logits.shape)} not finite "
+                             "or of the wrong shape")
+    walls = []
+    for _ in range(SCORE_REPS):
+        t0 = time.perf_counter()
+        fwd(model, batch["tokens"])
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls) * 1e3
+    with torch.no_grad():
+        loss, _ = loss_fn(model, cfg, batch)
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"SKI eval loss {float(loss)}")
+    print(f"[score] make_forward {SCORE_BATCH}x{SCORE_SEQ}: median {ms:.3f} "
+          f"ms of {SCORE_REPS} (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}), {SCORE_BATCH * SCORE_SEQ / ms * 1e3:.0f} "
+          f"tokens/s; eval loss {float(loss):.6f}; launches per forward "
+          f"{launches}; max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    _profile_forward(fwd, model, batch["tokens"], device)
+    # card vs CPU at full width on 1 x 512 tokens
+    one = {k: v[:1] for k, v in batch.items()}
+    cpu_model = init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    want = fwd(cpu_model, one["tokens"].cpu())
+    got = fwd(model, one["tokens"]).cpu()
+    with torch.no_grad():
+        want_loss = float(loss_fn(cpu_model, cfg,
+                                  {k: v.cpu() for k, v in one.items()})[0])
+        got_loss = float(loss_fn(model, cfg, one)[0])
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    lerr = abs(got_loss - want_loss)
+    print(f"[score] card vs CPU, 1 x {SCORE_SEQ} tokens: logits max abs err "
+          f"{err:.3e} (scale {scale:.3e}, limit 1e-4 x scale); loss "
+          f"{got_loss:.6f} vs {want_loss:.6f}, err {lerr:.3e} (limit 1e-4)",
+          flush=True)
+    if not (err <= 1e-4 * scale and lerr <= 1e-4):
+        raise AssertionError("card SKI scoring differs from the CPU's")
+    _refuses_grad_forward(model, cfg, one["tokens"])
+    return launches
+
+
+def ski_vs_fd_op(device="cuda") -> None:
+    """The paper's SKI-vs-FD comparison at the op level on this card:
+    ``ops.ski_fused_tno`` against ``ops.fd_tno`` at x (8, 512, 512),
+    forward only (recorded, not claimed)."""
+    from repro_torch.core import ski, toeplitz
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=device).manual_seed(2)
+    b, n, d, r, m = 8, 512, 512, 64, 32
+    x = torch.randn(b, n, d, device=device, generator=g)
+    coef = toeplitz.causal_mask_coeffs(
+        torch.randn(d, 2 * r - 1, device=device, generator=g), r)
+    a = toeplitz.dense_toeplitz(coef, r).contiguous()
+    f = torch.randn(d, m, device=device, generator=g)
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    khat = torch.randn(d, n + 1, device=device, generator=g)
+    with torch.inference_mode():
+        t_ski = time_ms(lambda: ops.ski_fused_tno(x, a, f, lo, w_lo, r, True))
+        t_fd = time_ms(lambda: ops.fd_tno(x, khat))
+    print(f"[op] forward at x ({b}, {n}, {d}), r={r}, m={m}: ski_fused_tno "
+          f"{t_ski:.5f} ms, fd_tno {t_fd:.5f} ms (ratio fd/ski "
+          f"{t_fd / t_ski:.3f})", flush=True)
+
+
+# --------------------------------------------------------------- phase 7
 def check_train_card_vs_cpu(small, device) -> None:
     """Same init and batches on the card and on the CPU: step-0 gradients
     within 1e-4 × max|g| per leaf and three training losses within 1e-4
@@ -495,24 +727,30 @@ def main() -> int:
     peak_name, peaks = _peaks(smi)
     phase_build()
     kernels = phase_kernels(peaks)
+    kernels.update(phase_ski_kernels(peaks))
     cfg = get_config("fd-tnn-lm-wt103")
     model, prompt_len, seqs, serve_launches = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
+    score_launches = phase_ski_score("cuda")
+    ski_vs_fd_op()
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     # each path must have gone through each of its kernels
+    fd_names = ("hilbert_window", "fd_mul", "fd_khat_grad")
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
-             "train": (train_launches, tuple(kernels))}
+             "train": (train_launches, fd_names),
+             "score": (score_launches, ("interp_reduce", "ski_fused_pass2"))}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:
                 raise AssertionError(f"{name} not launched on the {path} "
                                      "path")
     for name, e in kernels.items():
-        e["launches"] = serve_launches[name] + train_launches[name]
-        e["launches_by_path"] = {"serve": serve_launches[name],
-                                 "train": train_launches[name]}
+        by_path = {path: counts[name] for path, (counts, names)
+                   in paths.items() if name in counts}
+        e["launches"] = sum(by_path.values())
+        e["launches_by_path"] = by_path
     print(f"[peaks] {peak_name} data sheet: {peaks[0] / 1e12} TB/s, "
           f"{peaks[1] / 1e12} TFLOP/s fp32")
     print(json.dumps({"kernels": list(kernels.values())}))

@@ -1,8 +1,9 @@
 """The paper's own architecture: TNN causal LM (Qin et al. 2023 config:
 6 decoder layers, d=512) with the token mixer selectable between baseline
 TNO / SKI-TNO / FD-TNO. GTU+GLU realised as mixer+ffn. Copy of
-``repro/configs/tnn_lm.py``; only the ``fd`` mixer runs in the port so far
-(``core/tno.py`` raises for the others)."""
+``repro/configs/tnn_lm.py``. The port runs the ``fd`` mixer (serving and
+training) and the ``ski`` mixer (forward only on the card so far);
+``core/tno.py`` raises for the baseline ``tno``."""
 import dataclasses
 
 from repro_torch.configs.base import register

@@ -1,16 +1,19 @@
-"""Serving policy knobs and the build/loader of the hand-written CUDA kernels.
+"""Serving and SKI policy knobs and the build/loader of the hand-written
+CUDA kernels.
 
 Dispatch has no knob: every kernel wrapper takes its plain torch version
 (``kernels/ref.py``) for a tensor on the CPU and launches the CUDA kernel
 for a tensor on the card, or raises. There is no fallback from one to the
 other.
 
-Building: ``csrc/fd_fused.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, at first use, under
-``<repo>/build/repro_torch/`` (listed in ``.gitignore``). The file name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and an unchanged one is loaded as it is. The library is loaded with
-``ctypes``; a missing ``nvcc`` or a failed build raises.
+Building: each source under ``csrc/`` (:data:`SOURCES`) is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library with a plain C
+interface, at first use, under ``<repo>/build/repro_torch/`` (listed in
+``.gitignore``). A library's file name carries a hash of its source and
+the flags, so an edited source is rebuilt and an unchanged one is loaded
+as it is. :func:`build` starts one ``nvcc`` per missing library, all
+together. The libraries are loaded with ``ctypes``; a missing ``nvcc`` or
+a failed build raises.
 """
 from __future__ import annotations
 
@@ -22,19 +25,30 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _ENV_FD_STREAM = "REPRO_FD_STREAM"
 _ENV_FD_STREAM_C = "REPRO_FD_STREAM_C"
+_ENV_DENSE_RMAX = "REPRO_SKI_DENSE_RMAX"
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fd_fused.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+#: library name -> CUDA source
+SOURCES = {"fd_fused": _CSRC / "fd_fused.cu", "ski": _CSRC / "ski.cu"}
 
 
 # ---------------------------------------------------------- serving knobs
 def _env_int(name: str, default: int) -> int:
     v = os.environ.get(name, "")
-    return int(v) if v.strip() else default
+    if not v.strip():
+        return default
+    try:
+        return int(v)
+    except ValueError:
+        # a typo'd knob must not silently pick another code path
+        raise ValueError(f"{name}={v!r} is not an integer") from None
 
 
 def fd_stream_enabled() -> bool:
@@ -58,6 +72,32 @@ def fd_stream_block() -> int:
     return c
 
 
+# ------------------------------------------------------ SKI rank policy
+#: dense (d, r, r) Gram budget of the fused pass-2 kernel (bytes)
+SKI_GRAM_BYTES_MAX = 64 << 20
+#: largest r of the windowed variant; beyond it, "fft" (the JAX default)
+SKI_WINDOWED_RANK_MAX = 4096
+
+
+def ski_dense_rank_max() -> int:
+    """Largest r served by the dense-Gram fused pass 2
+    (``REPRO_SKI_DENSE_RMAX``, default 512)."""
+    return _env_int(_ENV_DENSE_RMAX, 512)
+
+
+def ski_rank_variant(r: int, d: int | None = None) -> str:
+    """How the fused SKI pipeline applies the r×r inducing Gram: "dense" |
+    "windowed" | "fft", with the JAX package's thresholds. ``d`` (channels)
+    feeds the dense (d, r, r) byte budget when known. Only "dense" is
+    ported; ``core/ski.ski_plan`` raises for the others."""
+    if r <= ski_dense_rank_max() and (
+            d is None or d * r * r * 4 <= SKI_GRAM_BYTES_MAX):
+        return "dense"
+    if r <= SKI_WINDOWED_RANK_MAX:
+        return "windowed"
+    return "fft"
+
+
 # ------------------------------------------------------- build and load
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -68,29 +108,42 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _target() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes()
+def _target(name: str) -> Path:
+    src = SOURCES[name]
+    h = hashlib.sha256(src.read_bytes()
                        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}-{h}.so"
+    return BUILD_DIR / f"lib{src.stem}-{h}.so"
 
 
-def build() -> Path:
-    """Compile the kernel library unless a build of its current source
-    exists. Returns its path; raises if ``nvcc`` fails."""
-    out = _target()
-    if not out.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       check=True)
-        os.replace(tmp, out)
-    return out
+def build(*names: str) -> list[Path]:
+    """Compile the named kernel libraries (all of :data:`SOURCES` when none
+    is named) unless a build of their current source exists: one ``nvcc``
+    per missing library, started together. Returns their paths; raises if
+    any ``nvcc`` fails."""
+    outs = [_target(name) for name in names or SOURCES]
+    jobs = []
+    for name, out in zip(names or SOURCES, outs):
+        if not out.is_file():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+            jobs.append((subprocess.Popen(cmd), cmd, tmp, out))
+    failed = []
+    for proc, cmd, tmp, out in jobs:      # wait for all before raising
+        if proc.wait() == 0:
+            os.replace(tmp, out)
+        else:
+            failed.append(subprocess.CalledProcessError(proc.returncode, cmd))
+    if failed:
+        raise failed[0]
+    return outs
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    lib = ctypes.CDLL(str(build()))
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (a key of :data:`SOURCES`), built
+    first if needed."""
+    lib = ctypes.CDLL(str(build(name)[0]))
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -102,3 +155,27 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.repro_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+# ------------------------------------------------ wrapper argument checks
+def require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` whose
+    memory holds its values (no lazy conj or neg bit)."""
+    # a conj/neg view only sets a bit: data_ptr() holds the unconjugated
+    # (un-negated) values, which the kernel would read with the wrong sign
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{what}: lazily conjugated or negated view; pass "
+                         "torch.conj_physical(t) or t.resolve_conj()")
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {t.device}; the kernel takes "
+                         "CUDA tensors and the plain version CPU tensors")
+    if t.dtype != dtype:
+        raise TypeError(f"{what}: dtype {t.dtype}, the kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensor of shape {tuple(t.shape)} and "
+                         f"strides {t.stride()} is not contiguous")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as an int for ctypes."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -66,7 +66,7 @@ def reset_counters() -> None:
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = backend.library()
+    lib = backend.library("fd_fused")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.hilbert_window_f32.argtypes = [p, p, i64, i64, p]
     lib.hilbert_window_f32.restype = ctypes.c_int
@@ -85,36 +85,16 @@ def _forward_only(what: str, *ts: torch.Tensor) -> None:
             "backward runs the kernels, or call it under torch.no_grad()")
 
 
-def _require_cuda(t: torch.Tensor, what: str, dtype: torch.dtype) -> None:
-    # a conj/neg view only sets a bit: data_ptr() holds the unconjugated
-    # (un-negated) values, which the kernel would read with the wrong sign
-    if t.is_conj() or t.is_neg():
-        raise ValueError(f"{what}: lazily conjugated or negated view; pass "
-                         "torch.conj_physical(t) or t.resolve_conj()")
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: tensor on {t.device}; the kernel takes "
-                         "CUDA tensors and the plain version CPU tensors")
-    if t.dtype != dtype:
-        raise TypeError(f"{what}: dtype {t.dtype}, the kernel takes {dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: tensor of shape {tuple(t.shape)} and "
-                         f"strides {t.stride()} is not contiguous")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # ------------------------------------------------------ hilbert lag window
 def _window(kt: torch.Tensor, n: int) -> torch.Tensor:
     if kt.device.type == "cpu":
         return ref.hilbert_window_ref(kt, n)
-    _require_cuda(kt, "hilbert_window", torch.float32)
+    backend.require_cuda(kt, "hilbert_window", torch.float32)
     out = torch.empty_like(kt)
     lib = _lib()
     with torch.cuda.device(kt.device):
         rc = lib.hilbert_window_f32(kt.data_ptr(), out.data_ptr(),
-                                    kt.shape[0], n, _stream(kt))
+                                    kt.shape[0], n, backend.stream(kt))
     backend.check(lib, rc, "hilbert_window")
     counters["hilbert_window"] += 1
     return out
@@ -155,8 +135,8 @@ def fd_mul(xhat: torch.Tensor, khat: torch.Tensor) -> torch.Tensor:
     if xhat.device.type == "cpu" and khat.device.type == "cpu":
         return ref.fd_mul_ref(xhat, khat)
     _forward_only("fd_mul", xhat, khat)
-    _require_cuda(xhat, "fd_mul x̂", torch.complex64)
-    _require_cuda(khat, "fd_mul k̂", torch.complex64)
+    backend.require_cuda(xhat, "fd_mul x̂", torch.complex64)
+    backend.require_cuda(khat, "fd_mul k̂", torch.complex64)
     if (xhat.device != khat.device
             or tuple(khat.shape) != tuple(xhat.shape[1:])):
         raise ValueError(f"fd_mul: k̂ {tuple(khat.shape)} on {khat.device} "
@@ -166,7 +146,7 @@ def fd_mul(xhat: torch.Tensor, khat: torch.Tensor) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(xhat.device):
         rc = lib.fd_mul_c64(xhat.data_ptr(), khat.data_ptr(), out.data_ptr(),
-                            xhat.shape[0], khat.numel(), _stream(xhat))
+                            xhat.shape[0], khat.numel(), backend.stream(xhat))
     backend.check(lib, rc, "fd_mul")
     counters["fd_mul"] += 1
     return out
@@ -191,8 +171,8 @@ def fd_khat_grad(ghat: torch.Tensor, xhat: torch.Tensor) -> torch.Tensor:
     if ghat.device.type == "cpu" and xhat.device.type == "cpu":
         return ref.fd_khat_grad_ref(ghat, xhat)
     _forward_only("fd_khat_grad", ghat, xhat)
-    _require_cuda(ghat, "fd_khat_grad ĝ", torch.complex64)
-    _require_cuda(xhat, "fd_khat_grad x̂", torch.complex64)
+    backend.require_cuda(ghat, "fd_khat_grad ĝ", torch.complex64)
+    backend.require_cuda(xhat, "fd_khat_grad x̂", torch.complex64)
     if (ghat.device != xhat.device or ghat.shape != xhat.shape
             or ghat.dim() < 1):
         raise ValueError(f"fd_khat_grad: ĝ {tuple(ghat.shape)} on "
@@ -204,7 +184,7 @@ def fd_khat_grad(ghat: torch.Tensor, xhat: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(ghat.device):
         rc = lib.fd_khat_grad_c64(ghat.data_ptr(), xhat.data_ptr(),
                                   out.data_ptr(), ghat.shape[0], out.numel(),
-                                  _stream(ghat))
+                                  backend.stream(ghat))
     backend.check(lib, rc, "fd_khat_grad")
     counters["fd_khat_grad"] += 1
     return out

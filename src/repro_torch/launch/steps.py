@@ -1,4 +1,5 @@
-"""The training step, counterpart of ``StepBuilder.make_train_step`` in
+"""The training step and the scoring forward, counterparts of
+``StepBuilder.make_train_step`` and ``StepBuilder.make_forward`` in
 ``repro/launch/steps.py``. PyTorch runs eagerly on one card, so there is
 no jit, mesh or sharding to bind; the serving steps live in
 ``models/serving.py`` and ``launch/serve.py``.
@@ -8,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import Model, loss_fn
+from repro_torch.models.transformer import Model, forward, loss_fn
 from repro_torch.optim import adamw
 
 
@@ -40,3 +41,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
         return opt_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step
+
+
+def make_forward(cfg: ArchConfig):
+    """Returns ``fwd(model, tokens) -> logits``: tokens (b, s) → logits
+    (b, s, V_pad) under ``torch.inference_mode()``, for prompt scoring and
+    evaluation. It is the SKI model's only path on the card so far (no
+    decode; its training is ROADMAP slice 4b)."""
+
+    def fwd(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return forward(model, cfg, tokens)
+
+    return fwd

@@ -49,6 +49,13 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     cfg = get_config(args.arch)
+    if any(m == "ski" for m, _ in cfg.layers_spec):
+        # refuse before any work, not later in the first backward
+        raise NotImplementedError(
+            f"{args.arch}: SKI training is not ported yet (ROADMAP slice 4b: "
+            "the SKIFusedTNO autograd Function with gram_grad and "
+            "conv_tap_grad); the SKI forward runs through "
+            "launch.steps.make_forward")
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     if args.mixer:

@@ -36,13 +36,18 @@ def _realise_kcoef(cfg: ArchConfig, mixer: str, layer_params,
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                params: Model | None = None) -> list:
     """One streaming cache per layer, on the parameters' device."""
+    for mixer, _ in cfg.layers_spec:
+        if mixer == "ski":       # as repro/models/serving.py:99 raises
+            raise NotImplementedError("decode for mixer ski (ski: Appendix "
+                                      "B); score prompts with "
+                                      "launch.steps.make_forward")
+        if mixer != "fd":
+            raise NotImplementedError(f"decode for mixer {mixer}: only fd "
+                                      "is ported")
     if params is None or not backend.fd_stream_enabled():
         raise NotImplementedError(_HIST_NOT_PORTED)
     cache = []
     for (mixer, _), layer in zip(cfg.layers_spec, params.layers):
-        if mixer != "fd":
-            raise NotImplementedError(f"decode for mixer {mixer}: only fd "
-                                      "is ported")
         kt = _realise_kcoef(cfg, mixer, layer.mixer, max_len)
         cache.append(fd_stream.fd_stream_cache(kt, batch, max_len,
                                                backend.fd_stream_block()))

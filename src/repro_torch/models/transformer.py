@@ -1,6 +1,7 @@
 """Decoder LM assembly for the TNN language model, counterpart of
-``repro/models/transformer.py`` restricted to ``kind="decoder"`` with the
-``(("fd", "dense"),)`` pattern.
+``repro/models/transformer.py`` restricted to ``kind="decoder"`` with TNN
+layers and a dense FFN (the ``fd`` and ``ski`` mixers run; ``tno`` raises
+in ``core/tno.py``).
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
@@ -55,9 +56,11 @@ def ffn_apply(params: FFN, cfg: ArchConfig, x):
 
 
 def _tno_cfg(cfg: ArchConfig, variant: str) -> TNNBlockConfig:
-    tno = TNOConfig(d=cfg.d_model, variant=variant,
-                    rpe_hidden=cfg.tno_rpe_hidden,
-                    rpe_layers=cfg.tno_rpe_layers, rpe_act=cfg.tno_rpe_act)
+    # decoder only: every TNO mixer is causal (JAX: mask_kind == "causal")
+    tno = TNOConfig(d=cfg.d_model, variant=variant, causal=True,
+                    lam=cfg.tno_lam, rpe_hidden=cfg.tno_rpe_hidden,
+                    rpe_layers=cfg.tno_rpe_layers, rpe_act=cfg.tno_rpe_act,
+                    rank=cfg.tno_rank, filter_size=cfg.tno_filter)
     return TNNBlockConfig(cfg.d_model, tno=tno, act=cfg.act)
 
 

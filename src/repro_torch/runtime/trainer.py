@@ -153,7 +153,7 @@ class Trainer:
             from repro_torch.kernels import backend
             return (f"[trainer] device {device} "
                     f"({torch.cuda.get_device_name(device)}): CUDA kernels "
-                    f"from {backend.build()}")
+                    f"from {', '.join(map(str, backend.build()))}")
         return f"[trainer] device {device}: plain torch kernel versions"
 
     def run(self, model, opt, start_step: int = 0):

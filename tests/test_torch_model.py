@@ -29,14 +29,23 @@ torch.set_num_threads(1)
 ARCH = "fd-tnn-lm-wt103"
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = jreduce(jget_config(ARCH))
-    cfg = reduce_for_smoke(get_config(ARCH))
+def _setup(arch):
+    jcfg = jreduce(jget_config(arch))
+    cfg = reduce_for_smoke(get_config(arch))
     init = jax.jit(lambda k: unbox(jinit_model(k, jcfg))[0])
     tree = jax.tree.map(np.asarray, init(jax.random.PRNGKey(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 19))
     return jcfg, cfg, tree, toks
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup(ARCH)
+
+
+@pytest.fixture(scope="module")
+def ski_setup():
+    return _setup("ski-tnn-lm-wt103")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -70,18 +79,21 @@ def test_forward_matches_jax(setup, use_pallas):
                                rtol=1e-4, atol=1e-4)
 
 
-def test_init_model_matches_jax_layout(setup):
+def test_init_model_matches_jax_layout(setup, ski_setup):
     """The port's own init builds every parameter of the JAX tree, with the
-    same shapes, and the same init scale (lecun fan-in) per leaf."""
-    _, cfg, tree, _ = setup
-    model = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
-    want = bridge._port_leaves(tree, cfg)
-    got = model.state_dict()
-    assert set(got) == set(want)
-    for name, arr in want.items():
-        assert tuple(got[name].shape) == arr.shape, name
-        if arr.size > 1000:                   # std within 20% of JAX's
-            assert abs(float(got[name].std()) / float(arr.std()) - 1) < 0.2
+    same shapes, and the same init scale (lecun fan-in, or N(0, 0.02²) for
+    the SKI leaves) per leaf: for the FD and the SKI model."""
+    for _, cfg, tree, _ in (setup, ski_setup):
+        model = init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+        want = bridge._port_leaves(tree, cfg)
+        got = model.state_dict()
+        assert set(got) == set(want)
+        for name, arr in want.items():
+            assert tuple(got[name].shape) == arr.shape, name
+            if arr.size > 1000:               # std within 20% of JAX's
+                assert abs(float(got[name].std()) / float(arr.std())
+                           - 1) < 0.2, name
 
 
 def test_bridge_refuses_missing_and_extra_leaves(setup):
@@ -99,7 +111,11 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
+    """The baseline TNO mixer still raises; the SKI model builds (its
+    forward is held against JAX in test_torch_ski.py)."""
     with pytest.raises(NotImplementedError, match="baseline TNO"):
         Model(reduce_for_smoke(get_config("tnn-lm-wt103")), device="meta")
-    with pytest.raises(NotImplementedError, match="SKI"):
-        Model(reduce_for_smoke(get_config("ski-tnn-lm-wt103")), device="meta")
+    model = Model(reduce_for_smoke(get_config("ski-tnn-lm-wt103")),
+                  device="meta")
+    assert all(type(layer.mixer.tno).__name__ == "SKIParams"
+               for layer in model.layers)
