@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and SKI scoring paths on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, SKI scoring and SKI training
+paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -17,11 +17,17 @@ card or outside a checkout of this repository. Phases:
    one PyTorch library call's (where one computes the same function), and
    the bound (bytes or operations over the card's published peak rate);
    the whole FD-TNO backward against autograd through the plain
-   ``ref.fd_tno_ref``; ``hilbert_window`` is differentiable, standalone
-   ``fd_mul`` and ``fd_khat_grad`` refuse an input that requires grad;
-   the SKI kernels ``interp_reduce`` and ``ski_fused_pass2`` at the SKI
-   scoring shape (causal and bidirectional taps), ragged, n < m, r = n
-   and m = 1;
+   ``ref.fd_tno_ref``, and under ``REPRO_PALLAS_GRAD=0``;
+   ``hilbert_window`` is differentiable, standalone ``fd_mul`` and
+   ``fd_khat_grad`` refuse an input that requires grad; the SKI kernels
+   ``interp_reduce``, ``ski_fused_pass2``, ``gram_grad`` and
+   ``conv_tap_grad`` at the SKI path's shape (causal and bidirectional
+   taps, and the mirrored offsets of the backward), ragged, n < m, r = n
+   and m = 1; pass 2 at the dense-rank ceiling (r = 181 at d = 512, r =
+   512 at d = 64) in the forward orientation and the backward's (A
+   transposed, taps flipped, left mirrored); the whole SKIFusedTNO
+   backward against autograd through ``ref.ski_fused_tno_ref`` (causal,
+   bidirectional, r = 181), and under ``REPRO_PALLAS_GRAD=0``;
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
@@ -34,28 +40,36 @@ card or outside a checkout of this repository. Phases:
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
    and 6 ``ski_fused_pass2`` launches a forward, card vs CPU logits and
-   loss on 1 × 512 tokens, peak memory; with grad enabled the forward
-   raises on the card and runs no plain version; one op-level line times
-   ``ops.ski_fused_tno`` against ``ops.fd_tno`` at (8, 512, 512);
-7. check: the kernel-path forward over the generated sequences reproduces
+   loss on 1 × 512 tokens, peak memory; the four standalone SKI kernel
+   wrappers refuse an input that requires grad on the card; one op-level
+   line times ``ops.ski_fused_tno`` against ``ops.fd_tno`` at
+   (8, 512, 512);
+7. ski train: the full-width ski-tnn-lm-wt103 from seed 0 takes 30 AdamW
+   steps as in phase 5: 18 ``interp_reduce``, 12 ``ski_fused_pass2``, 6
+   ``gram_grad`` and 6 ``conv_tap_grad`` launches and 6 kernel backwards
+   a step;
+8. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
    training losses on the card as on the CPU; a run stopped at step 2 and
    restored from its checkpoint into a fresh model ends bitwise where an
-   uninterrupted run ends;
-8. a JSON line with each kernel's numbers, then the card's name and power
+   uninterrupted run ends; the same gradients, losses and resume for the
+   smoke-size SKI model;
+9. a JSON line with each kernel's numbers, then the card's name and power
    limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -74,6 +88,7 @@ TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP = 30, 512, 8, 5
 SCORE_BATCH, SCORE_SEQ, SCORE_REPS = 8, 512, 20
 FD_SRC = "src/repro_torch/kernels/csrc/fd_fused.cu"
 SKI_SRC = "src/repro_torch/kernels/csrc/ski.cu"
+SKI_GRAD_SRC = "src/repro_torch/kernels/csrc/ski_grad.cu"
 
 
 def _peaks(name: str):
@@ -147,7 +162,8 @@ def _kernel_entry(name, replaces, got, want, fn, plain, library, nbytes,
     t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "tolerance": tol,
-            "scale": scale, "ms": time_ms(fn), "plain_ms": time_ms(plain),
+            "scale": scale, "limit": tol * scale, "ms": time_ms(fn),
+            "plain_ms": time_ms(plain),
             "library_ms": None if library is None else time_ms(library),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -239,12 +255,33 @@ def phase_kernels(peaks) -> dict:
     return out
 
 
+def reference_grad():
+    """``REPRO_PALLAS_GRAD=0`` for the duration of a ``with``: the autograd
+    Functions keep their kernel forwards and return autograd's cotangents
+    through the plain version."""
+    return mock.patch.dict(os.environ, {"REPRO_PALLAS_GRAD": "0"})
+
+
+def _grads_close(what, got, want, names, tol=1e-5) -> str:
+    """Each of ``got`` within ``tol`` × max|want|; returns the report."""
+    errs = []
+    for name, a, w in zip(names, got, want):
+        err, scale = float((a - w).abs().max()), float(w.abs().max())
+        errs.append(f"{name} max abs err {err:.3e} (scale {scale:.3e}, limit "
+                    f"{tol * scale:.3e})")
+        if not err <= tol * scale:
+            raise AssertionError(f"{what} {name}: {err} > {tol} x {scale}")
+    return "; ".join(errs)
+
+
 def check_fd_tno_backward(g) -> None:
     """The whole FDTNO backward (conj-spectrum fd_mul, fd_khat_grad, the
     window twice, the irfft adjoint) at the training shape, x (8, 512, 512)
     fp32 and khat_real (512, 513), against torch.autograd through the plain
     ref.fd_tno_ref on the card: dx and dkhat_real within 1e-5 × max (the
-    fp32 tier: the batch sums run in another order)."""
+    fp32 tier: the batch sums run in another order). Under
+    REPRO_PALLAS_GRAD=0 the backward is that autograd, counted as bwd_ref,
+    with no backward kernel launched."""
     from repro_torch.kernels import fd_fused, ops, ref
     b, n, d = 8, 512, 512
     x = torch.randn(b, n, d, device="cuda", generator=g, requires_grad=True)
@@ -254,36 +291,80 @@ def check_fd_tno_backward(g) -> None:
     got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
     ran = dict(fd_fused.counters, **fd_fused.op_counters)
     want = torch.autograd.grad(ref.fd_tno_ref(x, k), (x, k), cot)
-    errs = []
-    for name, a, w in zip(("dx", "dkhat_real"), got, want):
-        err, scale = float((a - w).abs().max()), float(w.abs().max())
-        errs.append(f"{name} max abs err {err:.3e} (scale {scale:.3e})")
-        if not err <= 1e-5 * scale:
-            raise AssertionError(f"FDTNO backward {name}: {err} > 1e-5 x "
-                                 f"{scale}")
+    names = ("dx", "dkhat_real")
+    report = _grads_close("FDTNO backward", got, want, names)
     if ran != {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1,
-               "fwd": 1, "bwd": 1}:
+               "fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}:
         raise AssertionError(f"FDTNO forward + backward launched {ran}")
     print(f"[kernel] FDTNO backward x ({b}, {n}, {d}) vs autograd through "
-          f"ref.fd_tno_ref: {'; '.join(errs)} (limit 1e-5 x scale); "
-          f"launches {ran}", flush=True)
+          f"ref.fd_tno_ref: {report}; launches {ran}", flush=True)
+    fd_fused.reset_counters()
+    with reference_grad():
+        ref_got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
+    ran = dict(fd_fused.counters, **fd_fused.op_counters)
+    report = _grads_close("FDTNO REPRO_PALLAS_GRAD=0 backward", ref_got, got,
+                          names)
+    if ran != {"hilbert_window": 1, "fd_mul": 1, "fd_khat_grad": 0,
+               "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
+        raise AssertionError(f"FDTNO under REPRO_PALLAS_GRAD=0 launched {ran}")
+    print(f"[kernel] FDTNO under REPRO_PALLAS_GRAD=0 vs the kernel backward: "
+          f"{report}; launches {ran}", flush=True)
 
 
-#: SKI kernel shapes (label, b, n, d, r, m, left): the scoring path with
-#: causal and bidirectional taps, ragged, n < m, r = n (h = 1), one tap
+#: SKI kernel shapes (label, b, n, d, r, m, left): the SKI path with
+#: causal and bidirectional taps and the offsets the backward mirrors them
+#: to, ragged, n < m, r = n (h = 1), one tap
 SKI_SHAPES = (("path", 8, 512, 512, 64, 32, 0),
               ("path bidirectional", 8, 512, 512, 64, 32, 16),
+              ("path mirrored", 8, 512, 512, 64, 32, 31),
+              ("path bidirectional mirrored", 8, 512, 512, 64, 32, 15),
               ("ragged", 3, 37, 45, 11, 4, 2), ("n<m", 2, 3, 5, 3, 4, 0),
               ("r=n", 2, 64, 40, 64, 8, 3), ("m=1", 2, 40, 33, 7, 1, 0))
+#: pass 2 at the ceiling of ``backend.ski_rank_variant``'s dense variant
+#: (d·r²·4 <= 64 MB, r <= 512): (label, b, n, d, r, m)
+PASS2_CEILING = (("r=181", 8, 512, 512, 181, 32), ("r=512", 8, 512, 64, 512,
+                                                    32))
+
+
+def _tap_pairs(n: int, m: int, left: int) -> int:
+    """(j, k) pairs of one batch row and channel whose x row j-k+left lies
+    in [0, n): the multiply-adds the tap gradient needs."""
+    return sum(max(0, min(n, n + k - left) - max(0, k - left))
+               for k in range(m))
+
+
+def _pass2_entry(label, x, z, a, f, left, peaks):
+    """ski_fused_pass2 at one shape and offset, 1e-5 × max|plain| (the
+    Gram and the conv sum in another order than the plain einsum and
+    shift-adds)."""
+    from repro_torch.kernels import ref, ski_fused
+    b, n, d = x.shape
+    r, m = z.shape[1], f.shape[1]
+    # conv 2·b·n·d·m, Gram 2·b·d·r², expansion 2·2·b·n·d flops; x, z, A, f
+    # read once, y written once
+    e = _kernel_entry(
+        "ski_fused_pass2", "src/repro/kernels/ski_fused.py:143",
+        ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
+        ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
+        lambda: ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
+        lambda: ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
+        None, nbytes=4 * (2 * x.numel() + z.numel() + a.numel() + f.numel()),
+        nops=2 * b * d * (n * m + r * r + 2 * n), peaks=peaks, tol=1e-5,
+        source=SKI_SRC)
+    print(f"[kernel] ski_fused_pass2 {label} x ({b}, {n}, {d}), r={r}, m={m}, "
+          f"left={left}: {e}", flush=True)
+    return e
 
 
 def phase_ski_kernels(peaks, device="cuda") -> dict:
-    """interp_reduce (1e-6 × max|plain|) and ski_fused_pass2 (1e-5 ×
-    max|plain|: the Gram and the conv sum in another order than the plain
-    einsum and shift-adds) against their plain versions at SKI_SHAPES.
-    Returns the entries at the scoring path's shape."""
+    """The four SKI kernels against their plain versions at SKI_SHAPES:
+    interp_reduce and gram_grad within 1e-6 × max|plain| (sums of at most
+    2h+1 and of b terms), ski_fused_pass2 within 1e-5 × max|plain|,
+    conv_tap_grad within 1e-5 × max|plain| (4,096 terms at the path
+    shape, in another order); then pass 2 at PASS2_CEILING in both
+    orientations. Returns the entries at the path's shape."""
     from repro_torch.core import ski
-    from repro_torch.kernels import interp_matvec, ref, ski_fused
+    from repro_torch.kernels import interp_matvec, ref, ski_grad
     g = torch.Generator(device=device).manual_seed(1)
     out = {}
     for label, b, n, d, r, m, left in SKI_SHAPES:
@@ -291,10 +372,13 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         z = torch.randn(b, r, d, device=device, generator=g)
         a = torch.randn(d, r, r, device=device, generator=g)
         f = torch.randn(d, m, device=device, generator=g)
+        cot = torch.randn(b, n, d, device=device, generator=g)
+        gz = torch.randn(b, r, d, device=device, generator=g)
         lo, w_lo, _ = ski.make_inducing(n, r, device)
         w = ref.dense_interp_matrix(lo, w_lo, r)
         nnz_w = int((w != 0).sum())           # W's non-zeros at this (n, r)
-        e = _kernel_entry(
+        entries = {}
+        entries["interp_reduce"] = _kernel_entry(
             "interp_reduce", "src/repro/kernels/interp_matvec.py:65",
             interp_matvec.interp_reduce(x, lo, w_lo, r),
             ref.interp_reduce_ref(x, lo, w_lo, r),
@@ -303,27 +387,120 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
             lambda: torch.einsum("nr,bnd->brd", w, x),
             nbytes=4 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
             peaks=peaks, tol=1e-6, source=SKI_SRC)
-        print(f"[kernel] interp_reduce {label} x ({b}, {n}, {d}), r={r}: {e}",
-              flush=True)
+        print(f"[kernel] interp_reduce {label} x ({b}, {n}, {d}), r={r}: "
+              f"{entries['interp_reduce']}", flush=True)
+        entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
+                                                  peaks)
+        # gz, z read once, dA written once; 2·b·d·r² flops
+        entries["gram_grad"] = _kernel_entry(
+            "gram_grad", "src/repro/kernels/ski_grad.py:149",
+            ski_grad.gram_grad(gz, z), ref.gram_grad_ref(gz, z),
+            lambda: ski_grad.gram_grad(gz, z),
+            lambda: ref.gram_grad_ref(gz, z),
+            lambda: torch.einsum("bsc,btc->cst", gz, z),
+            nbytes=4 * (2 * z.numel() + d * r * r), nops=2 * b * d * r * r,
+            peaks=peaks, tol=1e-6, source=SKI_GRAD_SRC)
+        print(f"[kernel] gram_grad {label} gz, z ({b}, {r}, {d}): "
+              f"{entries['gram_grad']}", flush=True)
+        # the library yardstick: cuDNN's depthwise conv1d weight gradient
+        # (TF32 off) on channel-major copies of g and of x padded by the
+        # taps' reach, made outside the timed call; it gives the taps in
+        # reverse order
+        xp = torch.nn.functional.pad(x, (0, 0, m - 1 - left, left))
+        xp = xp.transpose(1, 2).contiguous()
+        gt = cot.transpose(1, 2).contiguous()
+
+        def library():
+            return torch.nn.grad.conv1d_weight(xp, (d, 1, m), gt, groups=d)
+        want = ref.conv_tap_grad_ref(cot, x, m, left)
+        lib_err = float((library()[:, 0].flip(-1) - want).abs().max())
+        if not lib_err <= 1e-5 * float(want.abs().max()):
+            raise AssertionError(f"conv1d_weight is not the tap gradient: "
+                                 f"{lib_err}")
+        # g, x read once, df written once; 2 flops a (j, k) pair in range
+        entries["conv_tap_grad"] = _kernel_entry(
+            "conv_tap_grad", "src/repro/kernels/ski_grad.py:71",
+            ski_grad.conv_tap_grad(cot, x, m, left), want,
+            lambda: ski_grad.conv_tap_grad(cot, x, m, left),
+            lambda: ref.conv_tap_grad_ref(cot, x, m, left), library,
+            nbytes=4 * (2 * x.numel() + d * m),
+            nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
+            source=SKI_GRAD_SRC)
+        print(f"[kernel] conv_tap_grad {label} g, x ({b}, {n}, {d}), m={m}, "
+              f"left={left}: {entries['conv_tap_grad']} (conv1d_weight max "
+              f"abs err {lib_err:.3e})", flush=True)
         if label == "path":
-            out["interp_reduce"] = e
-        # conv 2·b·n·d·m, Gram 2·b·d·r², expansion 2·2·b·n·d flops; x, z,
-        # A, f read once, y written once
-        e = _kernel_entry(
-            "ski_fused_pass2", "src/repro/kernels/ski_fused.py:143",
-            ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
-            ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
-            lambda: ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
-            lambda: ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
-            None,
-            nbytes=4 * (2 * x.numel() + z.numel() + a.numel() + f.numel()),
-            nops=2 * b * d * (n * m + r * r + 2 * n), peaks=peaks, tol=1e-5,
-            source=SKI_SRC)
-        print(f"[kernel] ski_fused_pass2 {label} x ({b}, {n}, {d}), r={r}, "
-              f"m={m}, left={left}: {e}", flush=True)
-        if label == "path":
-            out["ski_fused_pass2"] = e
+            out.update(entries)
+    for label, b, n, d, r, m in PASS2_CEILING:
+        x = torch.randn(b, n, d, device=device, generator=g)
+        z = torch.randn(b, r, d, device=device, generator=g)
+        a = torch.randn(d, r, r, device=device, generator=g)
+        f = torch.randn(d, m, device=device, generator=g)
+        a_t, f_t = a.transpose(1, 2).contiguous(), f.flip(-1).contiguous()
+        for left in (0, m // 2):
+            _pass2_entry(f"ceiling {label}", x, z, a, f, left, peaks)
+            _pass2_entry(f"ceiling {label} backward orientation", x, z, a_t,
+                         f_t, m - 1 - left, peaks)
+    check_ski_backward(g)
     return out
+
+
+#: SKIFusedTNO backward checks (label, r, d, causal), b = 8, n = 512, m = 32
+SKI_BACKWARD = (("causal", 64, 512, True), ("bidirectional", 64, 512, False),
+                ("causal r=181", 181, 512, True))
+
+
+def check_ski_backward(g) -> None:
+    """The whole SKIFusedTNO backward (interp_reduce twice, the transposed
+    pass 2, gram_grad, conv_tap_grad) against torch.autograd through the
+    plain ref.ski_fused_tno_ref on the card: dx, dA and df within 1e-5 ×
+    max (the fp32 tier), with 3 / 2 / 1 / 1 launches and one kernel
+    backward. Then the same under REPRO_PALLAS_GRAD=0: one reference
+    backward, no gram_grad or conv_tap_grad launch, and the same gradients
+    within the same tolerance."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import ops, ref, ski_vjp
+    b, n, m = 8, 512, 32
+    names = ("dx", "dA", "df")
+    for label, r, d, causal in SKI_BACKWARD:
+        x = torch.randn(b, n, d, device="cuda", generator=g,
+                        requires_grad=True)
+        a = torch.randn(d, r, r, device="cuda", generator=g,
+                        requires_grad=True)
+        f = torch.randn(d, m, device="cuda", generator=g, requires_grad=True)
+        cot = torch.randn(b, n, d, device="cuda", generator=g)
+        lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
+
+        def grads():
+            ops.reset_ski_counters()
+            out = torch.autograd.grad(
+                ops.ski_fused_tno(x, a, f, lo, w_lo, r, causal), (x, a, f),
+                cot)
+            return out, dict(ops.ski_counters(), **ski_vjp.counters)
+        got, ran = grads()
+        want = torch.autograd.grad(
+            ref.ski_fused_tno_ref(x, a, f, lo, w_lo, r, causal), (x, a, f),
+            cot)
+        report = _grads_close(f"SKIFusedTNO backward ({label})", got, want,
+                              names)
+        if ran != {"interp_reduce": 3, "ski_fused_pass2": 2, "gram_grad": 1,
+                   "conv_tap_grad": 1, "fwd": 1, "bwd_kernel": 1,
+                   "bwd_ref": 0}:
+            raise AssertionError(f"SKIFusedTNO ({label}) launched {ran}")
+        print(f"[kernel] SKIFusedTNO backward ({label}) x ({b}, {n}, {d}), "
+              f"r={r}, m={m} vs autograd through ref.ski_fused_tno_ref: "
+              f"{report}; launches {ran}", flush=True)
+        with reference_grad():
+            ref_got, ran = grads()
+        report = _grads_close(f"SKIFusedTNO REPRO_PALLAS_GRAD=0 ({label})",
+                              ref_got, got, names)
+        if ran != {"interp_reduce": 1, "ski_fused_pass2": 1, "gram_grad": 0,
+                   "conv_tap_grad": 0, "fwd": 1, "bwd_kernel": 0,
+                   "bwd_ref": 1}:
+            raise AssertionError(f"SKIFusedTNO under REPRO_PALLAS_GRAD=0 "
+                                 f"({label}) launched {ran}")
+        print(f"[kernel] SKIFusedTNO under REPRO_PALLAS_GRAD=0 ({label}) vs "
+              f"the kernel backward: {report}; launches {ran}", flush=True)
 
 
 # --------------------------------------------------------------- phase 4
@@ -401,16 +578,36 @@ def _train_setup(cfg, device, seed: int, steps: int, warmup: int):
     return model, opt, make_train_step(cfg, ocfg)
 
 
-def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
+def _fd_counts():
+    from repro_torch.kernels import fd_fused
+    return dict(fd_fused.counters), dict(fd_fused.op_counters)
+
+
+def _ski_counts():
+    from repro_torch.kernels import ops, ski_vjp
+    return ops.ski_counters(), dict(ski_vjp.counters)
+
+
+#: kernel launches a layer makes in one training step (forward + backward)
+TRAIN_LAUNCHES = {"fd": {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1},
+                  "ski": {"interp_reduce": 3, "ski_fused_pass2": 2,
+                          "gram_grad": 1, "conv_tap_grad": 1}}
+
+
+def phase_train(cfg, device, steps: int, seq: int, batch: int,
+                mixer: str = "fd") -> dict:
     """Returns the launch counts of the training run. The run is two
     ``Trainer.run`` calls on one model: steps 0..TRAIN_WARMUP-1, then a
     resume to ``steps``, whose wall (data, pre-step clone, step and
-    logging, to a synchronise) gives the throughput."""
+    logging, to a synchronise) gives the throughput. Every step must make
+    TRAIN_LAUNCHES[mixer] launches a layer and one kernel backward a layer
+    (none through the reference)."""
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import fd_fused
+    from repro_torch.kernels import fd_fused, ops
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     model, opt, step_fn = _train_setup(cfg, device, 0, steps, warmup=5)
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
+    tag = "[train]" if mixer == "fd" else "[ski-train]"
 
     def trainer(total):
         return Trainer(TrainerConfig(total_steps=total, log_every=10), step_fn,
@@ -418,6 +615,7 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
     warm, timed = trainer(TRAIN_WARMUP), trainer(steps)
     torch.cuda.reset_peak_memory_stats(device)
     fd_fused.reset_counters()
+    ops.reset_ski_counters()
     t0 = time.perf_counter()
     opt, _ = warm.run(model, opt)
     _sync(device)
@@ -425,8 +623,7 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
     opt, end = timed.run(model, opt, TRAIN_WARMUP)
     _sync(device)
     t2 = time.perf_counter()
-    launches = dict(fd_fused.counters)
-    bwd = fd_fused.op_counters["bwd"]
+    launches, op_counts = (_fd_counts if mixer == "fd" else _ski_counts)()
     peak = torch.cuda.max_memory_allocated(device)
     losses = [float(m["loss"])
               for m in warm.metrics_history + timed.metrics_history]
@@ -434,7 +631,7 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
     window = t2 - t1
     tok_s = (end - TRAIN_WARMUP) * batch * seq / window
     first_ms = [round(t * 1e3, 3) for t in warm.step_seconds]
-    print(f"[train] {cfg.name}: {end} AdamW steps of {batch} x {seq} tokens "
+    print(f"{tag} {cfg.name}: {end} AdamW steps of {batch} x {seq} tokens "
           f"in {t2 - t0:.3f} s (steps 0-{TRAIN_WARMUP - 1}: {t1 - t0:.3f} s, "
           f"train_step ms {first_ms}); steps {TRAIN_WARMUP}-{end - 1}: "
           f"{window:.3f} s, {window / (end - TRAIN_WARMUP) * 1e3:.3f} ms a "
@@ -444,17 +641,23 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int) -> dict:
           f"last 5 {statistics.mean(losses[-5:]):.6f}); "
           f"max_memory_allocated {peak} bytes ({peak / 2**30:.3f} GiB)",
           flush=True)
-    print(f"[train] kernel launches per step "
-          f"{ {k: v / steps for k, v in launches.items()} }; FDTNO "
-          f"backwards {bwd} ({bwd / steps} per step)", flush=True)
+    per_step = {k: v / steps for k, v in launches.items()}
+    ops_per_step = {k: v / steps for k, v in op_counts.items()}
+    print(f"{tag} kernel launches per step {per_step}; differentiated "
+          f"forwards and backwards per step {ops_per_step}", flush=True)
     if not all(math.isfinite(v) for v in losses) or len(losses) != steps:
         raise AssertionError(f"training losses {losses}")
-    if not statistics.mean(losses[-5:]) < losses[0]:
+    if not (statistics.mean(losses[-5:]) < losses[0]
+            and losses[-1] < losses[0]):
         raise AssertionError(f"loss did not fall: {losses}")
-    if not launches["fd_khat_grad"] == bwd == cfg.n_layers * steps:
-        raise AssertionError(f"fd_khat_grad launched {launches['fd_khat_grad']}"
-                             f" times with {bwd} FDTNO backwards in {steps} "
-                             f"steps of {cfg.n_layers} layers")
+    want = {k: v * cfg.n_layers for k, v in TRAIN_LAUNCHES[mixer].items()}
+    want_ops = {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
+                "bwd_ref": 0}
+    if end != steps or per_step != want or ops_per_step != want_ops:
+        raise AssertionError(f"{steps} steps of {cfg.n_layers} layers made "
+                             f"{per_step} launches and {ops_per_step} "
+                             f"forwards/backwards a step, not {want} and "
+                             f"{want_ops}")
     return launches
 
 
@@ -465,40 +668,34 @@ def _ski_batch(cfg, b: int, s: int, device):
     return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
-def _refuses_grad_forward(model, cfg, tokens) -> None:
-    """With grad enabled the SKI op raises on the card before any launch,
-    and no plain version runs instead."""
-    from repro_torch.kernels import ops, ref
-    from repro_torch.models.transformer import forward
-    plain_calls = []
-    saved = {k: getattr(ref, k) for k in (
-        "ski_fused_tno_ref", "interp_reduce_ref", "ski_fused_pass2_ref")}
-
-    def spy(name):
-        def call(*a, **kw):
-            plain_calls.append(name)
-            return saved[name](*a, **kw)
-        return call
-
+def _standalone_wrappers_refuse_grad(device) -> None:
+    """Each SKI kernel wrapper called on its own writes a tensor autograd
+    cannot see, so on the card it refuses an input that requires grad
+    (gradients go through ops.ski_fused_tno), before any launch."""
+    from repro_torch.kernels import interp_matvec, ops, ski_fused, ski_grad
+    x = torch.randn(2, 16, 8, device=device)
+    z = torch.randn(2, 4, 8, device=device)
+    a = torch.randn(8, 4, 4, device=device)
+    f = torch.randn(8, 3, device=device)
+    req = lambda t: t.clone().requires_grad_()
+    calls = {"interp_reduce": lambda: interp_matvec.interp_reduce(
+                 req(x), None, None, 4),
+             "ski_fused_pass2": lambda: ski_fused.ski_fused_pass2(
+                 x, z, req(a), f, True),
+             "gram_grad": lambda: ski_grad.gram_grad(z, req(z)),
+             "conv_tap_grad": lambda: ski_grad.conv_tap_grad(req(x), x, 3, 0)}
     ops.reset_ski_counters()
-    try:
-        for k in saved:
-            setattr(ref, k, spy(k))
-        with torch.enable_grad():
-            forward(model, cfg, tokens)
-    except NotImplementedError as e:
-        msg = str(e)
-    else:
-        raise AssertionError("a SKI forward with grad enabled ran on the card")
-    finally:
-        for k, v in saved.items():
-            setattr(ref, k, v)
-    counts = ops.ski_counters()
-    if plain_calls or any(counts.values()):
-        raise AssertionError(f"grad-enabled SKI forward ran plain versions "
-                             f"{plain_calls} or kernels {counts}")
-    print(f"[score] a forward with grad enabled raises on the card, no plain "
-          f"version and no kernel ran: {msg}", flush=True)
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError(f"{name} accepted an input requiring grad")
+    if any(ops.ski_counters().values()):
+        raise AssertionError(f"a refused call launched {ops.ski_counters()}")
+    print(f"[score] standalone {', '.join(calls)} refuse an input that "
+          "requires grad on the card, no kernel launched", flush=True)
 
 
 def _profile_forward(fwd, model, tokens, device, reps: int = 3) -> None:
@@ -549,7 +746,8 @@ def phase_ski_score(device) -> dict:
     launches = ops.ski_counters()
     peak = torch.cuda.max_memory_allocated(device)
     if launches != {"interp_reduce": cfg.n_layers,
-                    "ski_fused_pass2": cfg.n_layers}:
+                    "ski_fused_pass2": cfg.n_layers, "gram_grad": 0,
+                    "conv_tap_grad": 0}:
         raise AssertionError(f"one SKI forward launched {launches}")
     if not (logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab_padded)
             and bool(torch.isfinite(logits).all())):
@@ -591,7 +789,7 @@ def phase_ski_score(device) -> dict:
           flush=True)
     if not (err <= 1e-4 * scale and lerr <= 1e-4):
         raise AssertionError("card SKI scoring differs from the CPU's")
-    _refuses_grad_forward(model, cfg, one["tokens"])
+    _standalone_wrappers_refuse_grad(device)
     return launches
 
 
@@ -641,7 +839,8 @@ def check_train_card_vs_cpu(small, device) -> None:
     worst = max(float((g_dev[k] - g_cpu[k]).abs().max())
                 / float(g_cpu[k].abs().max()) for k in g_cpu)
     lerr = max(abs(a - b) / abs(b) for a, b in zip(l_dev, l_cpu))
-    print(f"[check] smoke training card vs CPU: step-0 grads worst leaf "
+    print(f"[check] smoke {small.name} training card vs CPU: step-0 grads "
+          f"worst leaf "
           f"{worst:.3e} x max|g| (limit 1e-4), losses {l_dev} vs {l_cpu}, "
           f"max rel err {lerr:.3e} (limit 1e-4)", flush=True)
     if not (worst <= 1e-4 and lerr <= 1e-4):
@@ -673,7 +872,8 @@ def check_checkpoint_resume(small, device) -> None:
     same_opt = all(torch.equal(whole_opt.mu[k], res_opt.mu[k])
                    and torch.equal(whole_opt.nu[k], res_opt.nu[k])
                    for k in whole_opt.mu)
-    print(f"[check] checkpoint at step 2, restored into a fresh model "
+    print(f"[check] {small.name}: checkpoint at step 2, restored into a "
+          f"fresh model "
           f"(resumed at {start}, ended at {end}): parameters bitwise equal "
           f"to an uninterrupted run: {same}; moments: {same_opt}", flush=True)
     if not (start == 2 and end == 3 and same and same_opt):
@@ -681,7 +881,7 @@ def check_checkpoint_resume(small, device) -> None:
 
 
 def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
-    from repro_torch.configs import reduce_for_smoke
+    from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.models.transformer import forward, init_model
     with torch.inference_mode():
         logits = forward(model, cfg, seqs)                 # (b, max_len, V)
@@ -716,6 +916,12 @@ def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
         raise AssertionError(f"card logits differ from CPU by {err}")
     check_train_card_vs_cpu(small, device)
     check_checkpoint_resume(small, device)
+    ski_small = reduce_for_smoke(get_config("ski-tnn-lm-wt103"))
+    print(f"[check] smoke SKI model: {ski_small.n_layers} layers, "
+          f"d={ski_small.d_model}, r={ski_small.tno_rank}, "
+          f"m={ski_small.tno_filter}", flush=True)
+    check_train_card_vs_cpu(ski_small, device)
+    check_checkpoint_resume(ski_small, device)
 
 
 def main() -> int:
@@ -734,13 +940,17 @@ def main() -> int:
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
     score_launches = phase_ski_score("cuda")
+    ski_train_launches = phase_train(get_config("ski-tnn-lm-wt103"), "cuda",
+                                     TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
+                                     mixer="ski")
     ski_vs_fd_op()
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     # each path must have gone through each of its kernels
-    fd_names = ("hilbert_window", "fd_mul", "fd_khat_grad")
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
-             "train": (train_launches, fd_names),
-             "score": (score_launches, ("interp_reduce", "ski_fused_pass2"))}
+             "train": (train_launches, tuple(TRAIN_LAUNCHES["fd"])),
+             "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),
+             "ski_train": (ski_train_launches,
+                           tuple(TRAIN_LAUNCHES["ski"]))}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

@@ -1,10 +1,13 @@
-"""Serving and SKI policy knobs and the build/loader of the hand-written
-CUDA kernels.
+"""Serving and SKI policy knobs, the backward switch, and the build/loader
+of the hand-written CUDA kernels.
 
 Dispatch has no knob: every kernel wrapper takes its plain torch version
 (``kernels/ref.py``) for a tensor on the CPU and launches the CUDA kernel
 for a tensor on the card, or raises. There is no fallback from one to the
-other.
+other. The one switch is ``REPRO_PALLAS_GRAD=0`` (:func:`resolve_pallas_grad`),
+which keeps the kernel forwards of the autograd Functions and gives them
+autograd's cotangents through the plain version, counted apart
+(``bwd_ref``) so that it never passes for the kernel backward.
 
 Building: each source under ``csrc/`` (:data:`SOURCES`) is compiled by
 ``nvcc`` for ``sm_90a`` into its own shared library with a plain C
@@ -30,13 +33,16 @@ import torch
 _ENV_FD_STREAM = "REPRO_FD_STREAM"
 _ENV_FD_STREAM_C = "REPRO_FD_STREAM_C"
 _ENV_DENSE_RMAX = "REPRO_SKI_DENSE_RMAX"
+_ENV_WINDOWED_RMAX = "REPRO_SKI_WINDOWED_RMAX"
+_ENV_GRAD = "REPRO_PALLAS_GRAD"
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
-SOURCES = {"fd_fused": _CSRC / "fd_fused.cu", "ski": _CSRC / "ski.cu"}
+SOURCES = {"fd_fused": _CSRC / "fd_fused.cu", "ski": _CSRC / "ski.cu",
+           "ski_grad": _CSRC / "ski_grad.cu"}
 
 
 # ---------------------------------------------------------- serving knobs
@@ -72,17 +78,39 @@ def fd_stream_block() -> int:
     return c
 
 
+def resolve_pallas_grad() -> bool:
+    """Should a differentiable op whose forward ran the kernels also run
+    its kernel backward? ``REPRO_PALLAS_GRAD`` as the JAX package reads it:
+    "auto" (default) and 1/true give True; 0/false keep the kernel forward
+    and swap in autograd's cotangents through the plain version, for
+    numerical bisection. Read at each backward."""
+    return os.environ.get(_ENV_GRAD, "auto").lower() not in ("0", "false")
+
+
+def ref_cotangents(fn, inputs, g, *args):
+    """Autograd's cotangents of ``fn(*inputs, *args)`` at the cotangent
+    ``g``, one for each of ``inputs``: the backward of the kernels' autograd
+    Functions when :func:`resolve_pallas_grad` is False."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        return torch.autograd.grad(fn(*leaves, *args), leaves, g)
+
+
 # ------------------------------------------------------ SKI rank policy
 #: dense (d, r, r) Gram budget of the fused pass-2 kernel (bytes)
 SKI_GRAM_BYTES_MAX = 64 << 20
-#: largest r of the windowed variant; beyond it, "fft" (the JAX default)
-SKI_WINDOWED_RANK_MAX = 4096
 
 
 def ski_dense_rank_max() -> int:
     """Largest r served by the dense-Gram fused pass 2
     (``REPRO_SKI_DENSE_RMAX``, default 512)."""
     return _env_int(_ENV_DENSE_RMAX, 512)
+
+
+def ski_windowed_rank_max() -> int:
+    """Largest r of the windowed variant; beyond it, "fft"
+    (``REPRO_SKI_WINDOWED_RMAX``, default 4096, as in the JAX package)."""
+    return _env_int(_ENV_WINDOWED_RMAX, 4096)
 
 
 def ski_rank_variant(r: int, d: int | None = None) -> str:
@@ -93,7 +121,7 @@ def ski_rank_variant(r: int, d: int | None = None) -> str:
     if r <= ski_dense_rank_max() and (
             d is None or d * r * r * 4 <= SKI_GRAM_BYTES_MAX):
         return "dense"
-    if r <= SKI_WINDOWED_RANK_MAX:
+    if r <= ski_windowed_rank_max():
         return "windowed"
     return "fft"
 

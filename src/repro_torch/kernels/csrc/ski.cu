@@ -95,6 +95,7 @@ constexpr int kStages = 4;       // x tile buffers in the ring, at most
 constexpr int kBlocksPerSM = 3;  // pass-2 blocks aimed at per SM
 constexpr int kMaxSmem = 232448; // bytes a block may use (227 KB)
 constexpr int kSmemPerSM = 233472;  // bytes a SM holds for its blocks
+constexpr int kMaxDevices = 64;  // devices with their own pass-2 state
 
 // The two taps of W's row i: node lo and weight w_lo (1 - w_lo on lo + 1).
 __device__ __forceinline__ int hat_row(long long i, float hf, int r,
@@ -181,6 +182,13 @@ __host__ __device__ __forceinline__ int z_pitch(long long r) {
   return (int)((r + 3) / 4 * 4 + 4);
 }
 
+// Floats of the z2 tile, [r][kZ2Pitch], rounded up to a multiple of 4 so
+// that the x tiles after it stay 16-byte aligned for cp.async16 (r = 181 at
+// d = 512, the dense ceiling, faulted with a misaligned address without it).
+__host__ __device__ __forceinline__ int z2_floats(long long r) {
+  return (int)((r * kZ2Pitch + 3) / 4 * 4);
+}
+
 // Taps rounded up to whole register windows.
 __host__ __device__ __forceinline__ int padded_taps(long long m) {
   return (int)((m + kKB - 1) / kKB * kKB);
@@ -245,7 +253,7 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
   const int hl = mp - 1 - left;        // halo rows before the tile
   float* zs = smem;                    // [kLanes][zp]   z[bg, t, c]
   float* z2s = zs + kLanes * zp;       // [r][kZ2Pitch]  z2[bg, s, c]
-  float* fs = z2s + r * kZ2Pitch;      // [mp][kLanes]   f[c, k]
+  float* fs = z2s + z2_floats(r);      // [mp][kLanes]   f[c, k]
   float* xs = fs + mp * kLanes;        // nbuf x [rows][kLanes] x tiles
   float* hw = xs + nbuf * rows * kLanes;        // [kTN] w_lo of a tile's rows
   int* hlo = reinterpret_cast<int*>(hw + kTN);  // [kTN] their nodes
@@ -378,11 +386,10 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
 
 extern "C" {
 
-// Dynamic shared memory of one pass-2 block, in bytes.
 // Dynamic shared memory of one pass-2 block with nbuf tile buffers, bytes.
 static long long pass2_smem(long long r, long long m, long long nbuf) {
   const long long mp = padded_taps(m);
-  return 4 * (kLanes * z_pitch(r) + r * kZ2Pitch + mp * kLanes +
+  return 4 * (kLanes * z_pitch(r) + z2_floats(r) + mp * kLanes +
               nbuf * (kTN + mp - 1) * kLanes + 2 * kTN);
 }
 
@@ -413,14 +420,23 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
                         const void* filt, void* y, long long b, long long n,
                         long long d, long long r, long long m, long long left,
                         float hf, void* stream) {
-  static int sms = 0;
-  static long long smem_set = 48 * 1024;
+  // per device: its SM count (0: not read yet), and the dynamic shared
+  // memory the kernel's attribute allows there (the attribute is per device)
+  struct DeviceState {
+    int sms = 0;
+    long long smem_set = 48 * 1024;
+  };
+  static DeviceState devices[kMaxDevices];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  int& sms = devices[dev].sms;
+  long long& smem_set = devices[dev].smem_set;
   if (sms == 0) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   // batch rows a block: 8 (A is then read once per 8 rows), fewer for a
@@ -449,9 +465,9 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
   if (smem > kMaxSmem || gy > 65535 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        ski_fused_pass2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(ski_fused_pass2_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set = smem;
   }

@@ -24,7 +24,9 @@ Counterpart of ``repro/kernels/fd_fused.py``:
   ``fd_mul`` with the spectrum conjugated for dx, ``fd_khat_grad`` for the
   spectrum cotangent, then ``hilbert_window`` and the exact irfft adjoint
   for dkhat_real. :data:`op_counters` counts its differentiated forwards
-  and its backwards, beside the kernels' launch counts in :data:`counters`.
+  and which backward ran (``bwd_kernel``, or ``bwd_ref`` under
+  ``REPRO_PALLAS_GRAD=0``), as ``repro/kernels/fd_fused.py`` does, beside
+  the kernels' launch counts in :data:`counters`.
 
 Spectra are kept channel-major, (b, d, n+1): ``torch.fft`` transforms the
 last axis of a (b, d, 2n) signal into exactly that contiguous layout, and
@@ -54,8 +56,9 @@ from repro_torch.kernels import backend, ref
 #: kernel launches per wrapper (CUDA path only; the CPU path counts nothing)
 counters = {"hilbert_window": 0, "fd_mul": 0, "fd_khat_grad": 0}
 #: differentiated :func:`fd_tno` forwards (grad enabled and an input that
-#: requires grad) and :class:`FDTNO` backwards
-op_counters = {"fwd": 0, "bwd": 0}
+#: requires grad) and :class:`FDTNO` backwards: the kernel backward, or
+#: autograd through the plain version (``backend.resolve_pallas_grad``)
+op_counters = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
 
 
 def reset_counters() -> None:
@@ -231,7 +234,9 @@ class FDTNO(torch.autograd.Function):
         dkhat   = irfftᵀ( w ⊙ dk̂_time )                      hilbert_window
 
     Residuals are the inputs only; the backward recomputes k̂ (one more
-    window launch) and x̂ rather than keep 2 MB a layer of spectrum."""
+    window launch) and x̂ rather than keep 2 MB a layer of spectrum.
+    Under ``REPRO_PALLAS_GRAD=0`` the backward is autograd through
+    :func:`ref.fd_tno_ref` instead, and launches no kernel."""
 
     @staticmethod
     def forward(ctx, x, khat_real):
@@ -245,7 +250,10 @@ class FDTNO(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, khat_real = ctx.saved_tensors
-        op_counters["bwd"] += 1
+        if not backend.resolve_pallas_grad():
+            op_counters["bwd_ref"] += 1
+            return backend.ref_cotangents(ref.fd_tno_ref, (x, khat_real), g)
+        op_counters["bwd_kernel"] += 1
         n = x.shape[1]
         ghat = _spectrum(g, n)
         # signal cotangent: the forward multiply with the spectrum

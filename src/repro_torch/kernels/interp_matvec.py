@@ -9,9 +9,11 @@ from (n, r) and reads no weights. The wrapper takes the plain version
 (``ref.interp_reduce_ref``, the dense hat contraction) for a CPU tensor
 and launches the kernel for a CUDA tensor, counting the launch in
 :data:`counters`; another device, dtype or layout raises. On the card
-the kernel writes a tensor that autograd cannot see, so it refuses an
-input that requires grad while grad is enabled (SKI training is the next
-slice). ``interp_expand`` (y = W z) is not on the dense fused path.
+the kernel writes a tensor that autograd cannot see, so called on its own
+it refuses an input that requires grad while grad is enabled; gradients
+go through ``ops.ski_fused_tno`` (``ski_vjp.SKIFusedTNO``), whose forward
+and backward launch it. ``interp_expand`` (y = W z) is not on the dense
+fused path.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ from repro_torch.kernels import backend, ref
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"interp_reduce": 0}
 
-_TRAINING_SLICE = ("SKI training (the SKIFusedTNO autograd Function with "
-                   "gram_grad and conv_tap_grad) is ROADMAP slice 4b")
-
-
 def reset_counters() -> None:
     for k in counters:
         counters[k] = 0
@@ -40,9 +38,9 @@ def forward_only(what: str, *ts: torch.Tensor) -> None:
     and an input that requires grad."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
-            f"{what}: the SKI kernels are forward-only on the card in this "
-            f"slice ({_TRAINING_SLICE}); call it under torch.no_grad() or "
-            "torch.inference_mode(), or on CPU tensors")
+            f"{what}: the CUDA kernel on its own is forward-only; "
+            "differentiate through ops.ski_fused_tno (SKIFusedTNO), whose "
+            "backward runs the kernels, or call it under torch.no_grad()")
 
 
 def hat_spacing(n: int, r: int) -> tuple[float, float]:

@@ -42,6 +42,19 @@ def short_conv_left_ref(x: torch.Tensor, filt: torch.Tensor,
     return _shift_conv(x, filt, left).to(x.dtype)
 
 
+def conv_tap_grad_ref(g: torch.Tensor, x: torch.Tensor, m: int,
+                      left: int) -> torch.Tensor:
+    """Filter cotangent of the short conv: df[c, k] = Σ_{b,j} g[b,j,c] ·
+    x[b, j-k+left, c] (x zero outside [0, n)). g, x: (b, n, d) → (d, m)
+    fp32. Plain version of the ``conv_tap_grad`` kernel."""
+    n = x.shape[1]
+    gf = g.float()
+    xp = F.pad(x.float(), (0, 0, m - 1 - left, left))
+    return torch.stack(
+        [torch.einsum("bnc,bnc->c", gf, xp[:, m - 1 - k:m - 1 - k + n, :])
+         for k in range(m)], dim=-1)
+
+
 # -------------------------------------------------- banded interp (SKI W)
 def hat_geometry(n: int, r: int):
     """Host-numpy (idx_lo (n,) int32, w_lo (n,) fp32, h) of the linear
@@ -82,6 +95,13 @@ def interp_reduce_ref(x: torch.Tensor, idx_lo: torch.Tensor,
     hat-weight contraction. x: (b, n, d) -> (b, r, d) in x's dtype."""
     w = dense_interp_matrix(idx_lo, w_lo, r)                  # (n, r)
     return torch.einsum("nr,bnd->brd", w, x.float()).to(x.dtype)
+
+
+def gram_grad_ref(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Gram cotangent: dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c]. gz, z:
+    (b, r, d) → (d, r, r) fp32. Plain version of the ``gram_grad``
+    kernel."""
+    return torch.einsum("bsc,btc->cst", gz.float(), z.float())
 
 
 # ----------------------------------------------------- fused SKI pass 2

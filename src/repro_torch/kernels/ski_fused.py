@@ -8,17 +8,17 @@
 z = Wᵀx comes from pass 1 (``interp_matvec.interp_reduce``). The Gram
 contraction A z, the two-tap expansion by W and the m-tap short conv all
 run inside the kernel. The tap offset ``left`` is an argument (0 for the
-causal forward, m//2 bidirectional), so the signal backward of the next
-slice can launch this same kernel with A transposed, the taps flipped and
-``left`` mirrored to m-1-left.
+causal forward, m//2 bidirectional), so the signal backward
+(``ski_vjp.SKIFusedTNO``) launches this same kernel with A transposed, the
+taps flipped and ``left`` mirrored to m-1-left.
 
 The wrapper takes the plain version (``ref.ski_fused_pass2_ref``) for CPU
 tensors and launches the kernel for CUDA tensors, counting the launch in
 :data:`counters`; another device, dtype or layout raises, as does an input
-that requires grad while grad is enabled (forward-only on the card in this
-slice). The kernel handles every n >= 2 and 2 <= r <= n itself, n < m and
-r = n included: the TPU wrapper's plain fallback for tiny n has no
-counterpart here.
+that requires grad while grad is enabled (the kernel on its own is
+forward-only; gradients go through ``ops.ski_fused_tno``). The kernel
+handles every n >= 2 and 2 <= r <= n itself, n < m and r = n included:
+the TPU wrapper's plain fallback for tiny n has no counterpart here.
 """
 from __future__ import annotations
 

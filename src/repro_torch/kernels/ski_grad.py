@@ -1,0 +1,104 @@
+"""The SKI backward's parameter cotangents with the hand-written CUDA
+kernels of ``csrc/ski_grad.cu``, counterpart of ``repro/kernels/ski_grad.py``:
+
+* :func:`conv_tap_grad` — the short conv's filter cotangent
+  df[c, k] = Σ_{b,j} g[b,j,c] · x[b, j-k+left, c] (replaces the Pallas
+  ``_tap_grad_kernel`` / ``_tap_grad_call_impl``);
+* :func:`gram_grad` — the dense inducing-Gram cotangent
+  dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c] (replaces ``_gram_grad_kernel`` /
+  ``_gram_grad_call``).
+
+Both sum in fp32 and return fp32, as in JAX. Each wrapper takes the plain
+version (``ref.conv_tap_grad_ref``, ``ref.gram_grad_ref``) for CPU tensors
+and launches its kernel for CUDA tensors, counting the launch in
+:data:`counters`; another device, dtype or layout raises. A kernel writes
+a tensor that autograd cannot see, so on the card a wrapper called on its
+own refuses an input that requires grad while grad is enabled; the
+kernels' caller is the backward of ``ski_vjp.SKIFusedTNO``.
+``gram_coef_grad_fft`` (the large-rank variants) is not ported.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import backend, ref
+from repro_torch.kernels.interp_matvec import forward_only
+
+#: kernel launches (CUDA path only; the CPU path counts nothing)
+counters = {"gram_grad": 0, "conv_tap_grad": 0}
+
+
+def reset_counters() -> None:
+    for k in counters:
+        counters[k] = 0
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = backend.library("ski_grad")
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.conv_tap_grad_f32.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
+    lib.conv_tap_grad_f32.restype = ctypes.c_int
+    lib.conv_tap_grad_workspace_floats.argtypes = [i64, i64, i64, i64]
+    lib.conv_tap_grad_workspace_floats.restype = i64
+    lib.gram_grad_f32.argtypes = [p, p, p, i64, i64, i64, p]
+    lib.gram_grad_f32.restype = ctypes.c_int
+    return lib
+
+
+def _require_pair(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Both CUDA fp32 contiguous, one non-empty (b, ·, d) shape, one device."""
+    forward_only(what, a, b)
+    backend.require_cuda(a, what, torch.float32)
+    backend.require_cuda(b, what, torch.float32)
+    if a.dim() != 3 or a.shape != b.shape or a.numel() == 0 \
+            or a.device != b.device:
+        raise ValueError(f"{what}: inputs {tuple(a.shape)} on {a.device} and "
+                         f"{tuple(b.shape)} on {b.device} are not one "
+                         "non-empty (b, ·, d) shape on one device")
+
+
+def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
+                  left: int) -> torch.Tensor:
+    """df[c, k] = Σ_{b,j} g[b,j,c] · x[b, j-k+left, c], x zero outside
+    [0, n): g, x (b, n, d) → (d, m) fp32. Every n >= 1 (n < m included)
+    and 0 <= left < m. On the card each block sums its rows into a
+    workspace and a second pass adds the blocks' sums in order: no atomics,
+    bitwise reproducible. CPU: :func:`ref.conv_tap_grad_ref`."""
+    if not 0 <= left < m:
+        raise ValueError(f"conv_tap_grad: left={left} outside [0, m={m})")
+    if g.device.type == "cpu" and x.device.type == "cpu":
+        return ref.conv_tap_grad_ref(g, x, m, left)
+    _require_pair("conv_tap_grad", g, x)
+    b, n, d = x.shape
+    lib = _lib()
+    part = torch.empty(lib.conv_tap_grad_workspace_floats(b, n, d, m),
+                       dtype=torch.float32, device=x.device)
+    df = torch.empty((d, m), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = lib.conv_tap_grad_f32(g.data_ptr(), x.data_ptr(),
+                                   part.data_ptr(), df.data_ptr(), b, n, d, m,
+                                   left, backend.stream(x))
+    backend.check(lib, rc, f"conv_tap_grad (b={b}, n={n}, m={m})")
+    counters["conv_tap_grad"] += 1
+    return df
+
+
+def gram_grad(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c]: gz, z (b, r, d) → (d, r, r)
+    fp32, the batch summed in order. CPU: :func:`ref.gram_grad_ref`."""
+    if gz.device.type == "cpu" and z.device.type == "cpu":
+        return ref.gram_grad_ref(gz, z)
+    _require_pair("gram_grad", gz, z)
+    b, r, d = z.shape
+    da = torch.empty((d, r, r), dtype=torch.float32, device=z.device)
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        rc = lib.gram_grad_f32(gz.data_ptr(), z.data_ptr(), da.data_ptr(), b,
+                               r, d, backend.stream(z))
+    backend.check(lib, rc, f"gram_grad (r={r})")
+    counters["gram_grad"] += 1
+    return da

@@ -46,8 +46,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
 def make_forward(cfg: ArchConfig):
     """Returns ``fwd(model, tokens) -> logits``: tokens (b, s) → logits
     (b, s, V_pad) under ``torch.inference_mode()``, for prompt scoring and
-    evaluation. It is the SKI model's only path on the card so far (no
-    decode; its training is ROADMAP slice 4b)."""
+    evaluation (the SKI model has no decode path)."""
 
     def fwd(model: Model, tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

@@ -3,8 +3,9 @@
 
 Wires ``launch/steps.make_train_step`` (loss, autograd, AdamW) + the data
 pipeline + the fault-tolerant ``runtime/trainer.Trainer`` on one device:
-``cuda`` by default, where every FD-TNO forward and backward runs the
-hand-written kernels; ``--device cpu`` runs their plain versions.
+``cuda`` by default, where every FD-TNO and SKI-TNO forward and backward
+runs the hand-written kernels (``fd-tnn-lm-wt103``, ``ski-tnn-lm-wt103``);
+``--device cpu`` runs their plain versions.
 Multi-device meshes (``--production-mesh``) and the metrics / trace files
 come with later slices (ROADMAP Queue 1 items 10 and 12).
 """
@@ -49,13 +50,6 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     cfg = get_config(args.arch)
-    if any(m == "ski" for m, _ in cfg.layers_spec):
-        # refuse before any work, not later in the first backward
-        raise NotImplementedError(
-            f"{args.arch}: SKI training is not ported yet (ROADMAP slice 4b: "
-            "the SKIFusedTNO autograd Function with gram_grad and "
-            "conv_tap_grad); the SKI forward runs through "
-            "launch.steps.make_forward")
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
     if args.mixer:

@@ -251,7 +251,7 @@ def test_fd_tno_grad_matches_jax(b, n, d, dtype):
         assert _rel(xt.grad.float(), want[0].astype(jnp.float32)) <= tol
         assert _rel(kt.grad.float(), want[1].astype(jnp.float32)) <= tol
     # the differentiated forward and the FDTNO backward each ran once
-    assert fd_fused.op_counters == {"fwd": 1, "bwd": 1}
+    assert fd_fused.op_counters == {"fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}
 
 
 def test_fd_tno_inference_counts_no_differentiated_forward():
@@ -262,7 +262,8 @@ def test_fd_tno_inference_counts_no_differentiated_forward():
     with torch.inference_mode():
         y = ops.fd_tno(x, k)
     assert y.grad_fn is None
-    assert fd_fused.op_counters == {"fwd": 0, "bwd": 0}
+    assert fd_fused.op_counters == {"fwd": 0, "bwd_kernel": 0,
+                                    "bwd_ref": 0}
 
 
 def test_hilbert_window_grad_is_window():

@@ -42,7 +42,7 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import manifest as ckpt  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.core import rpe, ski  # noqa: E402
-from repro_torch.kernels import backend, ops, ref  # noqa: E402
+from repro_torch.kernels import backend, ops, ref, ski_vjp  # noqa: E402
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.steps import make_forward  # noqa: E402
@@ -325,20 +325,26 @@ def test_wrappers_refuse_non_cuda_devices():
 
 
 def test_wrappers_are_forward_only_off_the_cpu():
+    """The standalone kernel wrappers refuse an input that requires grad
+    off the CPU; ``ski_fused_tno`` is differentiable (SKIFusedTNO), so with
+    grad it reaches the device check as it does without."""
     x = torch.empty(2, 16, 8, device="meta")
+    z = torch.empty(2, 4, 8, device="meta")
     a = torch.empty(8, 4, 4, device="meta", requires_grad=True)
     f = torch.empty(8, 3, device="meta")
-    with pytest.raises(NotImplementedError, match="slice 4b"):
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.ski_fused_pass2(x, z, a, f, True)
+    with pytest.raises(ValueError, match="tensor on meta"):
         ops.ski_fused_tno(x, a, f, None, None, 4, True)
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        ops.interp_reduce(x.requires_grad_(), None, None, 4)
     with torch.no_grad(), pytest.raises(ValueError, match="tensor on meta"):
         ops.ski_fused_tno(x, a, f, None, None, 4, True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.interp_reduce(x.requires_grad_(), None, None, 4)
 
 
 def test_cpu_path_is_differentiable():
-    """On the CPU the op is the plain version, which autograd
-    differentiates (the card's backward is slice 4b)."""
+    """On the CPU the op is SKIFusedTNO over the plain versions, which
+    autograd differentiates."""
     x, _, a, f = (T(v).requires_grad_() for v in _inputs(SHAPES["smoke"]))
     lo, w_lo = _geometry(64, 8)
     y = ops.ski_fused_tno(x, a, f, T(lo), T(w_lo), 8, True)
@@ -427,10 +433,18 @@ def test_bridge_round_trip_bitwise(smoke, tmp_path):
 
 
 # ------------------------------------------------------------ entry points
-def test_launch_train_refuses_ski_up_front():
-    with pytest.raises(NotImplementedError, match="slice 4b"):
-        train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                           "--steps", "1"])
+def test_launch_train_trains_ski(capsys):
+    """``launch.train --arch ski-tnn-lm-wt103`` trains: each step's SKI
+    layers run SKIFusedTNO's forward and its kernel backward."""
+    cfg = reduce_for_smoke(get_config(ARCH))
+    ops.reset_ski_counters()
+    assert train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                              "--steps", "2", "--seq-len", "16",
+                              "--global-batch", "2"]) == 0
+    assert "[train] 2 steps in" in capsys.readouterr().out
+    assert ski_vjp.counters == {"fwd": 2 * cfg.n_layers,
+                                "bwd_kernel": 2 * cfg.n_layers,
+                                "bwd_ref": 0}
 
 
 def test_ski_has_no_decode():

@@ -156,7 +156,8 @@ def test_three_train_steps_track_jax(smoke):
                                    rtol=1e-6)
         lrs.append(float(m["lr"]))
     assert fd_fused.op_counters == {"fwd": 3 * cfg.n_layers,
-                                    "bwd": 3 * cfg.n_layers}
+                                    "bwd_kernel": 3 * cfg.n_layers,
+                                    "bwd_ref": 0}
     assert int(opt.step) == 3
     want = bridge._port_leaves(jax.tree.map(np.asarray, jstate["params"]),
                                cfg)
@@ -357,4 +358,5 @@ def test_launch_train_mixer_override_keeps_fd_layers(mixer):
     assert train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                               "--mixer", mixer, "--steps", "1", "--seq-len",
                               "16", "--global-batch", "2"]) == 0
-    assert fd_fused.op_counters == {"fwd": cfg.n_layers, "bwd": cfg.n_layers}
+    assert fd_fused.op_counters == {"fwd": cfg.n_layers,
+                                    "bwd_kernel": cfg.n_layers, "bwd_ref": 0}

@@ -14,8 +14,9 @@ warms up, then traces three regions with ``torch.profiler``:
 
 For each region it prints the host wall time (ending in a synchronise),
 the device busy time (union of the traced kernels' intervals), the idle
-share, the kernel launch count and the top kernels by device time. Needs a
-CUDA card; exits non-zero without one.
+share, the kernel launch count, the top kernels by device time and the
+device time of the repository's own kernels. Needs a CUDA card; exits
+non-zero without one.
 """
 from __future__ import annotations
 
@@ -50,6 +51,13 @@ def _busy_us(events) -> float:
     return busy
 
 
+#: the repository's own CUDA kernels (csrc/*.cu), by the prefix of their
+#: function names
+PORT_KERNELS = ("hilbert_window", "fd_mul", "fd_khat_grad", "interp_reduce",
+                "ski_fused_pass2", "gram_grad", "conv_tap_grad",
+                "tap_grad_reduce")
+
+
 def trace(name: str, fn, top: int = 12) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -74,12 +82,23 @@ def trace(name: str, fn, top: int = 12) -> dict:
            "top": [{"kernel": k[:120], "calls": c, "ms": t / 1e3,
                     "share_of_busy": t / busy if busy else None}
                    for k, (c, t) in kernels]}
+    port = {}
+    for k, (c, t) in by_name.items():
+        for prefix in PORT_KERNELS:
+            if f"{prefix}_" in k:
+                acc = port.setdefault(prefix, {"calls": 0, "ms": 0.0})
+                acc["calls"] += c
+                acc["ms"] += t / 1e3
+    out["port_kernels"] = port
     print(f"[{name}] wall {out['wall_ms']:.3f} ms, device busy "
           f"{out['device_busy_ms']:.3f} ms, idle share "
           f"{out['idle_share']:.3f}, {len(dev)} device events")
     for row in out["top"]:
         print(f"    {row['ms']:9.3f} ms {row['calls']:5d}x "
               f"{row['share_of_busy']:6.1%}  {row['kernel']}")
+    if port:
+        print("    port kernels: " + "; ".join(
+            f"{k} {v['ms']:.3f} ms x{v['calls']}" for k, v in port.items()))
     return out
 
 

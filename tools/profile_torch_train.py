@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's training step, on one card.
 
-    python3 tools/profile_torch_train.py [--out profile_train.json]
+    python3 tools/profile_torch_train.py [--arch ski-tnn-lm-wt103]
+        [--out profile_train.json]
 
-Builds the full-width fd-tnn-lm-wt103 (random weights, seed 0) at the
-``chip_smoke.py`` training workload (AdamW, synthetic data, 8 x 512 tokens
-a step), takes three warm-up steps, then traces with ``torch.profiler``
-(``trace`` of ``tools/profile_torch_serve.py``):
+Builds the full-width fd-tnn-lm-wt103, or the ``--arch`` given (random
+weights, seed 0), at the ``chip_smoke.py`` training workload (AdamW,
+synthetic data, 8 x 512 tokens a step), takes three warm-up steps, then
+traces with ``torch.profiler`` (``trace`` of
+``tools/profile_torch_serve.py``):
 
 * ``step``: three whole ``train_step`` calls;
 * ``loss_and_grads``: the forward, the loss and the backward of one step;
@@ -43,6 +45,8 @@ from profile_torch_serve import trace  # noqa: E402
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="fd-tnn-lm-wt103",
+                    choices=["fd-tnn-lm-wt103", "ski-tnn-lm-wt103"])
     ap.add_argument("--out", default=None, help="write the regions as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -59,7 +63,7 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("fd-tnn-lm-wt103")
+    cfg = get_config(args.arch)
     model = init_model(cfg, torch.Generator().manual_seed(0), device="cuda")
     ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=5, total_steps=30)
     params = dict(model.named_parameters())
@@ -108,7 +112,8 @@ def main(argv=None) -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"device": torch.cuda.get_device_name(0), "regions": regions},
+            {"device": torch.cuda.get_device_name(0), "arch": args.arch,
+             "regions": regions},
             indent=1))
     return 0
 
