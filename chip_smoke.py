@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, SKI scoring and SKI training
-paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, SKI scoring, SKI training
+and unfused SKI paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -20,14 +20,15 @@ card or outside a checkout of this repository. Phases:
    ``ref.fd_tno_ref``, and under ``REPRO_PALLAS_GRAD=0``;
    ``hilbert_window`` is differentiable, standalone ``fd_mul`` and
    ``fd_khat_grad`` refuse an input that requires grad; the SKI kernels
-   ``interp_reduce``, ``ski_fused_pass2``, ``gram_grad`` and
-   ``conv_tap_grad`` at the SKI path's shape (causal and bidirectional
-   taps, and the mirrored offsets of the backward), ragged, n < m, r = n
-   and m = 1; pass 2 at the dense-rank ceiling (r = 181 at d = 512, r =
-   512 at d = 64) in the forward orientation and the backward's (A
-   transposed, taps flipped, left mirrored); the whole SKIFusedTNO
-   backward against autograd through ``ref.ski_fused_tno_ref`` (causal,
-   bidirectional, r = 181), and under ``REPRO_PALLAS_GRAD=0``;
+   ``interp_reduce``, ``interp_expand``, ``short_conv``,
+   ``ski_fused_pass2``, ``gram_grad`` and ``conv_tap_grad`` at the SKI
+   path's shape (causal and bidirectional taps, and the mirrored offsets
+   of the backward), ragged, n < m, r = n and m = 1, the interp pair also
+   at r = 2 and as adjoints on the card; pass 2 at the dense-rank ceiling
+   (r = 181 at d = 512, r = 512 at d = 64) in the forward orientation and
+   the backward's (A transposed, taps flipped, left mirrored); the whole
+   SKIFusedTNO backward against autograd through ``ref.ski_fused_tno_ref``
+   (causal, bidirectional, r = 181), and under ``REPRO_PALLAS_GRAD=0``;
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
@@ -40,7 +41,7 @@ card or outside a checkout of this repository. Phases:
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
    and 6 ``ski_fused_pass2`` launches a forward, card vs CPU logits and
-   loss on 1 × 512 tokens, peak memory; the four standalone SKI kernel
+   loss on 1 × 512 tokens, peak memory; the six standalone SKI kernel
    wrappers refuse an input that requires grad on the card; one op-level
    line times ``ops.ski_fused_tno`` against ``ops.fd_tno`` at
    (8, 512, 512);
@@ -48,15 +49,28 @@ card or outside a checkout of this repository. Phases:
    steps as in phase 5: 18 ``interp_reduce``, 12 ``ski_fused_pass2``, 6
    ``gram_grad`` and 6 ``conv_tap_grad`` launches and 6 kernel backwards
    a step;
-8. check: the kernel-path forward over the generated sequences reproduces
+8. ski unfused: the unfused SKI-TNO (``TNOConfig(variant="ski",
+   fused=False)`` through ``tno_plan``/``tno_apply``) at x (8, 512, 512)
+   and the SKI model's width (d=512, r=64, m=32, seed 0), causal and
+   bidirectional, forward and backward: y and the gradients for x, the
+   taps and the RPE values against the fused op (1e-4 × max) and autograd
+   through the plain versions (1e-5 × max), y against the CPU (1e-5 ×
+   max), 1 ``interp_reduce`` / ``short_conv`` / ``interp_expand`` launch
+   forward and one more each plus one ``conv_tap_grad`` backward, and
+   ``REPRO_PALLAS_GRAD=0``; then, recorded and not claimed, the fused and
+   unfused forward and grad times and Figure 11's component times at the
+   SKI benchmark's shapes (b=4, d=64, n 2048 and 8192), and the Appendix-B
+   ``causal_ski_lowrank`` against its masked dense oracle, timed beside
+   the causal FD-TNO;
+9. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
    training losses on the card as on the CPU; a run stopped at step 2 and
    restored from its checkpoint into a fresh model ends bitwise where an
    uninterrupted run ends; the same gradients, losses and resume for the
    smoke-size SKI model;
-9. a JSON line with each kernel's numbers, then the card's name and power
-   limit, then ``{"ok": true, "device": ...}`` as the last line.
+10. a JSON line with each kernel's numbers, then the card's name and power
+    limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
@@ -89,6 +103,7 @@ SCORE_BATCH, SCORE_SEQ, SCORE_REPS = 8, 512, 20
 FD_SRC = "src/repro_torch/kernels/csrc/fd_fused.cu"
 SKI_SRC = "src/repro_torch/kernels/csrc/ski.cu"
 SKI_GRAD_SRC = "src/repro_torch/kernels/csrc/ski_grad.cu"
+SHORT_CONV_SRC = "src/repro_torch/kernels/csrc/short_conv.cu"
 
 
 def _peaks(name: str):
@@ -320,6 +335,9 @@ SKI_SHAPES = (("path", 8, 512, 512, 64, 32, 0),
               ("path bidirectional mirrored", 8, 512, 512, 64, 32, 15),
               ("ragged", 3, 37, 45, 11, 4, 2), ("n<m", 2, 3, 5, 3, 4, 0),
               ("r=n", 2, 64, 40, 64, 8, 3), ("m=1", 2, 40, 33, 7, 1, 0))
+#: interp_expand and interp_reduce with the fewest inducing points
+#: (label, b, n, d, r)
+INTERP_R2 = ("r=2", 2, 40, 33, 2)
 #: pass 2 at the ceiling of ``backend.ski_rank_variant``'s dense variant
 #: (d·r²·4 <= 64 MB, r <= 512): (label, b, n, d, r, m)
 PASS2_CEILING = (("r=181", 8, 512, 512, 181, 32), ("r=512", 8, 512, 64, 512,
@@ -356,15 +374,110 @@ def _pass2_entry(label, x, z, a, f, left, peaks):
     return e
 
 
+def _interp_entries(label, x, z, lo, w_lo, peaks) -> dict:
+    """interp_reduce and interp_expand at one (n, r), each within 1e-6 ×
+    max|plain| (sums of at most 2h+1 terms; two)."""
+    from repro_torch.kernels import interp_matvec, ref
+    b, n, d = x.shape
+    r = z.shape[1]
+    w = ref.dense_interp_matrix(lo, w_lo, r)
+    nnz_w = int((w != 0).sum())           # W's non-zeros at this (n, r)
+    out = {}
+    # x read once and z written once (reduce), or the other way (expand);
+    # 2 flops a non-zero of W for each (batch row, channel)
+    out["interp_reduce"] = _kernel_entry(
+        "interp_reduce", "src/repro/kernels/interp_matvec.py:65",
+        interp_matvec.interp_reduce(x, lo, w_lo, r),
+        ref.interp_reduce_ref(x, lo, w_lo, r),
+        lambda: interp_matvec.interp_reduce(x, lo, w_lo, r),
+        lambda: ref.interp_reduce_ref(x, lo, w_lo, r),
+        lambda: torch.einsum("nr,bnd->brd", w, x),
+        nbytes=4 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
+        peaks=peaks, tol=1e-6, source=SKI_SRC)
+    print(f"[kernel] interp_reduce {label} x ({b}, {n}, {d}), r={r}: "
+          f"{out['interp_reduce']}", flush=True)
+    out["interp_expand"] = _kernel_entry(
+        "interp_expand", "src/repro/kernels/interp_matvec.py:154",
+        interp_matvec.interp_expand(z, lo, w_lo),
+        ref.interp_expand_ref(z, lo, w_lo),
+        lambda: interp_matvec.interp_expand(z, lo, w_lo),
+        lambda: ref.interp_expand_ref(z, lo, w_lo),
+        lambda: torch.einsum("nr,brd->bnd", w, z),
+        nbytes=4 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
+        peaks=peaks, tol=1e-6, source=SKI_SRC)
+    print(f"[kernel] interp_expand {label} z ({b}, {r}, {d}), n={n}: "
+          f"{out['interp_expand']}", flush=True)
+    return out
+
+
+def _short_conv_entry(label, x, f, left, peaks) -> dict:
+    """short_conv at one shape and offset, within 1e-5 × max|plain| (m-term
+    sums with fused multiply-adds against the plain shift-adds). The
+    library yardstick is cuDNN's depthwise conv1d (TF32 off) on a
+    channel-major copy of x padded by the taps' reach, made outside the
+    timed call, with the taps reversed."""
+    from repro_torch.kernels import ref, short_conv
+    b, n, d = x.shape
+    m = f.shape[1]
+    xp = torch.nn.functional.pad(x, (0, 0, m - 1 - left, left))
+    xp = xp.transpose(1, 2).contiguous()
+    wt = f.flip(-1)[:, None, :].contiguous()
+
+    def library():
+        return torch.nn.functional.conv1d(xp, wt, groups=d)
+    want = ref.short_conv_left_ref(x, f, left)
+    lib_err = float((library().transpose(1, 2) - want).abs().max())
+    if not lib_err <= 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"conv1d is not the short conv: {lib_err}")
+    # x and the taps read once, y written once; 2 flops a (j, k) pair whose
+    # x row is in range
+    e = _kernel_entry(
+        "short_conv", "src/repro/kernels/short_conv.py:69",
+        short_conv.short_conv(x, f, left), want,
+        lambda: short_conv.short_conv(x, f, left),
+        lambda: ref.short_conv_left_ref(x, f, left), library,
+        nbytes=4 * (2 * x.numel() + f.numel()),
+        nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
+        source=SHORT_CONV_SRC)
+    print(f"[kernel] short_conv {label} x ({b}, {n}, {d}), m={m}, "
+          f"left={left}: {e} (conv1d max abs err {lib_err:.3e})", flush=True)
+    return e
+
+
+def check_interp_adjoint(device="cuda") -> None:
+    """The card's interp pair are adjoints: <Wᵀx, z> = <x, W z> within 1e-6
+    relative, at the path shape, on positive inputs (no cancellation in
+    the inner products, taken in fp64 of the kernels' fp32 outputs)."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec
+    g = torch.Generator(device=device).manual_seed(3)
+    b, n, d, r = 8, 512, 512, 64
+    x = torch.rand(b, n, d, device=device, generator=g)
+    z = torch.rand(b, r, d, device=device, generator=g)
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    lhs = float((interp_matvec.interp_reduce(x, lo, w_lo, r).double()
+                 * z.double()).sum())
+    rhs = float((x.double()
+                 * interp_matvec.interp_expand(z, lo, w_lo).double()).sum())
+    rel = abs(lhs - rhs) / abs(rhs)
+    print(f"[kernel] adjoint x ({b}, {n}, {d}), r={r}: <W^T x, z> {lhs!r}, "
+          f"<x, W z> {rhs!r}, relative difference {rel:.3e} (limit 1e-6)",
+          flush=True)
+    if not rel <= 1e-6:
+        raise AssertionError(f"interp_reduce and interp_expand are not "
+                             f"adjoint on the card: {rel}")
+
+
 def phase_ski_kernels(peaks, device="cuda") -> dict:
-    """The four SKI kernels against their plain versions at SKI_SHAPES:
-    interp_reduce and gram_grad within 1e-6 × max|plain| (sums of at most
-    2h+1 and of b terms), ski_fused_pass2 within 1e-5 × max|plain|,
-    conv_tap_grad within 1e-5 × max|plain| (4,096 terms at the path
-    shape, in another order); then pass 2 at PASS2_CEILING in both
+    """The six SKI kernels against their plain versions at SKI_SHAPES:
+    interp_reduce, interp_expand and gram_grad within 1e-6 × max|plain|
+    (sums of at most 2h+1, two and b terms), ski_fused_pass2 and short_conv
+    within 1e-5 × max|plain|, conv_tap_grad within 1e-5 × max|plain|
+    (4,096 terms at the path shape, in another order); the interp pair
+    also at r = 2 and as adjoints; then pass 2 at PASS2_CEILING in both
     orientations. Returns the entries at the path's shape."""
     from repro_torch.core import ski
-    from repro_torch.kernels import interp_matvec, ref, ski_grad
+    from repro_torch.kernels import ref, ski_grad
     g = torch.Generator(device=device).manual_seed(1)
     out = {}
     for label, b, n, d, r, m, left in SKI_SHAPES:
@@ -375,20 +488,8 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         cot = torch.randn(b, n, d, device=device, generator=g)
         gz = torch.randn(b, r, d, device=device, generator=g)
         lo, w_lo, _ = ski.make_inducing(n, r, device)
-        w = ref.dense_interp_matrix(lo, w_lo, r)
-        nnz_w = int((w != 0).sum())           # W's non-zeros at this (n, r)
-        entries = {}
-        entries["interp_reduce"] = _kernel_entry(
-            "interp_reduce", "src/repro/kernels/interp_matvec.py:65",
-            interp_matvec.interp_reduce(x, lo, w_lo, r),
-            ref.interp_reduce_ref(x, lo, w_lo, r),
-            lambda: interp_matvec.interp_reduce(x, lo, w_lo, r),
-            lambda: ref.interp_reduce_ref(x, lo, w_lo, r),
-            lambda: torch.einsum("nr,bnd->brd", w, x),
-            nbytes=4 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
-            peaks=peaks, tol=1e-6, source=SKI_SRC)
-        print(f"[kernel] interp_reduce {label} x ({b}, {n}, {d}), r={r}: "
-              f"{entries['interp_reduce']}", flush=True)
+        entries = _interp_entries(label, x, z, lo, w_lo, peaks)
+        entries["short_conv"] = _short_conv_entry(label, x, f, left, peaks)
         entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
                                                   peaks)
         # gz, z read once, dA written once; 2·b·d·r² flops
@@ -431,6 +532,12 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
               f"abs err {lib_err:.3e})", flush=True)
         if label == "path":
             out.update(entries)
+    label, b, n, d, r = INTERP_R2
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    _interp_entries(label, torch.randn(b, n, d, device=device, generator=g),
+                    torch.randn(b, r, d, device=device, generator=g), lo,
+                    w_lo, peaks)
+    check_interp_adjoint(device)
     for label, b, n, d, r, m in PASS2_CEILING:
         x = torch.randn(b, n, d, device=device, generator=g)
         z = torch.randn(b, r, d, device=device, generator=g)
@@ -483,9 +590,9 @@ def check_ski_backward(g) -> None:
             cot)
         report = _grads_close(f"SKIFusedTNO backward ({label})", got, want,
                               names)
-        if ran != {"interp_reduce": 3, "ski_fused_pass2": 2, "gram_grad": 1,
-                   "conv_tap_grad": 1, "fwd": 1, "bwd_kernel": 1,
-                   "bwd_ref": 0}:
+        if ran != {"interp_reduce": 3, "interp_expand": 0, "short_conv": 0,
+                   "ski_fused_pass2": 2, "gram_grad": 1, "conv_tap_grad": 1,
+                   "fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}:
             raise AssertionError(f"SKIFusedTNO ({label}) launched {ran}")
         print(f"[kernel] SKIFusedTNO backward ({label}) x ({b}, {n}, {d}), "
               f"r={r}, m={m} vs autograd through ref.ski_fused_tno_ref: "
@@ -494,9 +601,9 @@ def check_ski_backward(g) -> None:
             ref_got, ran = grads()
         report = _grads_close(f"SKIFusedTNO REPRO_PALLAS_GRAD=0 ({label})",
                               ref_got, got, names)
-        if ran != {"interp_reduce": 1, "ski_fused_pass2": 1, "gram_grad": 0,
-                   "conv_tap_grad": 0, "fwd": 1, "bwd_kernel": 0,
-                   "bwd_ref": 1}:
+        if ran != {"interp_reduce": 1, "interp_expand": 0, "short_conv": 0,
+                   "ski_fused_pass2": 1, "gram_grad": 0, "conv_tap_grad": 0,
+                   "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
             raise AssertionError(f"SKIFusedTNO under REPRO_PALLAS_GRAD=0 "
                                  f"({label}) launched {ran}")
         print(f"[kernel] SKIFusedTNO under REPRO_PALLAS_GRAD=0 ({label}) vs "
@@ -650,7 +757,8 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
     if not (statistics.mean(losses[-5:]) < losses[0]
             and losses[-1] < losses[0]):
         raise AssertionError(f"loss did not fall: {losses}")
-    want = {k: v * cfg.n_layers for k, v in TRAIN_LAUNCHES[mixer].items()}
+    want = {k: TRAIN_LAUNCHES[mixer].get(k, 0) * cfg.n_layers
+            for k in launches}
     want_ops = {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
                 "bwd_ref": 0}
     if end != steps or per_step != want or ops_per_step != want_ops:
@@ -671,15 +779,20 @@ def _ski_batch(cfg, b: int, s: int, device):
 def _standalone_wrappers_refuse_grad(device) -> None:
     """Each SKI kernel wrapper called on its own writes a tensor autograd
     cannot see, so on the card it refuses an input that requires grad
-    (gradients go through ops.ski_fused_tno), before any launch."""
-    from repro_torch.kernels import interp_matvec, ops, ski_fused, ski_grad
+    (gradients go through the ops entries), before any launch."""
+    from repro_torch.kernels import (interp_matvec, ops, short_conv,
+                                     ski_fused, ski_grad)
     x = torch.randn(2, 16, 8, device=device)
     z = torch.randn(2, 4, 8, device=device)
     a = torch.randn(8, 4, 4, device=device)
     f = torch.randn(8, 3, device=device)
     req = lambda t: t.clone().requires_grad_()
+    lo = torch.zeros(16, dtype=torch.int32, device=device)
     calls = {"interp_reduce": lambda: interp_matvec.interp_reduce(
                  req(x), None, None, 4),
+             "interp_expand": lambda: interp_matvec.interp_expand(
+                 req(z), lo, None),
+             "short_conv": lambda: short_conv.short_conv(x, req(f), 1),
              "ski_fused_pass2": lambda: ski_fused.ski_fused_pass2(
                  x, z, req(a), f, True),
              "gram_grad": lambda: ski_grad.gram_grad(z, req(z)),
@@ -745,9 +858,9 @@ def phase_ski_score(device) -> dict:
     _sync(device)
     launches = ops.ski_counters()
     peak = torch.cuda.max_memory_allocated(device)
-    if launches != {"interp_reduce": cfg.n_layers,
-                    "ski_fused_pass2": cfg.n_layers, "gram_grad": 0,
-                    "conv_tap_grad": 0}:
+    if launches != {"interp_reduce": cfg.n_layers, "interp_expand": 0,
+                    "short_conv": 0, "ski_fused_pass2": cfg.n_layers,
+                    "gram_grad": 0, "conv_tap_grad": 0}:
         raise AssertionError(f"one SKI forward launched {launches}")
     if not (logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab_padded)
             and bool(torch.isfinite(logits).all())):
@@ -814,6 +927,222 @@ def ski_vs_fd_op(device="cuda") -> None:
     print(f"[op] forward at x ({b}, {n}, {d}), r={r}, m={m}: ski_fused_tno "
           f"{t_ski:.5f} ms, fd_tno {t_fd:.5f} ms (ratio fd/ski "
           f"{t_fd / t_ski:.3f})", flush=True)
+
+
+# ---------------------------------------------------------- ski unfused
+#: the unfused SKI op's launches: forward, and forward + backward
+UNFUSED_FWD = {"interp_reduce": 1, "interp_expand": 1, "short_conv": 1,
+               "ski_fused_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0}
+UNFUSED_STEP = {"interp_reduce": 2, "interp_expand": 2, "short_conv": 2,
+                "ski_fused_pass2": 0, "gram_grad": 0, "conv_tap_grad": 1}
+_UNFUSED_FUNCTIONS = ("ShortConv", "InterpReduce", "InterpExpand")
+
+
+def _ski_tno(d, r, m, causal, device, seed=0, lam=0.99):
+    """(TNOConfig with fused=False, SKI parameters drawn from ``seed``)."""
+    from repro_torch.core import tno
+    from repro_torch.nn.layers import reset_parameters
+    cfg = tno.TNOConfig(d=d, variant="ski", causal=causal, lam=lam, rank=r,
+                        filter_size=m, fused=False)
+    params = tno.tno_init(cfg, device=device)
+    reset_parameters(params, torch.Generator().manual_seed(seed))
+    return cfg, params
+
+
+def _unfused_plain(params, cfg, x):
+    """The unfused SKI op through the kernels' plain versions (autograd
+    differentiates it): reduce, short conv, FFT Gram, expand."""
+    from repro_torch.core import tno, toeplitz
+    from repro_torch.kernels import ref
+    plan = tno.tno_plan(params, cfg, x.shape[1])
+    lo, w_lo, r = plan["idx_lo"], plan["w_lo"], plan["r"]
+    z = ref.interp_reduce_ref(x, lo, w_lo, r)
+    z2 = toeplitz.toeplitz_matvec(plan["a_coef"][None], z.transpose(1, 2))
+    return (ref.short_conv_ref(x, params.filt, cfg.causal)
+            + ref.interp_expand_ref(z2.transpose(1, 2), lo, w_lo))
+
+
+def _ski_grads(params, cfg, x, cot, fn=None):
+    """(y, dx, dfilt, dvals) of Σ y·cot, y = ``fn`` (default: the op through
+    ``tno_plan``/``tno_apply``, as a TNN block calls it)."""
+    from repro_torch.core import tno
+    if fn is None:
+        y = tno.tno_apply(params, cfg, x,
+                          plan=tno.tno_plan(params, cfg, x.shape[1]))
+    else:
+        y = fn(params, cfg, x)
+    return (y.detach(), *torch.autograd.grad(
+        y, (x, params.filt, params.rpe.vals), cot))
+
+
+def phase_ski_unfused(device="cuda") -> dict:
+    """The unfused SKI-TNO (``TNOConfig(variant="ski", fused=False)``)
+    forward and backward at x (8, 512, 512) and ski-tnn-lm-wt103's SKI
+    width (d=512, r=64, m=32, parameters from seed 0), causal and
+    bidirectional: y and the gradients of Σ y·g for x, the taps and the
+    RPE values against the fused op within 1e-4 × max (the fused-vs-unfused
+    tier of tests/test_ski_fused.py: dense Gram against FFT Gram) and
+    against autograd through the plain versions within 1e-5 × max (the
+    fp32 tier); y against the same call on the CPU within 1e-5 × max|y|;
+    the launches exactly UNFUSED_FWD / UNFUSED_STEP and one kernel backward
+    each of ShortConv, InterpReduce and InterpExpand; under
+    REPRO_PALLAS_GRAD=0 one reference backward each, no kernel launched
+    in the backward and the same gradients. Returns the launches of the
+    two forward + backward runs (the path's counts)."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import tno
+    from repro_torch.kernels import ops
+    arch = get_config("ski-tnn-lm-wt103")
+    b, n, d, r, m = 8, 512, arch.d_model, arch.tno_rank, arch.tno_filter
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn(b, n, d, device=device, generator=g, requires_grad=True)
+    cot = torch.randn(b, n, d, device=device, generator=g)
+    names = ("y", "dx", "dfilt", "dvals")
+    path = {k: 0 for k in UNFUSED_STEP}
+    for causal in (True, False):
+        tag = "causal" if causal else "bidirectional"
+        cfg, params = _ski_tno(d, r, m, causal, device, lam=arch.tno_lam)
+        ops.reset_ski_counters()
+        plan = tno.tno_plan(params, cfg, n)
+        y = tno.tno_apply(params, cfg, x, plan=plan)
+        fwd = ops.ski_counters()
+        grads = torch.autograd.grad(y, (x, params.filt, params.rpe.vals), cot)
+        step, op_counts = ops.ski_counters(), ops.ski_op_counters()
+        got = (y.detach(), *grads)
+        for k, v in step.items():
+            path[k] += v
+        want_ops = {name: {"fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}
+                    for name in _UNFUSED_FUNCTIONS}
+        want_ops["SKIFusedTNO"] = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+        if fwd != UNFUSED_FWD or step != UNFUSED_STEP or op_counts != want_ops:
+            raise AssertionError(f"unfused SKI ({tag}) launched {fwd} forward,"
+                                 f" {step} in all, Functions {op_counts}")
+        print(f"[unfused] {tag} x ({b}, {n}, {d}), r={r}, m={m}: launches "
+              f"forward {fwd}, forward + backward {step}; Functions "
+              f"{op_counts}", flush=True)
+        fused = _ski_grads(params, dataclasses.replace(cfg, fused=True), x,
+                           cot)
+        report = _grads_close(f"unfused vs fused ({tag})", got, fused, names,
+                              tol=1e-4)
+        print(f"[unfused] {tag} vs the fused op: {report}", flush=True)
+        plain = _ski_grads(params, cfg, x, cot, fn=_unfused_plain)
+        report = _grads_close(f"unfused vs plain ({tag})", got, plain, names)
+        print(f"[unfused] {tag} vs autograd through the plain versions: "
+              f"{report}", flush=True)
+        with torch.no_grad():
+            cpu_params = copy.deepcopy(params).cpu()
+            want = tno.tno_apply(cpu_params, cfg, x.detach().cpu())
+        report = _grads_close(f"unfused card vs CPU ({tag})",
+                              (y.detach().cpu(),),
+                              (want,), ("y",))
+        print(f"[unfused] {tag} card vs CPU: {report}", flush=True)
+        ops.reset_ski_counters()
+        with reference_grad():
+            ref_got = _ski_grads(params, cfg, x, cot)
+        step, op_counts = ops.ski_counters(), ops.ski_op_counters()
+        want_ops = {name: {"fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}
+                    for name in _UNFUSED_FUNCTIONS}
+        want_ops["SKIFusedTNO"] = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+        if step != UNFUSED_FWD or op_counts != want_ops:
+            raise AssertionError(f"unfused SKI ({tag}) under "
+                                 f"REPRO_PALLAS_GRAD=0 launched {step}, "
+                                 f"Functions {op_counts}")
+        report = _grads_close(f"unfused REPRO_PALLAS_GRAD=0 ({tag})",
+                              ref_got, got, names)
+        print(f"[unfused] {tag} under REPRO_PALLAS_GRAD=0 vs the kernel "
+              f"backward: {report}; launches {step} (the forward's only)",
+              flush=True)
+    return path
+
+
+def ski_unfused_times(device="cuda") -> None:
+    """The repo's SKI benchmark shapes (benchmarks/bench_ski_components.py:
+    b=4, d=64, r=64, m=32, bidirectional): fused and unfused forward (plan
+    built beforehand) and grad of Σy for x, the taps and the RPE values
+    (plan built inside) at n = 2048 and 8192; Figure 11's three forwards
+    at n = 2048 (both components through the unfused op, low rank only:
+    reduce, FFT Gram, expand; sparse only: short_conv). Recorded, not
+    claimed."""
+    import dataclasses
+    from repro_torch.core import ski, tno, toeplitz
+    from repro_torch.kernels import ops
+    b, d, r, m = 4, 64, 64, 32
+    g = torch.Generator(device=device).manual_seed(5)
+    cfg_u, params = _ski_tno(d, r, m, False, device)
+    cfg_f = dataclasses.replace(cfg_u, fused=True)
+    leaves = (params.filt, params.rpe.vals)
+    times = {}
+    for n in (2048, 8192):
+        x = torch.randn(b, n, d, device=device, generator=g)
+        xg = x.clone().requires_grad_()
+        for name, cfg in (("fused", cfg_f), ("unfused", cfg_u)):
+            with torch.inference_mode():
+                plan = tno.tno_plan(params, cfg, n)
+                times[f"n{n}/{name}_fwd"] = time_ms(
+                    lambda: tno.tno_apply(params, cfg, x, plan=plan))
+
+            def grad():
+                y = tno.tno_apply(params, cfg, xg,
+                                  plan=tno.tno_plan(params, cfg, n))
+                return torch.autograd.grad(y.sum(), (xg, *leaves))
+            times[f"n{n}/{name}_grad"] = time_ms(grad)
+    n = 2048
+    x = torch.randn(b, n, d, device=device, generator=g)
+    lo, w_lo, h = ski.make_inducing(n, r, device)
+    scfg = cfg_u.ski_cfg()
+
+    def low_only():
+        z = ops.interp_reduce(x, lo, w_lo, r)
+        a_coef = ski.inducing_gram_coeffs(params, scfg, r, h)
+        z2 = toeplitz.toeplitz_matvec(a_coef[None], z.transpose(1, 2))
+        return ops.interp_expand(z2.transpose(1, 2).contiguous(), lo, w_lo)
+    with torch.inference_mode():
+        times["fig11/both"] = time_ms(lambda: tno.tno_apply(params, cfg_u, x))
+        times["fig11/low_rank_only"] = time_ms(low_only)
+        times["fig11/sparse_only"] = time_ms(
+            lambda: ops.short_conv(x, params.filt, False))
+    print(f"[unfused] times ms (b={b}, d={d}, r={r}, m={m}, bidirectional, "
+          f"CUDA-event medians of 50, L2 evicted): {json.dumps(times)}",
+          flush=True)
+
+
+def causal_ski_vs_fd(device="cuda") -> None:
+    """Appendix B at benchmarks/bench_appendix_b.py's shape (b=2, d=32,
+    m=16, r=64, n=2048): ``causal_ski_lowrank`` against the masked dense
+    oracle tril(W A Wᵀ) x in fp64 within 1e-5 × max (a cumulative sum of
+    2,048 fp32 rows), timed beside the causal FD-TNO (its RPE included, as
+    the benchmark times it). Recorded, not claimed."""
+    from repro_torch.core import fd, ski, toeplitz
+    from repro_torch.core.causal_ski import causal_ski_lowrank
+    from repro_torch.kernels import ref
+    from repro_torch.nn.layers import reset_parameters
+    b, n, d, r, m = 2, 2048, 32, 64, 16
+    scfg = ski.SKIConfig(d, rank=r, filter_size=m)
+    sparams = ski.ski_init(scfg, device=device)
+    reset_parameters(sparams, torch.Generator().manual_seed(0))
+    fcfg = fd.FDConfig(d)
+    fparams = fd.fd_init(fcfg, device=device)
+    reset_parameters(fparams, torch.Generator().manual_seed(0))
+    x = torch.randn(b, n, d, device=device,
+                    generator=torch.Generator(device=device).manual_seed(6))
+    with torch.inference_mode():
+        y = causal_ski_lowrank(sparams, scfg, x)
+        lo, w_lo, h = ski.make_inducing(n, r, device)
+        w = ref.dense_interp_matrix(lo, w_lo, r).double()
+        a = toeplitz.dense_toeplitz(
+            ski.inducing_gram_coeffs(sparams, scfg, r, h), r).double()
+        t_masked = torch.tril(torch.einsum("nr,drs,ms->dnm", w, a, w))
+        want = torch.einsum("dnm,bmd->bnd", t_masked, x.double())
+        report = _grads_close("causal_ski_lowrank vs the masked oracle",
+                              (y.double(),), (want,), ("y",))
+        t_ski = time_ms(lambda: causal_ski_lowrank(sparams, scfg, x))
+        t_fd = time_ms(lambda: fd.fd_tno_apply(fparams, fcfg, x))
+    print(f"[unfused] Appendix B x ({b}, {n}, {d}), r={r}: "
+          f"causal_ski_lowrank vs tril(W A W^T) x: {report}; "
+          f"causal_ski_lowrank {t_ski:.5f} ms, causal fd_tno_apply "
+          f"{t_fd:.5f} ms (ratio {t_ski / t_fd:.3f})", flush=True)
 
 
 # --------------------------------------------------------------- phase 7
@@ -944,13 +1273,18 @@ def main() -> int:
                                      TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
                                      mixer="ski")
     ski_vs_fd_op()
+    unfused_launches = phase_ski_unfused()
+    ski_unfused_times()
+    causal_ski_vs_fd()
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
              "train": (train_launches, tuple(TRAIN_LAUNCHES["fd"])),
              "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),
              "ski_train": (ski_train_launches,
-                           tuple(TRAIN_LAUNCHES["ski"]))}
+                           tuple(TRAIN_LAUNCHES["ski"])),
+             "ski_unfused": (unfused_launches,
+                             tuple(k for k, v in UNFUSED_STEP.items() if v))}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

@@ -2,8 +2,8 @@
 6 decoder layers, d=512) with the token mixer selectable between baseline
 TNO / SKI-TNO / FD-TNO. GTU+GLU realised as mixer+ffn. Copy of
 ``repro/configs/tnn_lm.py``. The port runs the ``fd`` mixer (serving and
-training) and the ``ski`` mixer (forward only on the card so far);
-``core/tno.py`` raises for the baseline ``tno``."""
+training) and the ``ski`` mixer (scoring and training; no decode, as in
+the JAX package); ``core/tno.py`` raises for the baseline ``tno``."""
 import dataclasses
 
 from repro_torch.configs.base import register

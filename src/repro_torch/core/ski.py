@@ -1,5 +1,6 @@
 """Sparse + low-rank TNO via asymmetric SKI (paper §3.2, Algorithm 1),
-counterpart of ``repro/core/ski.py`` with the dense fused pipeline.
+counterpart of ``repro/core/ski.py`` with the dense fused and the unfused
+pipelines.
 
 ``T ≈ T_sparse + W A Wᵀ`` where
 
@@ -9,12 +10,20 @@ counterpart of ``repro/core/ski.py`` with the dense fused pipeline.
   are uniform, materialised dense per channel, (d, r, r);
 * ``W`` is the banded linear-interpolation matrix (≤ 2 non-zeros a row).
 
-The op is the two-pass fused form, ``ops.ski_fused_tno``: pass 1
-``interp_reduce`` (z = Wᵀx), pass 2 one kernel for A z, W z₂ and the
-short conv with a single write. Only the "dense" Gram variant of
-``backend.ski_rank_variant`` is ported: the large-rank "windowed" and
-"fft" variants and the unfused four-kernel form raise (ROADMAP Queue 1
-item 7 and Queue 2 rows 4, 6).
+Two pipelines compute it, forward and backward, on the card and on the
+CPU:
+
+* fused (``SKIConfig.fused``, the default): ``ops.ski_fused_tno``, pass 1
+  ``interp_reduce`` (z = Wᵀx), pass 2 one kernel for A z, W z₂ and the
+  short conv with a single write; the Gram is dense, (d, r, r);
+* unfused (``fused=False``, the paper's baseline): ``ops.interp_reduce``,
+  ``ops.short_conv``, the Gram matvec A z by FFT over the r inducing
+  points (``toeplitz.toeplitz_matvec`` of the (d, 2r-1) coefficients) and
+  ``ops.interp_expand``, each op differentiable on its own.
+
+Of the fused rank variants of ``backend.ski_rank_variant`` only "dense" is
+ported: the large-rank "windowed" and "fft" variants raise (ROADMAP
+Queue 1 item 7).
 
 Forward-invariant pieces (inducing geometry, warped lag grid, the Gram)
 are grouped in a :func:`ski_plan`, built once per layer per forward; the
@@ -39,8 +48,6 @@ _NOT_PORTED = {
                 "ported yet (ROADMAP Queue 1 item 7)",
     "fft": "the large-rank SKI variants (windowed, fft) are not ported yet "
            "(ROADMAP Queue 1 item 7)",
-    "unfused": "the unfused SKI pipeline (short_conv, interp_expand: "
-               "ROADMAP Queue 2 rows 4, 6) is not ported; use fused=True",
 }
 
 
@@ -51,7 +58,7 @@ class SKIConfig:
     filter_size: int = 32     # m sparse diagonals
     lam: float = 0.99         # inverse-time-warp decay
     grid_size: int = 129      # interp-RPE grid nodes on [-1, 1]
-    fused: bool = True        # two-pass fused pipeline (the only one ported)
+    fused: bool = True        # two-pass fused pipeline (False: unfused)
 
 
 @functools.lru_cache(maxsize=128)
@@ -124,9 +131,10 @@ def inducing_gram_coeffs(params: SKIParams, cfg: SKIConfig, r: int,
 def ski_plan(params: SKIParams, cfg: SKIConfig, n: int, causal: bool = False,
              variant: str | None = None) -> dict:
     """Everything invariant across ops within a forward: the inducing
-    geometry, the Gram coefficients, the variant and the dense (d, r, r)
-    Gram. ``variant`` overrides ``backend.ski_rank_variant``; only
-    "dense" is ported, and any other variant raises here."""
+    geometry, the Gram coefficients, the variant ("dense" or "unfused") and,
+    for "dense", the (d, r, r) Gram. ``variant`` overrides
+    ``backend.ski_rank_variant`` (or "unfused" when ``cfg.fused`` is
+    False); "windowed" and "fft" are not ported and raise here."""
     r = min(cfg.rank, n)
     device = params.filt.device
     idx_lo, w_lo, h = make_inducing(n, r, device)
@@ -136,22 +144,25 @@ def ski_plan(params: SKIParams, cfg: SKIConfig, n: int, causal: bool = False,
     if variant is None:
         variant = (backend.ski_rank_variant(r, cfg.d) if cfg.fused
                    else "unfused")
-    if variant != "dense":
-        if variant in _NOT_PORTED:
-            raise NotImplementedError(_NOT_PORTED[variant])
+    if variant in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[variant])
+    if variant not in ("dense", "unfused"):
         raise ValueError(f"unknown SKI variant {variant!r}")
-    return {"r": r, "h": h, "idx_lo": idx_lo, "w_lo": w_lo,
-            "causal": causal, "a_coef": a_coef, "variant": variant,
-            "a_dense": toeplitz.dense_toeplitz(a_coef, r)}     # (d, r, r)
+    plan = {"r": r, "h": h, "idx_lo": idx_lo, "w_lo": w_lo,
+            "causal": causal, "a_coef": a_coef, "variant": variant}
+    if variant == "dense":
+        plan["a_dense"] = toeplitz.dense_toeplitz(a_coef, r)  # (d, r, r)
+    return plan
 
 
 def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
                   causal: bool = False, plan: dict | None = None
                   ) -> torch.Tensor:
-    """x: (b, n, d) -> (b, n, d) through ``ops.ski_fused_tno``.
-    Bidirectional by default, as in the JAX package; the decoder LM runs
-    it causal. ``plan`` — optional :func:`ski_plan` built with the same
-    ``causal`` flag and n; a stale plan raises."""
+    """x: (b, n, d) -> (b, n, d) through the fused ``ops.ski_fused_tno``
+    or, for an "unfused" plan, the four unfused ops. Bidirectional by
+    default, as in the JAX package; the decoder LM runs it causal.
+    ``plan`` — optional :func:`ski_plan` built with the same ``causal``
+    flag and n; a stale plan raises."""
     n = x.shape[1]
     if plan is None:
         plan = ski_plan(params, cfg, n, causal)
@@ -161,9 +172,17 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
         raise ValueError(
             f"plan mismatch: built for causal={plan['causal']}, "
             f"n={plan['idx_lo'].shape[0]}; called with causal={causal}, n={n}")
-    y = ops.ski_fused_tno(x, plan["a_dense"], params.filt, plan["idx_lo"],
-                          plan["w_lo"], plan["r"], causal)
-    return y.to(x.dtype)
+    r, idx_lo, w_lo = plan["r"], plan["idx_lo"], plan["w_lo"]
+    if plan["variant"] == "dense":
+        y = ops.ski_fused_tno(x, plan["a_dense"], params.filt, idx_lo, w_lo,
+                              r, causal)
+        return y.to(x.dtype)
+    # unfused: four ops, each differentiable on its own
+    z = ops.interp_reduce(x, idx_lo, w_lo, r)                 # (b, r, d)
+    y_sparse = ops.short_conv(x, params.filt, causal)
+    z2 = toeplitz.toeplitz_matvec(plan["a_coef"][None], z.transpose(1, 2))
+    y_low = ops.interp_expand(z2.transpose(1, 2).contiguous(), idx_lo, w_lo)
+    return (y_sparse + y_low).to(x.dtype)
 
 
 def ski_dense_oracle(params: SKIParams, cfg: SKIConfig,

@@ -1,7 +1,8 @@
 """Toeplitz Neural Operator — unified dispatch over the paper's variants,
 counterpart of ``repro/core/tno.py``. The ``fd`` (causal) and ``ski``
-(dense fused Gram) variants are ported; ``tno`` (the baseline) raises,
-naming the ROADMAP item that ports it."""
+(fused dense Gram, or the unfused pipeline with ``fused=False``) variants
+are ported; ``tno`` (the baseline) raises, naming the ROADMAP item that
+ports it."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,7 +31,7 @@ class TNOConfig:
     rank: int = 64
     filter_size: int = 32
     grid_size: int = 129
-    fused: bool = True          # SKI: two-pass fused pipeline
+    fused: bool = True          # SKI: fused two-pass (False: unfused)
 
     def fd_cfg(self) -> fd.FDConfig:
         if not self.causal:

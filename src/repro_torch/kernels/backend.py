@@ -42,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
 SOURCES = {"fd_fused": _CSRC / "fd_fused.cu", "ski": _CSRC / "ski.cu",
-           "ski_grad": _CSRC / "ski_grad.cu"}
+           "ski_grad": _CSRC / "ski_grad.cu",
+           "short_conv": _CSRC / "short_conv.cu"}
 
 
 # ---------------------------------------------------------- serving knobs

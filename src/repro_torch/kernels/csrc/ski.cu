@@ -1,5 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels of the dense fused SKI-TNO forward
-// (paper §3.2, Algorithm 1): y = W (A (W^T x)) + T_sparse x, bound to
+// Hand-written Hopper (sm_90a) kernels of the SKI-TNO forward (paper §3.2,
+// Algorithm 1): y = W (A (W^T x)) + T_sparse x, fused (interp_reduce, then
+// ski_fused_pass2) or unfused (interp_reduce, the Gram by FFT outside the
+// kernels, interp_expand; the short conv in csrc/short_conv.cu), bound to
 // PyTorch through a plain C interface (ctypes) by
 // src/repro_torch/kernels/interp_matvec.py and ski_fused.py. x, y are
 // (b, n, d) fp32, z = W^T x is (b, r, d), A is the (d, r, r) per-channel
@@ -8,7 +10,7 @@
 // W is the linear interpolation onto r uniform inducing points with spacing
 // h = (n-1)/(r-1): row i has two taps, w_lo on node lo = floor(i/h) and
 // 1 - w_lo on lo + 1, with lo clamped to [0, r-2] and w_lo = 1 - (i/h - lo)
-// clamped to [0, 1]. Both kernels regenerate it from (n, r) in fp32 exactly
+// clamped to [0, 1]. The kernels regenerate it from (n, r) in fp32 exactly
 // as make_inducing (src/repro/core/ski.py) builds it: f = float(i) / hf with
 // hf = float32(h) (IEEE division, no fast math), so no weight is read and
 // the weights equal the plain version's bit for bit. (The Pallas kernels'
@@ -34,6 +36,25 @@
 //   the fp32 division runs once per row and block, not once per thread: a
 //   first version that divided in every thread took 13.9 us on an H100,
 //   bound by instruction issue.
+//
+// interp_expand  replaces src/repro/kernels/interp_matvec.py _expand_kernel /
+//   _expand_call (interp_expand_pallas): y[b, i, c] = sum_j W[i, j] z[b, j, c],
+//   the adjoint of interp_reduce and the unfused SKI pipeline's last step.
+//   The TPU kernel contracts a dense (bn, r) hat block with the whole z on
+//   the MXU. Here row i reads only its two nodes: y = w_lo z[lo] +
+//   (1 - w_lo) z[lo + 1], with (lo, w_lo) from hat_row, the same weights as
+//   interp_reduce's bit for bit, so the two stay exact adjoints (the TPU
+//   kernels' unclamped hat differs at the last row, see above).
+//   Bound: z read once and y written once, 4 (b r d + b n d) bytes; 3 flops
+//   an output. At (8, 512, 512), r = 64: 9,437,184 bytes, 2.82 us at
+//   3.35 TB/s (H100 SXM): bound by bytes, nine tenths of it the write of y.
+//   Design: a block owns 8 rows of one batch row; its first threads compute
+//   the 8 rows' (lo, w_lo) into shared memory (one division a row), then the
+//   256 threads sweep the rows' channels, 4 at a time with 16-byte loads and
+//   stores when d % 4 == 0 (z and y 16-byte aligned), else one at a time.
+//   z (1 MB at the path shape) stays in L2 for the neighbouring rows that
+//   re-read its nodes. Every n >= 2 and 2 <= r <= n, r = n and r = 2
+//   included, runs here: no fallback.
 //
 // ski_fused_pass2  replaces src/repro/kernels/ski_fused.py _fused_kernel /
 //   _fused_call (ski_fused_pass2_pallas):
@@ -84,6 +105,8 @@
 namespace {
 
 constexpr int kReduceThreads = 128;
+constexpr int kExpandThreads = 256;
+constexpr int kExpandRows = 8;   // rows of y an interp_expand block writes
 constexpr int kLanes = 32;       // (batch row, channel) columns of a block
 constexpr int kZ2Pitch = kLanes + 1;
 constexpr int kMaxCB = 8;        // batch rows of a pass-2 block, at most
@@ -141,6 +164,51 @@ __global__ void __launch_bounds__(kReduceThreads)
     __syncthreads();
   }
   if (c < d) z[(bi * r + j) * d + c] = acc;
+}
+
+__global__ void __launch_bounds__(kExpandThreads)
+    interp_expand_kernel(const float* __restrict__ z, float* __restrict__ y,
+                         long long n, long long d, int r, float hf,
+                         bool vec4) {
+  __shared__ int slo[kExpandRows];         // node lo of the block's rows
+  __shared__ float sw[kExpandRows];        // and w_lo
+  const long long i0 = blockIdx.x * (long long)kExpandRows;
+  const long long bi = blockIdx.y;
+  const int rows = n - i0 < kExpandRows ? (int)(n - i0) : kExpandRows;
+  if ((int)threadIdx.x < rows) {
+    float w_lo;
+    slo[threadIdx.x] = hat_row(i0 + threadIdx.x, hf, r, w_lo);
+    sw[threadIdx.x] = w_lo;
+  }
+  __syncthreads();
+  const float* zb = z + bi * r * d;
+  float* yb = y + (bi * n + i0) * d;
+  if (vec4) {
+    const long long d4 = d / 4;
+    for (long long e = threadIdx.x; e < rows * d4; e += kExpandThreads) {
+      const int q = (int)(e / d4);
+      const long long c4 = e - q * d4;
+      const float wl = sw[q], wh = 1.f - wl;
+      const float4 a = __ldg(reinterpret_cast<const float4*>(
+                                 zb + slo[q] * d) + c4);
+      const float4 b = __ldg(reinterpret_cast<const float4*>(
+                                 zb + (slo[q] + 1) * d) + c4);
+      float4 o;
+      o.x = wl * a.x + wh * b.x;
+      o.y = wl * a.y + wh * b.y;
+      o.z = wl * a.z + wh * b.z;
+      o.w = wl * a.w + wh * b.w;
+      reinterpret_cast<float4*>(yb + q * d)[c4] = o;
+    }
+    return;
+  }
+  for (long long e = threadIdx.x; e < rows * d; e += kExpandThreads) {
+    const int q = (int)(e / d);
+    const long long c = e - q * d;
+    const float wl = sw[q];
+    yb[q * d + c] = wl * __ldg(zb + slo[q] * d + c) +
+                    (1.f - wl) * __ldg(zb + (slo[q] + 1) * d + c);
+  }
 }
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid (src is
@@ -409,6 +477,24 @@ int interp_reduce_f32(const void* x, void* z, long long b, long long n,
   interp_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
       static_cast<const float*>(x), static_cast<float*>(z), n, d, (int)r, h,
       hf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// z: (b, r, d), y: (b, n, d) contiguous fp32 on the device; 2 <= r <= n and
+// hf = float32((n-1)/(r-1)). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue when the grid exceeds its bounds.
+int interp_expand_f32(const void* z, void* y, long long b, long long n,
+                      long long d, long long r, float hf, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (n + kExpandRows - 1) / kExpandRows;
+  if (blocks > 2147483647LL || b > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  const dim3 grid((unsigned)blocks, (unsigned)b);
+  interp_expand_kernel<<<grid, kExpandThreads, 0, s>>>(
+      static_cast<const float*>(z), static_cast<float*>(y), n, d, (int)r, hf,
+      vec4);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,19 +1,31 @@
-"""SKI's interpolation reduce z = Wᵀx (paper §3.2.1) with the hand-written
-CUDA kernel of ``csrc/ski.cu``, counterpart of the ``interp_reduce`` half
-of ``repro/kernels/interp_matvec.py`` (replaces the Pallas
-``_reduce_kernel`` / ``_reduce_call``).
+"""SKI's interpolation pair (paper §3.2.1) with the hand-written CUDA
+kernels of ``csrc/ski.cu``, counterpart of ``repro/kernels/interp_matvec.py``:
+
+* :func:`interp_reduce` — z = Wᵀx, (b, n, d) → (b, r, d) (replaces the
+  Pallas ``_reduce_kernel`` / ``_reduce_call``);
+* :func:`interp_expand` — y = W z, (b, r, d) → (b, n, d) (replaces
+  ``_expand_kernel`` / ``_expand_call``).
 
 Because the inducing points are uniform, W is the hat function
-max(0, 1 - |i/h - j|) with h = (n-1)/(r-1); the kernel regenerates it
-from (n, r) and reads no weights. The wrapper takes the plain version
-(``ref.interp_reduce_ref``, the dense hat contraction) for a CPU tensor
-and launches the kernel for a CUDA tensor, counting the launch in
-:data:`counters`; another device, dtype or layout raises. On the card
-the kernel writes a tensor that autograd cannot see, so called on its own
-it refuses an input that requires grad while grad is enabled; gradients
-go through ``ops.ski_fused_tno`` (``ski_vjp.SKIFusedTNO``), whose forward
-and backward launch it. ``interp_expand`` (y = W z) is not on the dense
-fused path.
+max(0, 1 - |i/h - j|) with h = (n-1)/(r-1); both kernels regenerate its
+clamped two-tap rows from (n, r), bit for bit the plain versions' weights,
+and read no weights, so they are exact adjoints of each other. Each
+wrapper takes the plain version (``ref.interp_reduce_ref``,
+``ref.interp_expand_ref``, the dense hat contractions) for a CPU tensor
+and launches its kernel for a CUDA tensor, counting the launch in
+:data:`counters`; another device, dtype or layout raises. On the card a
+kernel writes a tensor that autograd cannot see, so a wrapper called on
+its own refuses an input that requires grad while grad is enabled.
+
+The differentiable forms are :class:`InterpReduce` and
+:class:`InterpExpand` (``ops.interp_reduce``, ``ops.interp_expand``), as
+the JAX custom VJPs: W has no parameters, so each is residual-free and
+its backward is one launch of the other kernel. Both run on both devices
+(on the CPU over the plain versions); :data:`reduce_op_counters` and
+:data:`expand_op_counters` count their differentiated forwards and which
+backward ran, and ``REPRO_PALLAS_GRAD=0`` returns autograd's cotangents
+through the plain version instead. ``SKIFusedTNO`` calls the kernel-level
+:func:`interp_reduce` itself, so the fused path counts no Function here.
 """
 from __future__ import annotations
 
@@ -22,15 +34,23 @@ import functools
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import backend, ref
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"interp_reduce": 0}
+counters = {"interp_reduce": 0, "interp_expand": 0}
+#: differentiated forwards (grad enabled and an input that requires grad)
+#: and backwards (the kernel, or autograd through the plain version) of
+#: :class:`InterpReduce` and of :class:`InterpExpand`
+reduce_op_counters = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+expand_op_counters = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+
 
 def reset_counters() -> None:
-    for k in counters:
-        counters[k] = 0
+    for d in (counters, reduce_op_counters, expand_op_counters):
+        for k in d:
+            d[k] = 0
 
 
 def forward_only(what: str, *ts: torch.Tensor) -> None:
@@ -39,7 +59,8 @@ def forward_only(what: str, *ts: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             f"{what}: the CUDA kernel on its own is forward-only; "
-            "differentiate through ops.ski_fused_tno (SKIFusedTNO), whose "
+            "differentiate through the ops entry (ops.ski_fused_tno, "
+            "ops.short_conv, ops.interp_reduce, ops.interp_expand), whose "
             "backward runs the kernels, or call it under torch.no_grad()")
 
 
@@ -60,6 +81,9 @@ def _lib() -> ctypes.CDLL:
     lib.interp_reduce_f32.argtypes = [p, p, i64, i64, i64, i64,
                                       ctypes.c_double, ctypes.c_float, p]
     lib.interp_reduce_f32.restype = ctypes.c_int
+    lib.interp_expand_f32.argtypes = [p, p, i64, i64, i64, i64,
+                                      ctypes.c_float, p]
+    lib.interp_expand_f32.restype = ctypes.c_int
     return lib
 
 
@@ -88,3 +112,97 @@ def interp_reduce(x: torch.Tensor, idx_lo: torch.Tensor | None,
     backend.check(lib, rc, "interp_reduce")
     counters["interp_reduce"] += 1
     return z
+
+
+def interp_expand(z: torch.Tensor, idx_lo: torch.Tensor,
+                  w_lo: torch.Tensor | None) -> torch.Tensor:
+    """y = W z: z (b, r, d) -> (b, n, d), n = ``idx_lo.shape[0]``. The
+    geometry's values feed the plain version only; the kernel regenerates
+    the weights from (n, r). CPU: :func:`ref.interp_expand_ref`."""
+    if z.device.type == "cpu":
+        return ref.interp_expand_ref(z, idx_lo, w_lo)
+    forward_only("interp_expand", z)
+    backend.require_cuda(z, "interp_expand z", torch.float32)
+    if z.dim() != 3 or z.numel() == 0:
+        raise ValueError(f"interp_expand: z {tuple(z.shape)} is not a "
+                         "non-empty (b, r, d)")
+    b, r, d = z.shape
+    n = int(idx_lo.shape[0])
+    _, hf = hat_spacing(n, r)
+    if b > 65535:                         # grid (row blocks, b)
+        raise ValueError(f"interp_expand: b={b} over 65535")
+    y = torch.empty((b, n, d), dtype=torch.float32, device=z.device)
+    lib = _lib()
+    with torch.cuda.device(z.device):
+        rc = lib.interp_expand_f32(z.data_ptr(), y.data_ptr(), b, n, d, r,
+                                   hf, backend.stream(z))
+    backend.check(lib, rc, "interp_expand")
+    counters["interp_expand"] += 1
+    return y
+
+
+class InterpReduce(torch.autograd.Function):
+    """z = Wᵀ x; the backward is one :func:`interp_expand` launch."""
+
+    @staticmethod
+    def forward(ctx, x, idx_lo, w_lo, r):
+        ctx.save_for_backward(idx_lo, w_lo)       # the geometry, no residual
+        ctx.r = r
+        return interp_reduce(x, idx_lo, w_lo, r)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx_lo, w_lo = ctx.saved_tensors
+        r = ctx.r
+        if not backend.resolve_pallas_grad():
+            # the op is linear: autograd's cotangent is the same at any
+            # input, so a zero (b, n, d) input stands in for x
+            reduce_op_counters["bwd_ref"] += 1
+            (dx,) = backend.ref_cotangents(
+                lambda t: ref.interp_reduce_ref(t, idx_lo, w_lo, r),
+                (g.new_zeros((g.shape[0], idx_lo.shape[0], g.shape[2])),), g)
+            return dx, None, None, None
+        reduce_op_counters["bwd_kernel"] += 1
+        return interp_expand(g.contiguous(), idx_lo, w_lo), None, None, None
+
+
+class InterpExpand(torch.autograd.Function):
+    """y = W z; the backward is one :func:`interp_reduce` launch."""
+
+    @staticmethod
+    def forward(ctx, z, idx_lo, w_lo):
+        ctx.save_for_backward(idx_lo, w_lo)       # the geometry, no residual
+        ctx.r = z.shape[1]
+        return interp_expand(z, idx_lo, w_lo)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        idx_lo, w_lo = ctx.saved_tensors
+        r = ctx.r
+        if not backend.resolve_pallas_grad():
+            # linear: a zero (b, r, d) input stands in for z
+            expand_op_counters["bwd_ref"] += 1
+            (dz,) = backend.ref_cotangents(
+                lambda t: ref.interp_expand_ref(t, idx_lo, w_lo),
+                (g.new_zeros((g.shape[0], r, g.shape[2])),), g)
+            return dz, None, None
+        expand_op_counters["bwd_kernel"] += 1
+        return interp_reduce(g.contiguous(), idx_lo, w_lo, r), None, None
+
+
+def interp_reduce_op(x: torch.Tensor, idx_lo: torch.Tensor,
+                     w_lo: torch.Tensor, r: int) -> torch.Tensor:
+    """z = Wᵀ x, differentiable in x through :class:`InterpReduce`."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        reduce_op_counters["fwd"] += 1
+    return InterpReduce.apply(x, idx_lo, w_lo, r)
+
+
+def interp_expand_op(z: torch.Tensor, idx_lo: torch.Tensor,
+                     w_lo: torch.Tensor) -> torch.Tensor:
+    """y = W z, differentiable in z through :class:`InterpExpand`."""
+    if torch.is_grad_enabled() and z.requires_grad:
+        expand_op_counters["fwd"] += 1
+    return InterpExpand.apply(z, idx_lo, w_lo)

@@ -2,13 +2,18 @@
 
 There is no backend switch: a CPU tensor runs the plain torch version and
 a CUDA tensor the hand-written kernels (see ``kernels/fd_fused.py``,
-``kernels/interp_matvec.py``, ``kernels/ski_fused.py``,
-``kernels/ski_grad.py`` and ``kernels/ski_vjp.py``).
+``kernels/interp_matvec.py``, ``kernels/short_conv.py``,
+``kernels/ski_fused.py``, ``kernels/ski_grad.py`` and
+``kernels/ski_vjp.py``). As the JAX entries go through their custom VJPs,
+the differentiable entries here go through autograd Functions whose
+backwards launch kernels (``fd_tno``, ``short_conv``, ``interp_reduce``,
+``interp_expand``, ``ski_fused_tno``); ``ski_fused_pass2`` is
+forward-only on the card.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (fd_fused, interp_matvec, ski_fused,
-                                  ski_grad, ski_vjp)
+from repro_torch.kernels import (fd_fused, interp_matvec, short_conv as sc,
+                                  ski_fused, ski_grad, ski_vjp)
 
 
 def fd_tno(x, khat_real):
@@ -25,13 +30,37 @@ def fd_tno(x, khat_real):
     return fd_fused.fd_tno(x, khat_real)
 
 
+def short_conv(x, filt, causal: bool, left: int | None = None):
+    """Depthwise short conv, the m-tap sparse Toeplitz part of SKI.
+
+    x (b, n, d); filt (d, m) per-channel taps; returns (b, n, d).
+    ``causal=True`` convolves lags 0..m-1, ``False`` centres the taps
+    (left = m//2); ``left`` overrides the offset. Differentiable in (x,
+    filt) through ``short_conv.ShortConv``: the backward is the same
+    kernel with the taps flipped and the offset mirrored for dx, and
+    ``conv_tap_grad`` for df."""
+    if left is None:
+        left = 0 if causal else filt.shape[-1] // 2
+    return sc.short_conv_op(x, filt, left)
+
+
 def interp_reduce(x, idx_lo, w_lo, r: int):
     """z = Wᵀ x, projecting n positions onto r uniform inducing points.
     x (b, n, d); idx_lo (n,) / w_lo (n,) the inducing geometry (plain
     version only: the CUDA kernel regenerates the hat weights from (n, r));
-    returns (b, r, d). Forward-only on the card: gradients go through
-    :func:`ski_fused_tno`."""
-    return interp_matvec.interp_reduce(x, idx_lo, w_lo, r)
+    returns (b, r, d). Differentiable in x through
+    ``interp_matvec.InterpReduce``: the backward is one
+    :func:`interp_expand` launch."""
+    return interp_matvec.interp_reduce_op(x, idx_lo, w_lo, r)
+
+
+def interp_expand(z, idx_lo, w_lo):
+    """y = W z, interpolating r inducing values back to n positions.
+    z (b, r, d); idx_lo (n,) / w_lo (n,) as in :func:`interp_reduce` (n is
+    read off idx_lo); returns (b, n, d). Differentiable in z through
+    ``interp_matvec.InterpExpand``: the backward is one
+    :func:`interp_reduce` launch."""
+    return interp_matvec.interp_expand_op(z, idx_lo, w_lo)
 
 
 def ski_fused_pass2(x, z, a_dense, filt, causal: bool,
@@ -59,13 +88,22 @@ def ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r: int, causal: bool):
 
 
 def reset_ski_counters() -> None:
-    """Zero the launch counts of the four SKI kernels and the counts of
-    ``SKIFusedTNO``'s forwards and backwards."""
-    for mod in (interp_matvec, ski_fused, ski_grad, ski_vjp):
+    """Zero the launch counts of the six SKI kernels and the counts of the
+    SKI autograd Functions' forwards and backwards."""
+    for mod in (interp_matvec, sc, ski_fused, ski_grad, ski_vjp):
         mod.reset_counters()
 
 
 def ski_counters() -> dict:
-    """Launch counts of the four SKI kernels since their last reset."""
-    return {**interp_matvec.counters, **ski_fused.counters,
+    """Launch counts of the six SKI kernels since their last reset."""
+    return {**interp_matvec.counters, **sc.counters, **ski_fused.counters,
             **ski_grad.counters}
+
+
+def ski_op_counters() -> dict:
+    """Differentiated forwards and backwards (``fwd``, ``bwd_kernel``,
+    ``bwd_ref``) of each SKI autograd Function since the last reset."""
+    return {"SKIFusedTNO": dict(ski_vjp.counters),
+            "ShortConv": dict(sc.op_counters),
+            "InterpReduce": dict(interp_matvec.reduce_op_counters),
+            "InterpExpand": dict(interp_matvec.expand_op_counters)}

@@ -30,8 +30,10 @@ def short_conv_ref(x: torch.Tensor, filt: torch.Tensor,
     """Depthwise short 1-D convolution, the sparse Toeplitz part of SKI.
     x: (b, n, d); filt: (d, m) per-channel taps. causal: taps cover lags
     0..m-1; bidirectional: lags -(m//2)..m-1-m//2. Returns (b, n, d) in
-    x's dtype. (The JAX function's analytic custom VJP is the next slice's
-    work; autograd differentiates this one.)"""
+    x's dtype. Autograd differentiates it; the analytic rule of the JAX
+    function's custom VJP (dx the same conv with the taps flipped and
+    ``left`` mirrored to m-1-left, df :func:`conv_tap_grad_ref`) is the
+    backward of ``kernels/short_conv.ShortConv``, on both devices."""
     m = filt.shape[-1]
     return _shift_conv(x, filt, 0 if causal else m // 2).to(x.dtype)
 
@@ -95,6 +97,28 @@ def interp_reduce_ref(x: torch.Tensor, idx_lo: torch.Tensor,
     hat-weight contraction. x: (b, n, d) -> (b, r, d) in x's dtype."""
     w = dense_interp_matrix(idx_lo, w_lo, r)                  # (n, r)
     return torch.einsum("nr,bnd->brd", w, x.float()).to(x.dtype)
+
+
+def interp_reduce_scatter_oracle(x: torch.Tensor, idx_lo: torch.Tensor,
+                                 w_lo: torch.Tensor, r: int) -> torch.Tensor:
+    """z = Wᵀ x by two scatter-adds of the weighted rows, O(n) (tests
+    only): an oracle independent of the dense hat matrix."""
+    xf = x.float()
+    w = w_lo.float()[None, :, None]
+    lo = idx_lo.long()
+    z = torch.zeros((x.shape[0], r, x.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    z = z.index_add(1, lo, xf * w)
+    return z.index_add(1, lo + 1, xf * (1.0 - w)).to(x.dtype)
+
+
+def interp_expand_ref(z: torch.Tensor, idx_lo: torch.Tensor,
+                      w_lo: torch.Tensor) -> torch.Tensor:
+    """Plain version of the ``interp_expand`` kernel: y = W z as the dense
+    hat-weight contraction. z: (b, r, d) -> (b, n, d) with n =
+    ``idx_lo.shape[0]``, in z's dtype."""
+    w = dense_interp_matrix(idx_lo, w_lo, z.shape[1])         # (n, r)
+    return torch.einsum("nr,brd->bnd", w, z.float()).to(z.dtype)
 
 
 def gram_grad_ref(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -42,7 +42,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.checkpoint import manifest as ckpt  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.core import rpe, ski  # noqa: E402
-from repro_torch.kernels import backend, ops, ref, ski_vjp  # noqa: E402
+from repro_torch.kernels import (backend, interp_matvec, ops,  # noqa: E402
+                                 ref, ski_vjp)
 from repro_torch.launch import serve as serve_launch  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.launch.steps import make_forward  # noqa: E402
@@ -294,9 +295,6 @@ def test_unported_ski_variants_raise(monkeypatch):
     for variant in ("windowed", "fft"):
         with pytest.raises(NotImplementedError, match="item 7"):
             ski.ski_plan(params, cfg, 32, variant=variant)
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="unfused"):
-        ski.ski_plan(params, dataclasses.replace(cfg, fused=False), 32)
     monkeypatch.setenv("REPRO_SKI_DENSE_RMAX", "4")
     with pytest.raises(NotImplementedError, match="item 7"):
         ski.ski_plan(params, cfg, 32)         # r = 8 > 4: windowed
@@ -326,8 +324,9 @@ def test_wrappers_refuse_non_cuda_devices():
 
 def test_wrappers_are_forward_only_off_the_cpu():
     """The standalone kernel wrappers refuse an input that requires grad
-    off the CPU; ``ski_fused_tno`` is differentiable (SKIFusedTNO), so with
-    grad it reaches the device check as it does without."""
+    off the CPU; ``ski_fused_tno`` and ``ops.interp_reduce`` are
+    differentiable (SKIFusedTNO, InterpReduce), so with grad they reach the
+    device check as they do without."""
     x = torch.empty(2, 16, 8, device="meta")
     z = torch.empty(2, 4, 8, device="meta")
     a = torch.empty(8, 4, 4, device="meta", requires_grad=True)
@@ -339,7 +338,9 @@ def test_wrappers_are_forward_only_off_the_cpu():
     with torch.no_grad(), pytest.raises(ValueError, match="tensor on meta"):
         ops.ski_fused_tno(x, a, f, None, None, 4, True)
     with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.interp_reduce(x.requires_grad_(), None, None, 4)
+        interp_matvec.interp_reduce(x.requires_grad_(), None, None, 4)
+    with pytest.raises(ValueError, match="tensor on meta"):
+        ops.interp_reduce(x, None, None, 4)
 
 
 def test_cpu_path_is_differentiable():
