@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, SKI scoring, SKI training
-and unfused SKI paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training, SKI scoring, SKI training,
+unfused SKI and large-rank SKI paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -29,6 +29,14 @@ card or outside a checkout of this repository. Phases:
    the backward's (A transposed, taps flipped, left mirrored); the whole
    SKIFusedTNO backward against autograd through ``ref.ski_fused_tno_ref``
    (causal, bidirectional, r = 181), and under ``REPRO_PALLAS_GRAD=0``;
+   the large-rank ``ski_windowed_pass2`` and ``ski_expand_pass2`` at the
+   large-r path's shape (x (8, 512, 512), r = 512, the four offsets), at
+   r = 513 and 4096 (n = 4096, d = 16), ragged, n < m, r = n, r = 2 and
+   m = 1, the windowed one also under ``REPRO_SKI_BAND_MAX=16`` and
+   against a float64 version, the expand one also at n = r = 8192; the
+   whole SKIFusedTNOCoef backward, both variants, causal and
+   bidirectional, against autograd through ``ref.ski_fused_tno_coef_ref``
+   and under ``REPRO_PALLAS_GRAD=0``;
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
@@ -62,14 +70,25 @@ card or outside a checkout of this repository. Phases:
    SKI benchmark's shapes (b=4, d=64, n 2048 and 8192), and the Appendix-B
    ``causal_ski_lowrank`` against its masked dense oracle, timed beside
    the causal FD-TNO;
-9. check: the kernel-path forward over the generated sequences reproduces
+9. large-r: ski-tnn-lm-wt103 at tno_rank 512 (full width, seed 0; the
+   policy routes it "windowed") scores 8 × 512 tokens (6 ``interp_reduce``
+   + 6 ``ski_windowed_pass2`` a forward, card vs CPU logits on 1 × 512)
+   and trains 30 steps (18 / 12 / 6 ``interp_reduce`` /
+   ``ski_windowed_pass2`` / ``conv_tap_grad`` launches and 6 kernel
+   backwards of SKIFusedTNOCoef a step); then, under
+   ``REPRO_SKI_WINDOWED_RMAX=256`` (the "fft" route), the same scoring and
+   10 steps with ``ski_expand_pass2`` in its place; recorded, not
+   claimed, the forward and grad times at ``bench_ski_components.py``'s
+   large-r shapes (r 64 to 8192, the dense op beside where it fits) and
+   dense against windowed at r = 181 and 182, d = 512;
+10. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
    training losses on the card as on the CPU; a run stopped at step 2 and
    restored from its checkpoint into a fresh model ends bitwise where an
    uninterrupted run ends; the same gradients, losses and resume for the
    smoke-size SKI model;
-10. a JSON line with each kernel's numbers, then the card's name and power
+11. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
@@ -552,6 +571,10 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
     return out
 
 
+#: the launch count of every SKI kernel at 0, for the exact-count checks
+NO_SKI_LAUNCHES = {"interp_reduce": 0, "interp_expand": 0, "short_conv": 0,
+                   "ski_fused_pass2": 0, "ski_windowed_pass2": 0,
+                   "ski_expand_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0}
 #: SKIFusedTNO backward checks (label, r, d, causal), b = 8, n = 512, m = 32
 SKI_BACKWARD = (("causal", 64, 512, True), ("bidirectional", 64, 512, False),
                 ("causal r=181", 181, 512, True))
@@ -590,7 +613,7 @@ def check_ski_backward(g) -> None:
             cot)
         report = _grads_close(f"SKIFusedTNO backward ({label})", got, want,
                               names)
-        if ran != {"interp_reduce": 3, "interp_expand": 0, "short_conv": 0,
+        if ran != {**NO_SKI_LAUNCHES, "interp_reduce": 3,
                    "ski_fused_pass2": 2, "gram_grad": 1, "conv_tap_grad": 1,
                    "fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}:
             raise AssertionError(f"SKIFusedTNO ({label}) launched {ran}")
@@ -601,13 +624,148 @@ def check_ski_backward(g) -> None:
             ref_got, ran = grads()
         report = _grads_close(f"SKIFusedTNO REPRO_PALLAS_GRAD=0 ({label})",
                               ref_got, got, names)
-        if ran != {"interp_reduce": 1, "interp_expand": 0, "short_conv": 0,
-                   "ski_fused_pass2": 1, "gram_grad": 0, "conv_tap_grad": 0,
-                   "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
+        if ran != {**NO_SKI_LAUNCHES, "interp_reduce": 1,
+                   "ski_fused_pass2": 1, "fwd": 1, "bwd_kernel": 0,
+                   "bwd_ref": 1}:
             raise AssertionError(f"SKIFusedTNO under REPRO_PALLAS_GRAD=0 "
                                  f"({label}) launched {ran}")
         print(f"[kernel] SKIFusedTNO under REPRO_PALLAS_GRAD=0 ({label}) vs "
               f"the kernel backward: {report}; launches {ran}", flush=True)
+
+
+#: windowed pass-2 shapes (label, b, n, d, r, m, left): the large-rank
+#: path (ski-tnn-lm-wt103 at tno_rank 512) with causal and bidirectional
+#: taps and their mirrors, r just past the dense ceiling and at the
+#: windowed one, odd r (r % 4 != 0) with the 16-byte x copies (8 batch
+#: rows, d % 4 == 0) and without, ragged, n < m, r = n, r = 2, one tap
+WINDOW_SHAPES = (("path", 8, 512, 512, 512, 32, 0),
+                 ("path bidirectional", 8, 512, 512, 512, 32, 16),
+                 ("path mirrored", 8, 512, 512, 512, 32, 31),
+                 ("path bidirectional mirrored", 8, 512, 512, 512, 32, 15),
+                 ("r=513", 2, 4096, 16, 513, 32, 0),
+                 ("r=4096", 2, 4096, 16, 4096, 32, 16),
+                 ("r=181", 8, 512, 64, 181, 32, 16),
+                 ("r=4097", 2, 4099, 16, 4097, 32, 3),
+                 ("ragged", 3, 37, 45, 11, 4, 2), ("n<m", 2, 3, 5, 3, 4, 0),
+                 ("r=n", 2, 64, 40, 64, 8, 3), ("r=2", 2, 40, 33, 2, 8, 3),
+                 ("m=1", 2, 40, 33, 7, 1, 0))
+WINDOWED_REPLACES = "src/repro/kernels/ski_fused.py:296"
+
+
+def _window_tol(r: int) -> float:
+    """1e-5 × max|plain| to r = 512, 1e-4 beyond, as the JAX package's
+    tests/test_ski_large_r.py gates (sums of r terms in another order)."""
+    return 1e-5 if r <= 512 else 1e-4
+
+
+def _windowed_entry(label, x, z, coef, f, left, peaks):
+    """ski_windowed_pass2 against the plain rfft Gram and expansion. The
+    Gram is 2·b·d·r² flops (the windows of neighbouring tiles overlap by a
+    few rows more), the conv 2·b·n·d·m, the expansion 2·2·b·n·d; x, z, the
+    coefficients and f read once, y written once."""
+    from repro_torch.kernels import ref, ski_fused
+    b, n, d = x.shape
+    r, m = z.shape[1], f.shape[1]
+
+    def plain():
+        return ref.ski_expand_pass2_ref(
+            x, ref.toeplitz_gram_matvec_ref(coef, z), f, True, left=left)
+    e = _kernel_entry(
+        "ski_windowed_pass2", WINDOWED_REPLACES,
+        ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left), plain(),
+        lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left),
+        plain, None,
+        nbytes=4 * (2 * x.numel() + z.numel() + coef.numel() + f.numel()),
+        nops=2 * b * d * (r * r + n * m + 2 * n), peaks=peaks,
+        tol=_window_tol(r), source=SKI_SRC)
+    print(f"[kernel] ski_windowed_pass2 {label} x ({b}, {n}, {d}), r={r}, "
+          f"m={m}, left={left}, band_max "
+          f"{os.environ.get('REPRO_SKI_BAND_MAX') or 'default'}: {e}",
+          flush=True)
+    return e
+
+
+def _expand_entry(label, x, z2, f, left, peaks):
+    """ski_expand_pass2 against the plain expansion: x, z2, f read once, y
+    written once; 2·b·n·d·m conv and 2·2·b·n·d expansion flops."""
+    from repro_torch.kernels import ref, ski_fused
+    b, n, d = x.shape
+    r, m = z2.shape[1], f.shape[1]
+    e = _kernel_entry(
+        "ski_expand_pass2", WINDOWED_REPLACES,
+        ski_fused.ski_expand_pass2(x, z2, f, True, left=left),
+        ref.ski_expand_pass2_ref(x, z2, f, True, left=left),
+        lambda: ski_fused.ski_expand_pass2(x, z2, f, True, left=left),
+        lambda: ref.ski_expand_pass2_ref(x, z2, f, True, left=left), None,
+        nbytes=4 * (2 * x.numel() + z2.numel() + f.numel()),
+        nops=2 * b * d * (n * m + 2 * n), peaks=peaks, tol=_window_tol(r),
+        source=SKI_SRC)
+    print(f"[kernel] ski_expand_pass2 {label} x ({b}, {n}, {d}), r={r}, "
+          f"m={m}, left={left}: {e}", flush=True)
+    return e
+
+
+def _windowed_vs_fp64(x, z, coef, f, left) -> None:
+    """The windowed kernel and the fp32 plain version (rfft Gram) against a
+    float64 version (dense Gram, dense W, shifted adds), so that the
+    kernel's own error shows apart from the FFT's round-off: the kernel
+    within 1e-5 × max."""
+    from repro_torch.core import ski, toeplitz
+    from repro_torch.kernels import ref, ski_fused
+    b, n, d = x.shape
+    r, m = z.shape[1], f.shape[1]
+    z2 = torch.einsum("dst,btd->bsd",
+                      toeplitz.dense_toeplitz(coef.double(), r), z.double())
+    lo, w_lo, _ = ski.make_inducing(n, r, x.device)
+    want = torch.einsum("nr,brd->bnd",
+                        ref.dense_interp_matrix(lo, w_lo, r).double(), z2)
+    xp = torch.nn.functional.pad(x.double(), (0, 0, m - 1 - left, left))
+    for k in range(m):
+        want += xp[:, m - 1 - k:m - 1 - k + n] * f[:, k].double()
+    scale = float(want.abs().max())
+    got = ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left)
+    plain = ref.ski_expand_pass2_ref(
+        x, ref.toeplitz_gram_matvec_ref(coef, z), f, True, left=left)
+    err = float((got.double() - want).abs().max())
+    perr = float((plain.double() - want).abs().max())
+    print(f"[kernel] ski_windowed_pass2 x ({b}, {n}, {d}), r={r}, left={left} "
+          f"vs float64: kernel max abs err {err:.3e}, fp32 plain (rfft) "
+          f"{perr:.3e} (scale {scale:.3e}, limit {1e-5 * scale:.3e})",
+          flush=True)
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"ski_windowed_pass2 vs float64: {err}")
+
+
+def phase_window_kernels(peaks, device="cuda") -> dict:
+    """ski_windowed_pass2 and ski_expand_pass2 against their plain versions
+    at WINDOW_SHAPES; the windowed one also under REPRO_SKI_BAND_MAX=16
+    (a tile then takes a window of 16 rows: many tiles, many chunks) and
+    against float64, the expand one also at n = r = 8192. Returns the
+    entries at the path's shape."""
+    g = torch.Generator(device=device).manual_seed(7)
+    out = {}
+    for label, b, n, d, r, m, left in WINDOW_SHAPES:
+        x = torch.randn(b, n, d, device=device, generator=g)
+        z = torch.randn(b, r, d, device=device, generator=g)
+        coef = torch.randn(d, 2 * r - 1, device=device,
+                           generator=g) / math.sqrt(r)
+        f = torch.randn(d, m, device=device, generator=g)
+        entries = {"ski_windowed_pass2": _windowed_entry(label, x, z, coef, f,
+                                                         left, peaks),
+                   "ski_expand_pass2": _expand_entry(label, x, z, f, left,
+                                                     peaks)}
+        if label == "path":
+            out.update(entries)
+            _windowed_vs_fp64(x, z, coef, f, left)
+        if label in ("path", "r=4096"):
+            with mock.patch.dict(os.environ, {"REPRO_SKI_BAND_MAX": "16"}):
+                _windowed_entry(label, x, z, coef, f, left, peaks)
+    b, n, d, r, m = 2, 8192, 16, 8192, 32
+    _expand_entry("n=r=8192", torch.randn(b, n, d, device=device, generator=g),
+                  torch.randn(b, r, d, device=device, generator=g),
+                  torch.randn(d, m, device=device, generator=g), m // 2,
+                  peaks)
+    return out
 
 
 # --------------------------------------------------------------- phase 4
@@ -690,15 +848,28 @@ def _fd_counts():
     return dict(fd_fused.counters), dict(fd_fused.op_counters)
 
 
-def _ski_counts():
+def _ski_counts(coef: bool = False):
+    """SKI launches and the counts of SKIFusedTNO (dense Gram) or, with
+    ``coef``, SKIFusedTNOCoef."""
     from repro_torch.kernels import ops, ski_vjp
-    return ops.ski_counters(), dict(ski_vjp.counters)
+    return ops.ski_counters(), dict(ski_vjp.coef_counters if coef
+                                    else ski_vjp.counters)
 
 
-#: kernel launches a layer makes in one training step (forward + backward)
+#: kernel launches a layer makes in one training step (forward + backward):
+#: the FD model, the SKI model on the dense Gram, and on the large-rank
+#: "windowed" and "fft" routes
 TRAIN_LAUNCHES = {"fd": {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1},
                   "ski": {"interp_reduce": 3, "ski_fused_pass2": 2,
-                          "gram_grad": 1, "conv_tap_grad": 1}}
+                          "gram_grad": 1, "conv_tap_grad": 1},
+                  "ski_windowed": {"interp_reduce": 3,
+                                   "ski_windowed_pass2": 2,
+                                   "conv_tap_grad": 1},
+                  "ski_fft": {"interp_reduce": 3, "ski_expand_pass2": 2,
+                              "conv_tap_grad": 1}}
+TRAIN_TAGS = {"fd": "[train]", "ski": "[ski-train]",
+              "ski_windowed": "[large-r train]",
+              "ski_fft": "[large-r fft train]"}
 
 
 def phase_train(cfg, device, steps: int, seq: int, batch: int,
@@ -714,7 +885,7 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     model, opt, step_fn = _train_setup(cfg, device, 0, steps, warmup=5)
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
-    tag = "[train]" if mixer == "fd" else "[ski-train]"
+    tag = TRAIN_TAGS[mixer]
 
     def trainer(total):
         return Trainer(TrainerConfig(total_steps=total, log_every=10), step_fn,
@@ -730,7 +901,8 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
     opt, end = timed.run(model, opt, TRAIN_WARMUP)
     _sync(device)
     t2 = time.perf_counter()
-    launches, op_counts = (_fd_counts if mixer == "fd" else _ski_counts)()
+    launches, op_counts = (_fd_counts() if mixer == "fd"
+                           else _ski_counts(coef=mixer != "ski"))
     peak = torch.cuda.max_memory_allocated(device)
     losses = [float(m["loss"])
               for m in warm.metrics_history + timed.metrics_history]
@@ -777,9 +949,10 @@ def _ski_batch(cfg, b: int, s: int, device):
 
 
 def _standalone_wrappers_refuse_grad(device) -> None:
-    """Each SKI kernel wrapper called on its own writes a tensor autograd
-    cannot see, so on the card it refuses an input that requires grad
-    (gradients go through the ops entries), before any launch."""
+    """Each of the eight SKI kernel wrappers called on its own writes a
+    tensor autograd cannot see, so on the card it refuses an input that
+    requires grad (gradients go through the ops entries), before any
+    launch."""
     from repro_torch.kernels import (interp_matvec, ops, short_conv,
                                      ski_fused, ski_grad)
     x = torch.randn(2, 16, 8, device=device)
@@ -795,6 +968,10 @@ def _standalone_wrappers_refuse_grad(device) -> None:
              "short_conv": lambda: short_conv.short_conv(x, req(f), 1),
              "ski_fused_pass2": lambda: ski_fused.ski_fused_pass2(
                  x, z, req(a), f, True),
+             "ski_windowed_pass2": lambda: ski_fused.ski_windowed_pass2(
+                 x, z, req(torch.randn(8, 7, device=device)), f, True),
+             "ski_expand_pass2": lambda: ski_fused.ski_expand_pass2(
+                 req(x), z, f, False),
              "gram_grad": lambda: ski_grad.gram_grad(z, req(z)),
              "conv_tap_grad": lambda: ski_grad.conv_tap_grad(req(x), x, 3, 0)}
     ops.reset_ski_counters()
@@ -835,18 +1012,23 @@ def _profile_forward(fwd, model, tokens, device, reps: int = 3) -> None:
                       f"ms x{e.count}" for e in top), flush=True)
 
 
-def phase_ski_score(device) -> dict:
-    """The full-width SKI scoring path. Returns its launch counts (one
-    forward)."""
+def phase_ski_score(device, cfg=None, pass2: str = "ski_fused_pass2",
+                    tag: str = "[score]") -> dict:
+    """A full-width SKI scoring path: ``cfg`` (default ski-tnn-lm-wt103)
+    must launch one ``interp_reduce`` and one ``pass2`` a layer and no
+    other SKI kernel a forward. The default path also profiles a forward
+    and checks the standalone wrappers' refusals. Returns its launch
+    counts (one forward)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import make_forward
     from repro_torch.models.transformer import init_model, loss_fn
-    cfg = get_config("ski-tnn-lm-wt103")
+    default = cfg is None
+    cfg = cfg or get_config("ski-tnn-lm-wt103")
     model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
     batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
     fwd = make_forward(cfg)
-    print(f"[score] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
           f"r={cfg.tno_rank}, m={cfg.tno_filter}, vocab {cfg.vocab}, "
           f"{sum(p.numel() for p in model.parameters())} parameters; "
           f"{SCORE_BATCH} x {SCORE_SEQ} tokens", flush=True)
@@ -858,9 +1040,8 @@ def phase_ski_score(device) -> dict:
     _sync(device)
     launches = ops.ski_counters()
     peak = torch.cuda.max_memory_allocated(device)
-    if launches != {"interp_reduce": cfg.n_layers, "interp_expand": 0,
-                    "short_conv": 0, "ski_fused_pass2": cfg.n_layers,
-                    "gram_grad": 0, "conv_tap_grad": 0}:
+    if launches != {**NO_SKI_LAUNCHES, "interp_reduce": cfg.n_layers,
+                    pass2: cfg.n_layers}:
         raise AssertionError(f"one SKI forward launched {launches}")
     if not (logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab_padded)
             and bool(torch.isfinite(logits).all())):
@@ -877,13 +1058,14 @@ def phase_ski_score(device) -> dict:
         loss, _ = loss_fn(model, cfg, batch)
     if not math.isfinite(float(loss)):
         raise AssertionError(f"SKI eval loss {float(loss)}")
-    print(f"[score] make_forward {SCORE_BATCH}x{SCORE_SEQ}: median {ms:.3f} "
+    print(f"{tag} make_forward {SCORE_BATCH}x{SCORE_SEQ}: median {ms:.3f} "
           f"ms of {SCORE_REPS} (min {min(walls) * 1e3:.3f}, max "
           f"{max(walls) * 1e3:.3f}), {SCORE_BATCH * SCORE_SEQ / ms * 1e3:.0f} "
           f"tokens/s; eval loss {float(loss):.6f}; launches per forward "
           f"{launches}; max_memory_allocated {peak} bytes "
           f"({peak / 2**30:.3f} GiB)", flush=True)
-    _profile_forward(fwd, model, batch["tokens"], device)
+    if default:
+        _profile_forward(fwd, model, batch["tokens"], device)
     # card vs CPU at full width on 1 x 512 tokens
     one = {k: v[:1] for k, v in batch.items()}
     cpu_model = init_model(cfg, torch.Generator().manual_seed(0),
@@ -896,13 +1078,14 @@ def phase_ski_score(device) -> dict:
         got_loss = float(loss_fn(model, cfg, one)[0])
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     lerr = abs(got_loss - want_loss)
-    print(f"[score] card vs CPU, 1 x {SCORE_SEQ} tokens: logits max abs err "
+    print(f"{tag} card vs CPU, 1 x {SCORE_SEQ} tokens: logits max abs err "
           f"{err:.3e} (scale {scale:.3e}, limit 1e-4 x scale); loss "
           f"{got_loss:.6f} vs {want_loss:.6f}, err {lerr:.3e} (limit 1e-4)",
           flush=True)
     if not (err <= 1e-4 * scale and lerr <= 1e-4):
         raise AssertionError("card SKI scoring differs from the CPU's")
-    _standalone_wrappers_refuse_grad(device)
+    if default:
+        _standalone_wrappers_refuse_grad(device)
     return launches
 
 
@@ -931,10 +1114,10 @@ def ski_vs_fd_op(device="cuda") -> None:
 
 # ---------------------------------------------------------- ski unfused
 #: the unfused SKI op's launches: forward, and forward + backward
-UNFUSED_FWD = {"interp_reduce": 1, "interp_expand": 1, "short_conv": 1,
-               "ski_fused_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0}
-UNFUSED_STEP = {"interp_reduce": 2, "interp_expand": 2, "short_conv": 2,
-                "ski_fused_pass2": 0, "gram_grad": 0, "conv_tap_grad": 1}
+UNFUSED_FWD = {**NO_SKI_LAUNCHES, "interp_reduce": 1, "interp_expand": 1,
+               "short_conv": 1}
+UNFUSED_STEP = {**NO_SKI_LAUNCHES, "interp_reduce": 2, "interp_expand": 2,
+                "short_conv": 2, "conv_tap_grad": 1}
 _UNFUSED_FUNCTIONS = ("ShortConv", "InterpReduce", "InterpExpand")
 
 
@@ -1015,7 +1198,8 @@ def phase_ski_unfused(device="cuda") -> dict:
             path[k] += v
         want_ops = {name: {"fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}
                     for name in _UNFUSED_FUNCTIONS}
-        want_ops["SKIFusedTNO"] = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+        want_ops["SKIFusedTNO"] = want_ops["SKIFusedTNOCoef"] = {
+            "fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
         if fwd != UNFUSED_FWD or step != UNFUSED_STEP or op_counts != want_ops:
             raise AssertionError(f"unfused SKI ({tag}) launched {fwd} forward,"
                                  f" {step} in all, Functions {op_counts}")
@@ -1044,7 +1228,8 @@ def phase_ski_unfused(device="cuda") -> dict:
         step, op_counts = ops.ski_counters(), ops.ski_op_counters()
         want_ops = {name: {"fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}
                     for name in _UNFUSED_FUNCTIONS}
-        want_ops["SKIFusedTNO"] = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+        want_ops["SKIFusedTNO"] = want_ops["SKIFusedTNOCoef"] = {
+            "fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
         if step != UNFUSED_FWD or op_counts != want_ops:
             raise AssertionError(f"unfused SKI ({tag}) under "
                                  f"REPRO_PALLAS_GRAD=0 launched {step}, "
@@ -1143,6 +1328,176 @@ def causal_ski_vs_fd(device="cuda") -> None:
           f"causal_ski_lowrank vs tril(W A W^T) x: {report}; "
           f"causal_ski_lowrank {t_ski:.5f} ms, causal fd_tno_apply "
           f"{t_fd:.5f} ms (ratio {t_ski / t_fd:.3f})", flush=True)
+
+
+# ------------------------------------------------------------ ski large-r
+LARGE_RANK = 512
+LARGE_FFT_STEPS = 10                  # the "fft" route's training steps
+
+
+def _large_r_cfg():
+    """ski-tnn-lm-wt103 at tno_rank 512: at d = 512 its (d, r, r) Gram is
+    512 MB, over the dense route's 64 MB, so backend.ski_rank_variant sends
+    it to "windowed" (and to "fft" under REPRO_SKI_WINDOWED_RMAX=256)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("ski-tnn-lm-wt103"),
+                               tno_rank=LARGE_RANK)
+
+
+def phase_large_r(device="cuda") -> dict:
+    """The full-width ski-tnn-lm-wt103 at tno_rank 512 through the model's
+    entry points: scoring 8 × 512 tokens (6 interp_reduce + 6
+    ski_windowed_pass2 a forward, card vs CPU on 1 × 512) and 30 training
+    steps (18 / 12 / 6 launches and 6 kernel backwards of SKIFusedTNOCoef
+    a step); then the same scoring and LARGE_FFT_STEPS steps on the "fft"
+    route, ski_expand_pass2 in place of ski_windowed_pass2. Returns the
+    four paths' launch counts."""
+    from repro_torch.kernels import backend
+    cfg = _large_r_cfg()
+    r = min(cfg.tno_rank, SCORE_SEQ)
+    paths = {}
+    if backend.ski_rank_variant(r, cfg.d_model) != "windowed":
+        raise AssertionError(f"r={r}, d={cfg.d_model} is not routed windowed")
+    paths["large_r_score"] = phase_ski_score(
+        device, cfg, "ski_windowed_pass2", "[large-r score]")
+    paths["large_r_train"] = phase_train(cfg, device, TRAIN_STEPS, TRAIN_SEQ,
+                                         TRAIN_BATCH, mixer="ski_windowed")
+    with mock.patch.dict(os.environ, {"REPRO_SKI_WINDOWED_RMAX": "256"}):
+        if backend.ski_rank_variant(r, cfg.d_model) != "fft":
+            raise AssertionError(f"r={r} is not routed to fft")
+        paths["large_r_fft_score"] = phase_ski_score(
+            device, cfg, "ski_expand_pass2", "[large-r fft score]")
+        paths["large_r_fft_train"] = phase_train(
+            cfg, device, LARGE_FFT_STEPS, TRAIN_SEQ, TRAIN_BATCH,
+            mixer="ski_fft")
+    return paths
+
+
+def check_coef_backward(device="cuda") -> None:
+    """SKIFusedTNOCoef at x (8, 512, 512), r = 512, m = 32, both variants,
+    causal and bidirectional taps: (dx, dcoef, df) against autograd through
+    ref.ski_fused_tno_coef_ref within 1e-5 × max (the fp32 tier), with 3
+    interp_reduce, 2 pass-2 and 1 conv_tap_grad launches and one kernel
+    backward; under REPRO_PALLAS_GRAD=0 one reference backward, the
+    forward's launches only and the same gradients."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import ops, ref, ski_vjp
+    g = torch.Generator(device=device).manual_seed(8)
+    b, n, d, r, m = 8, 512, 512, LARGE_RANK, 32
+    names = ("dx", "dcoef", "df")
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    for variant, pass2 in (("windowed", "ski_windowed_pass2"),
+                           ("fft", "ski_expand_pass2")):
+        for causal in (True, False):
+            tag = f"{variant}, {'causal' if causal else 'bidirectional'}"
+            x = torch.randn(b, n, d, device=device, generator=g,
+                            requires_grad=True)
+            coef = (torch.randn(d, 2 * r - 1, device=device, generator=g)
+                    / math.sqrt(r)).requires_grad_()
+            f = torch.randn(d, m, device=device, generator=g,
+                            requires_grad=True)
+            cot = torch.randn(b, n, d, device=device, generator=g)
+
+            def grads():
+                ops.reset_ski_counters()
+                out = torch.autograd.grad(ops.ski_fused_tno_coef(
+                    x, coef, f, lo, w_lo, r, causal, variant), (x, coef, f),
+                    cot)
+                return out, dict(ops.ski_counters(), **ski_vjp.coef_counters)
+            got, ran = grads()
+            want = torch.autograd.grad(ref.ski_fused_tno_coef_ref(
+                x, coef, f, lo, w_lo, r, causal), (x, coef, f), cot)
+            report = _grads_close(f"SKIFusedTNOCoef backward ({tag})", got,
+                                  want, names)
+            if ran != {**NO_SKI_LAUNCHES, "interp_reduce": 3, pass2: 2,
+                       "conv_tap_grad": 1, "fwd": 1, "bwd_kernel": 1,
+                       "bwd_ref": 0}:
+                raise AssertionError(f"SKIFusedTNOCoef ({tag}) launched {ran}")
+            print(f"[large-r] SKIFusedTNOCoef backward ({tag}) x ({b}, {n}, "
+                  f"{d}), r={r}, m={m} vs autograd through "
+                  f"ref.ski_fused_tno_coef_ref: {report}; launches {ran}",
+                  flush=True)
+            with reference_grad():
+                ref_got, ran = grads()
+            report = _grads_close(f"SKIFusedTNOCoef REPRO_PALLAS_GRAD=0 "
+                                  f"({tag})", ref_got, got, names)
+            if ran != {**NO_SKI_LAUNCHES, "interp_reduce": 1, pass2: 1,
+                       "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
+                raise AssertionError(f"SKIFusedTNOCoef under "
+                                     f"REPRO_PALLAS_GRAD=0 ({tag}) launched "
+                                     f"{ran}")
+            print(f"[large-r] SKIFusedTNOCoef under REPRO_PALLAS_GRAD=0 "
+                  f"({tag}) vs the kernel backward: {report}; launches {ran}",
+                  flush=True)
+
+
+def _ski_op_times(d, r, n, b, variants, device, seed) -> dict:
+    """Forward (plan built inside, under inference mode) and grad of Σy for
+    the RPE values and the taps of the bidirectional SKI op on each of
+    ``variants``, as benchmarks/bench_ski_components.py:_large_r times
+    them: SKIConfig(d, rank r, filter_size 32), x (b, n, d) from ``seed``."""
+    from repro_torch.core import ski
+    from repro_torch.nn.layers import reset_parameters
+    cfg = ski.SKIConfig(d, rank=r, filter_size=32)
+    params = ski.ski_init(cfg, device=device)
+    reset_parameters(params, torch.Generator().manual_seed(0))
+    x = torch.randn(b, n, d, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    times = {}
+    for v in variants:
+        def fwd():
+            return ski.ski_tno_apply(params, cfg, x, plan=ski.ski_plan(
+                params, cfg, n, variant=v)).sum()
+        with torch.inference_mode():
+            times[f"{v}_fwd"] = time_ms(fwd)
+        times[f"{v}_grad"] = time_ms(lambda: torch.autograd.grad(
+            fwd(), (params.rpe.vals, params.filt)))
+    return times
+
+
+def large_r_times(device="cuda") -> None:
+    """Recorded, not claimed: at bench_ski_components.py:_large_r's shapes
+    (b=2, d=16, n=8192, m=32, bidirectional) the coefficient op on the
+    policy's route (windowed to r = 4096, fft beyond) beside the dense op
+    where the dense pass 2 fits a block's shared memory; then dense and
+    windowed at the dense ceiling of d = 512 (r = 181, the last dense
+    rank, and 182; b = 8, n = 512), the op and its pass-2 kernels."""
+    from repro_torch.core import toeplitz
+    from repro_torch.kernels import backend, ski_fused
+    times = {}
+    for r in (64, 512, 2048, 8192):
+        coef = "windowed" if r <= backend.ski_windowed_rank_max() else "fft"
+        smem = ski_fused._lib().ski_fused_pass2_smem_bytes(r, 32)
+        dense = smem <= ski_fused._MAX_SMEM
+        times[f"r{r}"] = _ski_op_times(16, r, 8192, 2, (coef,) + (
+            ("dense",) if dense else ()), device, seed=9)
+        if not dense:
+            times[f"r{r}"]["dense"] = (
+                f"not run: the dense pass 2 keeps z and z2 of its 32 columns "
+                f"in shared memory, {smem} bytes a block at r={r}, over "
+                f"{ski_fused._MAX_SMEM}")
+    g = torch.Generator(device=device).manual_seed(11)
+    b, n, d, m = 8, 512, 512, 32
+    x = torch.randn(b, n, d, device=device, generator=g)
+    f = torch.randn(d, m, device=device, generator=g)
+    for r in (181, 182):
+        times[f"d512 r{r}"] = _ski_op_times(d, r, n, b, ("dense", "windowed"),
+                                            device, seed=10)
+        # the two pass-2 kernels alone, the dense one past the policy's
+        # ceiling too
+        z = torch.randn(b, r, d, device=device, generator=g)
+        coef = torch.randn(d, 2 * r - 1, device=device,
+                           generator=g) / math.sqrt(r)
+        a = toeplitz.dense_toeplitz(coef, r).contiguous()
+        times[f"d512 r{r}"]["kernel ski_fused_pass2"] = time_ms(
+            lambda: ski_fused.ski_fused_pass2(x, z, a, f, True))
+        times[f"d512 r{r}"]["kernel ski_windowed_pass2"] = time_ms(
+            lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True))
+    print(f"[large-r] times ms (CUDA-event medians of 50, L2 evicted; "
+          f"forward with the plan, grad of sum(y) for the RPE values and "
+          f"taps; the pass-2 kernels alone at x (8, 512, 512)): "
+          f"{json.dumps(times)}", flush=True)
 
 
 # --------------------------------------------------------------- phase 7
@@ -1263,6 +1618,8 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(peaks)
     kernels.update(phase_ski_kernels(peaks))
+    kernels.update(phase_window_kernels(peaks))
+    check_coef_backward()
     cfg = get_config("fd-tnn-lm-wt103")
     model, prompt_len, seqs, serve_launches = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
@@ -1276,6 +1633,8 @@ def main() -> int:
     unfused_launches = phase_ski_unfused()
     ski_unfused_times()
     causal_ski_vs_fd()
+    large_r = phase_large_r()
+    large_r_times()
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
@@ -1284,7 +1643,15 @@ def main() -> int:
              "ski_train": (ski_train_launches,
                            tuple(TRAIN_LAUNCHES["ski"])),
              "ski_unfused": (unfused_launches,
-                             tuple(k for k, v in UNFUSED_STEP.items() if v))}
+                             tuple(k for k, v in UNFUSED_STEP.items() if v)),
+             "large_r_score": (large_r["large_r_score"],
+                               ("interp_reduce", "ski_windowed_pass2")),
+             "large_r_train": (large_r["large_r_train"],
+                               tuple(TRAIN_LAUNCHES["ski_windowed"])),
+             "large_r_fft_score": (large_r["large_r_fft_score"],
+                                   ("interp_reduce", "ski_expand_pass2")),
+             "large_r_fft_train": (large_r["large_r_fft_train"],
+                                   tuple(TRAIN_LAUNCHES["ski_fft"]))}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

@@ -1,29 +1,31 @@
 """Sparse + low-rank TNO via asymmetric SKI (paper §3.2, Algorithm 1),
-counterpart of ``repro/core/ski.py`` with the dense fused and the unfused
-pipelines.
+counterpart of ``repro/core/ski.py``: the fused pipeline at every rank
+variant, and the unfused one.
 
 ``T ≈ T_sparse + W A Wᵀ`` where
 
 * ``T_sparse`` (m non-zero diagonals) acts as a per-channel short conv;
 * ``A`` is the r × r inducing-point Gram of the warped-interp kernel
   ``k_l(t) = RPE_l(sign(t) λ^|t|)``, Toeplitz because the inducing points
-  are uniform, materialised dense per channel, (d, r, r);
+  are uniform: its (d, 2r-1) lag coefficients, materialised dense per
+  channel, (d, r, r), for the "dense" variant only;
 * ``W`` is the banded linear-interpolation matrix (≤ 2 non-zeros a row).
 
 Two pipelines compute it, forward and backward, on the card and on the
 CPU:
 
-* fused (``SKIConfig.fused``, the default): ``ops.ski_fused_tno``, pass 1
-  ``interp_reduce`` (z = Wᵀx), pass 2 one kernel for A z, W z₂ and the
-  short conv with a single write; the Gram is dense, (d, r, r);
+* fused (``SKIConfig.fused``, the default): pass 1 ``interp_reduce``
+  (z = Wᵀx), then pass 2, one kernel for A z, W z₂ and the short conv with
+  a single write. ``backend.ski_rank_variant`` picks how A is applied, as
+  in the JAX package: "dense" (``ops.ski_fused_tno``, A as (d, r, r)),
+  or at large rank, from its (d, 2r-1) Toeplitz coefficients and never
+  dense, "windowed" (each sequence tile computes its window of A z inside
+  pass 2) or "fft" (A z by rfft/irfft between the passes), both through
+  ``ops.ski_fused_tno_coef``;
 * unfused (``fused=False``, the paper's baseline): ``ops.interp_reduce``,
   ``ops.short_conv``, the Gram matvec A z by FFT over the r inducing
   points (``toeplitz.toeplitz_matvec`` of the (d, 2r-1) coefficients) and
   ``ops.interp_expand``, each op differentiable on its own.
-
-Of the fused rank variants of ``backend.ski_rank_variant`` only "dense" is
-ported: the large-rank "windowed" and "fft" variants raise (ROADMAP
-Queue 1 item 7).
 
 Forward-invariant pieces (inducing geometry, warped lag grid, the Gram)
 are grouped in a :func:`ski_plan`, built once per layer per forward; the
@@ -42,14 +44,6 @@ from repro_torch.core import toeplitz
 from repro_torch.core.rpe import (InterpRPE, InterpRPEConfig,
                                   interp_rpe_apply)
 from repro_torch.kernels import backend, ops, ref
-
-_NOT_PORTED = {
-    "windowed": "the large-rank SKI variants (windowed, fft) are not "
-                "ported yet (ROADMAP Queue 1 item 7)",
-    "fft": "the large-rank SKI variants (windowed, fft) are not ported yet "
-           "(ROADMAP Queue 1 item 7)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class SKIConfig:
@@ -131,10 +125,11 @@ def inducing_gram_coeffs(params: SKIParams, cfg: SKIConfig, r: int,
 def ski_plan(params: SKIParams, cfg: SKIConfig, n: int, causal: bool = False,
              variant: str | None = None) -> dict:
     """Everything invariant across ops within a forward: the inducing
-    geometry, the Gram coefficients, the variant ("dense" or "unfused") and,
-    for "dense", the (d, r, r) Gram. ``variant`` overrides
-    ``backend.ski_rank_variant`` (or "unfused" when ``cfg.fused`` is
-    False); "windowed" and "fft" are not ported and raise here."""
+    geometry, the Gram coefficients, the variant ("dense", "windowed",
+    "fft" or "unfused") and, for "dense" only, the (d, r, r) Gram.
+    ``variant`` overrides ``backend.ski_rank_variant`` (or "unfused" when
+    ``cfg.fused`` is False), unchecked as in the JAX package: forcing
+    "dense" builds the (d, r, r) Gram whatever its size."""
     r = min(cfg.rank, n)
     device = params.filt.device
     idx_lo, w_lo, h = make_inducing(n, r, device)
@@ -144,9 +139,7 @@ def ski_plan(params: SKIParams, cfg: SKIConfig, n: int, causal: bool = False,
     if variant is None:
         variant = (backend.ski_rank_variant(r, cfg.d) if cfg.fused
                    else "unfused")
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[variant])
-    if variant not in ("dense", "unfused"):
+    if variant not in ("dense", "windowed", "fft", "unfused"):
         raise ValueError(f"unknown SKI variant {variant!r}")
     plan = {"r": r, "h": h, "idx_lo": idx_lo, "w_lo": w_lo,
             "causal": causal, "a_coef": a_coef, "variant": variant}
@@ -159,7 +152,8 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
                   causal: bool = False, plan: dict | None = None
                   ) -> torch.Tensor:
     """x: (b, n, d) -> (b, n, d) through the fused ``ops.ski_fused_tno``
-    or, for an "unfused" plan, the four unfused ops. Bidirectional by
+    ("dense"), ``ops.ski_fused_tno_coef`` ("windowed", "fft") or, for an
+    "unfused" plan, the four unfused ops. Bidirectional by
     default, as in the JAX package; the decoder LM runs it causal.
     ``plan`` — optional :func:`ski_plan` built with the same ``causal``
     flag and n; a stale plan raises."""
@@ -176,6 +170,10 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
     if plan["variant"] == "dense":
         y = ops.ski_fused_tno(x, plan["a_dense"], params.filt, idx_lo, w_lo,
                               r, causal)
+        return y.to(x.dtype)
+    if plan["variant"] in ("windowed", "fft"):
+        y = ops.ski_fused_tno_coef(x, plan["a_coef"], params.filt, idx_lo,
+                                   w_lo, r, causal, plan["variant"])
         return y.to(x.dtype)
     # unfused: four ops, each differentiable on its own
     z = ops.interp_reduce(x, idx_lo, w_lo, r)                 # (b, r, d)

@@ -34,6 +34,7 @@ _ENV_FD_STREAM = "REPRO_FD_STREAM"
 _ENV_FD_STREAM_C = "REPRO_FD_STREAM_C"
 _ENV_DENSE_RMAX = "REPRO_SKI_DENSE_RMAX"
 _ENV_WINDOWED_RMAX = "REPRO_SKI_WINDOWED_RMAX"
+_ENV_BAND_MAX = "REPRO_SKI_BAND_MAX"
 _ENV_GRAD = "REPRO_PALLAS_GRAD"
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -116,15 +117,68 @@ def ski_windowed_rank_max() -> int:
 
 def ski_rank_variant(r: int, d: int | None = None) -> str:
     """How the fused SKI pipeline applies the r×r inducing Gram: "dense" |
-    "windowed" | "fft", with the JAX package's thresholds. ``d`` (channels)
-    feeds the dense (d, r, r) byte budget when known. Only "dense" is
-    ported; ``core/ski.ski_plan`` raises for the others."""
+    "windowed" | "fft", with the JAX package's thresholds, the 64 MB dense
+    ceiling included (the same operator on the same route in both
+    packages). ``d`` (channels) feeds the dense (d, r, r) byte budget when
+    known. "dense" runs ``ski_fused_pass2``, "windowed" the banded
+    ``ski_windowed_pass2``, "fft" the rfft Gram and ``ski_expand_pass2``
+    (``core/ski.ski_plan``)."""
     if r <= ski_dense_rank_max() and (
             d is None or d * r * r * 4 <= SKI_GRAM_BYTES_MAX):
         return "dense"
     if r <= ski_windowed_rank_max():
         return "windowed"
     return "fft"
+
+
+#: default of ``REPRO_SKI_BAND_MAX`` on Hopper (the JAX package's 128 was
+#: sized for TPU VMEM); see :func:`band_budget`
+SKI_BAND_MAX = 160
+
+
+def band_budget() -> int:
+    """Max Gram band width bw of the windowed pass 2
+    (``REPRO_SKI_BAND_MAX``): :func:`band_fit` shrinks the sequence tile
+    until bw fits, so the knob changes the tiling, never the result.
+
+    The Hopper default, 160, comes from the kernel's shared memory
+    (``csrc/ski.cu`` ``window_smem``): a block of a 128-row tile, m = 32
+    taps and bw window rows holds 4 · (159·32 x rows + 32·32 taps + 33·bw
+    window + 2·128 hat rows + 32·32 z chunk + 32·(bw + 31) coefficients,
+    with 32 channels a block at worst) = 33,536 + 260·bw bytes. Three
+    blocks a SM (``kBlocksPerSM``, each with 1 KB the card reserves) share
+    ``kSmemPerSM`` = 233,472 bytes, so a block may take 76,800: bw ≤ 166,
+    and 160 is the largest multiple of 8 below (75,136 bytes, well under
+    ``kMaxSmem`` = 232,448 for one block). Since r ≤ n, h ≥ 1 and
+    ``band_width(128, n, r)`` ≤ 136: the default never shrinks the
+    kernel's 128-row tile."""
+    return _env_int(_ENV_BAND_MAX, SKI_BAND_MAX)
+
+
+def _round_up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+def band_width(bn: int, n: int, r: int) -> int:
+    """Static Gram band width covering every hat tap of a length-bn
+    sequence tile, as the JAX package computes it: the tile's rows span
+    (bn-1)/h inducing columns, plus one tap each side and fp32-floor slack,
+    rounded up to 8 and capped at r rounded up to 8."""
+    h = (n - 1) / max(1, r - 1)
+    bw = _round_up(int((bn - 1) / h) + 4, 8)
+    return max(8, min(bw, _round_up(r, 8)))
+
+
+def band_fit(bn: int, n: int, r: int) -> tuple[int, int]:
+    """(bn, bw) with bn halved (to a floor of 8) until the band fits
+    :func:`band_budget`, as in the JAX package: bw ≈ bn·r/n follows the
+    tile, so shrinking the tile is the way to narrow the band without
+    changing the result."""
+    bw = band_width(bn, n, r)
+    while bw > band_budget() and bn > 8:
+        bn = max(8, _round_up(bn // 2, 8))
+        bw = band_width(bn, n, r)
+    return bn, bw
 
 
 # ------------------------------------------------------- build and load

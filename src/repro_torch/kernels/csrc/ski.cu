@@ -1,11 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels of the SKI-TNO forward (paper §3.2,
 // Algorithm 1): y = W (A (W^T x)) + T_sparse x, fused (interp_reduce, then
-// ski_fused_pass2) or unfused (interp_reduce, the Gram by FFT outside the
-// kernels, interp_expand; the short conv in csrc/short_conv.cu), bound to
-// PyTorch through a plain C interface (ctypes) by
-// src/repro_torch/kernels/interp_matvec.py and ski_fused.py. x, y are
-// (b, n, d) fp32, z = W^T x is (b, r, d), A is the (d, r, r) per-channel
-// inducing Gram and f the (d, m) short-conv taps, all contiguous.
+// ski_fused_pass2 with a dense Gram, or at large rank ski_windowed_pass2 /
+// ski_expand_pass2 with the Gram in Toeplitz-coefficient form) or unfused
+// (interp_reduce, the Gram by FFT outside the kernels, interp_expand; the
+// short conv in csrc/short_conv.cu), bound to PyTorch through a plain C
+// interface (ctypes) by src/repro_torch/kernels/interp_matvec.py and
+// ski_fused.py. x, y are (b, n, d) fp32, z = W^T x is (b, r, d), A is the
+// (d, r, r) per-channel inducing Gram or its (d, 2r-1) Toeplitz
+// coefficients and f the (d, m) short-conv taps, all contiguous.
 //
 // W is the linear interpolation onto r uniform inducing points with spacing
 // h = (n-1)/(r-1): row i has two taps, w_lo on node lo = floor(i/h) and
@@ -98,6 +100,48 @@
 //   a register window, 32.4 us. A block's phases (Gram, tile copies, conv,
 //   stores) still run one after another with little overlap: warp
 //   specialisation (a producer warp for the copies) is the next step.
+//
+// ski_windowed_pass2  replaces src/repro/kernels/ski_fused.py _windowed_kernel /
+//   _windowed_call with banded=True (ski_windowed_pass2_pallas): the large-rank
+//   pass 2 with the Gram given as its (d, 2r-1) Toeplitz coefficients,
+//   A[c, s, t] = coef[c, s - t + r - 1]:
+//     y[b, i, c] = sum_s W[i, s] z2[b, s, c] + sum_{k<m} f[c, k] x[b, i-k+left, c],
+//     z2[b, s, c] = sum_t coef[c, s - t + r - 1] z[b, t, c],
+//   one write of y. The TPU kernel streams kb = rp/bw Toeplitz (bw, bw) band
+//   blocks rebuilt from the lag-reversed coefficient line per sequence tile.
+//   Here a block owns one tile of TN rows (band_fit's tile: 128, or a halving
+//   of it when REPRO_SKI_BAND_MAX asks for a narrower band) and its 32 (batch
+//   row, channel) columns, and computes only the bw rows of z2 its hat rows
+//   touch: the window starts at the node of the tile's first row (hat_row's
+//   lo, so the window and the weights come from one computation), clamped to
+//   r - bw. z and the matching coefficients stream through shared memory
+//   kGramT rows of z at a time (a chunk needs bw + kGramT - 1 coefficients a
+//   channel, zero outside [0, 2r-1)); a thread sums kGramQ window rows of one
+//   column from a register window of coefficients. No (r, r) panel and no
+//   dense Gram exists anywhere, so r = 4096 and beyond run. The signal
+//   backward is this same kernel with the coefficients lag-flipped (A^T of a
+//   Toeplitz matrix), the taps flipped and left mirrored.
+//   Bound: x, z, the coefficients and f read once and y written once: at
+//   (8, 512, 512), r = 512, m = 32, 27,326,464 bytes, 8.16 us at 3.35 TB/s;
+//   2 b d r^2 = 2,147 MFLOP for the Gram (the windows of neighbouring tiles
+//   overlap by a few rows, about 6% more), 134 MFLOP conv and 8 MFLOP
+//   expansion, 2,290 MFLOP, 34.2 us at 67 TFLOP/s fp32: bound by operations.
+//
+// ski_expand_pass2  replaces the same _windowed_kernel / _windowed_call with
+//   banded=False (ski_expand_pass2_pallas): the Gram-free pass 2 of the
+//   FFT-Gram variant, y = W z2 + T_sparse x with z2 = A z applied outside
+//   (rfft/irfft over the r inducing points). The same block and tile as
+//   ski_windowed_pass2: the window's bw rows of z2 are copied (cp.async)
+//   beside the x tile instead of computed. Bound: x, z2, f read once and y
+//   written once, at (8, 512, 512), r = 512, m = 32, 25,231,360 bytes,
+//   7.53 us at 3.35 TB/s (142 MFLOP, 2.1 us): bound by bytes.
+//
+//   Both take every n >= 2, 2 <= r <= n and 0 <= left < m themselves, n < m,
+//   r = n and r < bw included (rows of the window past r are zero or unread):
+//   the TPU wrapper's padding copies and its plain fallback for r < 2 or
+//   bn < m have no counterpart. The conv over the tile and the two-tap
+//   expansion from the window are conv_expand_store, the device function
+//   that ski_fused_pass2 runs too.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -119,6 +163,8 @@ constexpr int kBlocksPerSM = 3;  // pass-2 blocks aimed at per SM
 constexpr int kMaxSmem = 232448; // bytes a block may use (227 KB)
 constexpr int kSmemPerSM = 233472;  // bytes a SM holds for its blocks
 constexpr int kMaxDevices = 64;  // devices with their own pass-2 state
+constexpr int kGramT = 32;       // z rows of a windowed Gram chunk
+constexpr int kGramQ = 8;        // window rows a thread sums at once
 
 // The two taps of W's row i: node lo and weight w_lo (1 - w_lo on lo + 1).
 __device__ __forceinline__ int hat_row(long long i, float hf, int r,
@@ -295,6 +341,51 @@ __device__ __forceinline__ void load_tile(float* xs, const float* x,
   }
 }
 
+// The conv over a tile and the two-tap expansion, one store: output rows
+// row0 .. row0 + RPT - 1 of the tile (row0 = warp * RPT) in column lane.
+// xt is the tile with its halo ([TN + mp - 1][kLanes], tile row q holding x
+// row i0 - (mp - 1 - left) + q), fs the taps ([mp][kLanes], zero past m),
+// z2w the rows of z2 from node w0 on ([.][kZ2Pitch]), hlo / hw the tile
+// rows' nodes and weights. Output row row0 + q with tap k reads tile row
+// row0 + q - k + mp - 1; the kKB + RPT - 1 rows a block of kKB taps needs
+// sit in registers, so each x value is read from shared memory once a block.
+template <int RPT>
+__device__ __forceinline__ void conv_expand_store(
+    const float* xt, const float* fs, int mp, const float* z2w, int w0,
+    const int* hlo, const float* hw, float* __restrict__ y, long long i0,
+    long long n, long long d, long long bg, long long c, bool valid) {
+  const int lane = threadIdx.x & 31;
+  const int row0 = (threadIdx.x >> 5) * RPT;
+  float acc[RPT];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
+  for (int kb = 0; kb < mp; kb += kKB) {
+    const float* xr = xt + (row0 + mp - kb - kKB) * kLanes + lane;
+    float xw[RPT + kKB - 1];
+#pragma unroll
+    for (int e = 0; e < RPT + kKB - 1; ++e) xw[e] = xr[e * kLanes];
+    float fk[kKB];
+#pragma unroll
+    for (int kk = 0; kk < kKB; ++kk) fk[kk] = fs[(kb + kk) * kLanes + lane];
+#pragma unroll
+    for (int kk = 0; kk < kKB; ++kk)
+#pragma unroll
+      for (int q = 0; q < RPT; ++q)
+        acc[q] = fmaf(fk[kk], xw[q + kKB - 1 - kk], acc[q]);
+  }
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const long long i = i0 + row0 + q;
+    if (i < n && valid) {
+      const int lo = hlo[row0 + q] - w0;
+      const float wl = hw[row0 + q];
+      const float low = wl * z2w[lo * kZ2Pitch + lane] +
+                        (1.f - wl) * z2w[(lo + 1) * kZ2Pitch + lane];
+      y[(bg * n + i) * d + c] = low + acc[q];
+    }
+  }
+}
+
 // One block: cb batch rows x kc = 32/cb channels, its 32 (batch row,
 // channel) columns laid along a warp's lanes, lane = row * kc + channel.
 __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
@@ -391,7 +482,6 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
 
   // 4. stream the block's tiles: conv from the tile, expansion from z2, one
   //    store
-  const int row0 = warp * kRowsPerThread;   // this thread's rows in a tile
   for (long long tile = t0; tile < t1; ++tile) {
     const long long k = tile - t0;
     const float* cur = xs + (k % nbuf) * rows * kLanes;
@@ -408,38 +498,8 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
     }
     cp_async_wait(nbuf - 1);           // this tile's copies have landed
     __syncthreads();
-    // conv, kKB taps at a time: output row row0 + q with tap k reads tile
-    // row row0 + q - k + mp - 1; the kKB + 15 rows a tap block needs sit in
-    // registers, so each x value is read from shared memory once a block
-    float acc[kRowsPerThread];
-#pragma unroll
-    for (int q = 0; q < kRowsPerThread; ++q) acc[q] = 0.f;
-    for (int kb = 0; kb < mp; kb += kKB) {
-      const float* xr = cur + (row0 + mp - kb - kKB) * kLanes + lane;
-      float xw[kRowsPerThread + kKB - 1];
-#pragma unroll
-      for (int e = 0; e < kRowsPerThread + kKB - 1; ++e)
-        xw[e] = xr[e * kLanes];
-      float fk[kKB];
-#pragma unroll
-      for (int kk = 0; kk < kKB; ++kk) fk[kk] = fs[(kb + kk) * kLanes + lane];
-#pragma unroll
-      for (int kk = 0; kk < kKB; ++kk)
-#pragma unroll
-        for (int q = 0; q < kRowsPerThread; ++q)
-          acc[q] = fmaf(fk[kk], xw[q + kKB - 1 - kk], acc[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < kRowsPerThread; ++q) {
-      const long long i = tile * kTN + row0 + q;
-      if (i < n && valid) {
-        const int lo = hlo[row0 + q];
-        const float wl = hw[row0 + q];
-        const float low = wl * z2s[lo * kZ2Pitch + lane] +
-                          (1.f - wl) * z2s[(lo + 1) * kZ2Pitch + lane];
-        y[(bg * n + i) * d + c] = low + acc[q];
-      }
-    }
+    conv_expand_store<kRowsPerThread>(cur, fs, mp, z2s, 0, hlo, hw, y,
+                                      tile * kTN, n, d, bg, c, valid);
     __syncthreads();                   // before the buffers are refilled
     if (nbuf == 1) {                   // one buffer: the next tile now
       if (tile + 1 < t1)
@@ -450,7 +510,226 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
   }
 }
 
+
+// z2w[j][lane] = sum_{t<r} coef[c, w0 + j - t + r - 1] z[bg, t, c] for j < bw:
+// the window rows w0 .. w0 + bw - 1 of z2 = A z. z and the coefficients
+// stream through shared memory kGramT rows of z at a time: zc ([kGramT]
+// [kLanes]) and cs ([bw + kGramT - 1][kc], the block's kc channels); chunk
+// t0 needs coefficient indices base .. base + bw + kGramT - 2 with
+// base = w0 + r - kGramT - t0, zero outside [0, 2r - 1) and past d.
+__device__ __forceinline__ void gram_window(
+    const float* __restrict__ z, const float* __restrict__ coef, float* z2w,
+    float* zc, float* cs, int w0, int bw, int r, long long d, long long c0,
+    int kc, long long bg, long long c, bool valid) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ch = lane % kc;
+  const int span = bw + kGramT - 1;       // coefficients a channel a chunk
+  const long long ncoef = 2LL * r - 1;
+  for (int t0 = 0; t0 < r; t0 += kGramT) {
+    for (int tt = warp; tt < kGramT; tt += kWarps) {
+      const int t = t0 + tt;
+      zc[tt * kLanes + lane] =
+          valid && t < r ? __ldg(z + (bg * r + t) * d + c) : 0.f;
+    }
+    const long long base = (long long)w0 + r - kGramT - t0;
+    for (int p = threadIdx.x; p < kc * span; p += kLanes * kWarps) {
+      const int pc = p / span;            // consecutive threads, consecutive
+      const int e = p - pc * span;        // coefficients of one channel
+      const long long idx = base + e;
+      cs[e * kc + pc] = c0 + pc < d && idx >= 0 && idx < ncoef
+                            ? __ldg(coef + (c0 + pc) * ncoef + idx)
+                            : 0.f;
+    }
+    __syncthreads();
+    // a warp sums kGramQ window rows at a time: row j0 + q and chunk row
+    // tb + kk read chunk coefficient j0 + q + kGramT - 1 - tb - kk, so the
+    // kGramQ + kKB - 1 of a block of kKB rows sit in registers; the running
+    // sums wait in z2w between chunks (each is one thread's own)
+    for (int j0 = warp * kGramQ; j0 < bw; j0 += kWarps * kGramQ) {
+      float acc[kGramQ];
+#pragma unroll
+      for (int q = 0; q < kGramQ; ++q)
+        acc[q] = t0 == 0 ? 0.f : z2w[(j0 + q) * kZ2Pitch + lane];
+#pragma unroll
+      for (int tb = 0; tb < kGramT; tb += kKB) {
+        const float* cr = cs + (j0 + kGramT - kKB - tb) * kc + ch;
+        float cw[kGramQ + kKB - 1];
+#pragma unroll
+        for (int u = 0; u < kGramQ + kKB - 1; ++u) cw[u] = cr[u * kc];
+        float zk[kKB];
+#pragma unroll
+        for (int kk = 0; kk < kKB; ++kk) zk[kk] = zc[(tb + kk) * kLanes + lane];
+#pragma unroll
+        for (int kk = 0; kk < kKB; ++kk)
+#pragma unroll
+          for (int q = 0; q < kGramQ; ++q)
+            acc[q] = fmaf(cw[q + kKB - 1 - kk], zk[kk], acc[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < kGramQ; ++q) z2w[(j0 + q) * kZ2Pitch + lane] = acc[q];
+    }
+    __syncthreads();                      // before the chunks are refilled
+  }
+}
+
+// One block: one tile of TN sequence rows (RPT = TN / kWarps a thread) and
+// cb batch rows x kc = 32/cb channels, lane = row * kc + channel, as in
+// ski_fused_pass2. kBanded: the window of z2 = A z is computed from z and
+// the coefficients (ski_windowed_pass2); otherwise z holds z2 and the
+// window is copied (ski_expand_pass2; coef unused).
+template <int TN, bool kBanded>
+__global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
+    ski_window_pass2_kernel(const float* __restrict__ x,
+                            const float* __restrict__ z,
+                            const float* __restrict__ coef,
+                            const float* __restrict__ filt,
+                            float* __restrict__ y, long long b, long long n,
+                            long long d, int r, int m, int left, float hf,
+                            int cb, int bw, bool x_vec16) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int kc = kLanes / cb;
+  const long long i0 = (long long)blockIdx.x * TN;     // the tile's first row
+  const long long c0 = (long long)blockIdx.y * kc;
+  const long long b0 = (long long)blockIdx.z * cb;
+  const long long bg = b0 + lane / kc;
+  const long long c = c0 + lane % kc;
+  const bool valid = bg < b && c < d;
+  const int mp = padded_taps(m);        // taps m..mp-1 are zero
+  const int rows = TN + mp - 1;         // tile rows with the conv halo
+  float* xs = smem;                     // [rows][kLanes]  x tile (16-byte
+                                        //   aligned: first)
+  float* fs = xs + rows * kLanes;       // [mp][kLanes]    f[c, k]
+  float* z2w = fs + mp * kLanes;        // [bw][kZ2Pitch]  z2[bg, w0 + j, c]
+  float* hw = z2w + bw * kZ2Pitch;      // [TN] w_lo of the tile's rows
+  int* hlo = reinterpret_cast<int*>(hw + TN);          // [TN] their nodes
+  float* zc = reinterpret_cast<float*>(hlo + TN);      // banded: z chunk
+  float* cs = zc + kGramT * kLanes;                    //   and coefficients
+  // the window's first node: that of the tile's first row, clamped so that
+  // the bw rows stay inside [0, r) (from 0 when r < bw)
+  float wl0;
+  int w0 = hat_row(i0, hf, r, wl0);
+  const int w0_max = r > bw ? r - bw : 0;
+  w0 = w0 < w0_max ? w0 : w0_max;
+
+  // 1. the x tile with its halo (and, FFT variant, the window of z2)
+  //    streams in while the taps, the hat rows and the Gram window are made
+  load_tile(xs, x, b0, c0, i0, mp - 1 - left, rows, b, n, d, cb, x_vec16);
+  if (!kBanded) {
+    for (int j = warp; j < bw; j += kWarps) {
+      const long long t = w0 + j;
+      const bool ok = valid && t < r;
+      cp_async4(z2w + j * kZ2Pitch + lane, ok ? z + (bg * r + t) * d + c : z,
+                ok);
+    }
+  }
+  cp_async_commit();
+  for (int k = warp; k < mp; k += kWarps)
+    fs[k * kLanes + lane] = valid && k < m ? filt[c * m + k] : 0.f;
+  if (threadIdx.x < TN) {
+    float w_lo;
+    hlo[threadIdx.x] = hat_row(i0 + threadIdx.x, hf, r, w_lo);
+    hw[threadIdx.x] = w_lo;
+  }
+  // 2. banded: the window of z2 = A z
+  if (kBanded)
+    gram_window(z, coef, z2w, zc, cs, w0, bw, r, d, c0, kc, bg, c, valid);
+  cp_async_wait(0);
+  __syncthreads();
+  // 3. conv, expansion, one store
+  conv_expand_store<TN / kWarps>(xs, fs, mp, z2w, w0, hlo, hw, y, i0, n, d,
+                                 bg, c, valid);
+}
+
 }  // namespace
+
+
+// Batch rows of a pass-2 block: 8 (A, or its coefficients, then serve 8 rows
+// at once), fewer for a smaller batch so that no lane idles; the rest of
+// the 32 lanes are channels.
+static int batch_rows(long long b) {
+  int cb = 1;
+  while (cb < kMaxCB && cb < b) cb *= 2;
+  return cb;
+}
+
+// Dynamic shared memory of a windowed pass-2 block, bytes: the x tile of tn
+// rows with its halo, the taps, bw window rows of z2 and the hat rows; the
+// banded kernel adds its z chunk and kc channels' coefficient chunk.
+static long long window_smem(long long tn, long long bw, long long m,
+                             long long kc, bool banded) {
+  const long long mp = padded_taps(m);
+  long long floats =
+      (tn + mp - 1) * kLanes + mp * kLanes + bw * kZ2Pitch + 2 * tn;
+  if (banded) floats += kGramT * kLanes + (bw + kGramT - 1) * kc;
+  return 4 * floats;
+}
+
+template <int TN, bool kBanded>
+static int window_launch(const dim3& grid, long long smem, cudaStream_t s,
+                         const void* x, const void* z, const void* coef,
+                         const void* filt, void* y, long long b, long long n,
+                         long long d, long long r, long long m,
+                         long long left, float hf, int cb, long long bw,
+                         bool x_vec16) {
+  // the dynamic shared memory this kernel's attribute allows, per device
+  // (the attribute is per device; 48 KB until raised)
+  static long long smem_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < 0 || dev >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  if (smem > 48 * 1024 && smem > smem_set[dev]) {
+    e = cudaFuncSetAttribute(ski_window_pass2_kernel<TN, kBanded>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    smem_set[dev] = smem;
+  }
+  ski_window_pass2_kernel<TN, kBanded>
+      <<<grid, kLanes * kWarps, (size_t)smem, s>>>(
+          static_cast<const float*>(x), static_cast<const float*>(z),
+          static_cast<const float*>(coef), static_cast<const float*>(filt),
+          static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
+          (int)bw, x_vec16);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBanded>
+static int window_pass2(const void* x, const void* z, const void* coef,
+                        const void* filt, void* y, long long b, long long n,
+                        long long d, long long r, long long m, long long left,
+                        float hf, long long tn, long long bw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tn < 8) return static_cast<int>(cudaErrorInvalidValue);
+  const int cb = batch_rows(b);
+  const int kc = kLanes / cb;
+  const long long tiles = (n + tn - 1) / tn;
+  const long long gx = (d + kc - 1) / kc, gy = (b + cb - 1) / cb;
+  const long long smem = window_smem(tn, bw, m, kc, kBanded);
+  if (smem > kMaxSmem || tiles > 2147483647LL || gx > 65535 || gy > 65535 ||
+      bw < kGramQ || bw % kGramQ != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((unsigned)tiles, (unsigned)gx, (unsigned)gy);
+#define REPRO_WINDOW_CASE(TN)                                               \
+  case TN:                                                                  \
+    return window_launch<TN, kBanded>(grid, smem, s, x, z, coef, filt, y, b, \
+                                      n, d, r, m, left, hf, cb, bw, x_vec16);
+  switch (tn) {
+    REPRO_WINDOW_CASE(128)
+    REPRO_WINDOW_CASE(64)
+    REPRO_WINDOW_CASE(32)
+    REPRO_WINDOW_CASE(16)
+    REPRO_WINDOW_CASE(8)
+  }
+#undef REPRO_WINDOW_CASE
+  return static_cast<int>(cudaErrorInvalidValue);   // not a band_fit tile
+}
 
 extern "C" {
 
@@ -525,11 +804,7 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  // batch rows a block: 8 (A is then read once per 8 rows), fewer for a
-  // smaller batch so that no lane idles; the rest of the 32 lanes are
-  // channels
-  int cb = 1;
-  while (cb < kMaxCB && cb < b) cb *= 2;
+  const int cb = batch_rows(b);
   const int kc = kLanes / cb;
   const long long gx = (d + kc - 1) / kc, gy = (b + cb - 1) / cb;
   // the sequence's tiles split over blocks until about kBlocksPerSM blocks
@@ -567,6 +842,39 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
       static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
       a_vec4, x_vec16, per_block, nbuf);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// Dynamic shared memory of a windowed pass-2 block (banded: the Gram's
+// chunks included) for a batch of b rows, a tile of tn rows, a window of
+// bw rows and m taps, bytes.
+long long ski_window_pass2_smem_bytes(long long b, long long tn, long long bw,
+                                      long long m, int banded) {
+  return window_smem(tn, bw, m, kLanes / batch_rows(b), banded != 0);
+}
+
+// x, y: (b, n, d); z: (b, r, d); coef: (d, 2r-1); filt: (d, m), contiguous
+// fp32 on the device; 2 <= r <= n, 0 <= left < m, hf = float32((n-1)/(r-1));
+// (tn, bw) from band_fit (tn in {128, 64, 32, 16, 8}, bw a multiple of 8).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for a tile, window,
+// grid or shared memory the kernel does not take.
+int ski_windowed_pass2_f32(const void* x, const void* z, const void* coef,
+                           const void* filt, void* y, long long b,
+                           long long n, long long d, long long r, long long m,
+                           long long left, float hf, long long tn,
+                           long long bw, void* stream) {
+  return window_pass2<true>(x, z, coef, filt, y, b, n, d, r, m, left, hf, tn,
+                            bw, stream);
+}
+
+// As ski_windowed_pass2_f32 with z2 = A z (b, r, d) in place of z and no
+// coefficients.
+int ski_expand_pass2_f32(const void* x, const void* z2, const void* filt,
+                         void* y, long long b, long long n, long long d,
+                         long long r, long long m, long long left, float hf,
+                         long long tn, long long bw, void* stream) {
+  return window_pass2<false>(x, z2, nullptr, filt, y, b, n, d, r, m, left, hf,
+                             tn, bw, stream);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -7,8 +7,8 @@ a CUDA tensor the hand-written kernels (see ``kernels/fd_fused.py``,
 ``kernels/ski_vjp.py``). As the JAX entries go through their custom VJPs,
 the differentiable entries here go through autograd Functions whose
 backwards launch kernels (``fd_tno``, ``short_conv``, ``interp_reduce``,
-``interp_expand``, ``ski_fused_tno``); ``ski_fused_pass2`` is
-forward-only on the card.
+``interp_expand``, ``ski_fused_tno``, ``ski_fused_tno_coef``);
+``ski_fused_pass2`` is forward-only on the card.
 """
 from __future__ import annotations
 
@@ -87,15 +87,38 @@ def ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r: int, causal: bool):
     return ski_vjp.ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r, causal)
 
 
+def ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r: int, causal: bool,
+                       variant: str):
+    """Differentiable large-rank fused SKI-TNO, the Gram as its Toeplitz
+    coefficients: y = W (A (Wᵀ x)) + T_sparse x.
+
+    x (b, n, d); a_coef (d, 2r-1) lags -(r-1)..r-1 of the inducing Gram
+    (never materialised dense); filt (d, m); idx_lo / w_lo the inducing
+    geometry (plain versions only). ``variant`` "windowed" (pass 2 the
+    banded ``ski_windowed_pass2``) or "fft" (the Gram by rfft/irfft between
+    the passes, pass 2 ``ski_expand_pass2``): two ways to one operator,
+    ``ref.ski_fused_tno_coef_ref``. Through ``ski_vjp.SKIFusedTNOCoef`` on
+    both devices: the backward launches ``interp_reduce`` twice, the same
+    pass 2 with the coefficients lag-flipped, the taps flipped and left
+    mirrored, and ``conv_tap_grad``, with ``gram_coef_grad_fft`` on
+    ``torch.fft``. ``REPRO_PALLAS_GRAD=0`` swaps in autograd's cotangents
+    through the plain version."""
+    return ski_vjp.ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r,
+                                      causal, variant)
+
+
 def reset_ski_counters() -> None:
-    """Zero the launch counts of the six SKI kernels and the counts of the
+    """Zero the launch counts of the eight SKI kernels and the counts of the
     SKI autograd Functions' forwards and backwards."""
     for mod in (interp_matvec, sc, ski_fused, ski_grad, ski_vjp):
         mod.reset_counters()
 
 
 def ski_counters() -> dict:
-    """Launch counts of the six SKI kernels since their last reset."""
+    """Launch counts of the eight SKI kernels (``interp_reduce``,
+    ``interp_expand``, ``short_conv``, ``ski_fused_pass2``,
+    ``ski_windowed_pass2``, ``ski_expand_pass2``, ``gram_grad``,
+    ``conv_tap_grad``) since their last reset."""
     return {**interp_matvec.counters, **sc.counters, **ski_fused.counters,
             **ski_grad.counters}
 
@@ -104,6 +127,7 @@ def ski_op_counters() -> dict:
     """Differentiated forwards and backwards (``fwd``, ``bwd_kernel``,
     ``bwd_ref``) of each SKI autograd Function since the last reset."""
     return {"SKIFusedTNO": dict(ski_vjp.counters),
+            "SKIFusedTNOCoef": dict(ski_vjp.coef_counters),
             "ShortConv": dict(sc.op_counters),
             "InterpReduce": dict(interp_matvec.reduce_op_counters),
             "InterpExpand": dict(interp_matvec.expand_op_counters)}

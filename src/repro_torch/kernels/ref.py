@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import toeplitz
+
 
 # ------------------------------------------------------------- short conv
 def _shift_conv(x: torch.Tensor, filt: torch.Tensor,
@@ -169,6 +171,42 @@ def ski_fused_tno_ref(x: torch.Tensor, a_dense: torch.Tensor,
     Differentiable by autograd in (x, a_dense, filt)."""
     z = interp_reduce_ref(x, idx_lo, w_lo, r)
     return ski_fused_pass2_ref(x, z, a_dense, filt, causal)
+
+
+def toeplitz_gram_matvec_ref(a_coef: torch.Tensor,
+                             z: torch.Tensor) -> torch.Tensor:
+    """z2 = A z for the coefficient-form Gram: a_coef (d, 2r-1) Toeplitz
+    lags -(r-1)..(r-1), z (b, r, d) → (b, r, d), by the length-2r circulant
+    rfft/irfft (the only Gram action that exists at large rank, where the
+    dense (d, r, r) form does not fit)."""
+    z2t = toeplitz.toeplitz_matvec(a_coef[None], z.transpose(1, 2))
+    return z2t.transpose(1, 2)
+
+
+def ski_fused_tno_coef_ref(x: torch.Tensor, a_coef: torch.Tensor,
+                           filt: torch.Tensor, idx_lo: torch.Tensor,
+                           w_lo: torch.Tensor, r: int,
+                           causal: bool) -> torch.Tensor:
+    """Large-rank fused SKI-TNO, coefficient form: y = W (A (Wᵀ x)) +
+    T_sparse x with A given as a_coef (d, 2r-1). The plain version of both
+    ``ski_vjp.SKIFusedTNOCoef`` variants (windowed and FFT-Gram: two ways
+    to the same operator); differentiable by autograd."""
+    z = interp_reduce_ref(x, idx_lo, w_lo, r)
+    z2 = toeplitz_gram_matvec_ref(a_coef, z)
+    return ski_expand_pass2_ref(x, z2, filt, causal)
+
+
+def gram_coef_grad_ref(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Coefficient-Gram cotangent, O(r²) (tests): dcoef[c, k] =
+    Σ_{b, s-t = k-(r-1)} gz[b,s,c] · z[b,t,c] → (d, 2r-1) fp32, the
+    diagonal sums of the dense cotangent :func:`gram_grad_ref`. The
+    production form is ``ski_grad.gram_coef_grad_fft``."""
+    r, d = z.shape[1], z.shape[2]
+    da = gram_grad_ref(gz, z)                                 # (d, r, r)
+    i = torch.arange(r, device=z.device)
+    lag = (i[:, None] - i[None, :] + (r - 1)).reshape(-1)    # in [0, 2r-2]
+    out = torch.zeros((d, 2 * r - 1), dtype=torch.float32, device=z.device)
+    return out.index_add(1, lag, da.reshape(d, r * r))
 
 
 # ------------------------------------------------------- causal FD-TNO

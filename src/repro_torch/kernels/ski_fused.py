@@ -1,24 +1,36 @@
-"""Fused SKI-TNO pass 2 (paper §3.2) with the hand-written CUDA kernel of
-``csrc/ski.cu``, counterpart of the dense ``ski_fused_pass2_pallas`` of
-``repro/kernels/ski_fused.py`` (replaces the Pallas ``_fused_kernel`` /
-``_fused_call``).
+"""Fused SKI-TNO pass 2 (paper §3.2) with the hand-written CUDA kernels of
+``csrc/ski.cu``, counterparts of ``repro/kernels/ski_fused.py``:
 
-    y = W (A z) + T_sparse x          one kernel, one write of y
+* :func:`ski_fused_pass2` — the dense-Gram pass 2 (replaces the Pallas
+  ``_fused_kernel`` / ``_fused_call``), A as (d, r, r);
+* :func:`ski_windowed_pass2` — the large-rank pass 2 with A as its (d, 2r-1)
+  Toeplitz coefficients, each sequence tile computing only the window of
+  z₂ = A z that its hat rows touch (replaces ``_windowed_kernel`` /
+  ``_windowed_call`` with ``banded=True``);
+* :func:`ski_expand_pass2` — the Gram-free pass 2 of the FFT-Gram variant,
+  z₂ = A z applied before it by rfft/irfft (``banded=False``).
 
-z = Wᵀx comes from pass 1 (``interp_matvec.interp_reduce``). The Gram
-contraction A z, the two-tap expansion by W and the m-tap short conv all
-run inside the kernel. The tap offset ``left`` is an argument (0 for the
-causal forward, m//2 bidirectional), so the signal backward
-(``ski_vjp.SKIFusedTNO``) launches this same kernel with A transposed, the
-taps flipped and ``left`` mirrored to m-1-left.
+    y = W z₂ + T_sparse x,   z₂ = A z      one kernel, one write of y
 
-The wrapper takes the plain version (``ref.ski_fused_pass2_ref``) for CPU
-tensors and launches the kernel for CUDA tensors, counting the launch in
-:data:`counters`; another device, dtype or layout raises, as does an input
-that requires grad while grad is enabled (the kernel on its own is
-forward-only; gradients go through ``ops.ski_fused_tno``). The kernel
-handles every n >= 2 and 2 <= r <= n itself, n < m and r = n included:
-the TPU wrapper's plain fallback for tiny n has no counterpart here.
+z = Wᵀx comes from pass 1 (``interp_matvec.interp_reduce``). The two-tap
+expansion by W and the m-tap short conv run inside each kernel, and so
+does the Gram contraction of the first two. The tap offset ``left`` is an
+argument (0 for the causal forward, m//2 bidirectional), so the signal
+backwards (``ski_vjp``) launch these same kernels with the Gram transposed
+(for the coefficient form: lag-flipped), the taps flipped and ``left``
+mirrored to m-1-left.
+
+Each wrapper takes the plain version (``ref.ski_fused_pass2_ref``;
+``ref.ski_expand_pass2_ref`` after ``ref.toeplitz_gram_matvec_ref`` for
+the windowed one) for CPU tensors and launches the kernel for CUDA
+tensors, counting the launch in :data:`counters`; another device, dtype or
+layout raises, as does an input that requires grad while grad is enabled
+(a kernel on its own is forward-only; gradients go through
+``ops.ski_fused_tno`` and ``ops.ski_fused_tno_coef``). The kernels handle
+every n >= 2 and 2 <= r <= n themselves, n < m and r = n included: the TPU
+wrappers' padding copies and plain fallbacks for tiny shapes have no
+counterpart here. The windowed kernels tile the sequence by
+``backend.band_fit`` from a 128-row tile (``REPRO_SKI_BAND_MAX``).
 """
 from __future__ import annotations
 
@@ -31,10 +43,13 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.interp_matvec import forward_only, hat_spacing
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"ski_fused_pass2": 0}
+counters = {"ski_fused_pass2": 0, "ski_windowed_pass2": 0,
+            "ski_expand_pass2": 0}
 
 #: shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
+#: sequence rows of a windowed pass-2 tile before ``backend.band_fit``
+_TILE = 128
 
 
 def reset_counters() -> None:
@@ -51,25 +66,48 @@ def _lib() -> ctypes.CDLL:
     lib.ski_fused_pass2_f32.restype = ctypes.c_int
     lib.ski_fused_pass2_smem_bytes.argtypes = [i64, i64]
     lib.ski_fused_pass2_smem_bytes.restype = i64
+    window = [i64, i64, i64, i64, i64, i64, ctypes.c_float, i64, i64, p]
+    lib.ski_windowed_pass2_f32.argtypes = [p, p, p, p, p, *window]
+    lib.ski_windowed_pass2_f32.restype = ctypes.c_int
+    lib.ski_expand_pass2_f32.argtypes = [p, p, p, p, *window]
+    lib.ski_expand_pass2_f32.restype = ctypes.c_int
+    lib.ski_window_pass2_smem_bytes.argtypes = [i64, i64, i64, i64,
+                                                ctypes.c_int]
+    lib.ski_window_pass2_smem_bytes.restype = i64
     return lib
 
 
-def _check_shapes(x, z, a_dense, filt, left: int) -> None:
+def _check_shapes(what: str, x, z, gram, filt, left: int) -> None:
+    """x (b, n, d), z (b, r, d), filt (d, m) and, unless None, the Gram:
+    (d, r, r) for the dense pass 2, else (d, 2r-1) coefficients;
+    0 <= left < m."""
     if x.dim() != 3 or x.numel() == 0:
-        raise ValueError(f"ski_fused_pass2: x {tuple(x.shape)} is not a "
-                         "non-empty (b, n, d)")
+        raise ValueError(f"{what}: x {tuple(x.shape)} is not a non-empty "
+                         "(b, n, d)")
     b, n, d = x.shape
     r, m = z.shape[1], filt.shape[-1]
-    if (tuple(z.shape) != (b, r, d) or tuple(a_dense.shape) != (d, r, r)
-            or tuple(filt.shape) != (d, m)):
-        raise ValueError(f"ski_fused_pass2: x {tuple(x.shape)}, z "
-                         f"{tuple(z.shape)}, A {tuple(a_dense.shape)}, taps "
-                         f"{tuple(filt.shape)} are not (b, n, d), (b, r, d), "
-                         "(d, r, r), (d, m)")
+    want = {"z": (z, (b, r, d)), "taps": (filt, (d, m))}
+    if gram is not None:
+        want["A"] = (gram, (d, r, r) if what == "ski_fused_pass2"
+                     else (d, 2 * r - 1))
+    bad = [f"{k} {tuple(t.shape)}, not {shape}"
+           for k, (t, shape) in want.items() if tuple(t.shape) != shape]
+    if bad:
+        raise ValueError(f"{what}: x {tuple(x.shape)} with " + "; ".join(bad))
     if not 0 <= left < m:
-        raise ValueError(f"ski_fused_pass2: left={left} outside [0, m={m})")
+        raise ValueError(f"{what}: left={left} outside [0, m={m})")
     if b > 65535:                                 # grid (d tiles, b)
-        raise ValueError(f"ski_fused_pass2: b={b} over 65535")
+        raise ValueError(f"{what}: b={b} over 65535")
+
+
+def _require_kernel_inputs(what: str, ts, names) -> None:
+    """The CUDA path's checks: forward-only, fp32, contiguous, one device."""
+    forward_only(what, *ts)
+    for name, t in zip(names, ts):
+        backend.require_cuda(t, f"{what} {name}", torch.float32)
+    if any(t.device != ts[0].device for t in ts):
+        raise ValueError(f"{what}: inputs on "
+                         f"{sorted({str(t.device) for t in ts})}")
 
 
 def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
@@ -86,13 +124,8 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
     if all(t.device.type == "cpu" for t in ts):
         return ref.ski_fused_pass2_ref(x, z, a_dense, filt, causal,
                                        left=left)
-    forward_only("ski_fused_pass2", *ts)
-    for name, t in zip(("x", "z", "A", "taps"), ts):
-        backend.require_cuda(t, f"ski_fused_pass2 {name}", torch.float32)
-    if any(t.device != x.device for t in ts):
-        raise ValueError("ski_fused_pass2: inputs on "
-                         f"{sorted({str(t.device) for t in ts})}")
-    _check_shapes(x, z, a_dense, filt, left)
+    _require_kernel_inputs("ski_fused_pass2", ts, ("x", "z", "A", "taps"))
+    _check_shapes("ski_fused_pass2", x, z, a_dense, filt, left)
     b, n, d = x.shape
     r = z.shape[1]
     _, hf = hat_spacing(n, r)
@@ -110,3 +143,62 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
     backend.check(lib, rc, "ski_fused_pass2")
     counters["ski_fused_pass2"] += 1
     return y
+
+
+def _window_pass2(what: str, x, z, a_coef, filt, causal: bool,
+                  left: int | None) -> torch.Tensor:
+    """The two windowed pass-2 kernels: a_coef None is ski_expand_pass2
+    (z holds z₂), else ski_windowed_pass2."""
+    m = filt.shape[-1]
+    if left is None:
+        left = 0 if causal else m // 2
+    ts = (x, z, filt) + (() if a_coef is None else (a_coef,))
+    if all(t.device.type == "cpu" for t in ts):
+        z2 = z if a_coef is None else ref.toeplitz_gram_matvec_ref(a_coef, z)
+        return ref.ski_expand_pass2_ref(x, z2, filt, causal, left=left)
+    _require_kernel_inputs(what, ts, ("x", "z" if a_coef is not None
+                                      else "z2", "taps", "coefficients"))
+    _check_shapes(what, x, z, a_coef, filt, left)
+    b, n, d = x.shape
+    r = z.shape[1]
+    _, hf = hat_spacing(n, r)
+    bn, bw = backend.band_fit(_TILE, n, r)
+    lib = _lib()
+    banded = a_coef is not None
+    smem = lib.ski_window_pass2_smem_bytes(b, bn, bw, m, int(banded))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{what}: tile {bn}, band {bw}, m={m} need {smem} "
+                         f"bytes of shared memory a block, over {_MAX_SMEM}")
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        if banded:
+            rc = lib.ski_windowed_pass2_f32(
+                x.data_ptr(), z.data_ptr(), a_coef.data_ptr(),
+                filt.data_ptr(), y.data_ptr(), b, n, d, r, m, left, hf, bn,
+                bw, backend.stream(x))
+        else:
+            rc = lib.ski_expand_pass2_f32(
+                x.data_ptr(), z.data_ptr(), filt.data_ptr(), y.data_ptr(), b,
+                n, d, r, m, left, hf, bn, bw, backend.stream(x))
+    backend.check(lib, rc, f"{what} (r={r}, tile {bn}, band {bw})")
+    counters[what] += 1
+    return y
+
+
+def ski_windowed_pass2(x: torch.Tensor, z: torch.Tensor, a_coef: torch.Tensor,
+                       filt: torch.Tensor, causal: bool,
+                       left: int | None = None) -> torch.Tensor:
+    """y = W (A z) + T_sparse x with A as Toeplitz coefficients: x (b, n, d),
+    z = Wᵀx (b, r, d), a_coef (d, 2r-1) lags -(r-1)..r-1, filt (d, m) →
+    (b, n, d). No (r, r) panel or dense Gram exists, on the card or off it.
+    CPU: ``ref.ski_expand_pass2_ref`` of ``ref.toeplitz_gram_matvec_ref``."""
+    return _window_pass2("ski_windowed_pass2", x, z, a_coef, filt, causal,
+                         left)
+
+
+def ski_expand_pass2(x: torch.Tensor, z2: torch.Tensor, filt: torch.Tensor,
+                     causal: bool, left: int | None = None) -> torch.Tensor:
+    """y = W z2 + T_sparse x: x (b, n, d), z2 = A z (b, r, d), filt (d, m) →
+    (b, n, d), the FFT-Gram variant's pass 2. CPU:
+    :func:`ref.ski_expand_pass2_ref`."""
+    return _window_pass2("ski_expand_pass2", x, z2, None, filt, causal, left)

@@ -15,7 +15,10 @@ and launches its kernel for CUDA tensors, counting the launch in
 a tensor that autograd cannot see, so on the card a wrapper called on its
 own refuses an input that requires grad while grad is enabled; the
 kernels' caller is the backward of ``ski_vjp.SKIFusedTNO``.
-``gram_coef_grad_fft`` (the large-rank variants) is not ported.
+
+:func:`gram_coef_grad_fft` is the coefficient-form Gram cotangent of the
+large-rank variants (``ski_vjp.SKIFusedTNOCoef``), as in the JAX package
+an FFT correlation and not a kernel: ``torch.fft`` (cuFFT on the card).
 """
 from __future__ import annotations
 
@@ -102,3 +105,22 @@ def gram_grad(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     backend.check(lib, rc, f"gram_grad (r={r})")
     counters["gram_grad"] += 1
     return da
+
+
+def gram_coef_grad_fft(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Coefficient-Gram cotangent: dcoef[c, k] = Σ_{b,t} gz[b, t+lag, c] ·
+    z[b, t, c] with lag = k - (r-1); gz, z (b, r, d) → (d, 2r-1) fp32.
+
+    The diagonal sums of the dense cotangent gz zᵀ, i.e. the
+    cross-correlation of the two rank-r reductions, by a length-2r
+    rfft/irfft (O(r log r)): at large rank the (d, r, r) panel that
+    :func:`gram_grad` writes must never exist. ``conj_physical``, not a
+    lazy ``conj()``, so that no conj-bit view reaches a kernel.
+    CPU and card alike; matches ``ref.gram_coef_grad_ref``."""
+    r = z.shape[1]
+    gs = torch.fft.rfft(gz.float(), n=2 * r, dim=1)
+    zs = torch.fft.rfft(z.float(), n=2 * r, dim=1)
+    spec = torch.sum(gs * torch.conj_physical(zs), dim=0)    # (r+1, d)
+    c = torch.fft.irfft(spec, n=2 * r, dim=0)                # (2r, d)
+    # circular correlation: lag k at c[k] (k >= 0), lag -k at c[2r - k]
+    return torch.cat([c[r + 1:], c[:r]], dim=0).T.contiguous()

@@ -8,7 +8,10 @@ The per-device state of the kernels: a kernel whose dynamic shared memory
 exceeds 48 KB needs ``cudaFuncSetAttribute`` on every device it launches
 on, and each device has its own SM count. Each kernel is launched on two
 cards in turn and held against its plain version on each (fp32 tier,
-1e-5 × max|plain|; ``gram_grad`` 1e-6, a sum of b terms).
+1e-5 × max|plain|; ``gram_grad`` and ``interp_expand`` 1e-6, sums of b
+and of two terms), at a shape whose block needs more than 48 KB of
+dynamic shared memory where the kernel has any (``interp_expand`` has
+none).
 """
 import pytest
 
@@ -63,3 +66,47 @@ def test_grad_kernels_run_on_each_card():
             got = ski_grad.conv_tap_grad(cot, x, m, left)
             torch.cuda.synchronize(dev)
             _close(got, ref.conv_tap_grad_ref(cot, x, m, left), 1e-5)
+
+
+def test_short_conv_and_interp_expand_run_on_each_card():
+    """short_conv with m = 200 taps (67,456 bytes of shared memory a
+    block) and interp_expand at the SKI path's shape, on card 0, then on
+    card 1."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, short_conv
+    b, n, d, r = 8, 512, 512, 64
+    for dev in _two_cards():
+        g = torch.Generator(device=dev).manual_seed(dev.index)
+        x = torch.randn(b, n, d, device=dev, generator=g)
+        for m, left in ((32, 0), (200, 100)):
+            f = torch.randn(d, m, device=dev, generator=g)
+            got = short_conv.short_conv(x, f, left)
+            torch.cuda.synchronize(dev)
+            _close(got, ref.short_conv_left_ref(x, f, left), 1e-5)
+        z = torch.randn(b, r, d, device=dev, generator=g)
+        lo, w_lo, _ = ski.make_inducing(n, r, dev)
+        got = interp_matvec.interp_expand(z, lo, w_lo)
+        torch.cuda.synchronize(dev)
+        _close(got, ref.interp_expand_ref(z, lo, w_lo), 1e-6)
+
+
+def test_window_pass2_runs_on_each_card():
+    """ski_windowed_pass2 (r = 512, 50,192 bytes of shared memory a block)
+    and ski_expand_pass2 (m = 64, 51,616 bytes) at x (8, 512, 512), on card
+    0, then on card 1: each card needs its own shared-memory attribute."""
+    b, n, d, r = 8, 512, 512, 512
+    for dev in _two_cards():
+        g = torch.Generator(device=dev).manual_seed(dev.index)
+        x = torch.randn(b, n, d, device=dev, generator=g)
+        z = torch.randn(b, r, d, device=dev, generator=g)
+        coef = torch.randn(d, 2 * r - 1, device=dev, generator=g) / r ** 0.5
+        f = torch.randn(d, 32, device=dev, generator=g)
+        got = ski_fused.ski_windowed_pass2(x, z, coef, f, True)
+        torch.cuda.synchronize(dev)
+        want = ref.ski_expand_pass2_ref(
+            x, ref.toeplitz_gram_matvec_ref(coef, z), f, True)
+        _close(got, want, 1e-5)
+        f = torch.randn(d, 64, device=dev, generator=g)
+        got = ski_fused.ski_expand_pass2(x, z, f, False)
+        torch.cuda.synchronize(dev)
+        _close(got, ref.ski_expand_pass2_ref(x, z, f, False), 1e-5)

@@ -291,13 +291,12 @@ def test_ski_rank_variant_matches_jax(r, d):
 
 
 def test_unported_ski_variants_raise(monkeypatch):
+    """What still raises in the SKI plan: an unknown variant and a knob
+    that is not an integer. (The "windowed" and "fft" plans are built since
+    the large-rank slice; tests/test_torch_ski_large_r.py runs them.)"""
     cfg, params, _, _ = _ski_params(8, 4, seed=10)
-    for variant in ("windowed", "fft"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ski.ski_plan(params, cfg, 32, variant=variant)
-    monkeypatch.setenv("REPRO_SKI_DENSE_RMAX", "4")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ski.ski_plan(params, cfg, 32)         # r = 8 > 4: windowed
+    with pytest.raises(ValueError, match="unknown SKI variant 'banded'"):
+        ski.ski_plan(params, cfg, 32, variant="banded")
     monkeypatch.setenv("REPRO_SKI_DENSE_RMAX", "four")
     with pytest.raises(ValueError, match="not an integer"):
         backend.ski_rank_variant(8)
