@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, SKI scoring, SKI training,
-unfused SKI and large-rank SKI paths on one NVIDIA card and check them.
+unfused SKI, large-rank SKI and Mamba-2 serving paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -88,11 +89,31 @@ card or outside a checkout of this repository. Phases:
    restored from its checkpoint into a fresh model ends bitwise where an
    uninterrupted run ends; the same gradients, losses and resume for the
    smoke-size SKI model;
-11. a JSON line with each kernel's numbers, then the card's name and power
+11. mamba: ``ssd_scan`` against ``ssd_chunked.ssd_scan_chunked`` in bf16
+   (BF16_TOL × max) and fp32 (1e-5 × max, and against the float64
+   ``ref.ssd_scan_ref``) at the path shape x (8, 2048, 80, 64), B and C
+   (8, 2048, 1, 128), chunk 128, at n = 2000, 100 and 1, at g = 2 and 4
+   and at the smoke shape; the bf16 ``short_conv`` at Mamba's conv shape
+   (8, 2048, 5376), m = 4, and at the SKI path's shape with its four
+   offsets; the full-width mamba2-2.7b (64 layers, d=2560, bf16,
+   2,831,730,176 parameters, random weights from seed 0) scores 8 × 2048
+   tokens through ``make_forward`` (64 ``ssd_scan`` + 64 ``short_conv``
+   launches a forward, median of 5, peak memory, the kernels' device time
+   by the profiler), ``prefill``s 8 prompts of 128 tokens and greedily
+   generates 32 tokens each (max_len 160, the prompt token by token); the
+   decode path teacher-forced over the generated sequences against the
+   kernel-path forward (0 mismatches where the forward's top-2 margin
+   exceeds twice their largest logit difference), and the same in fp32 on
+   the same weights, where that margin is small enough that positions are
+   checked (at least one must be); the smoke mamba model
+   card vs CPU (logits 1e-4 × max in fp32, 2e-2 × max in bf16; fp32
+   greedy generate token-exact);
+12. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -123,6 +144,14 @@ FD_SRC = "src/repro_torch/kernels/csrc/fd_fused.cu"
 SKI_SRC = "src/repro_torch/kernels/csrc/ski.cu"
 SKI_GRAD_SRC = "src/repro_torch/kernels/csrc/ski_grad.cu"
 SHORT_CONV_SRC = "src/repro_torch/kernels/csrc/short_conv.cu"
+SSD_SRC = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+MAMBA = "mamba2-2.7b"
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_REPS = 8, 2048, 5
+MAMBA_PROMPTS, MAMBA_PROMPT_LEN, MAMBA_GEN = 8, 128, 32
+#: a kernel with a bf16 output against its plain version on the same bf16
+#: inputs: both sum in fp32 and round once, so they differ by at most one
+#: bf16 ulp (2^-8 relative) where the two fp32 sums straddle a rounding
+BF16_TOL = 1e-2
 
 
 def _peaks(name: str):
@@ -185,20 +214,22 @@ def phase_build() -> None:
 
 # --------------------------------------------------------------- phase 3
 def _kernel_entry(name, replaces, got, want, fn, plain, library, nbytes,
-                  nops, peaks, tol=1e-6, source=FD_SRC):
+                  nops, peaks, tol=1e-6, source=FD_SRC, reps=50):
     """Check ``got`` within ``tol`` × max|want| and time the kernel, its
-    plain version and the library call (None: there is none)."""
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
+    plain version and the library call (None: there is none), each the
+    median of ``reps`` runs."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
     if not err <= tol * scale:
         raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
     bw, flops = peaks
     t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "tolerance": tol,
-            "scale": scale, "limit": tol * scale, "ms": time_ms(fn),
-            "plain_ms": time_ms(plain),
-            "library_ms": None if library is None else time_ms(library),
+            "scale": scale, "limit": tol * scale, "ms": time_ms(fn, reps),
+            "plain_ms": time_ms(plain, reps),
+            "library_ms": None if library is None else time_ms(library,
+                                                               reps),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -429,12 +460,14 @@ def _interp_entries(label, x, z, lo, w_lo, peaks) -> dict:
     return out
 
 
-def _short_conv_entry(label, x, f, left, peaks) -> dict:
-    """short_conv at one shape and offset, within 1e-5 × max|plain| (m-term
-    sums with fused multiply-adds against the plain shift-adds). The
-    library yardstick is cuDNN's depthwise conv1d (TF32 off) on a
-    channel-major copy of x padded by the taps' reach, made outside the
-    timed call, with the taps reversed."""
+def _short_conv_entry(label, x, f, left, peaks, tol=1e-5,
+                      name="short_conv") -> dict:
+    """short_conv at one shape and offset, within 1e-5 × max|plain| in fp32
+    (m-term sums with fused multiply-adds against the plain shift-adds;
+    ``tol`` BF16_TOL for bf16 x and taps). The library yardstick is
+    cuDNN's depthwise conv1d (TF32 off) in x's dtype on a channel-major
+    copy of x padded by the taps' reach, made outside the timed call, with
+    the taps reversed."""
     from repro_torch.kernels import ref, short_conv
     b, n, d = x.shape
     m = f.shape[1]
@@ -445,20 +478,21 @@ def _short_conv_entry(label, x, f, left, peaks) -> dict:
     def library():
         return torch.nn.functional.conv1d(xp, wt, groups=d)
     want = ref.short_conv_left_ref(x, f, left)
-    lib_err = float((library().transpose(1, 2) - want).abs().max())
-    if not lib_err <= 1e-5 * float(want.abs().max()):
+    lib_err = float((library().transpose(1, 2).float()
+                     - want.float()).abs().max())
+    if not lib_err <= tol * float(want.float().abs().max()):
         raise AssertionError(f"conv1d is not the short conv: {lib_err}")
     # x and the taps read once, y written once; 2 flops a (j, k) pair whose
     # x row is in range
     e = _kernel_entry(
-        "short_conv", "src/repro/kernels/short_conv.py:69",
+        name, "src/repro/kernels/short_conv.py:69",
         short_conv.short_conv(x, f, left), want,
         lambda: short_conv.short_conv(x, f, left),
         lambda: ref.short_conv_left_ref(x, f, left), library,
-        nbytes=4 * (2 * x.numel() + f.numel()),
-        nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
+        nbytes=x.element_size() * (2 * x.numel() + f.numel()),
+        nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=tol,
         source=SHORT_CONV_SRC)
-    print(f"[kernel] short_conv {label} x ({b}, {n}, {d}), m={m}, "
+    print(f"[kernel] {name} {label} x ({b}, {n}, {d}) {x.dtype}, m={m}, "
           f"left={left}: {e} (conv1d max abs err {lib_err:.3e})", flush=True)
     return e
 
@@ -988,10 +1022,13 @@ def _standalone_wrappers_refuse_grad(device) -> None:
           "requires grad on the card, no kernel launched", flush=True)
 
 
-def _profile_forward(fwd, model, tokens, device, reps: int = 3) -> None:
+def _profile_forward(fwd, model, tokens, device, reps: int = 3,
+                     tag: str = "[score]", kernels_of=()) -> dict:
     """Where a scoring forward's time goes: ``torch.profiler`` over
     ``reps`` forwards (traced, so the wall is inflated), the device-busy
-    share of the wall and the kernels with the most device time."""
+    share of the wall and the kernels with the most device time. Returns
+    the device ms a forward of the kernels whose names hold each of
+    ``kernels_of``."""
     from torch.profiler import ProfilerActivity, profile
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -1005,11 +1042,14 @@ def _profile_forward(fwd, model, tokens, device, reps: int = 3) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"[score] traced: {reps} forwards, wall {wall * 1e3:.3f} ms, "
+    print(f"{tag} traced: {reps} forwards, wall {wall * 1e3:.3f} ms, "
           f"device busy {busy:.3f} ms, idle share "
           f"{1 - busy / (wall * 1e3):.3f}; top kernels by device time: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
                       f"ms x{e.count}" for e in top), flush=True)
+    return {name: sum(e.self_device_time_total for e in kernels
+                      if name in e.key) / 1e3 / reps
+            for name in kernels_of}
 
 
 def phase_ski_score(device, cfg=None, pass2: str = "ski_fused_pass2",
@@ -1608,6 +1648,408 @@ def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
     check_checkpoint_resume(ski_small, device)
 
 
+# ------------------------------------------------------------ mamba phases
+#: ssd_scan checks: (label, bt, n, h, p, g, s, chunk), the path shape first
+SSD_SHAPES = (("path", 8, 2048, 80, 64, 1, 128, 128),
+              ("ragged n=2000", 2, 2000, 80, 64, 1, 128, 128),
+              ("n<q n=100", 2, 100, 80, 64, 1, 128, 128),
+              ("n=1", 2, 1, 80, 64, 1, 128, 128),
+              ("g=2", 2, 128, 4, 16, 2, 16, 32),
+              ("g=4 ragged", 1, 96, 4, 8, 4, 8, 32),
+              ("smoke", 2, 37, 8, 32, 1, 16, 16))
+
+
+def _ssd_inputs(bt, n, h, p, g, s, dtype, gen, device="cuda"):
+    """x, B, C ~ N(0, 1) in ``dtype``; dt = softplus(N(0, 1) - 3) (a decay
+    that reaches across chunks), a = -exp(0.1 N(0, 1)), D = 1 + 0.1 N(0, 1),
+    fp32."""
+    def rnd(*shape):
+        return torch.randn(*shape, device=device, generator=gen)
+    x = rnd(bt, n, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(bt, n, h) - 3.0)
+    a = -torch.exp(0.1 * rnd(h))
+    b, c = rnd(bt, n, g, s).to(dtype), rnd(bt, n, g, s).to(dtype)
+    return x, dt, a, b, c, 1.0 + 0.1 * rnd(h)
+
+
+def _ssd_cost(bt, n, h, p, g, s, q, elem):
+    """(bytes, flops) of the SSD scan: x, dt, a, B, C, D read once and y
+    written once; the flops are the fewer of two ways to compute it. Chunked:
+    per head and chunk of r rows, r (r + 1) p for the lower-triangular
+    scores · X, 2 r s p for C Sᵀ and 2 p r s for the state update, plus
+    r (r + 1) s for the lower triangle of C Bᵀ once a group. Sequential:
+    5 p s per position and head (decay, outer product and add into S, then
+    C S)."""
+    nbytes = (elem * (2 * bt * n * h * p + 2 * bt * n * g * s)
+              + 4 * (bt * n * h + 2 * h))
+    rows = [min(q, n - i) for i in range(0, n, q)]
+    chunked = sum((r * (r + 1) * p + 4 * r * s * p) * bt * h
+                  + r * (r + 1) * s * bt * g for r in rows)
+    return nbytes, min(chunked, 5 * p * s * n * bt * h)
+
+
+def phase_mamba_kernels(peaks, device="cuda") -> dict:
+    """ssd_scan against ``ssd_chunked.ssd_scan_chunked`` on the same inputs
+    at SSD_SHAPES, fp32 within 1e-5 × max|plain| (fp32 sums in another
+    order) and bf16 within BF16_TOL × max|plain| (one rounding to bf16 on
+    each side), fp32 also against ``ref.ssd_scan_ref`` in float64 (1e-5 ×
+    max); the bf16 short_conv at Mamba's conv shape and at the SKI path's
+    shape with its four offsets. Returns the entries at the path shapes
+    (bf16, the model's dtype)."""
+    from repro_torch.kernels import ref, ssd_chunked, ssd_scan
+    g = torch.Generator(device=device).manual_seed(3)
+    out = {}
+    for label, bt, n, h, p, gr, s, q in SSD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _ssd_inputs(bt, n, h, p, gr, s, dtype, g, device)
+            tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+            got = ssd_scan.ssd_scan(*args, chunk=q)
+            want = ssd_chunked.ssd_scan_chunked(*args, chunk=q)
+            if got.dtype != dtype or got.shape != (bt, n, h, p):
+                raise AssertionError(f"ssd_scan gave {got.dtype} "
+                                     f"{tuple(got.shape)}")
+            if label == "path" and dtype == torch.bfloat16:
+                nbytes, nops = _ssd_cost(bt, n, h, p, gr, s, q, 2)
+                out["ssd_scan"] = _kernel_entry(
+                    "ssd_scan", "src/repro/kernels/ssd_scan.py:82", got,
+                    want, lambda: ssd_scan.ssd_scan(*args, chunk=q),
+                    lambda: ssd_chunked.ssd_scan_chunked(*args, chunk=q),
+                    None, nbytes=nbytes, nops=nops, peaks=peaks, tol=tol,
+                    source=SSD_SRC, reps=10)
+                report = f"{out['ssd_scan']}"
+            else:
+                report = _grads_close(f"ssd_scan {label} {dtype}",
+                                      [got.double()], [want.double()],
+                                      ["y"], tol)
+            if dtype == torch.float32:
+                f64 = ref.ssd_scan_ref(*(t.double() for t in args))
+                report += "; vs float64 ssd_scan_ref " + _grads_close(
+                    f"ssd_scan {label} vs float64", [got.double()], [f64],
+                    ["y"], 1e-5)
+            print(f"[mamba kernel] ssd_scan {label} x ({bt}, {n}, {h}, {p}) "
+                  f"{dtype}, g={gr}, s={s}, chunk={q}: {report}", flush=True)
+    ssd_scan.reset_counters()
+    # the bf16 short conv: Mamba's conv, then the SKI path's offsets
+    x = torch.randn(MAMBA_BATCH, MAMBA_SEQ, 5376, device=device,
+                    generator=g).bfloat16()
+    f = (0.3 * torch.randn(5376, 4, device=device, generator=g)).bfloat16()
+    out["short_conv_bf16"] = _short_conv_entry(
+        "mamba", x, f, 0, peaks, tol=BF16_TOL, name="short_conv_bf16")
+    x = torch.randn(8, 512, 512, device=device, generator=g).bfloat16()
+    f = torch.randn(512, 32, device=device, generator=g).bfloat16()
+    for left in (0, 16, 31, 15):
+        _short_conv_entry("ski path", x, f, left, peaks, tol=BF16_TOL,
+                          name="short_conv_bf16")
+    _mamba_kernels_refuse(device)
+    return out
+
+
+def _mamba_kernels_refuse(device) -> None:
+    """On the card ssd_scan refuses an input that requires grad (the kernel
+    is forward-only, as the JAX one), and the ShortConv backward refuses
+    bf16 (conv_tap_grad takes fp32): nothing launches."""
+    from repro_torch.kernels import ops, ssd_scan
+    g = torch.Generator(device=device).manual_seed(4)
+    x, dt, a, b, c, d = _ssd_inputs(1, 8, 2, 8, 1, 8, torch.float32, g,
+                                    device)
+    try:
+        ssd_scan.ssd_scan(x.requires_grad_(), dt, a, b, c, d, chunk=4)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError("ssd_scan accepted an input requiring grad")
+    xb = torch.randn(1, 8, 16, device=device).bfloat16().requires_grad_()
+    fb = torch.randn(16, 4, device=device).bfloat16()
+    y = ops.short_conv(xb, fb, causal=True)
+    try:
+        y.float().sum().backward()
+    except (TypeError, RuntimeError) as e:
+        if "the kernel takes torch.float32" not in str(e):
+            raise
+    else:
+        raise AssertionError("the bf16 ShortConv backward ran")
+    if ssd_scan.counters["ssd_scan"]:
+        raise AssertionError("a refused ssd_scan call launched")
+    print("[mamba kernel] ssd_scan refuses an input that requires grad on "
+          "the card; the bf16 ShortConv backward raises (conv_tap_grad is "
+          "fp32 only)", flush=True)
+
+
+def _mamba_counts():
+    from repro_torch.kernels import ops, ssd_scan
+    counts = ops.ski_counters()
+    return {"ssd_scan": ssd_scan.counters["ssd_scan"],
+            "short_conv_bf16": counts.pop("short_conv"),
+            "other": sum(counts.values())}
+
+
+def _reset_mamba_counts() -> None:
+    from repro_torch.kernels import ops, ssd_scan
+    ops.reset_ski_counters()
+    ssd_scan.reset_counters()
+
+
+def _expect_mamba_launches(what, counts, n_layers) -> None:
+    want = {"ssd_scan": n_layers, "short_conv_bf16": n_layers, "other": 0}
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, want {want}")
+
+
+def phase_mamba_score(device="cuda"):
+    """The full-width mamba2-2.7b (bf16, random weights from seed 0) scores
+    MAMBA_BATCH × MAMBA_SEQ tokens through ``launch.steps.make_forward``:
+    one ``ssd_scan`` and one bf16 ``short_conv`` a layer, nothing else of
+    the port's kernels. Returns (cfg, model, launch counts of a forward)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.models.transformer import init_model
+    cfg = get_config(MAMBA)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (MAMBA_BATCH, MAMBA_SEQ))).to(device)
+    fwd = make_forward(cfg)
+    print(f"[mamba score] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model},"
+          f" {cfg.ssm_heads} heads x {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssd_chunk}, vocab {cfg.vocab} "
+          f"(padded {cfg.vocab_padded}), {cfg.param_dtype}, {n_params} "
+          f"parameters; init_model {t_init:.3f} s; {MAMBA_BATCH} x "
+          f"{MAMBA_SEQ} tokens", flush=True)
+    fwd(model, toks)                                   # warm-up
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_mamba_counts()
+    logits = fwd(model, toks)
+    _sync(device)
+    launches = _mamba_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    _expect_mamba_launches("one mamba forward", launches, cfg.n_layers)
+    if not (logits.shape == (MAMBA_BATCH, MAMBA_SEQ, cfg.vocab_padded)
+            and logits.dtype == torch.bfloat16
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"mamba logits {logits.dtype} "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             "wrong shape")
+    del logits
+    walls = []
+    for _ in range(MAMBA_REPS):
+        t0 = time.perf_counter()
+        fwd(model, toks)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls) * 1e3
+    print(f"[mamba score] make_forward {MAMBA_BATCH}x{MAMBA_SEQ}: median "
+          f"{ms:.3f} ms of {MAMBA_REPS} (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}), {MAMBA_BATCH * MAMBA_SEQ / ms * 1e3:.0f} "
+          f"tokens/s; launches per forward {launches}; max_memory_allocated "
+          f"{peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    dev_ms = _profile_forward(fwd, model, toks, device, reps=1,
+                              tag="[mamba score]",
+                              kernels_of=("ssd_scan_kernel",
+                                          "short_conv_kernel"))
+    print(f"[mamba score] device ms a forward: ssd_scan "
+          f"{dev_ms['ssd_scan_kernel']:.3f} ({cfg.n_layers} launches), "
+          f"short_conv {dev_ms['short_conv_kernel']:.3f}", flush=True)
+    return cfg, model, launches
+
+
+def phase_mamba_serve(cfg, model, device="cuda"):
+    """``serving.prefill`` of MAMBA_PROMPTS × MAMBA_PROMPT_LEN prompts (the
+    kernels), then greedy ``generate`` of MAMBA_GEN tokens each (the prompt
+    token by token, as in the JAX package; max_len 160); then the decode
+    path teacher-forced over the generated sequences against the
+    kernel-path forward over them: the generated tokens are the decode
+    path's argmax, none disagrees with the forward's where its top-2
+    margin exceeds twice the two paths' largest logit difference, and the
+    decode path is no farther from the fp32 forward of the same weights
+    than twice the bf16 forward is (bf16 rounds at other places in the
+    two paths, over 64 layers). The same weights in fp32 then take both
+    paths, where they differ only by fp32 sums in another order: the fp32
+    decode picks the fp32 forward's token at every teacher-forced position
+    whose top-2 margin exceeds twice their largest logit difference, and
+    at least one position is checked. Returns the launch counts."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import serving
+    from repro_torch.models.transformer import Model
+    prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (MAMBA_PROMPTS, MAMBA_PROMPT_LEN))).to(device)
+    max_len = MAMBA_PROMPT_LEN + MAMBA_GEN
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :4], 2)         # warm-up
+        _sync(device)
+        _reset_mamba_counts()
+        t0 = time.perf_counter()
+        logits = serving.prefill(model, cfg, prompt)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        launches = _mamba_counts()
+        _expect_mamba_launches("mamba prefill", launches, cfg.n_layers)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("mamba prefill logits not finite")
+        t0 = time.perf_counter()
+        generate(model, cfg, prompt, 1, max_len=max_len)
+        _sync(device)
+        t_ingest = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, MAMBA_GEN, max_len=max_len)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        if _mamba_counts() != launches:
+            raise AssertionError(f"mamba decode launched {_mamba_counts()}")
+        if seqs.shape != (MAMBA_PROMPTS, max_len) or not torch.equal(
+                seqs[:, :MAMBA_PROMPT_LEN], prompt):
+            raise AssertionError(f"generate returned {tuple(seqs.shape)}")
+        decode_tps = MAMBA_PROMPTS * (MAMBA_GEN - 1) / (t_gen - t_ingest)
+        print(f"[mamba serve] prefill {MAMBA_PROMPTS}x{MAMBA_PROMPT_LEN}: "
+              f"{t_prefill * 1e3:.3f} ms; generate {MAMBA_GEN} new: "
+              f"{t_gen:.3f} s (prompt token by token {t_ingest:.3f} s); "
+              f"decode {decode_tps:.1f} tok/s; prefill launches {launches}",
+              flush=True)
+        dec = _teacher_forced(model, cfg, seqs)
+        fwd = serving.prefill(model, cfg, seqs)[:, :-1].float()
+        # the bf16 noise floor: the same weights in fp32, fp32 activations
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    param_dtype="float32")
+        model32 = Model(cfg32, device=device)
+        model32.load_state_dict({k: v.float() for k, v
+                                 in model.state_dict().items()})
+        _reset_mamba_counts()
+        fwd32 = serving.prefill(model32, cfg32, seqs)[:, :-1].float()
+        _expect_mamba_launches("the fp32 mamba forward", _mamba_counts(),
+                               cfg.n_layers)
+        dec32 = _teacher_forced(model32, cfg32, seqs)
+        del model32
+    gen = slice(MAMBA_PROMPT_LEN - 1, None)       # positions that picked
+    diff = float((dec - fwd).abs().max())
+    diff_prompt = float((dec[:, :gen.start] - fwd[:, :gen.start]).abs().max())
+    noise_fwd = float((fwd - fwd32).abs().max())
+    noise_dec = float((dec - fwd32).abs().max())
+
+    def pick(lg):                                 # as generate picks
+        return torch.clamp(torch.argmax(lg, dim=-1), max=cfg.vocab - 1)
+    # a token the decode path picked can differ from the forward's argmax
+    # only where the forward's top-2 margin is at most twice the largest
+    # logit difference between the two paths
+    margin = 2 * diff
+    top2 = torch.topk(fwd[:, gen], 2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    checked = gaps > margin
+    agree = pick(fwd[:, gen]) == seqs[:, MAMBA_PROMPT_LEN:]
+    wrong = ~agree & checked
+    same = torch.equal(pick(dec[:, gen]), seqs[:, MAMBA_PROMPT_LEN:])
+    print(f"[mamba check] decode path vs kernel-path forward over "
+          f"{tuple(seqs.shape)}: largest logit difference {diff:.4f} "
+          f"(prompt positions {diff_prompt:.4f}, logit scale "
+          f"{float(fwd.abs().max()):.3f}); against the fp32 forward of the "
+          f"same weights: bf16 forward {noise_fwd:.4f}, decode "
+          f"{noise_dec:.4f} (limit 2 x {noise_fwd:.4f}); margin 2 x "
+          f"{diff:.4f} = {margin:.4f} (largest top-2 margin at a generated "
+          f"position {float(gaps.max()):.4f}): "
+          f"{int(checked.sum())} generated positions checked, "
+          f"{int(wrong.sum())} mismatches; {int(agree.sum())} of "
+          f"{agree.numel()} generated tokens are the forward's argmax; "
+          f"teacher-forced decode reproduces the generated tokens: {same}",
+          flush=True)
+    if int(wrong.sum()) or not same:
+        raise AssertionError("decoded tokens disagree with the kernel-path "
+                             "forward")
+    # bf16 over 64 layers: the decode path need not match the forward, but
+    # it must be no farther from the fp32 forward than the bf16 forward is
+    if not noise_dec <= 2 * noise_fwd:
+        raise AssertionError(f"the decode path is {noise_dec} from the fp32 "
+                             f"forward, over twice the bf16 forward's "
+                             f"{noise_fwd}")
+    # in fp32 the two paths differ by sums in another order only, so the
+    # margin is small and the positions are really checked
+    diff32 = float((dec32 - fwd32).abs().max())
+    margin32 = 2 * diff32
+    top2 = torch.topk(fwd32, 2, dim=-1).values
+    checked32 = top2[..., 0] - top2[..., 1] > margin32
+    wrong32 = (pick(dec32) != pick(fwd32)) & checked32
+    print(f"[mamba check] fp32 decode path vs fp32 kernel-path forward, the "
+          f"same weights, over {tuple(seqs.shape)}: largest logit difference "
+          f"{diff32:.3e} (logit scale {float(fwd32.abs().max()):.3f}); margin "
+          f"2 x {diff32:.3e} = {margin32:.3e}: {int(checked32.sum())} of "
+          f"{checked32.numel()} teacher-forced positions checked "
+          f"({int(checked32[:, gen].sum())} of {checked32[:, gen].numel()} "
+          f"generated), {int(wrong32.sum())} mismatches", flush=True)
+    if int(wrong32.sum()) or not int(checked32.sum()):
+        raise AssertionError("the fp32 decode path disagrees with the fp32 "
+                             "kernel-path forward, or no position was "
+                             "checked")
+    return launches
+
+
+def _teacher_forced(model, cfg, seqs):
+    """The decode path's logits (fp32) over ``seqs`` fed token by token:
+    (b, n - 1, V), position t predicting token t + 1."""
+    from repro_torch.models import serving
+    b, n = seqs.shape
+    cache = serving.init_cache(cfg, b, n, params=model)
+    dec = []
+    for t in range(n - 1):
+        lg, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1], cache, t)
+        dec.append(lg[:, 0].float())
+    return torch.stack(dec, 1)
+
+
+def check_mamba_card_vs_cpu(device="cuda") -> None:
+    """The smoke mamba2-2.7b (2 layers, d 128, state 16, chunk 16) from
+    seed 1: logits on 2 × 37 tokens (a ragged last chunk) card vs CPU in
+    fp32 (1e-4 × max: fp32 sums in another order over two layers) and in
+    bf16 (2e-2 × max, the bf16 tier: cuBLAS and the CPU round bf16
+    products differently); greedy generate token-exact in fp32."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import forward, init_model
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512,
+                                                              (2, 37)))
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        small = reduce_for_smoke(get_config(MAMBA), dtype=dtype,
+                                 param_dtype=dtype)
+        cpu = init_model(small, torch.Generator().manual_seed(1), "cpu")
+        card = init_model(small, torch.Generator().manual_seed(1), device)
+        with torch.inference_mode():
+            want = forward(cpu, small, toks)
+            _reset_mamba_counts()
+            got = forward(card, small, toks.to(device)).cpu()
+            launches = _mamba_counts()
+            report = _grads_close(f"smoke mamba {dtype} card vs CPU",
+                                  [got.double()], [want.double()],
+                                  ["logits"], tol)
+            tokens = ""
+            if dtype == "float32":
+                a = generate(cpu, small, toks[:, :9], 7)
+                b = generate(card, small, toks[:, :9].to(device), 7).cpu()
+                if not torch.equal(a, b):
+                    raise AssertionError("smoke greedy generate differs card "
+                                         "vs CPU")
+                tokens = "; greedy generate 2 x (9 + 7) token-exact"
+        if launches["ssd_scan"] != small.n_layers:
+            raise AssertionError(f"smoke mamba launched {launches}")
+        shape = tuple(want.shape)
+        print(f"[mamba check] smoke {small.name} {dtype} logits {shape} "
+              f"card vs CPU: {report}{tokens}", flush=True)
+
+
+def phase_mamba(peaks, device="cuda") -> tuple[dict, dict]:
+    """The Mamba-2 serving path (PR 19): kernels, score, serve, card vs
+    CPU. Returns (kernel entries, launches by path); frees the model."""
+    t0 = time.perf_counter()
+    kernels = phase_mamba_kernels(peaks, device)
+    cfg, model, score_launches = phase_mamba_score(device)
+    serve_launches = phase_mamba_serve(cfg, model, device)
+    del model
+    torch.cuda.empty_cache()
+    check_mamba_card_vs_cpu(device)
+    print(f"[mamba] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return kernels, {"mamba_score": score_launches,
+                     "mamba_serve": serve_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1636,6 +2078,9 @@ def main() -> int:
     large_r = phase_large_r()
     large_r_times()
     phase_check(cfg, model, prompt_len, seqs, "cuda")
+    del model
+    mamba_kernels, mamba_launches = phase_mamba(peaks)
+    kernels.update(mamba_kernels)
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
              "train": (train_launches, tuple(TRAIN_LAUNCHES["fd"])),
@@ -1651,7 +2096,9 @@ def main() -> int:
              "large_r_fft_score": (large_r["large_r_fft_score"],
                                    ("interp_reduce", "ski_expand_pass2")),
              "large_r_fft_train": (large_r["large_r_fft_train"],
-                                   tuple(TRAIN_LAUNCHES["ski_fft"]))}
+                                   tuple(TRAIN_LAUNCHES["ski_fft"])),
+             **{path: (counts, ("ssd_scan", "short_conv_bf16"))
+                for path, counts in mamba_launches.items()}}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

@@ -9,6 +9,9 @@ so this module needs neither JAX nor the JAX package. Weights keep their
 scanned stack ``blocks/sub<k>`` (leading axis ``n_scan_blocks``) is split
 into ``layers.<block * period + k>`` and ``tail<i>`` becomes
 ``layers.<n_scan_blocks * period + i>``; the way back stacks them again.
+Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
+(norm scales, Mamba's ``a_log``, ``dt_bias``, ``d_skip``,
+``norm_scale``) stay fp32, as the port's ``Model`` makes them.
 
 ``checkpoint/manifest.py`` stores trees in this layout, so checkpoints
 pass between the two packages: :func:`train_state_to_jax` before a save,
@@ -95,19 +98,27 @@ def _leaves_by_name(tree, cfg: ArchConfig, want: dict, what: str) -> dict:
     return leaves
 
 
+def _check_leaf(name: str, arr, want: torch.Tensor) -> None:
+    """Raise unless a JAX leaf has the port parameter's shape and dtype."""
+    if tuple(arr.shape) != tuple(want.shape):
+        raise ValueError(f"{name}: JAX shape {tuple(arr.shape)} != port "
+                         f"shape {tuple(want.shape)}")
+    dtype = _as_torch(arr).dtype
+    if dtype != want.dtype:
+        raise ValueError(f"{name}: JAX dtype {dtype} != port dtype "
+                         f"{want.dtype}")
+
+
 def params_from_jax(tree, cfg: ArchConfig, device="cuda") -> Model:
-    """Build the port's model holding exactly the JAX parameters. Raises if
-    a JAX leaf has no port parameter, a port parameter gets no JAX leaf,
-    or a shape differs."""
+    """Build the port's model holding exactly the JAX parameters, each in
+    its leaf's own dtype. Raises if a JAX leaf has no port parameter, a
+    port parameter gets no JAX leaf, or a shape or dtype differs."""
     model = Model(cfg, device="meta")
     want = dict(model.state_dict())
     leaves = _leaves_by_name(tree, cfg, want, "JAX tree")
     for name, arr in leaves.items():
-        if tuple(arr.shape) != tuple(want[name].shape):
-            raise ValueError(f"{name}: JAX shape {tuple(arr.shape)} != port "
-                             f"shape {tuple(want[name].shape)}")
-    dtype = getattr(torch, cfg.param_dtype)
-    state = {k: _tensor(v, device, dtype) for k, v in leaves.items()}
+        _check_leaf(name, arr, want[name])
+    state = {k: _tensor(v, device) for k, v in leaves.items()}
     model.load_state_dict(state, assign=True)
     return model
 
@@ -188,13 +199,12 @@ def train_state_to_jax(model: Model, opt: OptState) -> dict:
 def load_train_state(model: Model, tree: dict) -> OptState:
     """Copy ``tree["params"]`` (JAX layout) into the model's parameters in
     place and return ``tree["opt"]`` as the port's OptState on the model's
-    device. Raises on a missing, unconsumed or mis-shaped leaf."""
+    device. Raises on a missing, unconsumed, mis-shaped or mis-typed
+    leaf."""
     cfg = model.cfg
     params = dict(model.named_parameters())
     leaves = _leaves_by_name(tree["params"], cfg, params, "JAX params")
     for k, p in params.items():
-        if tuple(leaves[k].shape) != tuple(p.shape):
-            raise ValueError(f"{k}: JAX shape {tuple(leaves[k].shape)} != "
-                             f"port shape {tuple(p.shape)}")
+        _check_leaf(k, leaves[k], p)
         p.copy_(_as_torch(leaves[k]))
     return opt_from_jax(tree["opt"], cfg, params["embed"].device)

@@ -1,5 +1,6 @@
 """Config registry + smoke-reduction helper (copy of
-``repro/configs/base.py``; the port registers only the TNN LM configs)."""
+``repro/configs/base.py``; the port registers the TNN LM configs and
+``mamba2-2.7b``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,7 +32,8 @@ def list_archs():
 
 def _load_all():
     import importlib
-    importlib.import_module("repro_torch.configs.tnn_lm")
+    for mod in ("tnn_lm", "mamba2_2p7b"):
+        importlib.import_module(f"repro_torch.configs.{mod}")
 
 
 def reduce_for_smoke(cfg: ArchConfig, **overrides) -> ArchConfig:

@@ -44,7 +44,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 #: library name -> CUDA source
 SOURCES = {"fd_fused": _CSRC / "fd_fused.cu", "ski": _CSRC / "ski.cu",
            "ski_grad": _CSRC / "ski_grad.cu",
-           "short_conv": _CSRC / "short_conv.cu"}
+           "short_conv": _CSRC / "short_conv.cu",
+           "ssd_scan": _CSRC / "ssd_scan.cu"}
 
 
 # ---------------------------------------------------------- serving knobs

@@ -3,17 +3,18 @@
 There is no backend switch: a CPU tensor runs the plain torch version and
 a CUDA tensor the hand-written kernels (see ``kernels/fd_fused.py``,
 ``kernels/interp_matvec.py``, ``kernels/short_conv.py``,
-``kernels/ski_fused.py``, ``kernels/ski_grad.py`` and
-``kernels/ski_vjp.py``). As the JAX entries go through their custom VJPs,
+``kernels/ski_fused.py``, ``kernels/ski_grad.py``, ``kernels/ski_vjp.py``
+and ``kernels/ssd_scan.py``). As the JAX entries go through their custom VJPs,
 the differentiable entries here go through autograd Functions whose
 backwards launch kernels (``fd_tno``, ``short_conv``, ``interp_reduce``,
 ``interp_expand``, ``ski_fused_tno``, ``ski_fused_tno_coef``);
-``ski_fused_pass2`` is forward-only on the card.
+``ski_fused_pass2`` and ``ssd_scan`` are forward-only on the card.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import (fd_fused, interp_matvec, short_conv as sc,
-                                  ski_fused, ski_grad, ski_vjp)
+                                  ski_fused, ski_grad, ski_vjp,
+                                  ssd_scan as ssd)
 
 
 def fd_tno(x, khat_real):
@@ -42,6 +43,19 @@ def short_conv(x, filt, causal: bool, left: int | None = None):
     if left is None:
         left = 0 if causal else filt.shape[-1] // 2
     return sc.short_conv_op(x, filt, left)
+
+
+def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64):
+    """Mamba-2 SSD chunked scan (the model zoo's state-space mixer).
+
+    x (bt, n, h, p) fp32/bf16 per-head inputs; dt (bt, n, h) positive
+    step sizes; a (h,) negative decay rates; b/c (bt, n, g, s) in/out
+    projections (g groups, s state dim); d_skip (h,) skip; returns
+    (bt, n, h, p) in x's dtype. Sequential oracle: ``ref.ssd_scan_ref``.
+    A CPU tensor runs ``ssd_chunked.ssd_scan_chunked``, a CUDA tensor the
+    kernel of ``csrc/ssd_scan.cu``; both take ``chunk``-long blocks and
+    every n. Forward-only on the card, as the JAX kernel."""
+    return ssd.ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
 
 
 def interp_reduce(x, idx_lo, w_lo, r: int):

@@ -274,3 +274,33 @@ def fd_tno_ref(x: torch.Tensor, khat_real: torch.Tensor) -> torch.Tensor:
     xhat = torch.fft.rfft(x.float(), n=2 * n, dim=1)          # (b, n+1, d)
     y = torch.fft.irfft(xhat * khat.T[None], n=2 * n, dim=1)[:, :n]
     return y.to(x.dtype)
+
+
+# ------------------------------------------------------------- mamba2 SSD
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor,
+                 d_skip: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD sequential oracle (the state-space recurrence), one
+    step a position, in fp32 (float64 inputs stay float64).
+
+    x (bt, n, h, p) per-head inputs; dt (bt, n, h) positive step sizes;
+    a (h,) negative decay rates (A = -exp(a_log)); b, c (bt, n, g, s) the
+    input and output projections of g groups (head i reads group
+    i // (h/g)); d_skip (h,) the skip. Returns y (bt, n, h, p) in x's
+    dtype."""
+    bt, n, h, p = x.shape
+    g = b.shape[2]
+    wt = torch.promote_types(x.dtype, torch.float32)
+    bx = b.to(wt).repeat_interleave(h // g, dim=2)       # (bt, n, h, s)
+    cx = c.to(wt).repeat_interleave(h // g, dim=2)
+    xf, dtf = x.to(wt), dt.to(wt)
+    da = torch.exp(dtf * a.to(wt)[None, None, :])         # (bt, n, h)
+    state = torch.zeros(bt, h, p, b.shape[-1], dtype=wt, device=x.device)
+    ys = []
+    for t in range(n):
+        state = state * da[:, t, :, None, None] + (
+            (dtf[:, t, :, None] * xf[:, t])[..., :, None]
+            * bx[:, t, :, None, :])
+        ys.append(torch.einsum("bhps,bhs->bhp", state, cx[:, t]))
+    y = torch.stack(ys, dim=1) + xf * d_skip.to(wt)[None, None, :, None]
+    return y.to(x.dtype)

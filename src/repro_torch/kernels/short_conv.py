@@ -25,7 +25,10 @@ It runs on both devices (on the CPU over the plain versions), and
 :data:`op_counters` counts its differentiated forwards and which backward
 ran; ``REPRO_PALLAS_GRAD=0`` keeps the kernel forward and returns
 autograd's cotangents through ``ref.short_conv_left_ref`` instead.
-fp32 only on the card; bf16 comes with its first caller (Mamba).
+On the card x and the taps are both fp32 or both bf16 (Mamba's conv): the
+sum runs in fp32 and a bf16 y is rounded once, as in the plain version.
+The bf16 form serves inference: the kernel backward's ``conv_tap_grad``
+takes fp32 only and raises for bf16.
 """
 from __future__ import annotations
 
@@ -48,6 +51,8 @@ op_counters = {"fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
 
 #: shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
+#: the kernel's entry point for each element type it takes
+_ENTRIES = {torch.float32: "short_conv_f32", torch.bfloat16: "short_conv_bf16"}
 
 
 def reset_counters() -> None:
@@ -60,8 +65,9 @@ def reset_counters() -> None:
 def _lib() -> ctypes.CDLL:
     lib = backend.library("short_conv")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.short_conv_f32.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
-    lib.short_conv_f32.restype = ctypes.c_int
+    for fn in (lib.short_conv_f32, lib.short_conv_bf16):
+        fn.argtypes = [p, p, p, i64, i64, i64, i64, i64, p]
+        fn.restype = ctypes.c_int
     lib.short_conv_smem_bytes.argtypes = [i64]
     lib.short_conv_smem_bytes.restype = i64
     return lib
@@ -70,7 +76,8 @@ def _lib() -> ctypes.CDLL:
 def short_conv(x: torch.Tensor, filt: torch.Tensor,
                left: int) -> torch.Tensor:
     """y[b,j,c] = Σ_k f[c,k] · x[b, j-k+left, c]: x (b, n, d), filt
-    (d, m), 0 <= left < m → (b, n, d). Forward-only on the card.
+    (d, m), 0 <= left < m → (b, n, d) in x's dtype. Forward-only on the
+    card, where x and filt are both fp32 or both bf16.
     CPU: :func:`ref.short_conv_left_ref`."""
     m = filt.shape[-1]
     if not 0 <= left < m:
@@ -78,8 +85,11 @@ def short_conv(x: torch.Tensor, filt: torch.Tensor,
     if x.device.type == "cpu" and filt.device.type == "cpu":
         return ref.short_conv_left_ref(x, filt, left)
     forward_only("short_conv", x, filt)
-    backend.require_cuda(x, "short_conv x", torch.float32)
-    backend.require_cuda(filt, "short_conv taps", torch.float32)
+    if x.dtype not in _ENTRIES or filt.dtype != x.dtype:
+        raise TypeError(f"short_conv: x {x.dtype} and taps {filt.dtype}; the "
+                        "kernel takes both fp32 or both bf16")
+    backend.require_cuda(x, "short_conv x", x.dtype)
+    backend.require_cuda(filt, "short_conv taps", x.dtype)
     if (x.dim() != 3 or x.numel() == 0 or filt.dim() != 2
             or filt.shape[0] != x.shape[2] or filt.device != x.device):
         raise ValueError(f"short_conv: x {tuple(x.shape)} on {x.device} and "
@@ -93,8 +103,9 @@ def short_conv(x: torch.Tensor, filt: torch.Tensor,
                          f"memory a block, over {_MAX_SMEM}")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        rc = lib.short_conv_f32(x.data_ptr(), filt.data_ptr(), y.data_ptr(),
-                                b, n, d, m, left, backend.stream(x))
+        rc = getattr(lib, _ENTRIES[x.dtype])(x.data_ptr(), filt.data_ptr(),
+                                 y.data_ptr(), b, n, d, m, left,
+                                 backend.stream(x))
     backend.check(lib, rc, f"short_conv (b={b}, n={n}, d={d}, m={m})")
     counters["short_conv"] += 1
     return y

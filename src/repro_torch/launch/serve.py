@@ -2,9 +2,10 @@
 ``repro/launch/serve.py`` (solo path; the continuous-batching engine is a
 later slice).
 
-``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` serves a
-randomly initialised full-width model on the card;
-``--smoke --device cpu`` runs the CPU smoke size with the plain kernels.
+``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` (or
+``--arch mamba2-2.7b``) serves a randomly initialised full-width model on
+the card; ``--smoke --device cpu`` runs the CPU smoke size with the plain
+kernels.
 """
 from __future__ import annotations
 
@@ -25,14 +26,15 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
     """prompt: (b, p) int64 on the parameters' device. Greedy decode of
     gen_len tokens; returns (b, p + gen_len).
 
-    Prefill: the prompt enters in whole C-token blocks through the
-    overlap-save machinery (``serving.decode_chunk``); the remainder is
-    teacher-forced token by token. ``None`` auto-detects; False forces
+    Prefill: an all-FD model takes the prompt in whole C-token blocks
+    through the overlap-save machinery (``serving.decode_chunk``); the
+    remainder, and a Mamba model's whole prompt, is teacher-forced token
+    by token, as in the JAX package. ``None`` auto-detects; False forces
     token-by-token. ``max_len`` sizes the decode cache (default exactly
     p + gen_len); the FD kernel is realised on the rfft grid of that
     length, so token parity with another run needs the same ``max_len``.
-    Call under ``torch.inference_mode()`` on the card (the FD op is
-    forward-only there)."""
+    Call under ``torch.inference_mode()`` on the card (the FD op and the
+    SSD kernel are forward-only there)."""
     if temperature > 0:
         raise NotImplementedError(
             "sampled decode is not ported yet (jax.random.categorical bits "

@@ -46,7 +46,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
 def make_forward(cfg: ArchConfig):
     """Returns ``fwd(model, tokens) -> logits``: tokens (b, s) → logits
     (b, s, V_pad) under ``torch.inference_mode()``, for prompt scoring and
-    evaluation (the SKI model has no decode path)."""
+    evaluation (the SKI model has no decode path; a Mamba model runs the
+    ``short_conv`` and ``ssd_scan`` kernels once per layer on the card)."""
 
     def fwd(model: Model, tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

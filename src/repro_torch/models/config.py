@@ -97,3 +97,11 @@ class ArchConfig:
     @property
     def n_tail_layers(self) -> int:
         return self.n_layers - self.n_scan_blocks * self.period
+
+    @property
+    def d_inner(self) -> int:  # ssm inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim

@@ -1,13 +1,15 @@
 """Serving: prefill, chunked prefill and single-token decode with per-layer
-streaming caches — counterpart of ``repro/models/serving.py`` for the FD
-TNN LM.
+caches — counterpart of ``repro/models/serving.py`` for the FD TNN LM and
+Mamba-2.
 
-The cache is a list with one overlap-save streaming cache per layer
-(``kernels/fd_stream.py``), built from the layer's causal kernel, which is
-realised once per (layer, ``max_len``) through the FD spectrum and so runs
-the ``hilbert_window`` kernel on the card. The JAX package's hist-replay
-fallback (``REPRO_FD_STREAM=0``, or an ``init_cache`` without params) is
-not ported and raises.
+The cache is a list with one cache per layer. An ``fd`` layer's is an
+overlap-save streaming cache (``kernels/fd_stream.py``), built from the
+layer's causal kernel, which is realised once per (layer, ``max_len``)
+through the FD spectrum and so runs the ``hilbert_window`` kernel on the
+card. A ``mamba`` layer's is O(1) in the length: the conv window and the
+fp32 SSD state (``models/mamba.mamba_cache_init``). The JAX package's
+hist-replay fallback for FD (``REPRO_FD_STREAM=0``, or an ``init_cache``
+without params) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 from repro_torch.core import fd as fd_mod
 from repro_torch.kernels import backend, fd_stream
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.mamba import mamba_cache_init, mamba_decode
 from repro_torch.models.transformer import (Model, _tno_cfg, embed_tokens,
                                             ffn_apply, forward, unembed)
 from repro_torch.nn.layers import ACTS, dense, rmsnorm
@@ -35,20 +38,29 @@ def _realise_kcoef(cfg: ArchConfig, mixer: str, layer_params,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                params: Model | None = None) -> list:
-    """One streaming cache per layer, on the parameters' device."""
-    for mixer, _ in cfg.layers_spec:
-        if mixer == "ski":       # as repro/models/serving.py:99 raises
-            raise NotImplementedError("decode for mixer ski (ski: Appendix "
-                                      "B); score prompts with "
-                                      "launch.steps.make_forward")
-        if mixer != "fd":
-            raise NotImplementedError(f"decode for mixer {mixer}: only fd "
-                                      "is ported")
-    if params is None or not backend.fd_stream_enabled():
+    """One cache per layer, on the parameters' device. Only an all-mamba
+    model takes no parameters (its cache holds no parameter-derived leaf;
+    then on the CPU). Mamba caches take the activation dtype
+    ``cfg.dtype``, as in the JAX package."""
+    mixers = {mixer for mixer, _ in cfg.layers_spec}
+    if "ski" in mixers:          # as repro/models/serving.py:99 raises
+        raise NotImplementedError("decode for mixer ski (ski: Appendix "
+                                  "B); score prompts with "
+                                  "launch.steps.make_forward")
+    if mixers - {"fd", "mamba"}:
+        raise NotImplementedError(f"decode for mixers {sorted(mixers)}: "
+                                  "only fd and mamba are ported")
+    if "fd" in mixers and (params is None
+                           or not backend.fd_stream_enabled()):
         raise NotImplementedError(_HIST_NOT_PORTED)
+    device = None if params is None else params.embed.device
     cache = []
-    for (mixer, _), layer in zip(cfg.layers_spec, params.layers):
-        kt = _realise_kcoef(cfg, mixer, layer.mixer, max_len)
+    for i, (mixer, _) in enumerate(cfg.layers_spec):
+        if mixer == "mamba":
+            cache.append(mamba_cache_init(cfg, batch,
+                                          getattr(torch, cfg.dtype), device))
+            continue
+        kt = _realise_kcoef(cfg, mixer, params.layers[i].mixer, max_len)
         cache.append(fd_stream.fd_stream_cache(kt, batch, max_len,
                                                backend.fd_stream_block()))
     return cache
@@ -67,12 +79,17 @@ def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
 
 
 # ------------------------------------------------------------- layer step
-def _layer_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
+def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
+                  cur_len):
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
-    y, cache = _tno_decode(params.mixer, cfg, mixer, h, cache, cur_len)
+    if mixer == "mamba":
+        y, cache = mamba_decode(params.mixer, cfg, h, cache)
+    else:
+        y, cache = _tno_decode(params.mixer, cfg, mixer, h, cache, cur_len)
     x = x + y
-    x = x + ffn_apply(params.ffn, cfg,
-                      rmsnorm(params.norm2.scale, x, cfg.norm_eps))
+    if ffn == "dense":
+        x = x + ffn_apply(params.ffn, cfg,
+                          rmsnorm(params.norm2.scale, x, cfg.norm_eps))
     return x, cache
 
 
@@ -81,8 +98,9 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
     same in every row). Returns (logits (b, 1, V_pad), new cache)."""
     x = embed_tokens(params, cfg, tokens)
     new_cache = []
-    for (mixer, _), layer, lc in zip(cfg.layers_spec, params.layers, cache):
-        x, lc = _layer_decode(layer, cfg, mixer, x, lc, cur_len)
+    for (mixer, ffn), layer, lc in zip(cfg.layers_spec, params.layers,
+                                       cache):
+        x, lc = _layer_decode(layer, cfg, mixer, ffn, x, lc, cur_len)
         new_cache.append(lc)
     x = rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
@@ -91,7 +109,8 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
 # ------------------------------------------------------- chunked prefill
 def supports_chunked_prefill(cfg: ArchConfig, cache) -> bool:
     """Chunked prefill rides the FD streaming block machinery: every layer
-    must be a streaming ``fd`` layer with a dense FFN."""
+    must be a streaming ``fd`` layer with a dense FFN (so not mamba, as in
+    the JAX package)."""
     if cfg.kind != "decoder":
         return False
     if not all(m == "fd" and f == "dense" for m, f in cfg.layers_spec):
@@ -137,7 +156,8 @@ def decode_chunk(params: Model, cfg: ArchConfig, tokens, cache,
 
 
 def prefill(params: Model, cfg: ArchConfig, tokens):
-    """Score a prompt with the full-sequence forward (the FD-TNO op, so
-    both ``hilbert_window`` and ``fd_mul`` run once per layer on the
-    card). Returns logits (b, s, V_pad)."""
+    """Score a prompt with the full-sequence forward (on the card the
+    FD-TNO op runs ``hilbert_window`` and ``fd_mul`` once per layer, a
+    Mamba layer ``short_conv`` and ``ssd_scan``). Returns logits (b, s,
+    V_pad)."""
     return forward(params, cfg, tokens)

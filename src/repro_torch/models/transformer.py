@@ -1,14 +1,17 @@
-"""Decoder LM assembly for the TNN language model, counterpart of
-``repro/models/transformer.py`` restricted to ``kind="decoder"`` with TNN
-layers and a dense FFN (the ``fd`` and ``ski`` mixers run; ``tno`` raises
-in ``core/tno.py``).
+"""Decoder LM assembly, counterpart of ``repro/models/transformer.py``
+restricted to ``kind="decoder"`` with TNN layers and a dense FFN (the
+``fd`` and ``ski`` mixers run; ``tno`` raises in ``core/tno.py``) or
+Mamba-2 layers without an FFN (``("mamba", "none")``, mamba2-2.7b).
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
 one card. Parameter names follow the JAX tree, with the scanned
-``blocks/sub0`` stack unrolled into ``layers.<i>``. The loss keeps the JAX
-package's sequence chunking of the logits (``torch.utils.checkpoint`` in
-place of ``jax.checkpoint``).
+``blocks/sub0`` stack unrolled into ``layers.<i>``, and each parameter has
+the dtype JAX gives its leaf: ``param_dtype`` for the embeddings, the
+matrices and Mamba's conv taps, fp32 for the norm scales, the TNN mixer's
+leaves and Mamba's ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale``.
+The loss keeps the JAX package's sequence chunking of the logits
+(``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.block import TNNBlockConfig, gtu_apply, gtu_init
 from repro_torch.core.tno import TNOConfig
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.mamba import Mamba, mamba_apply
 from repro_torch.nn.layers import (ACTS, RMSNorm, lecun_normal_,
                                    reset_parameters, rmsnorm)
 
@@ -28,21 +32,24 @@ def _check_supported(cfg: ArchConfig) -> None:
         raise NotImplementedError(f"kind={cfg.kind!r}: the port runs "
                                   "decoder LMs only (ROADMAP Queue 1)")
     for mixer, ffn in cfg.layers_spec:
-        if ffn != "dense" or mixer not in ("tno", "ski", "fd"):
+        if (mixer, ffn) != ("mamba", "none") and (
+                ffn != "dense" or mixer not in ("tno", "ski", "fd")):
             raise NotImplementedError(
                 f"layer ({mixer}, {ffn}): the port runs TNN layers with a "
-                "dense FFN only (other mixers: ROADMAP Queue 1, model zoo)")
+                "dense FFN and Mamba layers without one only (other mixers: "
+                "ROADMAP Queue 1, model zoo)")
 
 
 # ------------------------------------------------------------------ pieces
 class FFN(nn.Module):
     """JAX leaves {w_gate, w_up, w_down}, each (d_in, d_out)."""
 
-    def __init__(self, d: int, f: int, device=None):
+    def __init__(self, d: int, f: int, device=None, dtype=None):
         super().__init__()
-        self.w_gate = nn.Parameter(torch.empty(d, f, device=device))
-        self.w_up = nn.Parameter(torch.empty(d, f, device=device))
-        self.w_down = nn.Parameter(torch.empty(f, d, device=device))
+        kw = {"device": device, "dtype": dtype}
+        self.w_gate = nn.Parameter(torch.empty(d, f, **kw))
+        self.w_up = nn.Parameter(torch.empty(d, f, **kw))
+        self.w_down = nn.Parameter(torch.empty(f, d, **kw))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.w_gate, self.w_up, self.w_down):
@@ -65,22 +72,36 @@ def _tno_cfg(cfg: ArchConfig, variant: str) -> TNNBlockConfig:
 
 
 class Layer(nn.Module):
-    """JAX leaves {norm1, mixer, norm2, ffn}."""
+    """JAX leaves {norm1, mixer, norm2, ffn}; {norm1, mixer} for a layer
+    without an FFN (``ffn == "none"``, Mamba)."""
 
-    def __init__(self, cfg: ArchConfig, mixer: str, device=None):
+    def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
-        self.mixer = gtu_init(_tno_cfg(cfg, mixer), device=device)
-        self.norm2 = RMSNorm(cfg.d_model, device=device)
-        self.ffn = FFN(cfg.d_model, cfg.d_ff, device=device)
+        if mixer == "mamba":
+            self.mixer = Mamba(cfg, device=device)
+        else:
+            self.mixer = gtu_init(_tno_cfg(cfg, mixer), device=device)
+        if ffn == "dense":
+            self.norm2 = RMSNorm(cfg.d_model, device=device)
+            self.ffn = FFN(cfg.d_model, cfg.d_ff, device=device,
+                           dtype=getattr(torch, cfg.param_dtype))
 
 
-def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, x):
-    h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
+def mixer_apply(params, cfg: ArchConfig, mixer: str, x):
+    if mixer == "mamba":
+        return mamba_apply(params, cfg, x)
     # GTU internals run fp32 (FFTs); keep the residual dtype stable
-    x = x + gtu_apply(params.mixer, _tno_cfg(cfg, mixer), h).to(x.dtype)
-    h = rmsnorm(params.norm2.scale, x, cfg.norm_eps)
-    return x + ffn_apply(params.ffn, cfg, h)
+    return gtu_apply(params, _tno_cfg(cfg, mixer), x).to(x.dtype)
+
+
+def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x):
+    h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
+    x = x + mixer_apply(params.mixer, cfg, mixer, h)
+    if ffn == "dense":
+        h = rmsnorm(params.norm2.scale, x, cfg.norm_eps)
+        x = x + ffn_apply(params.ffn, cfg, h)
+    return x
 
 
 # -------------------------------------------------------------- the model
@@ -93,10 +114,13 @@ class Model(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg          # read by bridge/checkpoint for the JAX layout
         d, v = cfg.d_model, cfg.vocab_padded
-        self.embed = nn.Parameter(torch.empty(v, d, device=device))
-        self.unembed = nn.Parameter(torch.empty(d, v, device=device))
+        pdt = getattr(torch, cfg.param_dtype)
+        self.embed = nn.Parameter(torch.empty(v, d, dtype=pdt, device=device))
+        self.unembed = nn.Parameter(torch.empty(d, v, dtype=pdt,
+                                                device=device))
         self.layers = nn.ModuleList(
-            Layer(cfg, mixer, device=device) for mixer, _ in cfg.layers_spec)
+            Layer(cfg, mixer, ffn, device=device)
+            for mixer, ffn in cfg.layers_spec)
         self.norm_f = RMSNorm(d, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -110,12 +134,14 @@ class Model(nn.Module):
 def init_model(cfg: ArchConfig, generator: torch.Generator,
                device="cuda") -> Model:
     """Random parameters drawn on the CPU from ``generator`` (so a seed
-    gives the same model on every device), then moved to ``device``. The
-    values differ from JAX's ``init_model`` for the same seed: use
-    ``bridge.params_from_jax`` to run JAX's parameters."""
-    model = Model(cfg, device="cpu")
+    gives the same model on every device), leaf by leaf into a model
+    allocated on ``device`` in its own dtypes: a whole fp32 copy of the
+    model never exists on the host. The values differ from JAX's
+    ``init_model`` for the same seed: use ``bridge.params_from_jax`` to
+    run JAX's parameters."""
+    model = Model(cfg, device=device)
     reset_parameters(model, generator)
-    return model.to(device=device, dtype=getattr(torch, cfg.param_dtype))
+    return model
 
 
 # ------------------------------------------------------------ forward pass
@@ -130,8 +156,8 @@ def unembed(params: Model, cfg: ArchConfig, x):
 def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
     """tokens (b, s) -> hidden (b, s, d) after the final norm."""
     x = embed_tokens(params, cfg, tokens)
-    for (mixer, _), layer in zip(cfg.layers_spec, params.layers):
-        x = layer_apply(layer, cfg, mixer, x)
+    for (mixer, ffn), layer in zip(cfg.layers_spec, params.layers):
+        x = layer_apply(layer, cfg, mixer, ffn, x)
     return rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
 
 
