@@ -91,23 +91,24 @@ card or outside a checkout of this repository. Phases:
    smoke-size SKI model;
 11. mamba: ``ssd_scan`` against ``ssd_chunked.ssd_scan_chunked`` in bf16
    (BF16_TOL × max) and fp32 (1e-5 × max, and against the float64
-   ``ref.ssd_scan_ref``) at the path shape x (8, 2048, 80, 64), B and C
-   (8, 2048, 1, 128), chunk 128, at n = 2000, 100 and 1, at g = 2 and 4
-   and at the smoke shape; the bf16 ``short_conv`` at Mamba's conv shape
-   (8, 2048, 5376), m = 4, and at the SKI path's shape with its four
-   offsets; the full-width mamba2-2.7b (64 layers, d=2560, bf16,
-   2,831,730,176 parameters, random weights from seed 0) scores 8 × 2048
-   tokens through ``make_forward`` (64 ``ssd_scan`` + 64 ``short_conv``
-   launches a forward, median of 5, peak memory, the kernels' device time
-   by the profiler), ``prefill``s 8 prompts of 128 tokens and greedily
-   generates 32 tokens each (max_len 160, the prompt token by token); the
-   decode path teacher-forced over the generated sequences against the
-   kernel-path forward (0 mismatches where the forward's top-2 margin
-   exceeds twice their largest logit difference), and the same in fp32 on
-   the same weights, where that margin is small enough that positions are
-   checked (at least one must be); the smoke mamba model
-   card vs CPU (logits 1e-4 × max in fp32, 2e-2 × max in bf16; fp32
-   greedy generate token-exact);
+   ``ref.ssd_scan_ref``) at the path shape x (8, 2048, 80, 64), B and C (8,
+   2048, 1, 128), chunk 128, at n = 2000, 100 and 1, at g = 2 and 4 and at
+   the smoke shape; both instances timed at the path shape (the bf16 one,
+   on the tensor cores, against the TF32 peak); the bf16 ``short_conv`` at
+   Mamba's conv shape (8, 2048, 5376), m = 4, and at the SKI path's shape
+   with its four offsets; the full-width mamba2-2.7b (64 layers, d=2560,
+   bf16, 2,831,730,176 parameters, random weights from seed 0) scores 8 ×
+   2048 tokens through ``make_forward`` (64 ``ssd_scan`` + 64
+   ``short_conv`` launches a forward, median of 5, peak memory, the
+   kernels' device time by the profiler), ``prefill``s 8 prompts of 128
+   tokens and greedily generates 32 tokens each (max_len 160, the prompt
+   token by token); the decode path teacher-forced over the generated
+   sequences against the kernel-path forward (0 mismatches where the
+   forward's top-2 margin exceeds twice their largest logit difference),
+   and the same in fp32 on the same weights, where that margin is small
+   enough that positions are checked (at least one must be); the smoke
+   mamba model card vs CPU (logits 1e-4 × max in fp32, 2e-2 × max in bf16;
+   fp32 greedy generate token-exact);
 12. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
@@ -131,11 +132,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: NVIDIA data-sheet peaks (bytes/s of device memory, dense fp32 FLOP/s
-#: outside the tensor cores), by the name nvidia-smi reports; "H100" alone
-#: is the SXM part.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+#: NVIDIA data-sheet peaks (bytes/s of device memory, dense FLOP/s: fp32
+#: outside the tensor cores, TF32 and bf16 on them, without sparsity), by
+#: the name nvidia-smi reports; "H100" alone is the SXM part.
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 378e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 417.5e12, 835.5e12),
+         "H100": (3.35e12, 67e12, 495e12, 989e12)}
 PROMPTS, PROMPT_LEN, GEN_LEN = 8, 448, 64
 MARGIN = 1e-3
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP = 30, 512, 8, 5
@@ -217,13 +219,17 @@ def _kernel_entry(name, replaces, got, want, fn, plain, library, nbytes,
                   nops, peaks, tol=1e-6, source=FD_SRC, reps=50):
     """Check ``got`` within ``tol`` × max|want| and time the kernel, its
     plain version and the library call (None: there is none), each the
-    median of ``reps`` runs."""
+    median of ``reps`` runs. The bound's operations run at ``peaks[1]``
+    (fp32 outside the tensor cores); ``nops`` may instead be pairs
+    (operations, peak FLOP/s), one for each type the kernel computes in."""
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     if not err <= tol * scale:
         raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
-    bw, flops = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
+    if not isinstance(nops, tuple):
+        nops = ((nops, peaks[1]),)
+    t_bytes = nbytes / peaks[0] * 1e3
+    t_ops = sum(ops / flops for ops, flops in nops) * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "tolerance": tol,
             "scale": scale, "limit": tol * scale, "ms": time_ms(fn, reps),
@@ -1656,7 +1662,9 @@ SSD_SHAPES = (("path", 8, 2048, 80, 64, 1, 128, 128),
               ("n=1", 2, 1, 80, 64, 1, 128, 128),
               ("g=2", 2, 128, 4, 16, 2, 16, 32),
               ("g=4 ragged", 1, 96, 4, 8, 4, 8, 32),
-              ("smoke", 2, 37, 8, 32, 1, 16, 16))
+              ("smoke", 2, 37, 8, 32, 1, 16, 16),
+              # rows of 12 and 24 bytes: the bf16 kernel's element loads
+              ("p=6 s=12", 1, 70, 4, 6, 2, 12, 32))
 
 
 def _ssd_inputs(bt, n, h, p, g, s, dtype, gen, device="cuda"):
@@ -1673,31 +1681,41 @@ def _ssd_inputs(bt, n, h, p, g, s, dtype, gen, device="cuda"):
 
 
 def _ssd_cost(bt, n, h, p, g, s, q, elem):
-    """(bytes, flops) of the SSD scan: x, dt, a, B, C, D read once and y
-    written once; the flops are the fewer of two ways to compute it. Chunked:
-    per head and chunk of r rows, r (r + 1) p for the lower-triangular
-    scores · X, 2 r s p for C Sᵀ and 2 p r s for the state update, plus
-    r (r + 1) s for the lower triangle of C Bᵀ once a group. Sequential:
-    5 p s per position and head (decay, outer product and add into S, then
-    C S)."""
+    """(bytes, chunked flops of the three products with an fp32 operand,
+    chunked flops of C Bᵀ, the fewer of chunked and sequential flops) of
+    the SSD scan: x, dt, a, B, C, D read once and y written once.
+    Chunked: per head and chunk of r rows, r (r + 1) p for the
+    lower-triangular scores · X, 2 r s p for C Sᵀ and 2 p r s for the state
+    update (TF32 on the tensor cores), plus r (r + 1) s for the lower
+    triangle of C Bᵀ once a group (bf16): matrix products, the bound on
+    tensor cores. Sequential: 5 p s per position and head (decay, outer
+    product and add into S, then C S): rank-1 updates, the fewer on the
+    CUDA cores."""
     nbytes = (elem * (2 * bt * n * h * p + 2 * bt * n * g * s)
               + 4 * (bt * n * h + 2 * h))
     rows = [min(q, n - i) for i in range(0, n, q)]
-    chunked = sum((r * (r + 1) * p + 4 * r * s * p) * bt * h
-                  + r * (r + 1) * s * bt * g for r in rows)
-    return nbytes, min(chunked, 5 * p * s * n * bt * h)
+    fp32_operand = sum((r * (r + 1) * p + 4 * r * s * p) * bt * h
+                       for r in rows)
+    cb = sum(r * (r + 1) * s * bt * g for r in rows)
+    return (nbytes, fp32_operand, cb,
+            min(fp32_operand + cb, 5 * p * s * n * bt * h))
 
 
-def phase_mamba_kernels(peaks, device="cuda") -> dict:
+def check_ssd_scan(peaks, device="cuda", g=None, reps=10) -> dict:
     """ssd_scan against ``ssd_chunked.ssd_scan_chunked`` on the same inputs
     at SSD_SHAPES, fp32 within 1e-5 × max|plain| (fp32 sums in another
-    order) and bf16 within BF16_TOL × max|plain| (one rounding to bf16 on
-    each side), fp32 also against ``ref.ssd_scan_ref`` in float64 (1e-5 ×
-    max); the bf16 short_conv at Mamba's conv shape and at the SKI path's
-    shape with its four offsets. Returns the entries at the path shapes
-    (bf16, the model's dtype)."""
+    order) and bf16 within BF16_TOL × max|plain| (TF32 products, then one
+    rounding to bf16 on each side: at most one bf16 ulp, 2^-7 × max, plus
+    about 5e-4 × max; ``tests/test_torch_ssd_scan.py``), fp32 also against
+    ``ref.ssd_scan_ref`` in float64 (1e-5 × max); both instances timed at
+    the path shape (median of ``reps``), the bf16 one against the tensor
+    cores' peaks (C Bᵀ in bf16, the other products in TF32) and the fp32
+    one against the CUDA cores' fp32 peak. Returns the path shape's
+    entries, ``ssd_scan`` (bf16) and ``ssd_scan_f32``. Inputs come from
+    ``g`` (a generator seeded 3 when None)."""
     from repro_torch.kernels import ref, ssd_chunked, ssd_scan
-    g = torch.Generator(device=device).manual_seed(3)
+    if g is None:
+        g = torch.Generator(device=device).manual_seed(3)
     out = {}
     for label, bt, n, h, p, gr, s, q in SSD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1709,14 +1727,28 @@ def phase_mamba_kernels(peaks, device="cuda") -> dict:
                 raise AssertionError(f"ssd_scan gave {got.dtype} "
                                      f"{tuple(got.shape)}")
             if label == "path" and dtype == torch.bfloat16:
-                nbytes, nops = _ssd_cost(bt, n, h, p, gr, s, q, 2)
+                nbytes, tf32_ops, bf16_ops, _ = _ssd_cost(bt, n, h, p, gr, s,
+                                                          q, 2)
                 out["ssd_scan"] = _kernel_entry(
                     "ssd_scan", "src/repro/kernels/ssd_scan.py:82", got,
                     want, lambda: ssd_scan.ssd_scan(*args, chunk=q),
                     lambda: ssd_chunked.ssd_scan_chunked(*args, chunk=q),
-                    None, nbytes=nbytes, nops=nops, peaks=peaks, tol=tol,
-                    source=SSD_SRC, reps=10)
+                    None, nbytes=nbytes,
+                    nops=((tf32_ops, peaks[2]), (bf16_ops, peaks[3])),
+                    peaks=peaks, tol=tol, source=SSD_SRC, reps=reps)
                 report = f"{out['ssd_scan']}"
+            elif label == "path":
+                nbytes, _, _, fewer = _ssd_cost(bt, n, h, p, gr, s, q, 4)
+                e = out["ssd_scan_f32"] = _kernel_entry(
+                    "ssd_scan_f32", "src/repro/kernels/ssd_scan.py:82", got,
+                    want, lambda: ssd_scan.ssd_scan(*args, chunk=q),
+                    lambda: ssd_chunked.ssd_scan_chunked(*args, chunk=q),
+                    None, nbytes=nbytes, nops=fewer, peaks=peaks, tol=tol,
+                    source=SSD_SRC, reps=reps)
+                report = (f"fp32 {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}"
+                          f"; bound {e['bound_ms']:.4f} by {e['bound_by']} "
+                          f"at fp32 on the CUDA cores); max abs err "
+                          f"{e['max_abs_err']:.3e} at {e['scale']:.3f}")
             else:
                 report = _grads_close(f"ssd_scan {label} {dtype}",
                                       [got.double()], [want.double()],
@@ -1728,6 +1760,17 @@ def phase_mamba_kernels(peaks, device="cuda") -> dict:
                     ["y"], 1e-5)
             print(f"[mamba kernel] ssd_scan {label} x ({bt}, {n}, {h}, {p}) "
                   f"{dtype}, g={gr}, s={s}, chunk={q}: {report}", flush=True)
+    return out
+
+
+def phase_mamba_kernels(peaks, device="cuda") -> dict:
+    """:func:`check_ssd_scan`; the bf16 short_conv at Mamba's conv shape
+    and at the SKI path's shape with its four offsets; the kernels'
+    refusals. Returns the entries at the path shapes (bf16, the model's
+    dtype)."""
+    from repro_torch.kernels import ssd_scan
+    g = torch.Generator(device=device).manual_seed(3)
+    out = {"ssd_scan": check_ssd_scan(peaks, device, g)["ssd_scan"]}
     ssd_scan.reset_counters()
     # the bf16 short conv: Mamba's conv, then the SKI path's offsets
     x = torch.randn(MAMBA_BATCH, MAMBA_SEQ, 5376, device=device,
@@ -1848,10 +1891,10 @@ def phase_mamba_score(device="cuda"):
           f"{peak} bytes ({peak / 2**30:.3f} GiB)", flush=True)
     dev_ms = _profile_forward(fwd, model, toks, device, reps=1,
                               tag="[mamba score]",
-                              kernels_of=("ssd_scan_kernel",
+                              kernels_of=("ssd_scan_bf16_kernel",
                                           "short_conv_kernel"))
     print(f"[mamba score] device ms a forward: ssd_scan "
-          f"{dev_ms['ssd_scan_kernel']:.3f} ({cfg.n_layers} launches), "
+          f"{dev_ms['ssd_scan_bf16_kernel']:.3f} ({cfg.n_layers} launches), "
           f"short_conv {dev_ms['short_conv_kernel']:.3f}", flush=True)
     return cfg, model, launches
 
@@ -1890,10 +1933,6 @@ def phase_mamba_serve(cfg, model, device="cuda"):
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("mamba prefill logits not finite")
         t0 = time.perf_counter()
-        generate(model, cfg, prompt, 1, max_len=max_len)
-        _sync(device)
-        t_ingest = time.perf_counter() - t0
-        t0 = time.perf_counter()
         seqs = generate(model, cfg, prompt, MAMBA_GEN, max_len=max_len)
         _sync(device)
         t_gen = time.perf_counter() - t0
@@ -1902,12 +1941,15 @@ def phase_mamba_serve(cfg, model, device="cuda"):
         if seqs.shape != (MAMBA_PROMPTS, max_len) or not torch.equal(
                 seqs[:, :MAMBA_PROMPT_LEN], prompt):
             raise AssertionError(f"generate returned {tuple(seqs.shape)}")
-        decode_tps = MAMBA_PROMPTS * (MAMBA_GEN - 1) / (t_gen - t_ingest)
+        # every position but the last goes through one decode step (the
+        # prompt too, token by token): the decode path's rate is over all
+        # of them, from one timed call
+        steps = MAMBA_PROMPTS * (max_len - 1)
         print(f"[mamba serve] prefill {MAMBA_PROMPTS}x{MAMBA_PROMPT_LEN}: "
               f"{t_prefill * 1e3:.3f} ms; generate {MAMBA_GEN} new: "
-              f"{t_gen:.3f} s (prompt token by token {t_ingest:.3f} s); "
-              f"decode {decode_tps:.1f} tok/s; prefill launches {launches}",
-              flush=True)
+              f"{t_gen:.3f} s for {steps} decode steps (the prompt token by "
+              f"token); {steps / t_gen:.1f} steps/s (prompt included); "
+              f"prefill launches {launches}", flush=True)
         dec = _teacher_forced(model, cfg, seqs)
         fwd = serving.prefill(model, cfg, seqs)[:, :-1].float()
         # the bf16 noise floor: the same weights in fp32, fp32 activations
@@ -2110,7 +2152,8 @@ def main() -> int:
         e["launches"] = sum(by_path.values())
         e["launches_by_path"] = by_path
     print(f"[peaks] {peak_name} data sheet: {peaks[0] / 1e12} TB/s, "
-          f"{peaks[1] / 1e12} TFLOP/s fp32")
+          f"{peaks[1] / 1e12} TFLOP/s fp32, {peaks[2] / 1e12} TF32, "
+          f"{peaks[3] / 1e12} bf16 (dense)")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -223,14 +223,19 @@ def build(*names: str) -> list[Path]:
     return outs
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """The kernel library built at ``path``, its error strings typed."""
+    lib = ctypes.CDLL(str(path))
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def library(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (a key of :data:`SOURCES`), built
     first if needed."""
-    lib = ctypes.CDLL(str(build(name)[0]))
-    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return load(build(name)[0])
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -5,9 +5,13 @@
 :func:`ssd_scan` takes the plain version (``ssd_chunked.ssd_scan_chunked``,
 which zero-pads a ragged tail) for CPU tensors and launches the kernel for
 CUDA tensors, counting the launch in :data:`counters`; another device,
-dtype or layout raises. The kernel reads x, dt, B and C in place (no head
-transposes, no per-head copies of B and C), loops over the chunks inside
-the block and masks a ragged last chunk, so every n >= 1 runs in it.
+dtype or layout raises. Each dtype has one kernel body: bf16 runs its
+products on the tensor cores (C Bᵀ in bf16, the other three in TF32, fp32
+sums), fp32 runs fp32 FMAs on the CUDA cores (``csrc/ssd_scan.cu`` states
+the error budget and the bounds). Both read x, dt, B and C in place (no
+head transposes, no per-head copies of B and C), loop over the chunks
+inside the block and mask a ragged last chunk, so every n >= 1 runs in
+them.
 
 As ``ssd_scan_pallas`` in the JAX package, the kernel is forward-only: on
 the card the wrapper refuses an input that requires grad while grad is

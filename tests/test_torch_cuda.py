@@ -11,7 +11,9 @@ cards in turn and held against its plain version on each (fp32 tier,
 1e-5 × max|plain|; ``gram_grad`` and ``interp_expand`` 1e-6, sums of b
 and of two terms), at a shape whose block needs more than 48 KB of
 dynamic shared memory where the kernel has any (``interp_expand`` has
-none).
+none). ``ssd_scan`` is held in bf16 within 1e-2 × max|plain|
+(``chip_smoke.BF16_TOL``: its products are TF32 and bf16, and y rounds to
+bf16 once on each side).
 """
 import pytest
 
@@ -110,3 +112,28 @@ def test_window_pass2_runs_on_each_card():
         got = ski_fused.ski_expand_pass2(x, z, f, False)
         torch.cuda.synchronize(dev)
         _close(got, ref.ski_expand_pass2_ref(x, z, f, False), 1e-5)
+
+
+def test_ssd_scan_runs_on_each_card():
+    """ssd_scan in bf16 (the tensor-core kernel, 115,712 bytes of shared
+    memory a block and the max-shared carveout) and fp32 (218,112 bytes) at
+    the Mamba path's widths (p 64, s 128, chunk 128) with two chunks, on
+    card 0, then on card 1: each card needs its own attributes."""
+    from repro_torch.kernels import ssd_chunked, ssd_scan
+    bt, n, h, p, g, s, q = 2, 256, 8, 64, 1, 128, 128
+    for dev in _two_cards():
+        gen = torch.Generator(device=dev).manual_seed(dev.index)
+
+        def rnd(*shape):
+            return torch.randn(*shape, device=dev, generator=gen)
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            x = rnd(bt, n, h, p).to(dtype)
+            dt = torch.nn.functional.softplus(rnd(bt, n, h) - 3.0)
+            a = -torch.exp(0.1 * rnd(h))
+            b, c = rnd(bt, n, g, s).to(dtype), rnd(bt, n, g, s).to(dtype)
+            d = 1.0 + 0.1 * rnd(h)
+            got = ssd_scan.ssd_scan(x, dt, a, b, c, d, chunk=q)
+            torch.cuda.synchronize(dev)
+            want = ssd_chunked.ssd_scan_chunked(x, dt, a, b, c, d, chunk=q)
+            assert got.dtype == dtype
+            _close(got.float(), want.float(), tol)
