@@ -33,8 +33,10 @@ card or outside a checkout of this repository. Phases:
    the large-rank ``ski_windowed_pass2`` and ``ski_expand_pass2`` at the
    large-r path's shape (x (8, 512, 512), r = 512, the four offsets), at
    r = 513 and 4096 (n = 4096, d = 16), ragged, n < m, r = n, r = 2 and
-   m = 1, the windowed one also under ``REPRO_SKI_BAND_MAX=16`` and
-   against a float64 version, the expand one also at n = r = 8192; the
+   m = 1, the windowed one also under ``REPRO_SKI_BAND_MAX=16``, against
+   a float64 version and against itself (two calls, the same bits; its
+   Gram runs on the tensor cores in 3xTF32 and its bound prices it at
+   three TF32 products), the expand one also at n = r = 8192; the
    whole SKIFusedTNOCoef backward, both variants, causal and
    bidirectional, against autograd through ``ref.ski_fused_tno_coef_ref``
    and under ``REPRO_PALLAS_GRAD=0``;
@@ -104,16 +106,19 @@ card or outside a checkout of this repository. Phases:
    tokens and greedily generates 32 tokens each (max_len 160, the prompt
    token by token); the decode path teacher-forced over the generated
    sequences against the kernel-path forward (0 mismatches where the
-   forward's top-2 margin exceeds twice their largest logit difference),
-   and the same in fp32 on the same weights, where that margin is small
-   enough that positions are checked (at least one must be); the smoke
-   mamba model card vs CPU (logits 1e-4 × max in fp32, 2e-2 × max in bf16;
-   fp32 greedy generate token-exact);
+   forward's top-2 margin exceeds twice their largest logit difference);
+   the kernel-path bf16 forward no farther from the same forward through
+   the plain ``ssd_scan`` and ``short_conv`` than that plain forward is
+   from the fp32 one; and the same in fp32 on the same weights, where that
+   margin is small enough that positions are checked (at least one must
+   be); the smoke mamba model card vs CPU (logits 1e-4 × max in fp32,
+   2e-2 × max in bf16; fp32 greedy generate token-exact);
 12. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -215,29 +220,40 @@ def phase_build() -> None:
 
 
 # --------------------------------------------------------------- phase 3
+def _bound(nbytes, nops, peaks):
+    """(bound ms, "bytes" or "operations"): the bytes over ``peaks[0]`` or
+    the operations, whichever take longer. ``nops`` runs at ``peaks[1]``
+    (fp32 on the CUDA cores), or is triples (operations, peak FLOP/s,
+    unit), one for each type the kernel computes in. Work on one unit adds
+    up; the tensor cores and the CUDA cores run side by side, so the
+    operations take the busiest unit's time."""
+    if not isinstance(nops, tuple):
+        nops = ((nops, peaks[1], "cuda cores"),)
+    t_bytes = nbytes / peaks[0] * 1e3
+    per_unit = {}
+    for ops, flops, unit in nops:
+        per_unit[unit] = per_unit.get(unit, 0.0) + ops / flops * 1e3
+    t_ops = max(per_unit.values())
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _kernel_entry(name, replaces, got, want, fn, plain, library, nbytes,
                   nops, peaks, tol=1e-6, source=FD_SRC, reps=50):
     """Check ``got`` within ``tol`` × max|want| and time the kernel, its
     plain version and the library call (None: there is none), each the
-    median of ``reps`` runs. The bound's operations run at ``peaks[1]``
-    (fp32 outside the tensor cores); ``nops`` may instead be pairs
-    (operations, peak FLOP/s), one for each type the kernel computes in."""
+    median of ``reps`` runs; the bound is ``_bound``'s."""
     err = float((got.float() - want.float()).abs().max())
     scale = float(want.float().abs().max())
     if not err <= tol * scale:
         raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
-    if not isinstance(nops, tuple):
-        nops = ((nops, peaks[1]),)
-    t_bytes = nbytes / peaks[0] * 1e3
-    t_ops = sum(ops / flops for ops, flops in nops) * 1e3
+    bound_ms, bound_by = _bound(nbytes, nops, peaks)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "tolerance": tol,
             "scale": scale, "limit": tol * scale, "ms": time_ms(fn, reps),
             "plain_ms": time_ms(plain, reps),
             "library_ms": None if library is None else time_ms(library,
                                                                reps),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_kernels(peaks) -> dict:
@@ -698,11 +714,25 @@ def _window_tol(r: int) -> float:
     return 1e-5 if r <= 512 else 1e-4
 
 
+def _windowed_cost(b, n, d, r, m):
+    """(bytes, Gram flops, conv and expansion flops) of ski_windowed_pass2:
+    x, z, the (d, 2r - 1) coefficients and f read once, y written once;
+    the Gram 2·b·d·r², the conv 2·b·n·d·m, the expansion 2·2·b·n·d."""
+    nbytes = 4 * (2 * b * n * d + b * r * d + d * (2 * r - 1) + d * m)
+    return nbytes, 2 * b * d * r * r, 2 * b * d * (n * m + 2 * n)
+
+
 def _windowed_entry(label, x, z, coef, f, left, peaks):
-    """ski_windowed_pass2 against the plain rfft Gram and expansion. The
-    Gram is 2·b·d·r² flops (the windows of neighbouring tiles overlap by a
-    few rows more), the conv 2·b·n·d·m, the expansion 2·2·b·n·d; x, z, the
-    coefficients and f read once, y written once."""
+    """ski_windowed_pass2 against the plain rfft Gram and expansion, and
+    against itself: two calls give the same bits. The Gram is 2·b·d·r²
+    flops (the windows of neighbouring tiles overlap by a few rows more),
+    run on the tensor cores as three TF32 products (3xTF32), so it is
+    priced at three times that over the TF32 peak; the conv (2·b·n·d·m)
+    and the expansion (2·2·b·n·d) at the fp32 peak on the CUDA cores,
+    which run beside the tensor cores. x, z, the coefficients and f read
+    once, y written once. The printed line keeps each term of the bound and
+    the all-CUDA-core figure (every flop at the fp32 peak, the bound
+    before the Gram moved to the tensor cores) for the record."""
     from repro_torch.kernels import ref, ski_fused
     b, n, d = x.shape
     r, m = z.shape[1], f.shape[1]
@@ -710,18 +740,26 @@ def _windowed_entry(label, x, z, coef, f, left, peaks):
     def plain():
         return ref.ski_expand_pass2_ref(
             x, ref.toeplitz_gram_matvec_ref(coef, z), f, True, left=left)
+
+    def kernel():
+        return ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left)
+    got = kernel()
+    if not torch.equal(got, kernel()):
+        raise AssertionError(f"ski_windowed_pass2 {label}: two calls differ")
+    nbytes, gram, rest = _windowed_cost(b, n, d, r, m)
     e = _kernel_entry(
-        "ski_windowed_pass2", WINDOWED_REPLACES,
-        ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left), plain(),
-        lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True, left=left),
-        plain, None,
-        nbytes=4 * (2 * x.numel() + z.numel() + coef.numel() + f.numel()),
-        nops=2 * b * d * (r * r + n * m + 2 * n), peaks=peaks,
-        tol=_window_tol(r), source=SKI_SRC)
+        "ski_windowed_pass2", WINDOWED_REPLACES, got, plain(), kernel, plain,
+        None, nbytes=nbytes, nops=((3 * gram, peaks[2], "tensor cores"),
+                                   (rest, peaks[1], "cuda cores")),
+        peaks=peaks, tol=_window_tol(r), source=SKI_SRC)
     print(f"[kernel] ski_windowed_pass2 {label} x ({b}, {n}, {d}), r={r}, "
           f"m={m}, left={left}, band_max "
-          f"{os.environ.get('REPRO_SKI_BAND_MAX') or 'default'}: {e}",
-          flush=True)
+          f"{os.environ.get('REPRO_SKI_BAND_MAX') or 'default'}: {e}; "
+          f"beside the bound: bytes {nbytes / peaks[0] * 1e3:.5f} ms, "
+          f"Gram on the tensor cores {3 * gram / peaks[2] * 1e3:.5f} ms, "
+          f"conv and expansion on the CUDA cores "
+          f"{rest / peaks[1] * 1e3:.5f} ms, all at the fp32 peak "
+          f"{(gram + rest) / peaks[1] * 1e3:.5f} ms", flush=True)
     return e
 
 
@@ -1734,7 +1772,8 @@ def check_ssd_scan(peaks, device="cuda", g=None, reps=10) -> dict:
                     want, lambda: ssd_scan.ssd_scan(*args, chunk=q),
                     lambda: ssd_chunked.ssd_scan_chunked(*args, chunk=q),
                     None, nbytes=nbytes,
-                    nops=((tf32_ops, peaks[2]), (bf16_ops, peaks[3])),
+                    nops=((tf32_ops, peaks[2], "tensor cores"),
+                          (bf16_ops, peaks[3], "tensor cores")),
                     peaks=peaks, tol=tol, source=SSD_SRC, reps=reps)
                 report = f"{out['ssd_scan']}"
             elif label == "path":
@@ -1909,11 +1948,15 @@ def phase_mamba_serve(cfg, model, device="cuda"):
     margin exceeds twice the two paths' largest logit difference, and the
     decode path is no farther from the fp32 forward of the same weights
     than twice the bf16 forward is (bf16 rounds at other places in the
-    two paths, over 64 layers). The same weights in fp32 then take both
-    paths, where they differ only by fp32 sums in another order: the fp32
-    decode picks the fp32 forward's token at every teacher-forced position
-    whose top-2 margin exceeds twice their largest logit difference, and
-    at least one position is checked. Returns the launch counts."""
+    two paths, over 64 layers); the kernel-path forward is no farther from
+    the same bf16 forward through the plain ``ssd_scan`` and
+    ``short_conv`` than that is from the fp32 forward
+    (:func:`check_kernel_vs_plain_bf16`). The same weights in fp32 then
+    take both paths, where they differ only by fp32 sums in another order:
+    the fp32 decode picks the fp32 forward's token at every teacher-forced
+    position whose top-2 margin exceeds twice their largest logit
+    difference, and at least one position is checked. Returns the launch
+    counts."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import serving
     from repro_torch.models.transformer import Model
@@ -1952,6 +1995,14 @@ def phase_mamba_serve(cfg, model, device="cuda"):
               f"prefill launches {launches}", flush=True)
         dec = _teacher_forced(model, cfg, seqs)
         fwd = serving.prefill(model, cfg, seqs)[:, :-1].float()
+        # the same bf16 forward with the plain ssd_scan and short_conv
+        _reset_mamba_counts()
+        with _plain_mamba_kernels():
+            fwd_plain = serving.prefill(model, cfg, seqs)[:, :-1].float()
+        if _mamba_counts() != {"ssd_scan": 0, "short_conv_bf16": 0,
+                               "other": 0}:
+            raise AssertionError("the plain mamba forward launched "
+                                 f"{_mamba_counts()}")
         # the bf16 noise floor: the same weights in fp32, fp32 activations
         cfg32 = dataclasses.replace(cfg, dtype="float32",
                                     param_dtype="float32")
@@ -1998,6 +2049,7 @@ def phase_mamba_serve(cfg, model, device="cuda"):
     if int(wrong.sum()) or not same:
         raise AssertionError("decoded tokens disagree with the kernel-path "
                              "forward")
+    check_kernel_vs_plain_bf16(fwd, fwd_plain, fwd32)
     # bf16 over 64 layers: the decode path need not match the forward, but
     # it must be no farther from the fp32 forward than the bf16 forward is
     if not noise_dec <= 2 * noise_fwd:
@@ -2023,6 +2075,46 @@ def phase_mamba_serve(cfg, model, device="cuda"):
                              "kernel-path forward, or no position was "
                              "checked")
     return launches
+
+
+def _plain_mamba_kernels():
+    """Inside the block the Mamba layers call the plain versions of their
+    kernels on the card too: ``ssd_chunked.ssd_scan_chunked`` for
+    ``ops.ssd_scan`` and ``ref.short_conv_left_ref`` for
+    ``ops.short_conv`` (the wrappers take them only for CPU tensors)."""
+    from repro_torch.kernels import ops, ref, ssd_chunked
+
+    def short_conv(x, filt, causal, left=None):
+        if left is None:
+            left = 0 if causal else filt.shape[-1] // 2
+        return ref.short_conv_left_ref(x, filt, left)
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(ops, "ssd_scan",
+                                          ssd_chunked.ssd_scan_chunked))
+    stack.enter_context(mock.patch.object(ops, "short_conv", short_conv))
+    return stack
+
+
+def check_kernel_vs_plain_bf16(kernel, plain, fp32) -> dict:
+    """The bf16 logits of the kernel path against those of the plain path
+    (the same weights, tokens and dtype, the plain ``ssd_scan`` and
+    ``short_conv``): their largest difference may not exceed the plain
+    path's own largest difference from the fp32 forward. bf16 rounding
+    over the layers sets that distance; a kernel whose error outgrows it
+    fails the run. Prints the three distances and returns them."""
+    got = {"kernel_vs_plain": float((kernel - plain).abs().max()),
+           "plain_vs_fp32": float((plain - fp32).abs().max()),
+           "kernel_vs_fp32": float((kernel - fp32).abs().max())}
+    print(f"[mamba check] bf16 kernel-path forward vs the plain-path bf16 "
+          f"forward: {got['kernel_vs_plain']:.4f} (limit: the plain path's "
+          f"distance from the fp32 forward, {got['plain_vs_fp32']:.4f}; the "
+          f"kernel path's own {got['kernel_vs_fp32']:.4f})", flush=True)
+    if not got["kernel_vs_plain"] <= got["plain_vs_fp32"]:
+        raise AssertionError(
+            f"the bf16 kernel path is {got['kernel_vs_plain']} from the "
+            f"plain path, over the plain path's {got['plain_vs_fp32']} from "
+            "fp32")
+    return got
 
 
 def _teacher_forced(model, cfg, seqs):

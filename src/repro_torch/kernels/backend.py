@@ -142,17 +142,18 @@ def band_budget() -> int:
     (``REPRO_SKI_BAND_MAX``): :func:`band_fit` shrinks the sequence tile
     until bw fits, so the knob changes the tiling, never the result.
 
-    The Hopper default, 160, comes from the kernel's shared memory
-    (``csrc/ski.cu`` ``window_smem``): a block of a 128-row tile, m = 32
-    taps and bw window rows holds 4 · (159·32 x rows + 32·32 taps + 33·bw
-    window + 2·128 hat rows + 32·32 z chunk + 32·(bw + 31) coefficients,
-    with 32 channels a block at worst) = 33,536 + 260·bw bytes. Three
-    blocks a SM (``kBlocksPerSM``, each with 1 KB the card reserves) share
-    ``kSmemPerSM`` = 233,472 bytes, so a block may take 76,800: bw ≤ 166,
-    and 160 is the largest multiple of 8 below (75,136 bytes, well under
-    ``kMaxSmem`` = 232,448 for one block). Since r ≤ n, h ≥ 1 and
-    ``band_width(128, n, r)`` ≤ 136: the default never shrinks the
-    kernel's 128-row tile."""
+    The Hopper default, 160, came from the shared memory of the CUDA-core
+    ``ski_windowed_pass2`` (three blocks a SM of 33,536 + 260·bw bytes
+    each at a 128-row tile and m = 32: bw ≤ 166). The tensor-core kernel
+    (``csrc/ski.cu`` ``window_smem``) holds 4 · (159·32 x rows + 32·32
+    taps + 33·bw window + 2·128 hat rows + 3 · (128·32 z rows + 4 · (16·MT
+    + 128) coefficients) of a Gram stage, raw and split into TF32 halves)
+    = 80,768 + 132·bw + 768·MT bytes, MT = 9 window m-tiles (3 for
+    bw ≤ 48): 105,632 at bw = 136, two blocks a SM
+    (``kWindowedBlocksPerSM``, each with 1 KB the card reserves, within
+    ``kSmemPerSM`` = 233,472). Since r ≤ n, h ≥ 1 and
+    ``band_width(128, n, r)`` ≤ 136 ≤ 16·9: the default never shrinks the
+    kernel's 128-row tile, and every window fits its 9 m-tiles."""
     return _env_int(_ENV_BAND_MAX, SKI_BAND_MAX)
 
 

@@ -110,22 +110,46 @@
 //   one write of y. The TPU kernel streams kb = rp/bw Toeplitz (bw, bw) band
 //   blocks rebuilt from the lag-reversed coefficient line per sequence tile.
 //   Here a block owns one tile of TN rows (band_fit's tile: 128, or a halving
-//   of it when REPRO_SKI_BAND_MAX asks for a narrower band) and its 32 (batch
-//   row, channel) columns, and computes only the bw rows of z2 its hat rows
+//   of it when REPRO_SKI_BAND_MAX asks for a narrower band), 8 batch rows and
+//   4 channels (32 columns), and computes only the bw rows of z2 its hat rows
 //   touch: the window starts at the node of the tile's first row (hat_row's
 //   lo, so the window and the weights come from one computation), clamped to
-//   r - bw. z and the matching coefficients stream through shared memory
-//   kGramT rows of z at a time (a chunk needs bw + kGramT - 1 coefficients a
-//   channel, zero outside [0, 2r-1)); a thread sums kGramQ window rows of one
-//   column from a register window of coefficients. No (r, r) panel and no
-//   dense Gram exists anywhere, so r = 4096 and beyond run. The signal
-//   backward is this same kernel with the coefficients lag-flipped (A^T of a
-//   Toeplitz matrix), the taps flipped and left mirrored.
+//   r - bw. No (r, r) panel and no dense Gram exists anywhere, so r = 4096
+//   and beyond run. The signal backward is this same kernel with the
+//   coefficients lag-flipped (A^T of a Toeplitz matrix), the taps flipped
+//   and left mirrored.
 //   Bound: x, z, the coefficients and f read once and y written once: at
 //   (8, 512, 512), r = 512, m = 32, 27,326,464 bytes, 8.16 us at 3.35 TB/s;
 //   2 b d r^2 = 2,147 MFLOP for the Gram (the windows of neighbouring tiles
 //   overlap by a few rows, about 6% more), 134 MFLOP conv and 8 MFLOP
-//   expansion, 2,290 MFLOP, 34.2 us at 67 TFLOP/s fp32: bound by operations.
+//   expansion. The Gram runs on the tensor cores as three TF32 products
+//   (6,442 MFLOP at 495 TFLOP/s, 13.0 us), the rest at 67 TFLOP/s fp32 on
+//   the CUDA cores (2.1 us), which run beside the tensor cores: 13.0 us,
+//   bound by operations (34.2 us were all of it on the CUDA cores).
+//   Design (gram_window_tc): per channel the window is a (bw x r) Toeplitz
+//   panel times z's (r x 8) batch columns, one mma.m16n8k8 TF32 per 16 rows
+//   and 8 z rows, bw padded to MT = 9 m-tiles (3 for windows of 48 rows or
+//   fewer). TF32 keeps 10 mantissa bits: one product put z2 off by up to
+//   1.5e-3 at the path shape, over the 1e-5 x max tier, so each operand is
+//   split once, v = hi + lo (both rounded to TF32), and the kernel sums
+//   hi.hi + hi.lo + lo.hi ("3xTF32") in fp32, about as accurate as fp32
+//   (tests/test_torch_ski_windowed_tc.py models it on the CPU). The A
+//   fragments come straight from the coefficient line: a Toeplitz tile
+//   depends on its diagonal alone, so a warp keeps a register window of
+//   coefficients and reads two new ones a k-step. z and the coefficients
+//   arrive in stages of 128 z rows by cp.async, the next stage landing
+//   while the warps multiply the current one; the block splits a stage into
+//   its TF32 halves once, for all its warps. Each of the 8 warps takes one
+//   channel and 5 or 4 of the 9 m-tiles (rows 0-79 or 80-143), so it holds
+//   20 accumulators, and sums every z row in one fixed order (no atomics:
+//   bitwise the same from run to run). At the path shape a block holds
+//   105,632 bytes of shared memory, 2 blocks a SM, 512 blocks: 1.94 waves
+//   of 264. On an H100 (tools/ab_kernel.py ski, PERF.md) the mma loop
+//   takes about 24 us of the kernel's 65; the stages' copies and split and
+//   the tile's own copy, conv and store, which run after the Gram in each
+//   block, take the rest. Earlier: one block per (tile, 32 columns) with
+//   the Gram on the CUDA cores from a register window, 145.5-171.4 us,
+//   bound by shared-memory issue (23 loads for 64 FMA).
 //
 // ski_expand_pass2  replaces the same _windowed_kernel / _windowed_call with
 //   banded=False (ski_expand_pass2_pallas): the Gram-free pass 2 of the
@@ -163,8 +187,10 @@ constexpr int kBlocksPerSM = 3;  // pass-2 blocks aimed at per SM
 constexpr int kMaxSmem = 232448; // bytes a block may use (227 KB)
 constexpr int kSmemPerSM = 233472;  // bytes a SM holds for its blocks
 constexpr int kMaxDevices = 64;  // devices with their own pass-2 state
-constexpr int kGramT = 32;       // z rows of a windowed Gram chunk
-constexpr int kGramQ = 8;        // window rows a thread sums at once
+constexpr int kGramC = 4;        // channels of a ski_windowed_pass2 block
+constexpr int kStageT = 128;     // z rows of a Gram stage
+constexpr int kMaxMT = 9;        // window m-tiles of 16 rows, at most
+constexpr int kWindowedBlocksPerSM = 2;   // ski_windowed_pass2 blocks a SM
 
 // The two taps of W's row i: node lo and weight w_lo (1 - w_lo on lo + 1).
 __device__ __forceinline__ int hat_row(long long i, float hf, int r,
@@ -511,82 +537,244 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
 }
 
 
-// z2w[j][lane] = sum_{t<r} coef[c, w0 + j - t + r - 1] z[bg, t, c] for j < bw:
-// the window rows w0 .. w0 + bw - 1 of z2 = A z. z and the coefficients
-// stream through shared memory kGramT rows of z at a time: zc ([kGramT]
-// [kLanes]) and cs ([bw + kGramT - 1][kc], the block's kc channels); chunk
-// t0 needs coefficient indices base .. base + bw + kGramT - 2 with
-// base = w0 + r - kGramT - t0, zero outside [0, 2r - 1) and past d.
-__device__ __forceinline__ void gram_window(
-    const float* __restrict__ z, const float* __restrict__ coef, float* z2w,
-    float* zc, float* cs, int w0, int bw, int r, long long d, long long c0,
-    int kc, long long bg, long long c, bool valid) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int ch = lane % kc;
-  const int span = bw + kGramT - 1;       // coefficients a channel a chunk
-  const long long ncoef = 2LL * r - 1;
-  for (int t0 = 0; t0 < r; t0 += kGramT) {
-    for (int tt = warp; tt < kGramT; tt += kWarps) {
-      const int t = t0 + tt;
-      zc[tt * kLanes + lane] =
-          valid && t < r ? __ldg(z + (bg * r + t) * d + c) : 0.f;
+// d += a b, m16n8k8, TF32 operands (fp32 bit patterns, low 13 bits zero),
+// fp32 accumulators. Fragments (g = lane / 4, t4 = lane % 4): a0 (row g,
+// col t4), a1 (g + 8, t4), a2 (g, t4 + 4), a3 (g + 8, t4 + 4); b0 (k t4,
+// col g), b1 (k t4 + 4, col g); d0, d1 (row g, cols 2 t4, 2 t4 + 1), d2, d3
+// (row g + 8, the same cols).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero as cvt.rna.tf32.f32 rounds: half of the 13 dropped bits added to the
+// magnitude, then the 13 bits cleared.
+__device__ __forceinline__ float tf32_rna(float v) {
+  return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
+}
+
+// Coefficient slots of a Gram stage for a window of mt m-tiles: the
+// coefficients one channel's 16 mt window rows and the stage's kStageT z
+// rows reach (16 mt + kStageT - 1), one slot of slack.
+__host__ __device__ __forceinline__ int gram_span(int mt) {
+  return 16 * mt + kStageT;
+}
+
+// Floats of the banded kernel's Gram staging for mt m-tiles: the raw stage
+// (z [kStageT][kLanes], the kGramC channels' coefficients [kGramC][span]),
+// then its hi and lo TF32 halves (z [kGramC][kStageT][kMaxCB] and the
+// coefficients again).
+__host__ __device__ __forceinline__ int gram_stage_floats(int mt) {
+  return 3 * (kStageT * kLanes + kGramC * gram_span(mt));
+}
+
+// Request Gram stage t0 .. t0 + kStageT - 1 into the raw buffers: z rows of
+// the block's 32 columns as zr[t][lane] (lane = batch row * 4 + channel;
+// 16-byte copies of 4 channels when vec16), and coefficients
+// base .. base + span - 1 of its kGramC channels as cr[ch][e]; zero past r,
+// b, d and outside [0, 2r - 1).
+__device__ __forceinline__ void load_gram_stage(
+    float* zr, float* cr, const float* z, const float* coef, long long b0,
+    long long c0, int t0, long long base, int span, int r, long long b,
+    long long d, bool vec16) {
+  if (vec16) {
+    for (int e = threadIdx.x; e < kStageT * kMaxCB; e += kLanes * kWarps) {
+      const int t = e >> 3, u = e & 7;
+      const bool ok = b0 + u < b && t0 + t < r;
+      cp_async16(zr + 4 * e, ok ? z + ((b0 + u) * r + t0 + t) * d + c0 : z,
+                 ok);
     }
-    const long long base = (long long)w0 + r - kGramT - t0;
-    for (int p = threadIdx.x; p < kc * span; p += kLanes * kWarps) {
-      const int pc = p / span;            // consecutive threads, consecutive
-      const int e = p - pc * span;        // coefficients of one channel
-      const long long idx = base + e;
-      cs[e * kc + pc] = c0 + pc < d && idx >= 0 && idx < ncoef
-                            ? __ldg(coef + (c0 + pc) * ncoef + idx)
-                            : 0.f;
+  } else {
+    for (int e = threadIdx.x; e < kStageT * kLanes; e += kLanes * kWarps) {
+      const int t = e >> 5, u = (e >> 2) & 7, ch = e & 3;
+      const bool ok = b0 + u < b && c0 + ch < d && t0 + t < r;
+      cp_async4(zr + e, ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z,
+                ok);
     }
-    __syncthreads();
-    // a warp sums kGramQ window rows at a time: row j0 + q and chunk row
-    // tb + kk read chunk coefficient j0 + q + kGramT - 1 - tb - kk, so the
-    // kGramQ + kKB - 1 of a block of kKB rows sit in registers; the running
-    // sums wait in z2w between chunks (each is one thread's own)
-    for (int j0 = warp * kGramQ; j0 < bw; j0 += kWarps * kGramQ) {
-      float acc[kGramQ];
-#pragma unroll
-      for (int q = 0; q < kGramQ; ++q)
-        acc[q] = t0 == 0 ? 0.f : z2w[(j0 + q) * kZ2Pitch + lane];
-#pragma unroll
-      for (int tb = 0; tb < kGramT; tb += kKB) {
-        const float* cr = cs + (j0 + kGramT - kKB - tb) * kc + ch;
-        float cw[kGramQ + kKB - 1];
-#pragma unroll
-        for (int u = 0; u < kGramQ + kKB - 1; ++u) cw[u] = cr[u * kc];
-        float zk[kKB];
-#pragma unroll
-        for (int kk = 0; kk < kKB; ++kk) zk[kk] = zc[(tb + kk) * kLanes + lane];
-#pragma unroll
-        for (int kk = 0; kk < kKB; ++kk)
-#pragma unroll
-          for (int q = 0; q < kGramQ; ++q)
-            acc[q] = fmaf(cw[q + kKB - 1 - kk], zk[kk], acc[q]);
-      }
-#pragma unroll
-      for (int q = 0; q < kGramQ; ++q) z2w[(j0 + q) * kZ2Pitch + lane] = acc[q];
-    }
-    __syncthreads();                      // before the chunks are refilled
   }
+  const long long ncoef = 2LL * r - 1;
+  for (int p = threadIdx.x; p < kGramC * span; p += kLanes * kWarps) {
+    const int ch = p / span;
+    const long long idx = base + (p - ch * span);
+    const bool ok = c0 + ch < d && idx >= 0 && idx < ncoef;
+    cp_async4(cr + p, ok ? coef + (c0 + ch) * ncoef + idx : coef, ok);
+  }
+}
+
+// The raw stage split into TF32 halves, v = hi + lo with hi = rna(v) and
+// lo = rna(v - hi): z transposed to [ch][t][batch row] (a B fragment's 32
+// lanes then read 32 consecutive words), the coefficients in place.
+__device__ __forceinline__ void split_gram_stage(const float* zr,
+                                                 const float* cr, float* zh,
+                                                 float* zl, float* csh,
+                                                 float* csl, int span) {
+  for (int e = threadIdx.x; e < kStageT * kMaxCB; e += kLanes * kWarps) {
+    const float4 v = *reinterpret_cast<const float4*>(zr + 4 * e);
+    const float vs[kGramC] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int ch = 0; ch < kGramC; ++ch) {
+      const float hi = tf32_rna(vs[ch]);
+      zh[ch * kStageT * kMaxCB + e] = hi;    // e = t * kMaxCB + batch row
+      zl[ch * kStageT * kMaxCB + e] = tf32_rna(vs[ch] - hi);
+    }
+  }
+  for (int p = threadIdx.x; p < kGramC * span; p += kLanes * kWarps) {
+    const float v = cr[p];
+    const float hi = tf32_rna(v);
+    csh[p] = hi;
+    csl[p] = tf32_rna(v - hi);
+  }
+}
+
+// One warp's share of a Gram stage: acc[mi] += A[16 (m0 + mi) .., t]
+// z[t, ..] for mi < NM over the stage's kStageT / 8 k-steps of 8 z rows,
+// for one channel, in 3xTF32: hi.hi and hi.lo in a first sweep, lo.hi in
+// a second, all into the same fp32 accumulators in a fixed order.
+//
+// A[j, t] = coef[w0 + j - t + r - 1] is Toeplitz, so the A fragment of
+// m-tile mi at k-step ks depends on 2 mi - ks alone: its four values are
+// stage coefficient slots e0 + 4 i for window indices i = q - 1, q, q + 1,
+// q + 2 with q = 4 mi - 2 ks + 2 kSteps - 1 (a2, a0, a3, a1), e0 =
+// 16 m0 + 3 + g - t4. A warp keeps the window w[i] in registers: k-step 0
+// reads i = 2 kSteps - 2 .. 4 NM + 2 kSteps - 3, each later k-step two
+// more (i = 2 kSteps - 2 - 2 ks and one above); the rest carry over, as
+// the diagonals repeat (m-tile mi + 1 at k-step ks + 2 is m-tile mi at
+// ks). A thread's slots are 11 consecutive words across the warp: no bank
+// conflicts.
+template <int MA, int NM>
+__device__ __forceinline__ void gram_stage_mma(float (&acc)[MA][4],
+                                               const float* zh,
+                                               const float* zl,
+                                               const float* csh,
+                                               const float* csl, int m0) {
+  constexpr int kSteps = kStageT / 8;            // k-steps of 8 z rows
+  constexpr int W = 4 * NM + 2 * kSteps - 2;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int e0 = 16 * m0 + 3 + g - t4;
+  const int zo = t4 * kMaxCB + g;                  // b0 of k-step 0
+#pragma unroll
+  for (int sweep = 0; sweep < 2; ++sweep) {
+    const float* cw = (sweep == 0 ? csh : csl) + e0;
+    uint32_t w[W];
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      if (ks == 0) {
+#pragma unroll
+        for (int i = 2 * kSteps - 2; i < W; ++i)
+          w[i] = __float_as_uint(cw[4 * i]);
+      } else {
+        w[2 * kSteps - 2 - 2 * ks] =
+            __float_as_uint(cw[4 * (2 * kSteps - 2 - 2 * ks)]);
+        w[2 * kSteps - 1 - 2 * ks] =
+            __float_as_uint(cw[4 * (2 * kSteps - 1 - 2 * ks)]);
+      }
+      const int zk = zo + 8 * kMaxCB * ks;
+      const uint32_t bh0 = __float_as_uint(zh[zk]);
+      const uint32_t bh1 = __float_as_uint(zh[zk + 4 * kMaxCB]);
+#pragma unroll
+      for (int mi = 0; mi < NM; ++mi) {
+        const int q = 4 * mi - 2 * ks + 2 * kSteps - 1;
+        mma_tf32(acc[mi], w[q], w[q + 2], w[q - 1], w[q + 1], bh0, bh1);
+      }
+      if (sweep == 0) {
+        const uint32_t bl0 = __float_as_uint(zl[zk]);
+        const uint32_t bl1 = __float_as_uint(zl[zk + 4 * kMaxCB]);
+#pragma unroll
+        for (int mi = 0; mi < NM; ++mi) {
+          const int q = 4 * mi - 2 * ks + 2 * kSteps - 1;
+          mma_tf32(acc[mi], w[q], w[q + 2], w[q - 1], w[q + 1], bl0, bl1);
+        }
+      }
+    }
+  }
+}
+
+// z2w[j][lane] = sum_{t<r} coef[c, w0 + j - t + r - 1] z[bg, t, c] for
+// j < bw, on the tensor cores. Warp w takes channel w % 4 and window
+// m-tiles [m0, m0 + nm) with m0 = 0, nm = (MT + 1) / 2 for w < 4 and the
+// rest for w >= 4. The stages of kStageT z rows stream through the raw
+// buffers by cp.async (stage s + 1 lands while stage s multiplies) and
+// are split into TF32 halves once, for every warp.
+template <int MT>
+__device__ __forceinline__ void gram_window_tc(
+    const float* __restrict__ z, const float* __restrict__ coef, float* z2w,
+    float* stage, int w0, int bw, int r, long long b, long long d,
+    long long b0, long long c0, bool z_vec16) {
+  constexpr int MA = (MT + 1) / 2, MB = MT / 2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int ch = warp & (kGramC - 1), half = warp / kGramC;
+  const int m0 = half ? MA : 0, nm = half ? MB : MA;
+  const int span = gram_span(MT);
+  float* zr = stage;                             // raw stage
+  float* cr = zr + kStageT * kLanes;
+  float* zh = cr + kGramC * span;                // its TF32 halves
+  float* zl = zh + kStageT * kLanes;
+  float* csh = zl + kStageT * kLanes;
+  float* csl = csh + kGramC * span;
+  float acc[MA][4];
+#pragma unroll
+  for (int mi = 0; mi < MA; ++mi)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[mi][k] = 0.f;
+  const int nst = (r + kStageT - 1) / kStageT;
+  // stage s needs coefficient indices base .. base + span - 1,
+  // base = w0 + r - kStageT - s kStageT; the caller requested stage 0
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait(0);                  // stage s (and the x tile) landed
+    __syncthreads();                   // ... for every thread; halves free
+    split_gram_stage(zr, cr, zh, zl, csh, csl, span);
+    __syncthreads();                   // halves ready; the raw buffers free
+    if (s + 1 < nst) {
+      load_gram_stage(zr, cr, z, coef, b0, c0, (s + 1) * kStageT,
+                      (long long)w0 + r - kStageT - (s + 1) * kStageT, span,
+                      r, b, d, z_vec16);
+      cp_async_commit();
+    }
+    const float* zhc = zh + ch * kStageT * kMaxCB;
+    const float* zlc = zl + ch * kStageT * kMaxCB;
+    if (half == 0)
+      gram_stage_mma<MA, MA>(acc, zhc, zlc, csh + ch * span, csl + ch * span,
+                             m0);
+    else
+      gram_stage_mma<MA, MB>(acc, zhc, zlc, csh + ch * span, csl + ch * span,
+                             m0);
+  }
+  const int g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < MA; ++mi)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = 16 * (m0 + mi) + g + 8 * (k >> 1);
+      if (mi < nm && j < bw)
+        z2w[j * kZ2Pitch + (2 * t4 + (k & 1)) * kGramC + ch] = acc[mi][k];
+    }
 }
 
 // One block: one tile of TN sequence rows (RPT = TN / kWarps a thread) and
 // cb batch rows x kc = 32/cb channels, lane = row * kc + channel, as in
-// ski_fused_pass2. kBanded: the window of z2 = A z is computed from z and
-// the coefficients (ski_windowed_pass2); otherwise z holds z2 and the
+// ski_fused_pass2. kBanded (ski_windowed_pass2; cb = 8, kc = kGramC): the
+// window of z2 = A z is computed from z and the coefficients on the tensor
+// cores, MT m-tiles of 16 rows covering bw; otherwise z holds z2 and the
 // window is copied (ski_expand_pass2; coef unused).
-template <int TN, bool kBanded>
-__global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
+template <int TN, bool kBanded, int MT>
+__global__ void __launch_bounds__(kLanes * kWarps,
+                                  kBanded ? kWindowedBlocksPerSM
+                                          : kBlocksPerSM)
     ski_window_pass2_kernel(const float* __restrict__ x,
                             const float* __restrict__ z,
                             const float* __restrict__ coef,
                             const float* __restrict__ filt,
                             float* __restrict__ y, long long b, long long n,
                             long long d, int r, int m, int left, float hf,
-                            int cb, int bw, bool x_vec16) {
+                            int cb, int bw, bool x_vec16, bool z_vec16) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -605,8 +793,7 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
   float* z2w = fs + mp * kLanes;        // [bw][kZ2Pitch]  z2[bg, w0 + j, c]
   float* hw = z2w + bw * kZ2Pitch;      // [TN] w_lo of the tile's rows
   int* hlo = reinterpret_cast<int*>(hw + TN);          // [TN] their nodes
-  float* zc = reinterpret_cast<float*>(hlo + TN);      // banded: z chunk
-  float* cs = zc + kGramT * kLanes;                    //   and coefficients
+  float* stage = reinterpret_cast<float*>(hlo + TN);   // banded: Gram stages
   // the window's first node: that of the tile's first row, clamped so that
   // the bw rows stay inside [0, r) (from 0 when r < bw)
   float wl0;
@@ -614,10 +801,15 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
   const int w0_max = r > bw ? r - bw : 0;
   w0 = w0 < w0_max ? w0 : w0_max;
 
-  // 1. the x tile with its halo (and, FFT variant, the window of z2)
-  //    streams in while the taps, the hat rows and the Gram window are made
+  // 1. the x tile with its halo (banded: and the Gram's first stage; else
+  //    the window of z2) streams in while the taps and the hat rows are made
   load_tile(xs, x, b0, c0, i0, mp - 1 - left, rows, b, n, d, cb, x_vec16);
-  if (!kBanded) {
+  if constexpr (kBanded) {
+    cp_async_commit();
+    const int span = gram_span(MT);
+    load_gram_stage(stage, stage + kStageT * kLanes, z, coef, b0, c0, 0,
+                    (long long)w0 + r - kStageT, span, r, b, d, z_vec16);
+  } else {
     for (int j = warp; j < bw; j += kWarps) {
       const long long t = w0 + j;
       const bool ok = valid && t < r;
@@ -634,8 +826,9 @@ __global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
     hw[threadIdx.x] = w_lo;
   }
   // 2. banded: the window of z2 = A z
-  if (kBanded)
-    gram_window(z, coef, z2w, zc, cs, w0, bw, r, d, c0, kc, bg, c, valid);
+  if constexpr (kBanded)
+    gram_window_tc<MT>(z, coef, z2w, stage, w0, bw, r, b, d, b0, c0,
+                       z_vec16);
   cp_async_wait(0);
   __syncthreads();
   // 3. conv, expansion, one store
@@ -655,25 +848,33 @@ static int batch_rows(long long b) {
   return cb;
 }
 
+// Window m-tiles of the banded kernel for a window of bw rows: 3 for
+// ceil(bw / 16) <= 3 (every tile of 32 rows or fewer), else kMaxMT; 0 when
+// bw needs more than kMaxMT (band_fit's windows never do: bw <= 136).
+static int gram_mt(long long bw) {
+  const long long mt = (bw + 15) / 16;
+  return mt <= 3 ? 3 : (mt <= kMaxMT ? kMaxMT : 0);
+}
+
 // Dynamic shared memory of a windowed pass-2 block, bytes: the x tile of tn
 // rows with its halo, the taps, bw window rows of z2 and the hat rows; the
-// banded kernel adds its z chunk and kc channels' coefficient chunk.
+// banded kernel adds its Gram staging.
 static long long window_smem(long long tn, long long bw, long long m,
-                             long long kc, bool banded) {
+                             bool banded) {
   const long long mp = padded_taps(m);
   long long floats =
       (tn + mp - 1) * kLanes + mp * kLanes + bw * kZ2Pitch + 2 * tn;
-  if (banded) floats += kGramT * kLanes + (bw + kGramT - 1) * kc;
+  if (banded) floats += gram_stage_floats(gram_mt(bw));
   return 4 * floats;
 }
 
-template <int TN, bool kBanded>
+template <int TN, bool kBanded, int MT>
 static int window_launch(const dim3& grid, long long smem, cudaStream_t s,
                          const void* x, const void* z, const void* coef,
                          const void* filt, void* y, long long b, long long n,
                          long long d, long long r, long long m,
                          long long left, float hf, int cb, long long bw,
-                         bool x_vec16) {
+                         bool x_vec16, bool z_vec16) {
   // the dynamic shared memory this kernel's attribute allows, per device
   // (the attribute is per device; 48 KB until raised)
   static long long smem_set[kMaxDevices] = {};
@@ -683,18 +884,18 @@ static int window_launch(const dim3& grid, long long smem, cudaStream_t s,
   if (dev < 0 || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > 48 * 1024 && smem > smem_set[dev]) {
-    e = cudaFuncSetAttribute(ski_window_pass2_kernel<TN, kBanded>,
+    e = cudaFuncSetAttribute(ski_window_pass2_kernel<TN, kBanded, MT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set[dev] = smem;
   }
-  ski_window_pass2_kernel<TN, kBanded>
+  ski_window_pass2_kernel<TN, kBanded, MT>
       <<<grid, kLanes * kWarps, (size_t)smem, s>>>(
           static_cast<const float*>(x), static_cast<const float*>(z),
           static_cast<const float*>(coef), static_cast<const float*>(filt),
           static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
-          (int)bw, x_vec16);
+          (int)bw, x_vec16, z_vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,27 +906,47 @@ static int window_pass2(const void* x, const void* z, const void* coef,
                         float hf, long long tn, long long bw, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tn < 8) return static_cast<int>(cudaErrorInvalidValue);
-  const int cb = batch_rows(b);
+  // banded: 8 batch rows x kGramC channels a block, the tensor cores' n = 8
+  const int cb = kBanded ? kMaxCB : batch_rows(b);
   const int kc = kLanes / cb;
+  const int mt = kBanded ? gram_mt(bw) : 0;
   const long long tiles = (n + tn - 1) / tn;
   const long long gx = (d + kc - 1) / kc, gy = (b + cb - 1) / cb;
-  const long long smem = window_smem(tn, bw, m, kc, kBanded);
+  const long long smem = window_smem(tn, bw, m, kBanded);
   if (smem > kMaxSmem || tiles > 2147483647LL || gx > 65535 || gy > 65535 ||
-      bw < kGramQ || bw % kGramQ != 0)
+      bw < 8 || bw % 8 != 0 || (kBanded && mt == 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool z_vec16 = kBanded && d % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(z) % 16 == 0;
   const dim3 grid((unsigned)tiles, (unsigned)gx, (unsigned)gy);
-#define REPRO_WINDOW_CASE(TN)                                               \
-  case TN:                                                                  \
-    return window_launch<TN, kBanded>(grid, smem, s, x, z, coef, filt, y, b, \
-                                      n, d, r, m, left, hf, cb, bw, x_vec16);
-  switch (tn) {
-    REPRO_WINDOW_CASE(128)
-    REPRO_WINDOW_CASE(64)
-    REPRO_WINDOW_CASE(32)
-    REPRO_WINDOW_CASE(16)
-    REPRO_WINDOW_CASE(8)
+#define REPRO_WINDOW_CASE(TN, MT)                                            \
+  case TN:                                                                   \
+    return window_launch<TN, kBanded, MT>(grid, smem, s, x, z, coef, filt, y, \
+                                          b, n, d, r, m, left, hf, cb, bw,    \
+                                          x_vec16, z_vec16);
+  if constexpr (!kBanded) {
+    switch (tn) {
+      REPRO_WINDOW_CASE(128, 0)
+      REPRO_WINDOW_CASE(64, 0)
+      REPRO_WINDOW_CASE(32, 0)
+      REPRO_WINDOW_CASE(16, 0)
+      REPRO_WINDOW_CASE(8, 0)
+    }
+  } else if (mt == 3) {
+    switch (tn) {
+      REPRO_WINDOW_CASE(128, 3)
+      REPRO_WINDOW_CASE(64, 3)
+      REPRO_WINDOW_CASE(32, 3)
+      REPRO_WINDOW_CASE(16, 3)
+      REPRO_WINDOW_CASE(8, 3)
+    }
+  } else {                             // tiles of 64 rows or more
+    switch (tn) {
+      REPRO_WINDOW_CASE(128, kMaxMT)
+      REPRO_WINDOW_CASE(64, kMaxMT)
+    }
   }
 #undef REPRO_WINDOW_CASE
   return static_cast<int>(cudaErrorInvalidValue);   // not a band_fit tile
@@ -850,7 +1071,27 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
 // bw rows and m taps, bytes.
 long long ski_window_pass2_smem_bytes(long long b, long long tn, long long bw,
                                       long long m, int banded) {
-  return window_smem(tn, bw, m, kLanes / batch_rows(b), banded != 0);
+  // The layout is the same for every b. b stays in the signature so that
+  // builds of earlier versions of this file load behind the same Python
+  // wrapper (tools/ab_kernel.py --old).
+  (void)b;
+  return window_smem(tn, bw, m, banded != 0);
+}
+
+// Blocks of ski_windowed_pass2 an SM holds at the large-rank path's shape
+// (a tile of 128 rows, a window of 136, m = 32) on the current device, its
+// shared-memory attribute raised first; or minus a CUDA error.
+int ski_windowed_pass2_blocks_per_sm() {
+  const long long smem = window_smem(kTN, 136, 32, true);
+  cudaError_t e = cudaFuncSetAttribute(
+      ski_window_pass2_kernel<kTN, true, kMaxMT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int nb = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, ski_window_pass2_kernel<kTN, true, kMaxMT>, kLanes * kWarps,
+      (size_t)smem);
+  return e != cudaSuccess ? -static_cast<int>(e) : nb;
 }
 
 // x, y: (b, n, d); z: (b, r, d); coef: (d, 2r-1); filt: (d, m), contiguous

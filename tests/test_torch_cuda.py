@@ -93,8 +93,9 @@ def test_short_conv_and_interp_expand_run_on_each_card():
 
 
 def test_window_pass2_runs_on_each_card():
-    """ski_windowed_pass2 (r = 512, 50,192 bytes of shared memory a block)
-    and ski_expand_pass2 (m = 64, 51,616 bytes) at x (8, 512, 512), on card
+    """ski_windowed_pass2 (r = 512, 105,632 bytes of shared memory a block,
+    its Gram on the tensor cores) and ski_expand_pass2 (m = 64, 51,616
+    bytes) at x (8, 512, 512), on card
     0, then on card 1: each card needs its own shared-memory attribute."""
     b, n, d, r = 8, 512, 512, 512
     for dev in _two_cards():

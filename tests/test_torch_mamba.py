@@ -53,6 +53,7 @@ from repro_torch.kernels import ssd_scan as ssd_mod  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import mamba, serving  # noqa: E402
 from repro_torch.models.transformer import forward, init_model  # noqa: E402
+from test_torch_ssd_scan import _repo_module  # noqa: E402
 
 torch.set_num_threads(1)
 ARCH = "mamba2-2.7b"
@@ -398,3 +399,37 @@ def test_new_wrappers_refuse_off_the_cpu():
         short_conv.short_conv(xc, f.float(), 0)
     with pytest.raises(TypeError, match="both fp32 or both bf16"):
         short_conv.short_conv(xc.half(), f.half(), 0)
+
+
+def test_bf16_check_bounds_the_kernel_path_by_the_plain_path():
+    """chip_smoke's bf16 Mamba check: the kernel path may be no farther
+    from the plain path than the plain path is from fp32. A kernel path
+    1.5 from the plain one (its own distance from fp32 2.5) fails, though
+    a triangle-inequality bound (1.5 <= 1 + 2.5) would let it pass."""
+    smoke = _repo_module("chip_smoke.py")
+    fp32 = torch.zeros(2, 3, 5)
+    plain = fp32 + 1.0
+    got = smoke.check_kernel_vs_plain_bf16(plain + 0.5, plain, fp32)
+    assert got == {"kernel_vs_plain": 0.5, "plain_vs_fp32": 1.0,
+                   "kernel_vs_fp32": 1.5}
+    smoke.check_kernel_vs_plain_bf16(plain - 1.0, plain, fp32)  # at the bound
+    with pytest.raises(AssertionError, match="from the plain path"):
+        smoke.check_kernel_vs_plain_bf16(plain + 1.5, plain, fp32)
+
+
+def test_plain_kernels_route_the_layers_to_the_plain_versions(models):
+    """Inside chip_smoke's ``_plain_mamba_kernels`` the layers call
+    ``ssd_chunked.ssd_scan_chunked`` and ``ref.short_conv_left_ref``; on the
+    CPU the wrappers run those already, so the logits are the same bits,
+    and the block restores the wrappers on exit."""
+    smoke = _repo_module("chip_smoke.py")
+    dtype, _, cfg, _, _, model = models
+    toks = torch.from_numpy(_toks(2, 21, cfg.vocab))
+    ssd_op, conv_op = ops.ssd_scan, ops.short_conv
+    with torch.no_grad():
+        want = forward(model, cfg, toks)
+        with smoke._plain_mamba_kernels():
+            assert ops.ssd_scan is ssd_chunked.ssd_scan_chunked
+            got = forward(model, cfg, toks)
+    assert ops.ssd_scan is ssd_op and ops.short_conv is conv_op
+    assert torch.equal(got, want)

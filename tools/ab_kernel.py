@@ -22,6 +22,11 @@ its file's stem. Then:
   with L2 evicted) with the port's wrappers loading each build in turn, in
   the order old, new, new, old for each old build.
 
+With ``--time-only`` the checks are skipped and each build times only
+the kernels of :data:`TIMERS` at the main path's shape: for builds that do
+not compute the function (an ablation that drops one phase of a kernel, to
+see what that phase costs).
+
 Prints one JSON object as its last line and writes it to ``--out``. Needs a
 CUDA card and ``nvcc``; exits non-zero without them or if a check fails.
 """
@@ -56,6 +61,27 @@ CHECKS = {
 }
 
 
+def _time_windowed(peaks) -> dict:
+    """ski_windowed_pass2 at the large-rank path's shape (x (8, 512, 512),
+    r = 512, m = 32, causal), timed as chip_smoke times it, unchecked."""
+    from repro_torch.kernels import ski_fused
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, n, d, r, m = 8, 512, 512, 512, 32
+    x = torch.randn(b, n, d, device="cuda", generator=g)
+    z = torch.randn(b, r, d, device="cuda", generator=g)
+    coef = torch.randn(d, 2 * r - 1, device="cuda", generator=g) / r ** 0.5
+    f = torch.randn(d, m, device="cuda", generator=g)
+    ms = chip_smoke.time_ms(
+        lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True))
+    nbytes, gram, rest = chip_smoke._windowed_cost(b, n, d, r, m)
+    bound = max(nbytes / peaks[0], 3 * gram / peaks[2] + rest / peaks[1])
+    return {"ski_windowed_pass2": {"ms": ms, "bound_ms": bound * 1e3}}
+
+
+#: library name -> the unchecked timing of ``--time-only``
+TIMERS = {"ski": _time_windowed}
+
+
 def tool(name: str) -> str:
     """Path of a CUDA toolkit program (PATH, then /usr/local/cuda/bin)."""
     path = shutil.which(name) or f"/usr/local/cuda/bin/{name}"
@@ -64,13 +90,19 @@ def tool(name: str) -> str:
     return path
 
 
-def build_variant(src: Path, out: Path) -> Path:
-    """``src`` built as the backend builds its sources, to ``out``."""
+def build_variants(srcs, out_dir: Path = AB_DIR) -> dict:
+    """Each source built as the backend builds its sources, into
+    ``out_dir/lib<stem>.so``, one ``nvcc`` each, all started together.
+    Returns {stem: library path}."""
     from repro_torch.kernels import backend
-    out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([tool("nvcc"), *backend.NVCC_FLAGS, "-o", str(out),
-                    str(src)], check=True)
-    return out
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {src.stem: (out_dir / f"lib{src.stem}.so", subprocess.Popen(
+        [tool("nvcc"), *backend.NVCC_FLAGS, "-o",
+         str(out_dir / f"lib{src.stem}.so"), str(src)])) for src in srcs}
+    failed = [stem for stem, (_, proc) in procs.items() if proc.wait()]
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}")
+    return {stem: out for stem, (out, _) in procs.items()}
 
 
 @contextlib.contextmanager
@@ -106,6 +138,24 @@ def ptxas_report(src: Path) -> str:
          str(AB_DIR / f"{src.stem}.cubin"), str(src)],
         capture_output=True, text=True, check=True)
     return out.stderr.strip()
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel: "N registers, S bytes spilled (stores/loads)"} from a
+    ``ptxas -v`` report."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn and m:
+            out[fn] = f"{m.group(1)}/{m.group(2)} bytes spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            out[fn] = f"{m.group(1)} registers, " + out.get(fn, "")
+    return out
 
 
 def mma_counts(lib: Path) -> dict:
@@ -145,7 +195,11 @@ def main() -> int:
     ap.add_argument("name", choices=sorted(CHECKS))
     ap.add_argument("--old", type=Path, action="append", default=[])
     ap.add_argument("--out", type=Path)
+    ap.add_argument("--time-only", action="store_true",
+                    help="time the kernels of TIMERS without the checks")
     args = ap.parse_args()
+    if args.time_only and args.name not in TIMERS:
+        ap.error(f"--time-only: no timing for {args.name}")
     out = args.out or ROOT / "chiprun_out" / f"ab_{args.name}.json"
     if not torch.cuda.is_available():
         print("ab_kernel: no CUDA device", file=sys.stderr)
@@ -155,9 +209,11 @@ def main() -> int:
     _, peaks = chip_smoke._peaks(smi)
     src = backend.SOURCES[args.name]
     print(ptxas_report(src), flush=True)
-    paths = {"new": backend.build(args.name)[0]}
     for old in args.old:
-        paths[old.stem] = build_variant(old, AB_DIR / f"lib{old.stem}.so")
+        print(f"[ptxas] {old.stem}: {ptxas_summary(ptxas_report(old))}",
+              flush=True)
+    paths = {"new": backend.build(args.name)[0]}
+    paths.update(build_variants(args.old))
     report = {"device": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "library": args.name,
               "mma": {b: mma_counts(p) for b, p in paths.items()},
@@ -171,7 +227,8 @@ def main() -> int:
     for build in order:
         print(f"[ab] {args.name}: build {build}", flush=True)
         with loading(args.name, paths[build]):
-            entries = CHECKS[args.name](peaks)
+            entries = (TIMERS if args.time_only else CHECKS)[args.name](
+                peaks)
         for kernel, e in entries.items():
             times.setdefault(kernel, {}).setdefault(build, []).append(
                 e["ms"])

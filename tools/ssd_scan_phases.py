@@ -42,7 +42,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
-from tools.ab_kernel import build_variant, loading  # noqa: E402
+from tools.ab_kernel import build_variants, loading  # noqa: E402
 
 OUT_DIR = ROOT / "build" / "ssd_scan_phases"
 PHASES = ("wait", "cumsum", "CS^T", "scores", "y", "barrier 2", "state",
@@ -87,7 +87,7 @@ def main() -> int:
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     src = OUT_DIR / "ssd_scan_phases.cu"
     src.write_text(instrument(backend.SOURCES["ssd_scan"].read_text()))
-    lib_path = build_variant(src, OUT_DIR / "libssd_scan_phases.so")
+    lib_path = build_variants([src], OUT_DIR)[src.stem]
     gen = torch.Generator(device="cuda").manual_seed(3)
     _, bt, n, h, p, gr, s, q = chip_smoke.SSD_SHAPES[0]
     if bt * h != BLOCKS:
