@@ -423,26 +423,33 @@ def _tap_pairs(n: int, m: int, left: int) -> int:
                for k in range(m))
 
 
-def _pass2_entry(label, x, z, a, f, left, peaks):
+def _pass2_entry(label, x, z, a, f, left, peaks, transpose_a=False):
     """ski_fused_pass2 at one shape and offset, 1e-5 × max|plain| (the
     Gram and the conv sum in another order than the plain einsum and
-    shift-adds)."""
+    shift-adds); ``transpose_a`` applies Aᵀ read in place, as the signal
+    backward does."""
     from repro_torch.kernels import ref, ski_fused
     b, n, d = x.shape
     r, m = z.shape[1], f.shape[1]
+
+    def kernel():
+        return ski_fused.ski_fused_pass2(x, z, a, f, True, left=left,
+                                         transpose_a=transpose_a)
+
+    def plain():
+        return ref.ski_fused_pass2_ref(x, z, a, f, True, left=left,
+                                       transpose_a=transpose_a)
     # conv 2·b·n·d·m, Gram 2·b·d·r², expansion 2·2·b·n·d flops; x, z, A, f
     # read once, y written once
     e = _kernel_entry(
-        "ski_fused_pass2", "src/repro/kernels/ski_fused.py:143",
-        ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
-        ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
-        lambda: ski_fused.ski_fused_pass2(x, z, a, f, True, left=left),
-        lambda: ref.ski_fused_pass2_ref(x, z, a, f, True, left=left),
-        None, nbytes=4 * (2 * x.numel() + z.numel() + a.numel() + f.numel()),
+        "ski_fused_pass2", "src/repro/kernels/ski_fused.py:143", kernel(),
+        plain(), kernel, plain, None,
+        nbytes=4 * (2 * x.numel() + z.numel() + a.numel() + f.numel()),
         nops=2 * b * d * (n * m + r * r + 2 * n), peaks=peaks, tol=1e-5,
         source=SKI_SRC)
     print(f"[kernel] ski_fused_pass2 {label} x ({b}, {n}, {d}), r={r}, m={m}, "
-          f"left={left}: {e}", flush=True)
+          f"left={left}{', A transposed in place' if transpose_a else ''}: "
+          f"{e}", flush=True)
     return e
 
 
@@ -618,11 +625,11 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         z = torch.randn(b, r, d, device=device, generator=g)
         a = torch.randn(d, r, r, device=device, generator=g)
         f = torch.randn(d, m, device=device, generator=g)
-        a_t, f_t = a.transpose(1, 2).contiguous(), f.flip(-1).contiguous()
+        f_t = f.flip(-1).contiguous()
         for left in (0, m // 2):
             _pass2_entry(f"ceiling {label}", x, z, a, f, left, peaks)
-            _pass2_entry(f"ceiling {label} backward orientation", x, z, a_t,
-                         f_t, m - 1 - left, peaks)
+            _pass2_entry(f"ceiling {label} backward orientation", x, z, a,
+                         f_t, m - 1 - left, peaks, transpose_a=True)
     check_ski_backward(g)
     return out
 
@@ -1544,7 +1551,7 @@ def large_r_times(device="cuda") -> None:
     """Recorded, not claimed: at bench_ski_components.py:_large_r's shapes
     (b=2, d=16, n=8192, m=32, bidirectional) the coefficient op on the
     policy's route (windowed to r = 4096, fft beyond) beside the dense op
-    where the dense pass 2 fits a block's shared memory; then dense and
+    up to the dense route's rank ceiling; then dense and
     windowed at the dense ceiling of d = 512 (r = 181, the last dense
     rank, and 182; b = 8, n = 512), the op and its pass-2 kernels."""
     from repro_torch.core import toeplitz
@@ -1552,15 +1559,14 @@ def large_r_times(device="cuda") -> None:
     times = {}
     for r in (64, 512, 2048, 8192):
         coef = "windowed" if r <= backend.ski_windowed_rank_max() else "fft"
-        smem = ski_fused._lib().ski_fused_pass2_smem_bytes(r, 32)
-        dense = smem <= ski_fused._MAX_SMEM
+        dense = r <= backend.ski_dense_rank_max()
         times[f"r{r}"] = _ski_op_times(16, r, 8192, 2, (coef,) + (
             ("dense",) if dense else ()), device, seed=9)
         if not dense:
             times[f"r{r}"]["dense"] = (
-                f"not run: the dense pass 2 keeps z and z2 of its 32 columns "
-                f"in shared memory, {smem} bytes a block at r={r}, over "
-                f"{ski_fused._MAX_SMEM}")
+                f"not run: past the dense route's rank ceiling "
+                f"({backend.ski_dense_rank_max()}); its Gram alone would be "
+                f"{16 * r * r * 4} bytes")
     g = torch.Generator(device=device).manual_seed(11)
     b, n, d, m = 8, 512, 512, 32
     x = torch.randn(b, n, d, device=device, generator=g)

@@ -37,7 +37,18 @@
 //   compute W[i, j] for its rows once into shared memory (128 at a time), so
 //   the fp32 division runs once per row and block, not once per thread: a
 //   first version that divided in every thread took 13.9 us on an H100,
-//   bound by instruction issue.
+//   bound by instruction issue. At the path shape it takes 10.0-10.5 us,
+//   about 4 us above the ~6 us any launch reads under chip_smoke's timer.
+//   Tried and left out (tools/ab_kernel.py ski --time-only, NVIDIA H100
+//   80GB HBM3, 700 W, PERF.md): one pass over a run of nodes, each x row
+//   read once with 16-byte loads, the two nodes a row touches carried as
+//   running sums and written when the walk passes them (the same sums in
+//   the same order, bit for bit). Through a cp.async ring in shared memory
+//   11.5-12.5 us; from registers, the hat rows shared by warp shuffles,
+//   11.3-11.8 us (runs of 1, 2 or 4 nodes, 8-byte loads, 8 or 16 rows in
+//   flight, the next rows loaded while the current are summed). This
+//   kernel's 2048 blocks of 4-byte loads keep more loads in flight across
+//   more warps than any of them.
 //
 // interp_expand  replaces src/repro/kernels/interp_matvec.py _expand_kernel /
 //   _expand_call (interp_expand_pallas): y[b, i, c] = sum_j W[i, j] z[b, j, c],
@@ -63,43 +74,57 @@
 //     y[b, i, c] = sum_s W[i, s] z2[b, s, c] + sum_{k<m} f[c, k] x[b, i-k+left, c],
 //     z2[b, s, c] = sum_t A[c, s, t] z[b, t, c],
 //   x zero outside [0, n), one write of y. left is a runtime argument: the
-//   forward uses 0 (causal) or m/2; the signal backward of a later slice is
-//   this same kernel with A transposed, the taps flipped and left mirrored.
+//   forward uses 0 (causal) or m/2; the signal backward is this same kernel
+//   with A^T (ski_fused_pass2_at_f32, which reads A transposed in place),
+//   the taps flipped and left mirrored.
 //   Bound: x, z, A, f read once and y written once: at (8, 512, 512), r = 64,
 //   m = 32, 26,279,936 bytes, 7.84 us at 3.35 TB/s; 176 MFLOP (conv 134 M,
-//   Gram 34 M, expand 8 M), 2.6 us at 67 TFLOP/s fp32: bound by bytes.
-//   Design: one block per 8 batch rows x 4 channels (fewer rows and more
-//   channels for a batch under 8), its 32 (row, channel) columns on a warp's
-//   lanes, 8 warps.
-//   1. The block's first x tiles are requested with cp.async, so they
-//      stream in while 2 and 3 run.
-//   2. z of the 32 columns is staged in shared memory transposed ([col][t],
-//      pitch a multiple of 4 for 16-byte reads) and the taps as [k][col].
-//   3. z2 = A z runs in the block, into shared memory (r x 33 floats): a
-//      thread takes one row of one channel's A (16-byte loads), reads it
-//      once and applies it to the block's 8 batch rows, summing t in order
-//      (no atomics, no cross-lane sums). So A is read once per 8 batch rows,
-//      8 MB in all at the scoring shape.
-//   4. The sequence is cut into tiles of 128 rows, and the tiles are split
-//      over blocks until about 3 blocks a SM run (at the scoring shape 2
-//      blocks share a column group, two tiles each; each block computes
-//      step 3 for its own columns). A block's tiles, plus the conv halo,
-//      stream through a ring of up to 4 buffers (as many as 3 blocks a SM
-//      leave room for) with cp.async (16-byte copies of 4 channels when
-//      d % 4 == 0; zero-filled outside [0, n) and past b and d). W's 128
-//      rows of a tile are computed once into shared memory. Each thread
-//      owns one column and 16 consecutive rows; the conv
-//      runs 8 taps at a time from a 23-row register window (taps padded with
-//      zeros to a multiple of 8), so each x value leaves shared memory once
-//      per 8 taps; then the two-tap expansion from z2 and one store. Every
-//      n >= 2 and 2 <= r <= n runs here, n < m and r = n included: no
-//      fallback to a plain version.
-//   Earlier versions, at the scoring shape on an H100 (chip_smoke.py): one
-//   block per (batch row, 32 channels), A read 8 times with a shuffle sum per
-//   row of A, 92.7 us; A read once per 8 batch rows, 39.2 us; the conv from
-//   a register window, 32.4 us. A block's phases (Gram, tile copies, conv,
-//   stores) still run one after another with little overlap: warp
-//   specialisation (a producer warp for the copies) is the next step.
+//   Gram 34 M, expand 8 M), 2.6 us at 67 TFLOP/s fp32: bound by bytes, at
+//   every rank (2 b = 16 flops per 4-byte word of A). At the dense route's
+//   ceilings A dominates: r = 181, d = 512, 25.9 us; r = 512, d = 64, 21.0.
+//   Design: a block owns one tile of TN sequence rows (128; 64 or 32 when
+//   fewer tiles would leave SMs without a block, dense_tile) and 8 batch
+//   rows x 4 channels (fewer rows, more channels for a batch under 8), its
+//   32 columns on a warp's lanes, 8 warps, 4 blocks a SM. It computes only
+//   the bw rows of z2 its hat rows touch: the window starts at the node of
+//   the tile's first row (hat_row's lo), clamped to r - bw, as
+//   ski_windowed_pass2's does; bw is the most nodes one tile touches,
+//   counted on the host with the same fp32 hat_row (dense_window). So the
+//   tiles of a column group stage A about once: 4 tiles x 18 rows of A's 64
+//   at the path, where the earlier kernel read all of A in each of the 2
+//   blocks that shared a column group.
+//   1. Every copy is requested up front with cp.async: A's window in chunks
+//      of kt columns (kt up to 64: one chunk at the path) as
+//      [channel][row][kt + 4], 16-byte copies when r % 4 == 0 (A^T, and
+//      rows not 16-byte aligned: 4-byte copies, lanes along the contiguous
+//      axis), zero past r, b and d; z's kt rows of the block's columns as
+//      [channel][t][8];
+//      the x tile with its conv halo, 16-byte copies of 4 channels.
+//   2. The Gram runs chunk by chunk as the chunks land, while later chunks
+//      and the x tile are in flight: a thread takes one channel and two
+//      window rows for the 8 batch rows, reads 4 values of each row of A in
+//      one 16-byte load (a warp's lanes on consecutive rows, conflict-free)
+//      and z's 8 batch values of a column in two 16-byte broadcasts, 64
+//      fmaf a step. Each z2 element sums t in increasing order with fmaf
+//      from 0, carried between chunks in shared memory: the earlier
+//      kernel's chain, so y is its y bit for bit.
+//   3. conv_expand_store, the conv of the windowed kernels too (8 taps at a
+//      time from a 23-row register window), and one store of y.
+//   Every n >= 2, 2 <= r <= n and 0 <= left < m runs here, n < m and r = n
+//   included: no fallback.
+//   Times on an H100 (NVIDIA H100 80GB HBM3, 700 W; tools/ab_kernel.py ski,
+//   PERF.md), at the path / r = 181, d = 512 / r = 512, d = 64: this kernel
+//   0.0303-0.0312 / 0.0995-0.0998 / 0.0636-0.0640 ms; in the backward's
+//   orientation 0.0369-0.0372 / 0.1044-0.1047 / 0.1105-0.1109. Earlier
+//   (every block of a column group read all of A, a thread a row of A from
+//   device memory, scalar loads when r % 4 != 0): 0.0303-0.0316 /
+//   0.348-0.352 / 0.252-0.254, and with its backward's transposed copy of
+//   A 0.0415-0.0435 / 0.485 / 0.388; before that 32.4, 39.2 and 92.7 us at
+//   the path. At the path this kernel is held back by its memory traffic,
+//   not the Gram: without the Gram it takes 0.0263 ms, and the conv alone
+//   (csrc/short_conv.cu, x and y only) 0.0152. Splitting the Gram over a
+//   cluster of 8 blocks, so that x and y move in whole 128-byte lines,
+//   took 0.0352.
 //
 // ski_windowed_pass2  replaces src/repro/kernels/ski_fused.py _windowed_kernel /
 //   _windowed_call with banded=True (ski_windowed_pass2_pallas): the large-rank
@@ -180,9 +205,7 @@ constexpr int kZ2Pitch = kLanes + 1;
 constexpr int kMaxCB = 8;        // batch rows of a pass-2 block, at most
 constexpr int kWarps = 8;        // pass-2 block: 8 warps, 256 threads
 constexpr int kTN = 128;         // sequence rows per pass-2 tile
-constexpr int kRowsPerThread = kTN / kWarps;  // consecutive rows a thread
 constexpr int kKB = 8;           // conv taps per register window
-constexpr int kStages = 4;       // x tile buffers in the ring, at most
 constexpr int kBlocksPerSM = 3;  // pass-2 blocks aimed at per SM
 constexpr int kMaxSmem = 232448; // bytes a block may use (227 KB)
 constexpr int kSmemPerSM = 233472;  // bytes a SM holds for its blocks
@@ -191,11 +214,16 @@ constexpr int kGramC = 4;        // channels of a ski_windowed_pass2 block
 constexpr int kStageT = 128;     // z rows of a Gram stage
 constexpr int kMaxMT = 9;        // window m-tiles of 16 rows, at most
 constexpr int kWindowedBlocksPerSM = 2;   // ski_windowed_pass2 blocks a SM
+constexpr int kDenseBlocksPerSM = 4;      // ski_fused_pass2 blocks a SM
 
 // The two taps of W's row i: node lo and weight w_lo (1 - w_lo on lo + 1).
-__device__ __forceinline__ int hat_row(long long i, float hf, int r,
-                                       float& w_lo) {
+__host__ __device__ __forceinline__ int hat_row(long long i, float hf,
+                                                int r, float& w_lo) {
+#ifdef __CUDA_ARCH__
   const float f = __fdiv_rn((float)i, hf);
+#else
+  const float f = (float)i / hf;          // IEEE division on the host too
+#endif
   int lo = (int)floorf(f);
   lo = lo < 0 ? 0 : (lo > r - 2 ? r - 2 : lo);
   w_lo = fminf(fmaxf(1.f - (f - (float)lo), 0.f), 1.f);
@@ -317,18 +345,6 @@ __device__ __forceinline__ void cp_async_wait(int pending) {
   }
 }
 
-// z tile pitch: a multiple of 4 floats (16-byte reads of z in the Gram).
-__host__ __device__ __forceinline__ int z_pitch(long long r) {
-  return (int)((r + 3) / 4 * 4 + 4);
-}
-
-// Floats of the z2 tile, [r][kZ2Pitch], rounded up to a multiple of 4 so
-// that the x tiles after it stay 16-byte aligned for cp.async16 (r = 181 at
-// d = 512, the dense ceiling, faulted with a misaligned address without it).
-__host__ __device__ __forceinline__ int z2_floats(long long r) {
-  return (int)((r * kZ2Pitch + 3) / 4 * 4);
-}
-
 // Taps rounded up to whole register windows.
 __host__ __device__ __forceinline__ int padded_taps(long long m) {
   return (int)((m + kKB - 1) / kKB * kKB);
@@ -412,128 +428,213 @@ __device__ __forceinline__ void conv_expand_store(
   }
 }
 
-// One block: cb batch rows x kc = 32/cb channels, its 32 (batch row,
-// channel) columns laid along a warp's lanes, lane = row * kc + channel.
-__global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
-    ski_fused_pass2_kernel(const float* __restrict__ x,
+// Floats of one ski_fused_pass2 Gram chunk for kc channels, a window of bw
+// rows and kt columns of A: z's kt rows of the block's columns as
+// [kc][kt][kMaxCB] (batch rows innermost, padded to 8 with zeros), then
+// A's window as [kc][bw][kt + 4] (the pitch keeps the 16-byte reads of a
+// warp's consecutive rows on distinct banks).
+__host__ __device__ __forceinline__ int dense_chunk_floats(int kc, int bw,
+                                                           int kt) {
+  return kc * kt * kMaxCB + kc * bw * (kt + 4);
+}
+
+// Request Gram chunk t0 .. t0 + kt - 1 into zc / ac: z[b0 + u, t, c0 + ch]
+// as zc[ch][t - t0][u], and the window's rows s of A[c0 + ch] as
+// ac[ch][s][t - t0], that is A[c, w0 + s, t] or, when a_t, A[c, t, w0 + s]
+// (A^T read in place). A by 16-byte copies when a_vec16 (A's rows 16-byte
+// aligned, not transposed), else 4-byte ones; zero past b, d and r and for
+// batch rows u >= cb. kc and kt are powers of two (kcl, ktl their
+// logarithms): the index arithmetic is shifts and masks.
+__device__ __forceinline__ void load_dense_chunk(
+    float* zc, float* ac, const float* z, const float* a, long long b0,
+    long long c0, int w0, int t0, int kcl, int cb, int bw, int ktl, int r,
+    long long b, long long d, bool a_vec16, bool a_t) {
+  const int nt = kLanes * kWarps;
+  const int kc = 1 << kcl, kt = 1 << ktl, ktp = kt + 4;
+  // z: consecutive threads along the channels, which are contiguous in z
+  for (int e = threadIdx.x; e < (kt * kMaxCB) << kcl; e += nt) {
+    const int ch = e & (kc - 1), q = e >> kcl;      // q = t kMaxCB + u
+    const int t = q >> 3, u = q & 7;
+    const bool ok = u < cb && b0 + u < b && c0 + ch < d && t0 + t < r;
+    cp_async4(zc + ((ch << ktl) + t) * kMaxCB + u,
+              ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z, ok);
+  }
+  const long long rr = (long long)r * r;
+  const float* ab = a + c0 * rr;
+  if (a_vec16) {                       // kt / 4 copies of 16 bytes a row
+    const int kql = ktl - 2;
+    for (int e = threadIdx.x; e < (bw << kcl) << kql; e += nt) {
+      const int row = e >> kql, t = (e & ((1 << kql) - 1)) << 2;
+      const int ch = row / bw, s = row - ch * bw;       // row = ch bw + s
+      const bool ok = c0 + ch < d && w0 + s < r && t0 + t < r;
+      cp_async16(ac + row * ktp + t,
+                 ok ? ab + ch * rr + (long long)(w0 + s) * r + t0 + t : a,
+                 ok);
+    }
+  } else if (!a_t) {
+    for (int e = threadIdx.x; e < (bw << kcl) << ktl; e += nt) {
+      const int row = e >> ktl, t = e & (kt - 1);
+      const int ch = row / bw, s = row - ch * bw;
+      const bool ok = c0 + ch < d && w0 + s < r && t0 + t < r;
+      cp_async4(ac + row * ktp + t,
+                ok ? ab + ch * rr + (long long)(w0 + s) * r + t0 + t : a, ok);
+    }
+  } else {                             // a warp a (ch, t), its lanes along s:
+    const int lane = threadIdx.x & 31; //   A^T's row is A's column
+    for (int q = threadIdx.x >> 5; q < kc << ktl; q += kWarps) {
+      const int ch = q >> ktl, t = q & (kt - 1);
+      const bool row_ok = c0 + ch < d && t0 + t < r;
+      const float* src = ab + ch * rr + (long long)(t0 + t) * r + w0;
+      float* dst = ac + ch * bw * ktp + t;
+      for (int s = lane; s < bw; s += 32) {
+        const bool ok = row_ok && w0 + s < r;
+        cp_async4(dst + s * ktp, ok ? src + s : a, ok);
+      }
+    }
+  }
+}
+
+// One Gram chunk: z2w[s][u kc + ch] += sum_t ac[ch][s][t] zc[ch][t][u].
+// A thread takes one channel ch and two window rows, s and s + ceil(bw/2),
+// for the 8 batch rows: per 4 columns t it reads each row's 4 values of A
+// in one 16-byte load (a warp's lanes on consecutive rows) and z's 8 batch
+// values of each t in two 16-byte loads, the same for every lane of the
+// channel (a broadcast), for 64 fmaf. t runs in increasing order and the
+// sums carry over between chunks in z2w (first: from 0), so every z2
+// element is one fmaf chain over t = 0 .. r-1, in the order the earlier
+// kernel summed it.
+__device__ __forceinline__ void dense_gram_chunk(const float* zc,
+                                                 const float* ac, float* z2w,
+                                                 int kc, int cb, int bw,
+                                                 int kt, bool first) {
+  const int half = (bw + 1) >> 1, ktp = kt + 4;
+  for (int q = threadIdx.x; q < kc * half; q += kLanes * kWarps) {
+    const int ch = q / half, s0 = q - ch * half, s1 = s0 + half;
+    const bool two = s1 < bw;
+    const float* a0 = ac + (ch * bw + s0) * ktp;
+    const float* a1 = ac + (ch * bw + (two ? s1 : s0)) * ktp;
+    const float* zr = zc + ch * kt * kMaxCB;
+    float acc0[kMaxCB], acc1[kMaxCB];
+#pragma unroll
+    for (int u = 0; u < kMaxCB; ++u) {
+      const bool keep = !first && u < cb;
+      acc0[u] = keep ? z2w[s0 * kZ2Pitch + u * kc + ch] : 0.f;
+      acc1[u] = keep && two ? z2w[s1 * kZ2Pitch + u * kc + ch] : 0.f;
+    }
+    for (int t = 0; t < kt; t += 4) {
+      const float4 va = *reinterpret_cast<const float4*>(a0 + t);
+      const float4 vb = *reinterpret_cast<const float4*>(a1 + t);
+      const float av[4] = {va.x, va.y, va.z, va.w};
+      const float bv[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 zl =
+            *reinterpret_cast<const float4*>(zr + (t + j) * kMaxCB);
+        const float4 zh =
+            *reinterpret_cast<const float4*>(zr + (t + j) * kMaxCB + 4);
+        const float zv[kMaxCB] = {zl.x, zl.y, zl.z, zl.w,
+                                  zh.x, zh.y, zh.z, zh.w};
+#pragma unroll
+        for (int u = 0; u < kMaxCB; ++u) {
+          acc0[u] = fmaf(av[j], zv[u], acc0[u]);
+          acc1[u] = fmaf(bv[j], zv[u], acc1[u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMaxCB; ++u) {
+      if (u < cb) {
+        z2w[s0 * kZ2Pitch + u * kc + ch] = acc0[u];
+        if (two) z2w[s1 * kZ2Pitch + u * kc + ch] = acc1[u];
+      }
+    }
+  }
+}
+
+// One block: one tile of TN sequence rows (RPT = TN / kWarps a thread) and
+// cb batch rows x kc = 32/cb channels, lane = row * kc + channel, as the
+// windowed kernels. Its window of bw rows of z2 = A z starts at the node
+// of the tile's first row (clamped to r - bw) and covers every node its
+// hat rows touch (ski_fused_pass2_f32 sizes bw so). A's window streams
+// through nbuf chunk buffers, kt columns at a time, beside z's kt rows;
+// the x tile with its halo is requested with the first chunks, so every
+// copy is in flight before the Gram starts.
+template <int TN>
+__global__ void __launch_bounds__(kLanes * kWarps, kDenseBlocksPerSM)
+    ski_dense_pass2_kernel(const float* __restrict__ x,
                            const float* __restrict__ z,
                            const float* __restrict__ a,
                            const float* __restrict__ filt,
                            float* __restrict__ y, long long b, long long n,
                            long long d, int r, int m, int left, float hf,
-                           int cb, bool a_vec4, bool x_vec16,
-                           long long tiles_per_block, int nbuf) {
+                           int cb, int bw, int kt, int nbuf, bool x_vec16,
+                           bool a_vec16, bool a_t) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int kc = kLanes / cb;
-  const long long b0 = (long long)blockIdx.y * cb;
-  const long long c0 = (long long)blockIdx.x * kc;
+  const long long i0 = (long long)blockIdx.x * TN;     // the tile's first row
+  const long long c0 = (long long)blockIdx.y * kc;
+  const long long b0 = (long long)blockIdx.z * cb;
   const long long bg = b0 + lane / kc;
   const long long c = c0 + lane % kc;
   const bool valid = bg < b && c < d;
-  const int zp = z_pitch(r);
-  const int mp = padded_taps(m);       // taps m..mp-1 are zero
-  const int rows = kTN + mp - 1;       // tile rows with the conv halo
-  const int hl = mp - 1 - left;        // halo rows before the tile
-  float* zs = smem;                    // [kLanes][zp]   z[bg, t, c]
-  float* z2s = zs + kLanes * zp;       // [r][kZ2Pitch]  z2[bg, s, c]
-  float* fs = z2s + z2_floats(r);      // [mp][kLanes]   f[c, k]
-  float* xs = fs + mp * kLanes;        // nbuf x [rows][kLanes] x tiles
-  float* hw = xs + nbuf * rows * kLanes;        // [kTN] w_lo of a tile's rows
-  int* hlo = reinterpret_cast<int*>(hw + kTN);  // [kTN] their nodes
-  const long long ntiles = (n + kTN - 1) / kTN;
-  const long long t0 = blockIdx.z * tiles_per_block;   // this block's tiles
-  const long long t1 = t0 + tiles_per_block < ntiles ? t0 + tiles_per_block
-                                                      : ntiles;
+  const int mp = padded_taps(m);        // taps m..mp-1 are zero
+  const int rows = TN + mp - 1;         // tile rows with the conv halo
+  float* xs = smem;                     // [rows][kLanes]  x tile
+  float* fs = xs + rows * kLanes;       // [mp][kLanes]    f[c, k]
+  float* z2w = fs + mp * kLanes;        // [bw][kZ2Pitch]  z2[bg, w0 + j, c]
+  float* hw = z2w + (bw * kZ2Pitch + 3) / 4 * 4;       // [TN] w_lo of rows
+  int* hlo = reinterpret_cast<int*>(hw + TN);          // [TN] their nodes
+  float* ring = reinterpret_cast<float*>(hlo + TN);    // nbuf Gram chunks
+  const int chunk = dense_chunk_floats(kc, bw, kt);
+  const int kcl = __ffs(kc) - 1, ktl = __ffs(kt) - 1;   // both powers of 2
+  float wl0;
+  int w0 = hat_row(i0, hf, r, wl0);
+  const int w0_max = r > bw ? r - bw : 0;
+  w0 = w0 < w0_max ? w0 : w0_max;
+  const int nch = (r + kt - 1) / kt;
+  // chunks in flight: all when they fit the ring, else all but one buffer
+  const int ahead = nch <= nbuf ? nch : nbuf - 1;
 
-  // 1. the block's first tiles (nbuf - 1 of them, at least one) stream in
-  //    while the Gram runs. Tile t0 + j is always cp.async group j.
-  const int ahead = nbuf > 1 ? nbuf - 1 : 1;    // tiles requested ahead
+  // 1. every copy requested up front: the first chunks (chunk j is cp.async
+  //    group j) and, with the last of them, the x tile and its halo
   for (int j = 0; j < ahead; ++j) {
-    if (t0 + j < t1)
-      load_tile(xs + j * rows * kLanes, x, b0, c0, (t0 + j) * kTN, hl, rows,
-                b, n, d, cb, x_vec16);
-    cp_async_commit();                 // possibly empty: keeps the count
+    float* zc = ring + j * chunk;
+    load_dense_chunk(zc, zc + kc * kt * kMaxCB, z, a, b0, c0, w0, j * kt,
+                     kcl, cb, bw, ktl, r, b, d, a_vec16, a_t);
+    if (j == ahead - 1)
+      load_tile(xs, x, b0, c0, i0, mp - 1 - left, rows, b, n, d, cb,
+                x_vec16);
+    cp_async_commit();
   }
-
-  // 2. z columns, transposed, and the taps
-  for (int t = warp; t < r; t += kWarps)
-    zs[lane * zp + t] = valid ? z[(bg * r + t) * d + c] : 0.f;
   for (int k = warp; k < mp; k += kWarps)
     fs[k * kLanes + lane] = valid && k < m ? filt[c * m + k] : 0.f;
+  if (threadIdx.x < TN) {
+    float w_lo;
+    hlo[threadIdx.x] = hat_row(i0 + threadIdx.x, hf, r, w_lo);
+    hw[threadIdx.x] = w_lo;
+  }
+
+  // 2. the window of z2 = A z, chunk by chunk as they land
+  for (int s = 0; s < nch; ++s) {
+    cp_async_wait(ahead - 1);           // chunk s has landed
+    __syncthreads();                    // ... for all; buffer s - 1 free
+    if (s + ahead < nch) {
+      float* zc = ring + ((s + ahead) % nbuf) * chunk;
+      load_dense_chunk(zc, zc + kc * kt * kMaxCB, z, a, b0, c0, w0,
+                       (s + ahead) * kt, kcl, cb, bw, ktl, r, b, d, a_vec16,
+                       a_t);
+    }
+    cp_async_commit();                  // possibly empty: keeps the count
+    const float* zc = ring + (s % nbuf) * chunk;
+    dense_gram_chunk(zc, zc + kc * kt * kMaxCB, z2w, kc, cb, bw, kt, s == 0);
+  }
+  cp_async_wait(0);                     // the x tile
   __syncthreads();
-
-  // 3. z2 = A z: a thread takes one row s of one channel's A, reads it once
-  //    and applies it to the block's cb batch rows; a warp's threads share
-  //    the channel, so each z value they read is one broadcast
-  for (int p = threadIdx.x; p < kc * r; p += kLanes * kWarps) {
-    const int gc = p / r;
-    const int s = p - gc * r;
-    float acc[kMaxCB];
-#pragma unroll
-    for (int u = 0; u < kMaxCB; ++u) acc[u] = 0.f;
-    if (c0 + gc < d) {
-      const float* arow = a + ((c0 + gc) * r + s) * (long long)r;
-      if (a_vec4) {
-        const float4* a4 = reinterpret_cast<const float4*>(arow);
-#pragma unroll 8
-        for (int t4 = 0; t4 < r / 4; ++t4) {
-          const float4 v = __ldg(a4 + t4);
-#pragma unroll
-          for (int u = 0; u < kMaxCB; ++u) {
-            if (u < cb) {
-              const float4 zu = *reinterpret_cast<const float4*>(
-                  zs + (u * kc + gc) * zp + 4 * t4);
-              acc[u] = fmaf(v.x, zu.x, acc[u]);
-              acc[u] = fmaf(v.y, zu.y, acc[u]);
-              acc[u] = fmaf(v.z, zu.z, acc[u]);
-              acc[u] = fmaf(v.w, zu.w, acc[u]);
-            }
-          }
-        }
-      } else {
-        for (int t = 0; t < r; ++t) {
-          const float v = __ldg(arow + t);
-#pragma unroll
-          for (int u = 0; u < kMaxCB; ++u)
-            if (u < cb) acc[u] = fmaf(v, zs[(u * kc + gc) * zp + t], acc[u]);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kMaxCB; ++u)
-      if (u < cb) z2s[s * kZ2Pitch + u * kc + gc] = acc[u];
-  }
-
-  // 4. stream the block's tiles: conv from the tile, expansion from z2, one
-  //    store
-  for (long long tile = t0; tile < t1; ++tile) {
-    const long long k = tile - t0;
-    const float* cur = xs + (k % nbuf) * rows * kLanes;
-    if (nbuf > 1) {                    // into the buffer freed last time
-      if (tile + ahead < t1)
-        load_tile(xs + ((k + ahead) % nbuf) * rows * kLanes, x, b0, c0,
-                  (tile + ahead) * kTN, hl, rows, b, n, d, cb, x_vec16);
-      cp_async_commit();               // group k + ahead, possibly empty
-    }
-    if (threadIdx.x < kTN) {           // W's rows of the tile, once each
-      float w_lo;
-      hlo[threadIdx.x] = hat_row(tile * kTN + threadIdx.x, hf, r, w_lo);
-      hw[threadIdx.x] = w_lo;
-    }
-    cp_async_wait(nbuf - 1);           // this tile's copies have landed
-    __syncthreads();
-    conv_expand_store<kRowsPerThread>(cur, fs, mp, z2s, 0, hlo, hw, y,
-                                      tile * kTN, n, d, bg, c, valid);
-    __syncthreads();                   // before the buffers are refilled
-    if (nbuf == 1) {                   // one buffer: the next tile now
-      if (tile + 1 < t1)
-        load_tile(xs, x, b0, c0, (tile + 1) * kTN, hl, rows, b, n, d, cb,
-                  x_vec16);
-      cp_async_commit();               // group k + 1
-    }
-  }
+  // 3. conv, expansion, one store
+  conv_expand_store<TN / kWarps>(xs, fs, mp, z2w, w0, hlo, hw, y, i0, n, d,
+                                 bg, c, valid);
 }
 
 
@@ -952,22 +1053,156 @@ static int window_pass2(const void* x, const void* z, const void* coef,
   return static_cast<int>(cudaErrorInvalidValue);   // not a band_fit tile
 }
 
+// The current device and its SM count (read once a device); a CUDA error
+// when there is none.
+static cudaError_t current_sms(int* dev, int* sms) {
+  static int counts[kMaxDevices] = {};
+  cudaError_t e = cudaGetDevice(dev);
+  if (e != cudaSuccess) return e;
+  if (*dev < 0 || *dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (counts[*dev] == 0) {
+    e = cudaDeviceGetAttribute(&counts[*dev],
+                               cudaDevAttrMultiProcessorCount, *dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = counts[*dev];
+  return cudaSuccess;
+}
+
+// Raise kernel's dynamic shared memory attribute to smem bytes on device
+// dev, once (set[dev] remembers what was set; 48 KB needs nothing).
+static cudaError_t allow_smem(const void* kernel, long long smem, int dev,
+                              long long* set) {
+  if (smem <= 48 * 1024 || smem <= set[dev]) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) set[dev] = smem;
+  return e;
+}
+
+// The window of a dense pass-2 tile of tn rows: the most nodes the hat rows
+// of one tile touch (node lo of its last row + 1 - node lo of its first, +
+// 1), at most r. Exact: the same fp32 hat_row the kernel runs.
+static int dense_window(long long n, long long r, long long tn, float hf) {
+  long long bw = 2;
+  float w;
+  for (long long i0 = 0; i0 < n; i0 += tn) {
+    const long long i1 = (i0 + tn < n ? i0 + tn : n) - 1;
+    const long long span =
+        hat_row(i1, hf, (int)r, w) - hat_row(i0, hf, (int)r, w) + 2;
+    bw = span > bw ? span : bw;
+  }
+  return (int)(bw < r ? bw : r);
+}
+
+// Dynamic shared memory of a dense pass-2 block, bytes: the x tile of tn
+// rows with its halo, the taps, bw window rows of z2, the hat rows and
+// nbuf Gram chunks of kt columns.
+static long long dense_smem(long long tn, long long m, int kc, int bw, int kt,
+                            int nbuf) {
+  const long long mp = padded_taps(m);
+  return 4 * ((tn + mp - 1) * kLanes + mp * kLanes +
+              (bw * kZ2Pitch + 3) / 4 * 4 + 2 * tn +
+              (long long)nbuf * dense_chunk_floats(kc, bw, kt));
+}
+
+// Dense pass-2 tiles: the largest of 128, 64 and 32 rows that still gives
+// the grid a block for each SM (else 32).
+static int dense_tile(long long n, long long gx, long long gy, int sms) {
+  for (int tn = 128; tn > 32; tn /= 2)
+    if ((n + tn - 1) / tn * gx * gy >= sms) return tn;
+  return 32;
+}
+
+template <int TN>
+static int dense_launch(const dim3& grid, long long smem, cudaStream_t s,
+                        int dev, const void* x, const void* z, const void* a,
+                        const void* filt, void* y, long long b, long long n,
+                        long long d, long long r, long long m, long long left,
+                        float hf, int cb, int bw, int kt, int nbuf,
+                        bool x_vec16, bool a_vec16, bool a_t) {
+  static long long smem_set[kMaxDevices] = {};
+  const cudaError_t e = allow_smem(
+      reinterpret_cast<const void*>(ski_dense_pass2_kernel<TN>), smem, dev,
+      smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  ski_dense_pass2_kernel<TN><<<grid, kLanes * kWarps, (size_t)smem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(z),
+      static_cast<const float*>(a), static_cast<const float*>(filt),
+      static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb, bw,
+      kt, nbuf, x_vec16, a_vec16, a_t);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense pass 2 with A, or with A^T read in place (a_t).
+static int dense_pass2(const void* x, const void* z, const void* a,
+                       const void* filt, void* y, long long b, long long n,
+                       long long d, long long r, long long m, long long left,
+                       float hf, bool a_t, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  const cudaError_t e = current_sms(&dev, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int cb = batch_rows(b);
+  const int kc = kLanes / cb;
+  const long long gx = (d + kc - 1) / kc, gy = (b + cb - 1) / cb;
+  const int tn = dense_tile(n, gx, gy, sms);
+  const long long tiles = (n + tn - 1) / tn;
+  const int bw = dense_window(n, r, tn, hf);
+  // chunks of kt columns of A, nbuf of them in the ring: the widest chunk
+  // that leaves room for two blocks a SM (1 KB of a SM is reserved for each
+  // block), else the widest that fits one
+  int kt = 0, nbuf = 0;
+  const long long budgets[2] = {kSmemPerSM / 2 - 1024, kMaxSmem};
+  for (int pass = 0; pass < 2 && kt == 0; ++pass) {
+    for (int t = 64; t >= 4 && kt == 0; t /= 2) {
+      const long long nch = (r + t - 1) / t;
+      for (int nb = 3; nb >= 2 && kt == 0; --nb) {
+        const int buf = nch < nb ? (int)nch : nb;
+        if (dense_smem(tn, m, kc, bw, t, buf) <= budgets[pass]) {
+          kt = t;
+          nbuf = buf;
+        }
+      }
+    }
+  }
+  if (kt == 0 || tiles > 2147483647LL || gx > 65535 || gy > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long smem = dense_smem(tn, m, kc, bw, kt, nbuf);
+  const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool a_vec16 = !a_t && r % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const dim3 grid((unsigned)tiles, (unsigned)gx, (unsigned)gy);
+  switch (tn) {
+    case 128:
+      return dense_launch<128>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
+                               r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
+                               a_vec16, a_t);
+    case 64:
+      return dense_launch<64>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
+                              r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
+                              a_vec16, a_t);
+    default:
+      return dense_launch<32>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
+                              r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
+                              a_vec16, a_t);
+  }
+}
+
 extern "C" {
 
-// Dynamic shared memory of one pass-2 block with nbuf tile buffers, bytes.
-static long long pass2_smem(long long r, long long m, long long nbuf) {
-  const long long mp = padded_taps(m);
-  return 4 * (kLanes * z_pitch(r) + z2_floats(r) + mp * kLanes +
-              nbuf * (kTN + mp - 1) * kLanes + 2 * kTN);
-}
-
-// The least dynamic shared memory of a pass-2 block (one tile buffer).
+// The least dynamic shared memory of a dense pass-2 block (tiles of 32
+// rows, one chunk of 4 columns of A, 32 channels), bytes: the launch
+// refuses a tap count m for which even this exceeds the card's limit.
 long long ski_fused_pass2_smem_bytes(long long r, long long m) {
-  return pass2_smem(r, m, 1);
+  const long long bw = r < 34 ? r : 34;
+  return dense_smem(32, m, kLanes, (int)bw, 4, 1);
 }
 
-// x: (b, n, d), z: (b, r, d) contiguous fp32 on the device; h = (n-1)/(r-1)
-// and hf = float32(h). Returns cudaGetLastError().
+// x: (b, n, d), z: (b, r, d) contiguous fp32 on the device; 2 <= r <= n,
+// h = (n-1)/(r-1) and hf = float32(h). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue when the grid exceeds its bounds.
 int interp_reduce_f32(const void* x, void* z, long long b, long long n,
                       long long d, long long r, double h, float hf,
                       void* stream) {
@@ -999,70 +1234,25 @@ int interp_expand_f32(const void* z, void* y, long long b, long long n,
 }
 
 // x, y: (b, n, d); z: (b, r, d); a: (d, r, r); filt: (d, m), contiguous fp32
-// on the device; 0 <= left < m; hf = float32((n-1)/(r-1)).
+// on the device; 2 <= r <= n, 0 <= left < m; hf = float32((n-1)/(r-1)).
 // Returns cudaGetLastError(), or cudaErrorInvalidValue when the block's
-// shared memory would exceed the card's limit.
+// shared memory would exceed the card's limit or the grid its bounds.
 int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
                         const void* filt, void* y, long long b, long long n,
                         long long d, long long r, long long m, long long left,
                         float hf, void* stream) {
-  // per device: its SM count (0: not read yet), and the dynamic shared
-  // memory the kernel's attribute allows there (the attribute is per device)
-  struct DeviceState {
-    int sms = 0;
-    long long smem_set = 48 * 1024;
-  };
-  static DeviceState devices[kMaxDevices];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev < 0 || dev >= kMaxDevices)
-    return static_cast<int>(cudaErrorInvalidDevice);
-  int& sms = devices[dev].sms;
-  long long& smem_set = devices[dev].smem_set;
-  if (sms == 0) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int cb = batch_rows(b);
-  const int kc = kLanes / cb;
-  const long long gx = (d + kc - 1) / kc, gy = (b + cb - 1) / cb;
-  // the sequence's tiles split over blocks until about kBlocksPerSM blocks
-  // a SM run (each recomputes its columns' z2 = A z, a small part of its
-  // work at r << n)
-  const long long ntiles = (n + kTN - 1) / kTN;
-  long long splits = (long long)kBlocksPerSM * sms / (gx * gy);
-  splits = splits < 1 ? 1 : (splits > ntiles ? ntiles : splits);
-  const long long per_block = (ntiles + splits - 1) / splits;
-  splits = (ntiles + per_block - 1) / per_block;
-  // as many tile buffers as the block has tiles, up to kStages, while
-  // kBlocksPerSM blocks still fit a SM's shared memory (1 KB of it is
-  // reserved for each block)
-  int nbuf = per_block < kStages ? (int)per_block : kStages;
-  while (nbuf > 1 && (pass2_smem(r, m, nbuf) + 1024) * kBlocksPerSM >
-                         kSmemPerSM)
-    --nbuf;
-  const long long smem = pass2_smem(r, m, nbuf);
-  if (smem > kMaxSmem || gy > 65535 || splits > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > smem_set) {
-    e = cudaFuncSetAttribute(ski_fused_pass2_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = smem;
-  }
-  const bool a_vec4 = r % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
-  const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)splits);
-  ski_fused_pass2_kernel<<<grid, kLanes * kWarps, (size_t)smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(z),
-      static_cast<const float*>(a), static_cast<const float*>(filt),
-      static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
-      a_vec4, x_vec16, per_block, nbuf);
-  return static_cast<int>(cudaGetLastError());
+  return dense_pass2(x, z, a, filt, y, b, n, d, r, m, left, hf, false,
+                     stream);
+}
+
+// As ski_fused_pass2_f32 with A^T in place of A, read from A as it lies
+// (the signal backward's Gram): no transposed copy of A is made.
+int ski_fused_pass2_at_f32(const void* x, const void* z, const void* a,
+                           const void* filt, void* y, long long b,
+                           long long n, long long d, long long r, long long m,
+                           long long left, float hf, void* stream) {
+  return dense_pass2(x, z, a, filt, y, b, n, d, r, m, left, hf, true,
+                     stream);
 }
 
 
@@ -1091,6 +1281,23 @@ int ski_windowed_pass2_blocks_per_sm() {
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &nb, ski_window_pass2_kernel<kTN, true, kMaxMT>, kLanes * kWarps,
       (size_t)smem);
+  return e != cudaSuccess ? -static_cast<int>(e) : nb;
+}
+
+// Blocks of ski_fused_pass2 an SM holds at the SKI path's shape (x (8, 512,
+// 512), r = 64, m = 32: tiles of 128 rows, one chunk of 64 columns of A)
+// on the current device, its shared-memory attribute raised first; or
+// minus a CUDA error.
+int ski_fused_pass2_blocks_per_sm() {
+  const int bw = dense_window(512, 64, 128, 511.f / 63.f);
+  const long long smem = dense_smem(128, 32, kLanes / kMaxCB, bw, 64, 1);
+  cudaError_t e = cudaFuncSetAttribute(
+      ski_dense_pass2_kernel<128>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int nb = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &nb, ski_dense_pass2_kernel<128>, kLanes * kWarps, (size_t)smem);
   return e != cudaSuccess ? -static_cast<int>(e) : nb;
 }
 

@@ -153,13 +153,14 @@ def ski_expand_pass2_ref(x: torch.Tensor, z2: torch.Tensor,
 
 def ski_fused_pass2_ref(x: torch.Tensor, z: torch.Tensor,
                         a_dense: torch.Tensor, filt: torch.Tensor,
-                        causal: bool, left: int | None = None
-                        ) -> torch.Tensor:
+                        causal: bool, left: int | None = None,
+                        transpose_a: bool = False) -> torch.Tensor:
     """Plain version of the ``ski_fused_pass2`` kernel:
-    y = W (A z) + T_sparse x. x: (b, n, d); z = Wᵀx: (b, r, d);
-    a_dense: (d, r, r); filt: (d, m); fp32 throughout, cast back to x's
-    dtype."""
-    z2 = torch.einsum("dst,btd->bsd", a_dense.float(), z.float())
+    y = W (A z) + T_sparse x, or W (Aᵀ z) + T_sparse x when
+    ``transpose_a``. x: (b, n, d); z = Wᵀx: (b, r, d); a_dense: (d, r, r);
+    filt: (d, m); fp32 throughout, cast back to x's dtype."""
+    gram = "dts,btd->bsd" if transpose_a else "dst,btd->bsd"
+    z2 = torch.einsum(gram, a_dense.float(), z.float())
     return ski_expand_pass2_ref(x, z2, filt, causal, left=left)
 
 

@@ -17,8 +17,9 @@ expansion by W and the m-tap short conv run inside each kernel, and so
 does the Gram contraction of the first two. The tap offset ``left`` is an
 argument (0 for the causal forward, m//2 bidirectional), so the signal
 backwards (``ski_vjp``) launch these same kernels with the Gram transposed
-(for the coefficient form: lag-flipped), the taps flipped and ``left``
-mirrored to m-1-left.
+(the dense form read transposed in place, ``transpose_a``; the
+coefficient form lag-flipped), the taps flipped and ``left`` mirrored to
+m-1-left.
 
 Each wrapper takes the plain version (``ref.ski_fused_pass2_ref``;
 ``ref.ski_expand_pass2_ref`` after ``ref.toeplitz_gram_matvec_ref`` for
@@ -61,9 +62,14 @@ def reset_counters() -> None:
 def _lib() -> ctypes.CDLL:
     lib = backend.library("ski")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.ski_fused_pass2_f32.argtypes = [p, p, p, p, p, i64, i64, i64, i64,
-                                        i64, i64, ctypes.c_float, p]
+    dense = [p, p, p, p, p, i64, i64, i64, i64, i64, i64, ctypes.c_float, p]
+    lib.ski_fused_pass2_f32.argtypes = dense
     lib.ski_fused_pass2_f32.restype = ctypes.c_int
+    # a build of an earlier version of ski.cu (tools/ab_kernel.py --old)
+    # has no transposing entry point: it stays unbound there
+    if hasattr(lib, "ski_fused_pass2_at_f32"):
+        lib.ski_fused_pass2_at_f32.argtypes = dense
+        lib.ski_fused_pass2_at_f32.restype = ctypes.c_int
     lib.ski_fused_pass2_smem_bytes.argtypes = [i64, i64]
     lib.ski_fused_pass2_smem_bytes.restype = i64
     window = [i64, i64, i64, i64, i64, i64, ctypes.c_float, i64, i64, p]
@@ -112,10 +118,13 @@ def _require_kernel_inputs(what: str, ts, names) -> None:
 
 def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
                     filt: torch.Tensor, causal: bool,
-                    left: int | None = None) -> torch.Tensor:
+                    left: int | None = None,
+                    transpose_a: bool = False) -> torch.Tensor:
     """y = W (A z) + T_sparse x: x (b, n, d), z = Wᵀx (b, r, d), a_dense
     (d, r, r), filt (d, m) → (b, n, d). ``left`` overrides the
-    causal-derived tap offset (0 causal, m//2 bidirectional).
+    causal-derived tap offset (0 causal, m//2 bidirectional);
+    ``transpose_a`` applies Aᵀ, read from ``a_dense`` as it lies (the
+    signal backward), with no transposed copy.
     CPU: :func:`ref.ski_fused_pass2_ref`."""
     m = filt.shape[-1]
     if left is None:
@@ -123,7 +132,7 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
     ts = (x, z, a_dense, filt)
     if all(t.device.type == "cpu" for t in ts):
         return ref.ski_fused_pass2_ref(x, z, a_dense, filt, causal,
-                                       left=left)
+                                       left=left, transpose_a=transpose_a)
     _require_kernel_inputs("ski_fused_pass2", ts, ("x", "z", "A", "taps"))
     _check_shapes("ski_fused_pass2", x, z, a_dense, filt, left)
     b, n, d = x.shape
@@ -135,11 +144,11 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
         raise ValueError(f"ski_fused_pass2: r={r}, m={m} need {smem} bytes "
                          f"of shared memory a block, over {_MAX_SMEM}")
     y = torch.empty_like(x)
+    fn = lib.ski_fused_pass2_at_f32 if transpose_a else lib.ski_fused_pass2_f32
     with torch.cuda.device(x.device):
-        rc = lib.ski_fused_pass2_f32(x.data_ptr(), z.data_ptr(),
-                                     a_dense.data_ptr(), filt.data_ptr(),
-                                     y.data_ptr(), b, n, d, r, m, left, hf,
-                                     backend.stream(x))
+        rc = fn(x.data_ptr(), z.data_ptr(), a_dense.data_ptr(),
+                filt.data_ptr(), y.data_ptr(), b, n, d, r, m, left, hf,
+                backend.stream(x))
     backend.check(lib, rc, "ski_fused_pass2")
     counters["ski_fused_pass2"] += 1
     return y

@@ -8,9 +8,9 @@ backward is the transposed pipeline and reuses the forward kernels::
     forward   z  = Wᵀ x                        interp_reduce
               y  = W (A z) + T_sparse x        ski_fused_pass2
     backward  gz = Wᵀ g, z = Wᵀ x (recomputed) interp_reduce, twice
-              dx = W (Aᵀ gz) + T_sparseᵀ g     ski_fused_pass2 with A
-                                               transposed, the taps flipped
-                                               and left -> m-1-left
+              dx = W (Aᵀ gz) + T_sparseᵀ g     ski_fused_pass2 with Aᵀ
+                                               (read in place), the taps
+                                               flipped and left -> m-1-left
               dA[c] = Σ_b gz[b,:,c] z[b,:,c]ᵀ  gram_grad
               df[c,k] = Σ_{b,j} g[b,j,c] x[b,j-k+left,c]   conv_tap_grad
 
@@ -89,9 +89,8 @@ class SKIFusedTNO(torch.autograd.Function):
         g = g.contiguous()
         gz = interp_reduce(g, idx_lo, w_lo, r)
         z = interp_reduce(x, idx_lo, w_lo, r)
-        dx = ski_fused_pass2(g, gz, a_dense.transpose(1, 2).contiguous(),
-                             filt.flip(-1).contiguous(), causal,
-                             left=m - 1 - left)
+        dx = ski_fused_pass2(g, gz, a_dense, filt.flip(-1).contiguous(),
+                             causal, left=m - 1 - left, transpose_a=True)
         da = gram_grad(gz, z)
         df = conv_tap_grad(g, x, m, left)
         return (dx.to(x.dtype), da.to(a_dense.dtype), df.to(filt.dtype),

@@ -186,6 +186,25 @@ def test_ski_fused_pass2_ref_matches_jax(shape, left):
                                        left=lf), what="pallas")
 
 
+@pytest.mark.parametrize("shape", ["ragged", "r=n"])
+def test_ski_fused_pass2_transpose_a_is_a_transposed(shape):
+    """The plain pass 2 with ``transpose_a`` (the signal backward's Aᵀ, read
+    in place) equals the plain pass 2 on a.transpose(1, 2), the wrapper's
+    CPU path the same, and both JAX's reference on the transposed Gram."""
+    from repro_torch.kernels import ref, ski_fused
+    x, z, a, f = _inputs(SHAPES[shape], seed=3)
+    m = f.shape[-1]
+    got = ref.ski_fused_pass2_ref(T(x), T(z), T(a), T(f), True,
+                                  left=m - 1, transpose_a=True)
+    want = ref.ski_fused_pass2_ref(T(x), T(z), T(a).transpose(1, 2), T(f),
+                                   True, left=m - 1)
+    assert torch.equal(got, want)
+    assert torch.equal(ski_fused.ski_fused_pass2(
+        T(x), T(z), T(a), T(f), True, left=m - 1, transpose_a=True), got)
+    _close(got, jref.ski_fused_pass2_ref(x, z, np.swapaxes(a, 1, 2), f,
+                                         True, left=m - 1), what="ref")
+
+
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "bidir"])
 def test_ski_fused_pass2_left_defaults_to_causal_offset(causal):
     x, z, a, f = _inputs(SHAPES["ragged"], seed=2)

@@ -25,7 +25,9 @@ its file's stem. Then:
 With ``--time-only`` the checks are skipped and each build times only
 the kernels of :data:`TIMERS` at the main path's shape: for builds that do
 not compute the function (an ablation that drops one phase of a kernel, to
-see what that phase costs).
+see what that phase costs). Where :data:`OUTPUTS` has the library, each
+build's outputs on the same fixed inputs are compared with the current
+build's (max |build - new|, printed and kept in the report).
 
 Prints one JSON object as its last line and writes it to ``--out``. Needs a
 CUDA card and ``nvcc``; exits non-zero without them or if a check fails.
@@ -41,6 +43,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -61,10 +64,51 @@ CHECKS = {
 }
 
 
-def _time_windowed(peaks) -> dict:
-    """ski_windowed_pass2 at the large-rank path's shape (x (8, 512, 512),
-    r = 512, m = 32, causal), timed as chip_smoke times it, unchecked."""
-    from repro_torch.kernels import ski_fused
+#: dense pass-2 shapes of the ski timing and outputs (label, b, n, d, r,
+#: m): the SKI path and the dense route's ceilings (chip_smoke's
+#: PASS2_CEILING)
+DENSE_SHAPES = (("path", 8, 512, 512, 64, 32),
+                *chip_smoke.PASS2_CEILING)
+
+
+def _dense_inputs(b, n, d, r, m, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, n, d, device="cuda", generator=g),
+            torch.randn(b, r, d, device="cuda", generator=g),
+            torch.randn(d, r, r, device="cuda", generator=g),
+            torch.randn(d, m, device="cuda", generator=g))
+
+
+def _time_ski(peaks) -> dict:
+    """Unchecked, timed as chip_smoke times them: interp_reduce at the SKI
+    path's shape (x (8, 512, 512), r = 64), ski_fused_pass2 (causal) at
+    DENSE_SHAPES and, at the path's shape, in the signal backward's
+    orientation (Aᵀ, left m - 1), and ski_windowed_pass2 at the large-rank
+    path's shape (x (8, 512, 512), r = 512, m = 32, causal)."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ski_fused
+    out = {}
+    for label, b, n, d, r, m in DENSE_SHAPES:
+        x, z, a, f = _dense_inputs(b, n, d, r, m, seed=5)
+        if label == "path":
+            lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
+            out["interp_reduce"] = {
+                "ms": chip_smoke.time_ms(
+                    lambda: interp_matvec.interp_reduce(x, lo, w_lo, r)),
+                "bound_ms": 4 * (x.numel() + z.numel()) / peaks[0] * 1e3}
+        key = "ski_fused_pass2" + ("" if label == "path" else f" {label}")
+        bound = 4 * (2 * x.numel() + z.numel() + a.numel()
+                     + f.numel()) / peaks[0] * 1e3
+        out[key] = {
+            "ms": chip_smoke.time_ms(
+                lambda: ski_fused.ski_fused_pass2(x, z, a, f, True)),
+            "bound_ms": bound}
+        if label == "path":               # the signal backward's launch
+            out[key + " backward"] = {
+                "ms": chip_smoke.time_ms(
+                    lambda: ski_fused.ski_fused_pass2(
+                        x, z, a, f, True, left=m - 1, transpose_a=True)),
+                "bound_ms": bound}
     g = torch.Generator(device="cuda").manual_seed(7)
     b, n, d, r, m = 8, 512, 512, 512, 32
     x = torch.randn(b, n, d, device="cuda", generator=g)
@@ -75,11 +119,35 @@ def _time_windowed(peaks) -> dict:
         lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True))
     nbytes, gram, rest = chip_smoke._windowed_cost(b, n, d, r, m)
     bound = max(nbytes / peaks[0], 3 * gram / peaks[2] + rest / peaks[1])
-    return {"ski_windowed_pass2": {"ms": ms, "bound_ms": bound * 1e3}}
+    out["ski_windowed_pass2"] = {"ms": ms, "bound_ms": bound * 1e3}
+    return out
+
+
+def _ski_outputs() -> dict:
+    """The dense forward's two kernels on fixed inputs, for max |new - old|:
+    interp_reduce and ski_fused_pass2 at DENSE_SHAPES (causal), and the
+    backward's pass 2 (Aᵀ, taps flipped, left m - 1)."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ski_fused
+    out = {}
+    for label, b, n, d, r, m in DENSE_SHAPES:
+        x, z, a, f = _dense_inputs(b, n, d, r, m, seed=6)
+        lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
+        out[f"interp_reduce {label}"] = interp_matvec.interp_reduce(
+            x, lo, w_lo, r)
+        out[f"ski_fused_pass2 {label}"] = ski_fused.ski_fused_pass2(
+            x, z, a, f, True)
+        out[f"ski_fused_pass2 {label} backward"] = ski_fused.ski_fused_pass2(
+            x, z, a, f.flip(-1).contiguous(), True, left=m - 1,
+            transpose_a=True)
+    return out
 
 
 #: library name -> the unchecked timing of ``--time-only``
-TIMERS = {"ski": _time_windowed}
+TIMERS = {"ski": _time_ski}
+#: library name -> its kernels' outputs on fixed inputs, compared between
+#: builds (max |build - new|)
+OUTPUTS = {"ski": _ski_outputs}
 
 
 def tool(name: str) -> str:
@@ -121,10 +189,33 @@ def loading(name: str, path: Path):
     clear()
     backend.library = lambda n: lib if n == name else real(n)
     try:
-        yield lib
+        with _compat(name, lib):
+            yield lib
     finally:
         backend.library = real
         clear()
+
+
+@contextlib.contextmanager
+def _compat(name: str, lib):
+    """A ski build without ``ski_fused_pass2_at_f32`` (before the dense
+    pass 2 read Aᵀ in place) runs ``transpose_a`` as its own backward did:
+    on a transposed copy of A, through its ``ski_fused_pass2_f32``."""
+    if name != "ski" or hasattr(lib, "ski_fused_pass2_at_f32"):
+        yield
+        return
+    from repro_torch.kernels import ski_fused, ski_vjp
+    real = ski_fused.ski_fused_pass2
+
+    def pass2(x, z, a, f, causal, left=None, transpose_a=False):
+        if transpose_a:
+            a = a.transpose(1, 2).contiguous()
+        return real(x, z, a, f, causal, left=left)
+    with contextlib.ExitStack() as stack:
+        for mod in (ski_fused, ski_vjp):
+            stack.enter_context(mock.patch.object(mod, "ski_fused_pass2",
+                                                  pass2))
+        yield
 
 
 def ptxas_report(src: Path) -> str:
@@ -223,18 +314,28 @@ def main() -> int:
           f"blocks an SM: {report['blocks_per_sm']}", flush=True)
     order = [b for old in args.old
              for b in (old.stem, "new", "new", old.stem)] or ["new"]
-    times = {}
+    times, outputs = {}, {}
     for build in order:
         print(f"[ab] {args.name}: build {build}", flush=True)
         with loading(args.name, paths[build]):
             entries = (TIMERS if args.time_only else CHECKS)[args.name](
                 peaks)
+            if args.name in OUTPUTS and build not in outputs:
+                outputs[build] = {k: v.cpu() for k, v in
+                                  OUTPUTS[args.name]().items()}
         for kernel, e in entries.items():
             times.setdefault(kernel, {}).setdefault(build, []).append(
                 e["ms"])
             print(f"[time] {kernel} {build}: {e['ms']:.4f} ms (bound "
                   f"{e['bound_ms']:.4f})", flush=True)
     report["ms"] = times
+    if outputs:
+        report["max_abs_diff_vs_new"] = {
+            build: {k: float((v - outputs["new"][k]).abs().max())
+                    for k, v in outs.items()}
+            for build, outs in outputs.items() if build != "new"}
+        print(f"[diff] max |build - new| on the same inputs: "
+              f"{report['max_abs_diff_vs_new']}", flush=True)
     line = json.dumps(report)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(line + "\n")
