@@ -27,7 +27,10 @@ card or outside a checkout of this repository. Phases:
    of the backward), ragged, n < m, r = n and m = 1, the interp pair also
    at r = 2 and as adjoints on the card; pass 2 at the dense-rank ceiling
    (r = 181 at d = 512, r = 512 at d = 64) in the forward orientation and
-   the backward's (A transposed, taps flipped, left mirrored); the whole
+   the backward's (A transposed, taps flipped, left mirrored); ``gram_grad``
+   also at both ceilings (dA of 67 MB) and ``conv_tap_grad`` also with
+   m = 400 taps and with b = 12, both also bitwise against a second call;
+   the whole
    SKIFusedTNO backward against autograd through ``ref.ski_fused_tno_ref``
    (causal, bidirectional, r = 181), and under ``REPRO_PALLAS_GRAD=0``;
    the large-rank ``ski_windowed_pass2`` and ``ski_expand_pass2`` at the
@@ -551,15 +554,13 @@ def check_interp_adjoint(device="cuda") -> None:
 
 
 def phase_ski_kernels(peaks, device="cuda") -> dict:
-    """The six SKI kernels against their plain versions at SKI_SHAPES:
-    interp_reduce, interp_expand and gram_grad within 1e-6 × max|plain|
-    (sums of at most 2h+1, two and b terms), ski_fused_pass2 and short_conv
-    within 1e-5 × max|plain|, conv_tap_grad within 1e-5 × max|plain|
-    (4,096 terms at the path shape, in another order); the interp pair
-    also at r = 2 and as adjoints; then pass 2 at PASS2_CEILING in both
-    orientations. Returns the entries at the path's shape."""
+    """The dense forward's four SKI kernels against their plain versions at
+    SKI_SHAPES: interp_reduce and interp_expand within 1e-6 × max|plain|
+    (sums of at most 2h+1 and two terms), ski_fused_pass2 and short_conv
+    within 1e-5 × max|plain|; the interp pair also at r = 2 and as
+    adjoints; then pass 2 at PASS2_CEILING in both orientations. Returns
+    the entries at the path's shape."""
     from repro_torch.core import ski
-    from repro_torch.kernels import ref, ski_grad
     g = torch.Generator(device=device).manual_seed(1)
     out = {}
     for label, b, n, d, r, m, left in SKI_SHAPES:
@@ -567,51 +568,11 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         z = torch.randn(b, r, d, device=device, generator=g)
         a = torch.randn(d, r, r, device=device, generator=g)
         f = torch.randn(d, m, device=device, generator=g)
-        cot = torch.randn(b, n, d, device=device, generator=g)
-        gz = torch.randn(b, r, d, device=device, generator=g)
         lo, w_lo, _ = ski.make_inducing(n, r, device)
         entries = _interp_entries(label, x, z, lo, w_lo, peaks)
         entries["short_conv"] = _short_conv_entry(label, x, f, left, peaks)
         entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
                                                   peaks)
-        # gz, z read once, dA written once; 2·b·d·r² flops
-        entries["gram_grad"] = _kernel_entry(
-            "gram_grad", "src/repro/kernels/ski_grad.py:149",
-            ski_grad.gram_grad(gz, z), ref.gram_grad_ref(gz, z),
-            lambda: ski_grad.gram_grad(gz, z),
-            lambda: ref.gram_grad_ref(gz, z),
-            lambda: torch.einsum("bsc,btc->cst", gz, z),
-            nbytes=4 * (2 * z.numel() + d * r * r), nops=2 * b * d * r * r,
-            peaks=peaks, tol=1e-6, source=SKI_GRAD_SRC)
-        print(f"[kernel] gram_grad {label} gz, z ({b}, {r}, {d}): "
-              f"{entries['gram_grad']}", flush=True)
-        # the library yardstick: cuDNN's depthwise conv1d weight gradient
-        # (TF32 off) on channel-major copies of g and of x padded by the
-        # taps' reach, made outside the timed call; it gives the taps in
-        # reverse order
-        xp = torch.nn.functional.pad(x, (0, 0, m - 1 - left, left))
-        xp = xp.transpose(1, 2).contiguous()
-        gt = cot.transpose(1, 2).contiguous()
-
-        def library():
-            return torch.nn.grad.conv1d_weight(xp, (d, 1, m), gt, groups=d)
-        want = ref.conv_tap_grad_ref(cot, x, m, left)
-        lib_err = float((library()[:, 0].flip(-1) - want).abs().max())
-        if not lib_err <= 1e-5 * float(want.abs().max()):
-            raise AssertionError(f"conv1d_weight is not the tap gradient: "
-                                 f"{lib_err}")
-        # g, x read once, df written once; 2 flops a (j, k) pair in range
-        entries["conv_tap_grad"] = _kernel_entry(
-            "conv_tap_grad", "src/repro/kernels/ski_grad.py:71",
-            ski_grad.conv_tap_grad(cot, x, m, left), want,
-            lambda: ski_grad.conv_tap_grad(cot, x, m, left),
-            lambda: ref.conv_tap_grad_ref(cot, x, m, left), library,
-            nbytes=4 * (2 * x.numel() + d * m),
-            nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
-            source=SKI_GRAD_SRC)
-        print(f"[kernel] conv_tap_grad {label} g, x ({b}, {n}, {d}), m={m}, "
-              f"left={left}: {entries['conv_tap_grad']} (conv1d_weight max "
-              f"abs err {lib_err:.3e})", flush=True)
         if label == "path":
             out.update(entries)
     label, b, n, d, r = INTERP_R2
@@ -630,6 +591,108 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
             _pass2_entry(f"ceiling {label}", x, z, a, f, left, peaks)
             _pass2_entry(f"ceiling {label} backward orientation", x, z, a,
                          f_t, m - 1 - left, peaks, transpose_a=True)
+    return out
+
+
+def _repeat_equal(name, label, fn) -> torch.Tensor:
+    """``fn()`` twice on the same inputs gives the same bits (the kernels
+    sum in a fixed order, with no atomics)."""
+    got = fn()
+    if not torch.equal(got, fn()):
+        raise AssertionError(f"{name} {label}: two calls differ")
+    return got
+
+
+def _gram_grad_entry(label, gz, z, peaks) -> dict:
+    """gram_grad within 1e-6 × max|plain| (sums of b terms) and bitwise
+    the same over two calls; gz, z read once, dA written once; 2·b·d·r²
+    flops. The library yardstick: the plain version's one einsum."""
+    from repro_torch.kernels import ref, ski_grad
+    b, r, d = z.shape
+    e = _kernel_entry(
+        "gram_grad", "src/repro/kernels/ski_grad.py:149",
+        _repeat_equal("gram_grad", label,
+                      lambda: ski_grad.gram_grad(gz, z)),
+        ref.gram_grad_ref(gz, z), lambda: ski_grad.gram_grad(gz, z),
+        lambda: ref.gram_grad_ref(gz, z),
+        lambda: torch.einsum("bsc,btc->cst", gz, z),
+        nbytes=4 * (2 * z.numel() + d * r * r), nops=2 * b * d * r * r,
+        peaks=peaks, tol=1e-6, source=SKI_GRAD_SRC)
+    print(f"[kernel] gram_grad {label} gz, z ({b}, {r}, {d}), two calls "
+          f"bitwise equal: {e}", flush=True)
+    return e
+
+
+def _conv_tap_grad_entry(label, cot, x, m, left, peaks) -> dict:
+    """conv_tap_grad within 1e-5 × max|plain| (4,096 terms at the path
+    shape, in another order) and bitwise the same over two calls; g, x read
+    once, df written once; 2 flops a (j, k) pair in range. The library
+    yardstick: cuDNN's depthwise conv1d weight gradient (TF32 off) on
+    channel-major copies of g and of x padded by the taps' reach, made
+    outside the timed call; it gives the taps in reverse order."""
+    from repro_torch.kernels import ref, ski_grad
+    b, n, d = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, m - 1 - left, left))
+    xp = xp.transpose(1, 2).contiguous()
+    gt = cot.transpose(1, 2).contiguous()
+
+    def library():
+        return torch.nn.grad.conv1d_weight(xp, (d, 1, m), gt, groups=d)
+    want = ref.conv_tap_grad_ref(cot, x, m, left)
+    lib_err = float((library()[:, 0].flip(-1) - want).abs().max())
+    if not lib_err <= 1e-5 * float(want.abs().max()):
+        raise AssertionError(f"conv1d_weight is not the tap gradient: "
+                             f"{lib_err}")
+    e = _kernel_entry(
+        "conv_tap_grad", "src/repro/kernels/ski_grad.py:71",
+        _repeat_equal("conv_tap_grad", label,
+                      lambda: ski_grad.conv_tap_grad(cot, x, m, left)),
+        want, lambda: ski_grad.conv_tap_grad(cot, x, m, left),
+        lambda: ref.conv_tap_grad_ref(cot, x, m, left), library,
+        nbytes=4 * (2 * x.numel() + d * m),
+        nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
+        source=SKI_GRAD_SRC)
+    print(f"[kernel] conv_tap_grad {label} g, x ({b}, {n}, {d}), m={m}, "
+          f"left={left}, two calls bitwise equal: {e} (conv1d_weight max "
+          f"abs err {lib_err:.3e})", flush=True)
+    return e
+
+
+#: conv_tap_grad beyond SKI_SHAPES (label, b, n, d, m, left): more taps
+#: than a tap pass (13 passes), and more batch rows than a tile's blocks
+#: (a block takes two, its x ring carried from one to the next)
+TAP_GRAD_SHAPES = (("m=400", 8, 512, 512, 400, 200),
+                   ("b=12", 12, 300, 40, 32, 16))
+
+
+def phase_grad_kernels(peaks, device="cuda") -> dict:
+    """The dense backward's two parameter-cotangent kernels against their
+    plain versions, each also bitwise against a second call: gram_grad and
+    conv_tap_grad at SKI_SHAPES, gram_grad at PASS2_CEILING (dA of 67 MB,
+    the dense route's largest), conv_tap_grad at TAP_GRAD_SHAPES; then the
+    whole SKIFusedTNO backward. Returns the entries at the path's shape."""
+    g = torch.Generator(device=device).manual_seed(2)
+    out = {}
+    for label, b, n, d, r, m, left in SKI_SHAPES:
+        x = torch.randn(b, n, d, device=device, generator=g)
+        cot = torch.randn(b, n, d, device=device, generator=g)
+        z = torch.randn(b, r, d, device=device, generator=g)
+        gz = torch.randn(b, r, d, device=device, generator=g)
+        entries = {"gram_grad": _gram_grad_entry(label, gz, z, peaks),
+                   "conv_tap_grad": _conv_tap_grad_entry(label, cot, x, m,
+                                                         left, peaks)}
+        if label == "path":
+            out.update(entries)
+    for label, b, n, d, r, m in PASS2_CEILING:
+        _gram_grad_entry(f"ceiling {label}",
+                         torch.randn(b, r, d, device=device, generator=g),
+                         torch.randn(b, r, d, device=device, generator=g),
+                         peaks)
+    for label, b, n, d, m, left in TAP_GRAD_SHAPES:
+        _conv_tap_grad_entry(label,
+                             torch.randn(b, n, d, device=device, generator=g),
+                             torch.randn(b, n, d, device=device, generator=g),
+                             m, left, peaks)
     check_ski_backward(g)
     return out
 
@@ -2200,6 +2263,7 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(peaks)
     kernels.update(phase_ski_kernels(peaks))
+    kernels.update(phase_grad_kernels(peaks))
     kernels.update(phase_window_kernels(peaks))
     check_coef_backward()
     cfg = get_config("fd-tnn-lm-wt103")

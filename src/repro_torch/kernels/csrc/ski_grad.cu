@@ -10,255 +10,634 @@
 //   _tap_grad_call_impl (conv_tap_grad_pallas):
 //     df[c, k] = sum_{b, j} g[b, j, c] x[b, j - k + left, c],
 //   g, x (b, n, d) with x zero outside [0, n), df (d, m), 0 <= left < m.
-//   The TPU kernel carries the sum over sequential grid steps. Here blocks run
-//   in no order, and d / 32 = 16 channel tiles alone cannot fill 132 SMs, so
-//   the b n rows are split over blocks as well: pass 1 writes each block's
-//   sums to a workspace of partials (P, m, d), pass 2 adds the P partials of
-//   each (c, k) in order p = 0..P-1.
+//   The TPU kernel carries the sum over sequential grid steps. Here blocks
+//   run in no order, and d / 32 = 16 channel tiles alone cannot fill 132
+//   SMs, so the rows of a tile are split over kTapSplit = 8 blocks.
 //   Bound: g and x read once, df written once, 4 (2 b n d + d m) bytes: at
 //   (8, 512, 512), m = 32, 16,842,752 bytes, 5.03 us at 3.35 TB/s; 2 b n d m
 //   = 134 MFLOP, 2.0 us at 67 TFLOP/s fp32: bound by bytes.
-//   Design: a block owns 32 channels (a warp's lanes) and 128 rows of one
-//   batch row, P = b ceil(n / 128) blocks a channel tile. The x rows its taps
-//   reach (128 + mp - 1 of them, zero-filled outside [0, n)) go to shared
-//   memory once. Each warp owns 16 rows and holds their g in registers, and
-//   runs the taps 8 at a time from a 23-row register window of x, as the
-//   forward conv of csrc/ski.cu does; the 8 warps' sums of each tap are then
-//   added in shared memory in warp order. Every n >= 1 (n < m included) and
-//   every left in [0, m) run here: the TPU wrapper's plain fallback for
-//   n < m has no counterpart.
+//   Design: one launch. 8 blocks own a tile of 32 channels and 32 taps (a
+//   tap pass; m > 32 takes several) and split its b n rows: each block
+//   takes whole batch rows, or pieces of them when b < 8. A block streams
+//   its rows in chunks of 128 through shared memory with cp.async, 16 bytes
+//   (4 channels) a copy when d % 4 == 0, three chunks in flight: g into a
+//   ring of chunk slots, x into a ring of 512 rows that carries the 31-row
+//   halo from one chunk to the next, so each x row is read once a piece
+//   (1.06x at the path, from 1.24x). A lane owns 4 channels and 8 taps;
+//   each warp owns 16 rows of a chunk and runs its taps from a 15-row
+//   register window of x with g from shared memory, summing in registers
+//   over all of the block's chunks: one barrier a chunk. At the end the 8
+//   warps' sums are added in warp order and written to the block's slot of
+//   a workspace; the block that draws the tile's last ticket (an integer
+//   atomic) adds the 8 blocks' sums in block order and stores df's rows
+//   whole. No floating-point atomics: bitwise the same from run to run.
+//   Every n >= 1 (n < m included), every m and every left in [0, m) run
+//   here: the TPU wrapper's plain fallback for n < m has no counterpart.
+//   Times on an H100 (NVIDIA H100 80GB HBM3, 700 W; tools/ab_kernel.py
+//   ski_grad, PERF.md), at the path: 0.0158-0.0161 ms, 11.9 us a launch in
+//   a training step's profile. What holds it there (ablation builds): the
+//   ticket's fence, atomic and read-back take about 2 us, and the loads run
+//   at about two thirds of the bandwidth. A cluster of 8 blocks adding its
+//   sums through distributed shared memory read 0.0229: the card placed a
+//   cluster's blocks two to an SM, leaving SMs idle, and at one block an SM
+//   it holds at most 15 such clusters at once (30 at two an SM,
+//   cudaOccupancyMaxActiveClusters), fewer than the 16 tiles. Slower too:
+//   16 blocks a tile (0.0172), chunks of 64 rows (0.0172), 2 chunks in
+//   flight (0.0170), 512 threads (0.0168). The earlier design (PR 16:
+//   b ceil(n / 128) blocks a tile wrote a (P, m, d) workspace, a second
+//   kernel added it with a store strided by m) took 0.0213-0.0218; it kept
+//   every tap in one pass, so at m = 400 it is faster (0.086 against
+//   0.093).
 //
 // gram_grad  replaces src/repro/kernels/ski_grad.py _gram_grad_kernel /
 //   _gram_grad_call (gram_grad_pallas):
 //     dA[c, s, t] = sum_b gz[b, s, c] z[b, t, c],
 //   gz, z (b, r, d), dA (d, r, r).
 //   Bound: 4 (2 b r d + d r^2) bytes: at b = 8, r = 64, d = 512, 10,485,760
-//   bytes, 3.13 us at 3.35 TB/s, four fifths of it the write of dA;
-//   2 b d r^2 = 34 MFLOP, 0.5 us at 67 TFLOP/s fp32: bound by bytes.
-//   Design: a block owns 8 channels (one 32-byte sector of a row of gz and
-//   z), 8 rows s and 64 columns t of dA. It stages gz[b, s tile, channels]
-//   and z[b, t tile, channels] of 8 batch rows at a time in shared memory,
-//   and a thread keeps 16 sums (2 channels x 8 rows s at its column t),
-//   adding the batch rows in order. The stores run with t innermost: 64
-//   consecutive floats for each (c, s). A first version staged one batch
-//   row at a time: 8 dependent round trips to memory, 20.3 us at the path
-//   shape on an H100.
+//   bytes, 3.13 us at 3.35 TB/s, four fifths of it the write of dA (at
+//   r = 181, d = 512 and r = 512, d = 64, where dA is 67 MB: 0.0218 and
+//   0.0207 ms); 2 b d r^2 = 34 MFLOP, 0.5 us at 67 TFLOP/s: bound by bytes.
+//   Design: the write path first. An item is 4 channels (one 16-byte copy
+//   of a row of gz or z) x 64 rows s x 64 columns t of dA: at r = 64 a
+//   block's item is its 4 channels' whole panels, so every gz and z byte is
+//   read from device memory once. One block an SM walks the items (beyond
+//   r = 64 an item's gz and z tiles are read by its neighbours too, from
+//   L2). A step stages 8 batch rows of the item's gz and z tiles by
+//   cp.async, three steps in flight. A thread keeps 4 channels x 4 rows s x
+//   4 columns t: per batch row eight 16-byte shared loads (z's rows
+//   swizzled, conflict-free) and 64 fmaf; it stores the item as soon as its
+//   last batch row is in, in 16-byte stores of 4 consecutive t when r % 4
+//   == 0 (a warp's store is two whole 256-byte row pieces), else in 4-byte
+//   stores at columns tq + 16 j (64 consecutive bytes a half warp). Each dA
+//   element is fmaf over b = 0..b-1 from 0, 8 batch rows a step (rows past
+//   b add exact zeros), the earlier kernel's chain, so dA is its dA bit for
+//   bit. Times on an H100 (as above): 0.0109-0.0111 ms at the path (6.6 us
+//   in a training step), 0.0419-0.0424 at r = 181, d = 512 and 0.0351 at
+//   r = 512, d = 64. At the path the loads and the stores of a block run one
+//   after the other (without the stores 0.0086, without the loads 0.0090);
+//   at the ceilings an item's loads and sums take as long as its stores and
+//   do not overlap them. Slower: items of 32 rows s, 128-thread blocks
+//   three an SM, two 256-thread blocks an SM (128 registers). The earlier
+//   design (PR 16: a block of 8 channels x 8 rows s x 64 columns, z gathered
+//   by all 8 s-tiles of a channel group in 4-byte loads, scalar stores at
+//   the end) took 0.0182-0.0183 ms at the path, 0.0967 and 0.0755 at the
+//   ceilings; a first version that staged one batch row at a time 0.0203.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kLanes = 32;       // channels of a conv_tap_grad block
-constexpr int kWarps = 8;        // conv_tap_grad block: 8 warps
-constexpr int kTN = 128;         // rows of a conv_tap_grad block
-constexpr int kRows = kTN / kWarps;  // consecutive rows of a warp
-constexpr int kKB = 8;           // taps per register window
-static_assert(kKB == kWarps, "the tap sums are added one tap a warp");
-constexpr int kMaxSmem = 232448; // bytes a block may use (227 KB)
-constexpr int kStaticSmem = 48 * 1024;
+constexpr int kThreads = 256;       // both kernels: 8 warps
+constexpr int kWarps = kThreads / 32;
 
-constexpr int kGC = 8;           // gram_grad block: channels,
-constexpr int kGS = 8;           // rows s,
-constexpr int kGT = 64;          // columns t,
-constexpr int kGB = 8;           // batch rows staged together,
-constexpr int kGThreads = 256;   // threads: kGT columns x kGC / 2 channel pairs
-static_assert(kGThreads == kGT * kGC / 2, "a thread takes 2 channels");
+constexpr int kTapSplit = 8;        // conv_tap_grad: blocks a tile,
+constexpr int kTC = 32;             // channels of a tile,
+constexpr int kTQ = kTC / 4;        // 16-byte quads of a tile row,
+constexpr int kTT = 32;             // taps of a tap pass,
+constexpr int kTK = 8;              // taps of a lane (a tap group),
+constexpr int kTG = kTT / kTK;      // tap groups of a warp,
+constexpr int kChunk = 128;         // rows of a chunk,
+constexpr int kWRows = kChunk / kWarps;  // rows of a warp in a chunk,
+constexpr int kHalf = 8;            // rows of a register window,
+constexpr int kHalo = kTT - 1;      // x rows a chunk reads before its first,
+constexpr int kStages = 3;          // chunks in flight,
+constexpr int kXRing = 512;         // rows of the x ring (a power of two),
+constexpr int kMinPiece = 32;       // fewest rows of a piece of a batch row
+static_assert(kTQ * kTG == 32, "a warp's lanes: 8 quads x 4 tap groups");
+static_assert(kWRows % kHalf == 0, "a warp's rows in whole windows");
+static_assert(kXRing >= kStages * (kChunk + kHalo),
+              "the x ring holds every chunk in flight with its halo");
+constexpr int kTapSmemFloats = kStages * kChunk * kTC + kXRing * kTC;
+static_assert(kWarps * kTT * kTC <= kXRing * kTC,
+              "the warps' sums fit in the x ring");
+static_assert(kTT * (kTC + 1) <= kStages * kChunk * kTC,
+              "the tile's sum fits in the g ring");
+static_assert(kTT * kTC % kThreads == 0, "the tile's sums, whole per thread");
+constexpr int kMaxTickets = 1 << 16;  // tiles x tap passes of a launch
 
-__host__ __device__ __forceinline__ int padded_taps(long long m) {
-  return (int)((m + kKB - 1) / kKB * kKB);
+constexpr int kGThreads = 256;      // gram_grad block: 8 warps,
+constexpr int kGC = 4;              // item: channels,
+constexpr int kGS = 64;             // rows s,
+constexpr int kGT = 64;             // columns t,
+constexpr int kGB = 8;              // batch rows a step,
+constexpr int kGSR = 4;             // rows s of a thread (x 4 columns t),
+constexpr int kGStages = 3;         // steps in flight,
+constexpr int kGBlocksPerSM = 1;
+static_assert(kGThreads == (kGS / kGSR) * (kGT / 4),
+              "a thread takes kGSR rows s x 4 columns t");
+static_assert(kGB * kGS % kGThreads == 0 && kGB * kGT % kGThreads == 0,
+              "a thread copies whole rows of the gz and z tiles a step");
+static_assert(kGStages * kGB * (kGS + kGT) * kGC * 4 <= 48 * 1024,
+              "the stages fit in static shared memory");
+
+// 4-byte asynchronous copy global -> shared; zero-fills when !valid (src is
+// then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int nbytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sdst),
+               "l"(src), "r"(nbytes));
 }
 
-// Dynamic shared memory of a conv_tap_grad block: the x rows of its taps and
-// the warps' tap sums.
-long long tap_grad_smem(long long m) {
-  return 4LL * ((kTN + padded_taps(m) - 1) * kLanes + kWarps * kKB * kLanes);
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned),
+// zero-filling when !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int nbytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sdst),
+               "l"(src), "r"(nbytes));
 }
 
-__global__ void __launch_bounds__(kLanes * kWarps)
-    conv_tap_grad_kernel(const float* __restrict__ g,
-                         const float* __restrict__ x,
-                         float* __restrict__ part, long long n, long long d,
-                         int m, int left, long long tiles) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int mp = padded_taps(m);       // taps m..mp-1 are computed, not kept
-  const int rows = kTN + mp - 1;
-  float* xs = smem;                    // [rows][kLanes]
-  float* red = xs + rows * kLanes;     // [kWarps][kKB][kLanes]
-  const long long p = blockIdx.y;      // partial: batch row p / tiles
-  const long long bi = p / tiles;
-  const long long j0 = (p - bi * tiles) * kTN;
-  const long long c = blockIdx.x * (long long)kLanes + lane;
-  const bool cok = c < d;
-  const float* xb = x + bi * n * d + (cok ? c : 0);
-  const float* gb = g + bi * n * d + (cok ? c : 0);
-  // tile row q holds x row j0 + left - (mp - 1) + q
-  const long long xr0 = j0 + left - (mp - 1);
-  for (int q = warp; q < rows; q += kWarps) {
-    const long long i = xr0 + q;
-    xs[q * kLanes + lane] = cok && i >= 0 && i < n ? xb[i * d] : 0.f;
-  }
-  const int row0 = warp * kRows;       // this warp's rows in the tile
-  float gr[kRows];
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// Four consecutive channels c, c+1, c+2, c+3 of one row into shared memory:
+// one 16-byte copy (kVec: d % 4 == 0, 16-byte aligned), else four 4-byte
+// copies, each channel past d zero-filled; a row that is not `ok` is zero.
+template <bool kVec>
+__device__ __forceinline__ void copy_quad(float* dst, const float* base,
+                                          const float* row, long long c,
+                                          long long d, bool ok) {
+  if (kVec) {
+    cp_async16(dst, ok && c < d ? row + c : base, ok && c < d);
+  } else {
 #pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    const long long j = j0 + row0 + q;
-    gr[q] = cok && j < n ? gb[j * d] : 0.f;
+    for (int u = 0; u < 4; ++u) {
+      const bool v = ok && c + u < d;
+      cp_async4(dst + u, v ? row + c + u : base, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------- conv_tap_grad
+// One ticket for each (channel tile, tap pass): the count of the tile's
+// blocks that have written their sums. A module variable, so each device
+// has its own, zero when the module loads there; the block that draws the
+// last ticket sets it back to 0. Launches on one device therefore must not
+// overlap in time (the port launches on the current stream, in order).
+__device__ unsigned int g_tap_tickets[kMaxTickets];
+
+// A block's rows: pieces of batch rows, piece s of the tile's b * spr taken
+// by block s % kTapSplit. Piece s is rows [q len, min(n, (q + 1) len)) of
+// batch row s / spr, q = s % spr, streamed in chunks of kChunk rows.
+struct TapCursor {
+  long long piece, bi, j0;   // the piece, its batch row and first row
+  long long rows;            // its rows
+  long long chunk;           // the chunk of the piece
+  long long seq;             // the block's chunk count before this one
+  long long xpos;            // ring row of the piece's x window row 0
+};
+
+__device__ __forceinline__ void tap_piece(TapCursor& t, long long pieces,
+                                          long long spr, long long len,
+                                          long long n) {
+  // skip empty pieces (the last piece of a batch row can be empty)
+  for (; t.piece < pieces; t.piece += kTapSplit) {
+    t.bi = t.piece / spr;
+    t.j0 = (t.piece - t.bi * spr) * len;
+    t.rows = n - t.j0 < len ? n - t.j0 : len;
+    if (t.rows > 0) return;
+  }
+}
+
+__device__ __forceinline__ void tap_next(TapCursor& t, long long pieces,
+                                         long long spr, long long len,
+                                         long long n) {
+  ++t.seq;
+  if (++t.chunk * kChunk < t.rows) return;
+  // the next piece's window starts past this one's last row
+  t.xpos += t.chunk * kChunk + kHalo;
+  t.chunk = 0;
+  t.piece += kTapSplit;
+  tap_piece(t, pieces, spr, len, n);
+}
+
+// Requests one chunk: its g rows into ring slot seq % kStages, and the x
+// rows it adds to the ring (its whole window, halo included, for a piece's
+// first chunk). A piece's x row with window index i (x row j0 - k0 - kHalo
+// + left + i) sits at ring row (xpos + i) mod kXRing: the pieces' windows
+// follow each other in the ring, so no chunk in flight overwrites another's
+// rows (at most kStages windows of kChunk + kHalo rows).
+template <bool kVec>
+__device__ __forceinline__ void tap_load(float* gring, float* xring,
+                                         const TapCursor& t,
+                                         const float* __restrict__ g,
+                                         const float* __restrict__ x,
+                                         long long n, long long d,
+                                         long long c0, int k0, int left) {
+  const long long r0 = t.chunk * kChunk;   // the chunk's first row in the piece
+  float* gs = gring + (t.seq % kStages) * (kChunk * kTC);
+  const float* gb = g + t.bi * n * d;
+  const float* xb = x + t.bi * n * d;
+  for (int e = threadIdx.x; e < kChunk * kTQ; e += kThreads) {
+    const int row = e / kTQ, q = e % kTQ;
+    const long long j = t.j0 + r0 + row;
+    copy_quad<kVec>(gs + row * kTC + 4 * q, g, gb + j * d, c0 + 4 * q, d,
+                    r0 + row < t.rows);
+  }
+  const long long lo = t.chunk == 0 ? 0 : r0 + kHalo;
+  const long long hi = r0 + kChunk + kHalo;
+  const long long xi0 = t.j0 - k0 - kHalo + left;
+  for (int e = threadIdx.x; e < (hi - lo) * kTQ; e += kThreads) {
+    const long long w = lo + e / kTQ;
+    const int q = e % kTQ;
+    const long long i = xi0 + w;
+    const int slot = (int)((t.xpos + w) & (kXRing - 1));
+    copy_quad<kVec>(xring + slot * kTC + 4 * q, x, xb + i * d, c0 + 4 * q, d,
+                    i >= 0 && i < n);
+  }
+}
+
+// Grid (kTapSplit, channel tiles, tap passes); dynamic shared memory
+// kTapSmemFloats floats; part: kTapSplit (tile, pass) sums of kTT x kTC.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    conv_tap_grad_kernel(const float* __restrict__ g,
+                         const float* __restrict__ x, float* __restrict__ part,
+                         float* __restrict__ df, long long b, long long n,
+                         long long d, int m, int left, long long spr,
+                         long long len) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ bool last;
+  float* gring = smem;                          // [kStages][kChunk][kTC]
+  float* xring = smem + kStages * kChunk * kTC;  // [kXRing][kTC]
+  const int rank = (int)blockIdx.x;
+  const long long c0 = (long long)blockIdx.y * kTC;
+  const int k0 = (int)blockIdx.z * kTT;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cq = lane % kTQ, tg = lane / kTQ;   // 4 channels, 8 taps
+  const long long pieces = b * spr;
+
+  float4 acc[kTK];
+#pragma unroll
+  for (int kk = 0; kk < kTK; ++kk) acc[kk] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  TapCursor ld{rank, 0, 0, 0, 0, 0, 0};
+  tap_piece(ld, pieces, spr, len, n);
+  TapCursor cur = ld;
+  // the first kStages - 1 chunks in flight (empty groups past the end)
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (ld.piece < pieces) {
+      tap_load<kVec>(gring, xring, ld, g, x, n, d, c0, k0, left);
+      tap_next(ld, pieces, spr, len, n);
+    }
+    cp_async_commit();
+  }
+  while (cur.piece < pieces) {
+    cp_async_wait<kStages - 2>();   // this chunk has landed
+    __syncthreads();                // for every thread; slot seq - 1 is free
+    if (ld.piece < pieces) {
+      tap_load<kVec>(gring, xring, ld, g, x, n, d, c0, k0, left);
+      tap_next(ld, pieces, spr, len, n);
+    }
+    cp_async_commit();
+    const float* gs = gring + (cur.seq % kStages) * (kChunk * kTC) + 4 * cq;
+    // row r0 + jj (jj = warp rows + h + q) with tap k0 + kTK tg + kk reads
+    // window index r0 + jj - kTK tg - kk + kHalo: window element q + kTK-1-kk
+    // from window base r0 + warp rows + h + kHalo - (kTK - 1) - kTK tg
+    const long long wb0 = cur.xpos + cur.chunk * kChunk + warp * kWRows
+                          + kHalo - (kTK - 1) - kTK * tg;
+#pragma unroll
+    for (int h = 0; h < kWRows; h += kHalf) {
+      float4 xw[kHalf + kTK - 1];
+#pragma unroll
+      for (int e = 0; e < kHalf + kTK - 1; ++e) {
+        const int slot = (int)((wb0 + h + e) & (kXRing - 1));
+        xw[e] = *reinterpret_cast<const float4*>(xring + slot * kTC + 4 * cq);
+      }
+#pragma unroll
+      for (int q = 0; q < kHalf; ++q) {
+        const float4 gv = *reinterpret_cast<const float4*>(
+            gs + (warp * kWRows + h + q) * kTC);
+#pragma unroll
+        for (int kk = 0; kk < kTK; ++kk) {
+          const float4 xv = xw[q + kTK - 1 - kk];
+          acc[kk].x = fmaf(gv.x, xv.x, acc[kk].x);
+          acc[kk].y = fmaf(gv.y, xv.y, acc[kk].y);
+          acc[kk].z = fmaf(gv.z, xv.z, acc[kk].z);
+          acc[kk].w = fmaf(gv.w, xv.w, acc[kk].w);
+        }
+      }
+    }
+    tap_next(cur, pieces, spr, len, n);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                  // every warp is done with the rings
+  // the warps' sums, [warp][tap][channel], added in warp order
+  float* red = xring;
+#pragma unroll
+  for (int kk = 0; kk < kTK; ++kk)
+    *reinterpret_cast<float4*>(
+        red + ((warp * kTT) + kTK * tg + kk) * kTC + 4 * cq) = acc[kk];
+  __syncthreads();
+  // this block's sums, [tap][channel], into its slot of the workspace
+  const unsigned tile = blockIdx.z * gridDim.y + blockIdx.y;
+  float* sums = part + (long long)tile * kTapSplit * (kTT * kTC);
+  for (int o = threadIdx.x; o < kTT * kTC; o += kThreads) {
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += red[w * kTT * kTC + o];
+    sums[rank * (kTT * kTC) + o] = s;
+  }
+  __threadfence();                  // the sums are seen before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(&g_tap_tickets[tile], 1u) == kTapSplit - 1;
+  __syncthreads();
+  if (!last) return;
+  // the tile's last block: the kTapSplit blocks' sums in block order, then
+  // df's rows (channel-major) through a padded tile in shared memory
+  __threadfence();
+  float* out = gring;               // [tap][kTC + 1]
+  float v[kTT * kTC / kThreads][kTapSplit];
+#pragma unroll
+  for (int u = 0; u < kTT * kTC / kThreads; ++u)
+#pragma unroll
+    for (int p = 0; p < kTapSplit; ++p)
+      v[u][p] = __ldcg(sums + p * kTT * kTC + threadIdx.x + u * kThreads);
+#pragma unroll
+  for (int u = 0; u < kTT * kTC / kThreads; ++u) {
+    const int o = threadIdx.x + u * kThreads;
+    float s = 0.f;
+#pragma unroll
+    for (int p = 0; p < kTapSplit; ++p) s += v[u][p];
+    out[(o / kTC) * (kTC + 1) + o % kTC] = s;
   }
   __syncthreads();
-  for (int kb = 0; kb < mp; kb += kKB) {
-    // row row0 + q with tap kb + kk reads tile row
-    // row0 + q - kb - kk + mp - 1 = window element q + kKB - 1 - kk
-    const float* xr = xs + (row0 + mp - kb - kKB) * kLanes + lane;
-    float xw[kRows + kKB - 1];
+  for (int o = threadIdx.x; o < kTT * kTC; o += kThreads) {
+    const int cl = o / kTT, kt = o % kTT;
+    const long long c = c0 + cl;
+    const int k = k0 + kt;
+    if (c < d && k < m) df[c * m + k] = out[kt * (kTC + 1) + cl];
+  }
+  if (threadIdx.x == 0) g_tap_tickets[tile] = 0u;
+}
+
+// -------------------------------------------------------------- gram_grad
+// An item: channels 4 cg.., rows s 64 st.., columns t 64 tt..; a step: 8
+// batch rows 8 bc.. of it. z's tile row t sits at row swz(t) in shared
+// memory, so that the 8 lanes of a quarter warp, reading rows 4 tq + j,
+// hit 8 distinct 16-byte bank groups.
+__device__ __forceinline__ int swz(int t) { return t ^ ((t >> 3) & 3); }
+
+// Column j (0..3) of a thread's 4 in its item: 4 consecutive columns for
+// 16-byte stores (kVecOut), else columns tq + 16 j, so that each 4-byte
+// store of a half warp covers 64 consecutive bytes of a row.
+template <bool kVecOut>
+__device__ __forceinline__ int gram_col(int tq, int j) {
+  return kVecOut ? 4 * tq + j : tq + (kGT / 4) * j;
+}
+
+struct GramStep {
+  long long cg, st, tt;
+  long long bc;
+};
+
+__device__ __forceinline__ GramStep gram_step(long long step, long long nb,
+                                              long long nst, long long ntt) {
+  const long long item = blockIdx.x + (step / nb) * (long long)gridDim.x;
+  GramStep s;
+  s.bc = step % nb;
+  s.cg = item / (nst * ntt);
+  const long long rem = item - s.cg * nst * ntt;
+  s.st = rem / ntt;
+  s.tt = rem - s.st * ntt;
+  return s;
+}
+
+template <bool kVec>
+__device__ __forceinline__ void gram_load(float* gs, float* zs,
+                                          const GramStep& s,
+                                          const float* __restrict__ gz,
+                                          const float* __restrict__ z,
+                                          long long b, long long r,
+                                          long long d) {
+  const long long c = s.cg * kGC;
 #pragma unroll
-    for (int e = 0; e < kRows + kKB - 1; ++e) xw[e] = xr[e * kLanes];
+  for (int u = 0; u < kGB * kGS / kGThreads; ++u) {
+    const int e = threadIdx.x + u * kGThreads;
+    const int bb = e / kGS, row = e % kGS;
+    const long long bi = s.bc * kGB + bb, si = s.st * kGS + row;
+    copy_quad<kVec>(gs + (bb * kGS + row) * kGC, gz, gz + (bi * r + si) * d,
+                    c, d, bi < b && si < r);
+  }
 #pragma unroll
-    for (int kk = 0; kk < kKB; ++kk) {
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < kRows; ++q)
-        acc = fmaf(gr[q], xw[q + kKB - 1 - kk], acc);
-      red[(warp * kKB + kk) * kLanes + lane] = acc;
-    }
-    __syncthreads();
-    // warp w adds tap kb + w over the 8 warps, in warp order
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[(w * kKB + warp) * kLanes + lane];
-    const int k = kb + warp;
-    if (cok && k < m) part[(p * m + k) * d + c] = s;
-    __syncthreads();                   // before red is written again
+  for (int u = 0; u < kGB * kGT / kGThreads; ++u) {
+    const int e = threadIdx.x + u * kGThreads;
+    const int bb = e / kGT, row = e % kGT;
+    const long long bi = s.bc * kGB + bb, ti = s.tt * kGT + row;
+    copy_quad<kVec>(zs + (bb * kGT + swz(row)) * kGC, z,
+                    z + (bi * r + ti) * d, c, d, bi < b && ti < r);
   }
 }
 
-// df[c, k] = sum_p part[p, k, c], p in order.
-__global__ void tap_grad_reduce_kernel(const float* __restrict__ part,
-                                       float* __restrict__ df, long long np,
-                                       long long d, int m) {
-  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (t >= d * m) return;
-  const long long k = t / d;
-  const long long c = t - k * d;
-  float s = 0.f;
-  for (long long p = 0; p < np; ++p) s += part[p * d * m + t];
-  df[c * m + k] = s;
-}
-
-__global__ void __launch_bounds__(kGThreads)
+// Grid: at most kGBlocksPerSM blocks an SM, block i taking items i, i +
+// gridDim.x, ...; kVecIn: 16-byte copies (d % 4 == 0, aligned); kVecOut:
+// 16-byte stores (r % 4 == 0, aligned).
+template <bool kVecIn, bool kVecOut>
+__global__ void __launch_bounds__(kGThreads, kGBlocksPerSM)
     gram_grad_kernel(const float* __restrict__ gz,
                      const float* __restrict__ z, float* __restrict__ da,
-                     long long b, long long r, long long d) {
-  __shared__ float gs[kGB][kGC][kGS];      // gz[b0 + bb, s0 + ss, c0 + cc]
-  __shared__ float zs[kGB][kGC][kGT + 1];  // z[b0 + bb, t0 + tt, c0 + cc]
-  const long long c0 = blockIdx.x * (long long)kGC;
-  const long long s0 = blockIdx.y * (long long)kGS;
-  const long long t0 = blockIdx.z * (long long)kGT;
-  const int tl = threadIdx.x % kGT;    // this thread's column
-  const int cc0 = 2 * (threadIdx.x / kGT);  // and its channels cc0, cc0 + 1
-  float acc[2][kGS];
+                     long long b, long long r, long long d, long long items,
+                     long long nst, long long ntt) {
+  __shared__ __align__(16) float gs[kGStages][kGB * kGS * kGC];
+  __shared__ __align__(16) float zs[kGStages][kGB * kGT * kGC];
+  const long long nb = (b + kGB - 1) / kGB;
+  const long long mine =
+      blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const long long steps = mine * nb;
+  const int tq = threadIdx.x % (kGT / 4), sq = threadIdx.x / (kGT / 4);
+  float acc[kGC][kGSR][4];          // [channel][row s][column t]
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
+  for (int c = 0; c < kGC; ++c)
 #pragma unroll
-    for (int ss = 0; ss < kGS; ++ss) acc[u][ss] = 0.f;
-  for (long long b0 = 0; b0 < b; b0 += kGB) {
-    // kGB batch rows' tiles at once, so that their loads are in flight
-    // together; 8 consecutive channels of a row are one 32-byte sector
-    for (int e = threadIdx.x; e < kGB * kGC * kGT; e += kGThreads) {
-      const int cc = e % kGC, tt = (e / kGC) % kGT, bb = e / (kGC * kGT);
-      const long long c = c0 + cc, t = t0 + tt, bi = b0 + bb;
-      zs[bb][cc][tt] =
-          c < d && t < r && bi < b ? z[(bi * r + t) * d + c] : 0.f;
+    for (int i = 0; i < kGSR; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[c][i][j] = 0.f;
+  // the first kGStages - 1 steps in flight (empty groups past the end)
+#pragma unroll
+  for (int st = 0; st < kGStages - 1; ++st) {
+    if (st < steps)
+      gram_load<kVecIn>(gs[st], zs[st], gram_step(st, nb, nst, ntt), gz, z,
+                        b, r, d);
+    cp_async_commit();
+  }
+  for (long long st = 0; st < steps; ++st) {
+    cp_async_wait<kGStages - 2>();  // this step has landed
+    __syncthreads();                // for every thread; stage st - 1 is free
+    const long long next = st + kGStages - 1;
+    if (next < steps)
+      gram_load<kVecIn>(gs[next % kGStages], zs[next % kGStages],
+                        gram_step(next, nb, nst, ntt), gz, z, b, r, d);
+    cp_async_commit();
+    const int cur = (int)(st % kGStages);
+    // the step's batch rows in order (rows past b add exact zeros)
+#pragma unroll
+    for (int bb = 0; bb < kGB; ++bb) {
+      float4 gv[kGSR], zv[4];
+#pragma unroll
+      for (int i = 0; i < kGSR; ++i)
+        gv[i] = *reinterpret_cast<const float4*>(
+            &gs[cur][(bb * kGS + kGSR * sq + i) * kGC]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        zv[j] = *reinterpret_cast<const float4*>(
+            &zs[cur][(bb * kGT + swz(gram_col<kVecOut>(tq, j))) * kGC]);
+#pragma unroll
+      for (int i = 0; i < kGSR; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[0][i][j] = fmaf(gv[i].x, zv[j].x, acc[0][i][j]);
+          acc[1][i][j] = fmaf(gv[i].y, zv[j].y, acc[1][i][j]);
+          acc[2][i][j] = fmaf(gv[i].z, zv[j].z, acc[2][i][j]);
+          acc[3][i][j] = fmaf(gv[i].w, zv[j].w, acc[3][i][j]);
+        }
     }
-    for (int e = threadIdx.x; e < kGB * kGC * kGS; e += kGThreads) {
-      const int cc = e % kGC, ss = (e / kGC) % kGS, bb = e / (kGC * kGS);
-      const long long c = c0 + cc, s = s0 + ss, bi = b0 + bb;
-      gs[bb][cc][ss] =
-          c < d && s < r && bi < b ? gz[(bi * r + s) * d + c] : 0.f;
-    }
-    __syncthreads();
-    // the batch rows in order (rows past b add exact zeros)
+    const GramStep s = gram_step(st, nb, nst, ntt);
+    if (s.bc == nb - 1) {           // the item's last batch rows: store it
+      const long long t0 = s.tt * kGT;
 #pragma unroll
-    for (int bb = 0; bb < kGB; ++bb)
+      for (int c = 0; c < kGC; ++c) {
+        const long long ch = s.cg * kGC + c;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float zv = zs[bb][cc0 + u][tl];
+        for (int i = 0; i < kGSR; ++i) {
+          const long long si = s.st * kGS + kGSR * sq + i;
+          if (ch < d && si < r) {
+            float* dst = da + (ch * r + si) * r + t0;
+            if (kVecOut) {
+              if (t0 + 4 * tq < r)
+                *reinterpret_cast<float4*>(dst + 4 * tq) = make_float4(
+                    acc[c][i][0], acc[c][i][1], acc[c][i][2], acc[c][i][3]);
+            } else {
 #pragma unroll
-        for (int ss = 0; ss < kGS; ++ss)
-          acc[u][ss] = fmaf(gs[bb][cc0 + u][ss], zv, acc[u][ss]);
+              for (int j = 0; j < 4; ++j) {
+                const int col = gram_col<false>(tq, j);
+                if (t0 + col < r) dst[col] = acc[c][i][j];
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[c][i][j] = 0.f;
+        }
       }
-    __syncthreads();                   // before the tiles are refilled
-  }
-  const long long t = t0 + tl;
-  if (t >= r) return;
-#pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const long long c = c0 + cc0 + u;
-#pragma unroll
-    for (int ss = 0; ss < kGS; ++ss) {
-      const long long s = s0 + ss;
-      if (c < d && s < r) da[(c * r + s) * r + t] = acc[u][ss];
     }
   }
+  cp_async_wait<0>();
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of the conv_tap_grad workspace of partials, (P, m, d).
+// Floats of the conv_tap_grad workspace: kTapSplit block sums of kTT x kTC
+// for each (channel tile, tap pass).
 long long conv_tap_grad_workspace_floats(long long b, long long n,
                                          long long d, long long m) {
-  return b * ((n + kTN - 1) / kTN) * m * d;
+  (void)b, (void)n;
+  return (d + kTC - 1) / kTC * ((m + kTT - 1) / kTT) * kTapSplit * kTT * kTC;
+}
+
+// Pieces a batch row is cut into for conv_tap_grad: one when b fills the
+// tile's kTapSplit blocks, else enough for each block to take one, but at
+// most ceil(n / kMinPiece).
+static long long conv_tap_grad_pieces(long long b, long long n) {
+  const long long want = (kTapSplit + b - 1) / b;
+  const long long most = (n + kMinPiece - 1) / kMinPiece;
+  const long long p = want < most ? want : most;
+  return p < 1 ? 1 : p;
 }
 
 // g, x: (b, n, d); part: conv_tap_grad_workspace_floats(b, n, d, m) floats;
 // df: (d, m); contiguous fp32 on the device; 0 <= left < m. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue when a block's shared memory
-// would exceed the card's limit or the grid its bounds.
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
+// grid would exceed its bounds or the tickets.
 int conv_tap_grad_f32(const void* g, const void* x, void* part, void* df,
                       long long b, long long n, long long d, long long m,
                       long long left, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long tiles = (n + kTN - 1) / kTN;
-  const long long np = b * tiles;
-  const long long smem = tap_grad_smem(m);
-  if (smem > kMaxSmem || np > 65535)
+  const long long tiles = (d + kTC - 1) / kTC;
+  const long long passes = (m + kTT - 1) / kTT;
+  if (tiles > 65535 || passes > 65535 || tiles * passes > kMaxTickets)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > kStaticSmem) {
-    // set on the current device at each such launch: no per-process state
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_tap_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((unsigned)((d + kLanes - 1) / kLanes), (unsigned)np);
-  conv_tap_grad_kernel<<<grid, kLanes * kWarps, (size_t)smem, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<float*>(part), n, d, (int)m, (int)left, tiles);
-  cudaError_t e = cudaGetLastError();
+  const long long spr = conv_tap_grad_pieces(b, n);
+  const long long len = (n + spr - 1) / spr;
+  const bool vec = d % 4 == 0 && aligned16(g) && aligned16(x);
+  void (*kernel)(const float*, const float*, float*, float*, long long,
+                 long long, long long, int, int, long long, long long) =
+      vec ? conv_tap_grad_kernel<true> : conv_tap_grad_kernel<false>;
+  const int smem = kTapSmemFloats * (int)sizeof(float);
+  // set on the current device at each launch: no per-process state
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long outs = d * m;
-  tap_grad_reduce_kernel<<<(unsigned)((outs + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(df), np, d,
-      (int)m);
+  const dim3 grid(kTapSplit, (unsigned)tiles, (unsigned)passes);
+  kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g), static_cast<const float*>(x),
+      static_cast<float*>(part), static_cast<float*>(df), b, n, d, (int)m,
+      (int)left, spr, len);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of each kernel an SM holds (the 16-byte instances), -1 on error.
+int conv_tap_grad_blocks_per_sm() {
+  int blocks = 0;
+  const int smem = kTapSmemFloats * (int)sizeof(float);
+  if (cudaFuncSetAttribute(conv_tap_grad_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, conv_tap_grad_kernel<true>, kThreads, smem) !=
+          cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+int gram_grad_blocks_per_sm() {
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, gram_grad_kernel<true, true>, kGThreads, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
 // gz, z: (b, r, d); da: (d, r, r); contiguous fp32 on the device. Returns
-// cudaGetLastError(), or cudaErrorInvalidValue when the grid exceeds its
-// bounds.
+// cudaGetLastError() after the launch.
 int gram_grad_f32(const void* gz, const void* z, void* da, long long b,
                   long long r, long long d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long rows = (r + kGS - 1) / kGS, cols = (r + kGT - 1) / kGT;
-  if (rows > 65535 || cols > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)((d + kGC - 1) / kGC), (unsigned)rows,
-                  (unsigned)cols);
-  gram_grad_kernel<<<grid, kGThreads, 0, s>>>(
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long nst = (r + kGS - 1) / kGS, ntt = (r + kGT - 1) / kGT;
+  const long long items = (d + kGC - 1) / kGC * nst * ntt;
+  const long long most = (long long)sms * kGBlocksPerSM;
+  const unsigned grid = (unsigned)(items < most ? items : most);
+  const bool vin = d % 4 == 0 && aligned16(gz) && aligned16(z);
+  const bool vout = r % 4 == 0 && aligned16(da);
+  void (*kernel)(const float*, const float*, float*, long long, long long,
+                 long long, long long, long long, long long) =
+      vin ? (vout ? gram_grad_kernel<true, true>
+                  : gram_grad_kernel<true, false>)
+          : (vout ? gram_grad_kernel<false, true>
+                  : gram_grad_kernel<false, false>);
+  kernel<<<grid, kGThreads, 0, s>>>(
       static_cast<const float*>(gz), static_cast<const float*>(z),
-      static_cast<float*>(da), b, r, d);
+      static_cast<float*>(da), b, r, d, items, nst, ntt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -68,9 +68,10 @@ def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
                   left: int) -> torch.Tensor:
     """df[c, k] = Σ_{b,j} g[b,j,c] · x[b, j-k+left, c], x zero outside
     [0, n): g, x (b, n, d) → (d, m) fp32. Every n >= 1 (n < m included)
-    and 0 <= left < m. On the card each block sums its rows into a
-    workspace and a second pass adds the blocks' sums in order: no atomics,
-    bitwise reproducible. CPU: :func:`ref.conv_tap_grad_ref`."""
+    and 0 <= left < m. On the card one launch: 8 blocks split the rows of
+    a channel tile, and the block that draws the tile's last ticket adds
+    their sums in block order: no floating-point atomics, bitwise
+    reproducible. CPU: :func:`ref.conv_tap_grad_ref`."""
     if not 0 <= left < m:
         raise ValueError(f"conv_tap_grad: left={left} outside [0, m={m})")
     if g.device.type == "cpu" and x.device.type == "cpu":
@@ -78,6 +79,8 @@ def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
     _require_pair("conv_tap_grad", g, x)
     b, n, d = x.shape
     lib = _lib()
+    # the blocks' sums (an earlier build, loaded by tools/ab_kernel.py,
+    # asks for its own size of partials through the same call)
     part = torch.empty(lib.conv_tap_grad_workspace_floats(b, n, d, m),
                        dtype=torch.float32, device=x.device)
     df = torch.empty((d, m), dtype=torch.float32, device=x.device)

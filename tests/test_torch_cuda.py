@@ -53,8 +53,9 @@ def test_pass2_runs_on_each_card():
 
 def test_grad_kernels_run_on_each_card():
     """gram_grad and conv_tap_grad on card 0, then on card 1, at the SKI
-    path's shape and with m = 400 taps (conv_tap_grad's block then needs
-    more than 48 KB of shared memory)."""
+    path's shape and with m = 400 taps: conv_tap_grad's block needs more
+    than 48 KB of shared memory, and each card has its own tickets (a
+    module variable), which the last block of each tile resets."""
     from repro_torch.kernels import ski_grad
     b, n, d, r = 8, 512, 512, 64
     for dev in _two_cards():

@@ -5,9 +5,9 @@
                                [--out chiprun_out/ab_NAME.json]
 
 ``NAME`` is a key of ``repro_torch.kernels.backend.SOURCES`` that
-:data:`CHECKS` has a check for (``ssd_scan``, ``ski``). Each ``--old`` is
-another version of that source with the same C interface, for example an
-earlier commit's file (``git show
+:data:`CHECKS` has a check for (``ssd_scan``, ``ski``, ``ski_grad``). Each
+``--old`` is another version of that source with the same C interface, for
+example an earlier commit's file (``git show
 <rev>:src/repro_torch/kernels/csrc/ssd_scan.cu > build/ab/ssd_scan_v2.cu``),
 built with the backend's ``nvcc`` flags into ``build/ab/`` and named by
 its file's stem. Then:
@@ -60,6 +60,7 @@ AB_DIR = ROOT / "build" / "ab"
 CHECKS = {
     "ski": lambda peaks: {**chip_smoke.phase_ski_kernels(peaks),
                           **chip_smoke.phase_window_kernels(peaks)},
+    "ski_grad": chip_smoke.phase_grad_kernels,
     "ssd_scan": chip_smoke.check_ssd_scan,
 }
 
@@ -143,11 +144,65 @@ def _ski_outputs() -> dict:
     return out
 
 
+#: conv_tap_grad's timed and compared offsets at the path (causal and
+#: bidirectional taps)
+TAP_GRAD_LEFTS = (0, 16)
+#: gram_grad's timed and compared shapes (label, b, r, d): the SKI path and
+#: the dense route's ceilings
+GRAM_SHAPES = (("path", 8, 64, 512),
+               *((label, b, r, d)
+                 for label, b, n, d, r, m in chip_smoke.PASS2_CEILING))
+
+
+def _grad_inputs(seed):
+    """g, x (8, 512, 512) and gz, z at each GRAM_SHAPES shape."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gx = [torch.randn(8, 512, 512, device="cuda", generator=g)
+          for _ in range(2)]
+    gram = {label: [torch.randn(b, r, d, device="cuda", generator=g)
+                    for _ in range(2)]
+            for label, b, r, d in GRAM_SHAPES}
+    return gx, gram
+
+
+def _time_ski_grad(peaks) -> dict:
+    """Unchecked, timed as chip_smoke times them: conv_tap_grad at the SKI
+    path (g, x (8, 512, 512), m = 32) at TAP_GRAD_LEFTS, and gram_grad at
+    GRAM_SHAPES, with their bytes bounds."""
+    from repro_torch.kernels import ski_grad
+    (cot, x), gram = _grad_inputs(seed=8)
+    out = {}
+    m = 32
+    for left in TAP_GRAD_LEFTS:
+        out[f"conv_tap_grad left={left}"] = {
+            "ms": chip_smoke.time_ms(
+                lambda: ski_grad.conv_tap_grad(cot, x, m, left)),
+            "bound_ms": 4 * (2 * x.numel() + 512 * m) / peaks[0] * 1e3}
+    for label, b, r, d in GRAM_SHAPES:
+        gz, z = gram[label]
+        out[f"gram_grad {label}"] = {
+            "ms": chip_smoke.time_ms(lambda: ski_grad.gram_grad(gz, z)),
+            "bound_ms": 4 * (2 * z.numel() + d * r * r) / peaks[0] * 1e3}
+    return out
+
+
+def _ski_grad_outputs() -> dict:
+    """The same calls on fixed inputs, for max |new - old|."""
+    from repro_torch.kernels import ski_grad
+    (cot, x), gram = _grad_inputs(seed=9)
+    out = {f"conv_tap_grad left={left}": ski_grad.conv_tap_grad(cot, x, 32,
+                                                                left)
+           for left in TAP_GRAD_LEFTS}
+    for label, *_ in GRAM_SHAPES:
+        out[f"gram_grad {label}"] = ski_grad.gram_grad(*gram[label])
+    return out
+
+
 #: library name -> the unchecked timing of ``--time-only``
-TIMERS = {"ski": _time_ski}
+TIMERS = {"ski": _time_ski, "ski_grad": _time_ski_grad}
 #: library name -> its kernels' outputs on fixed inputs, compared between
 #: builds (max |build - new|)
-OUTPUTS = {"ski": _ski_outputs}
+OUTPUTS = {"ski": _ski_outputs, "ski_grad": _ski_grad_outputs}
 
 
 def tool(name: str) -> str:

@@ -19,9 +19,12 @@ traces with ``torch.profiler`` (``trace`` of
 
 For each region it prints the host wall time (ending in a synchronise),
 the device busy time, the idle share, the device event count and the top
-kernels by device time. Then, untraced (the profiler's host overhead
-inflates short regions), the median wall of five runs of ``train_step``,
-``pre_step_clone`` and ``data``: the parts of one ``Trainer.run`` step.
+kernels by device time. For ``--arch ski-tnn-lm-wt103`` it then prints the
+device ms of each SKI kernel in one step (``loss_and_grads``), by name, with
+its launches and its share of that region's busy time. Then, untraced (the
+profiler's host overhead inflates short regions), the median wall of five
+runs of ``train_step``, ``pre_step_clone`` and ``data``: the parts of one
+``Trainer.run`` step.
 Needs a CUDA card; exits non-zero without one.
 """
 from __future__ import annotations
@@ -41,6 +44,25 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT / "tools"))
 
 from profile_torch_serve import trace  # noqa: E402
+
+#: the SKI kernels of a dense training step, by function-name prefix
+#: (``tap_grad_reduce``: the second kernel of conv_tap_grad before PR 23)
+SKI_KERNELS = ("interp_reduce", "ski_dense_pass2", "gram_grad",
+               "conv_tap_grad", "tap_grad_reduce")
+
+
+def ski_step_kernels(region: dict) -> dict:
+    """Device ms, launches and share of the region's busy time of each SKI
+    kernel in a traced ``loss_and_grads`` region (one step)."""
+    busy = region["device_busy_ms"]
+    out = {name: {**e, "share_of_busy": e["ms"] / busy if busy else None}
+           for name in SKI_KERNELS
+           if (e := region["port_kernels"].get(name))}
+    print(f"[ski kernels] one step (loss_and_grads, device busy {busy:.3f} "
+          "ms): " + "; ".join(f"{k} {v['ms']:.4f} ms x{v['calls']} "
+                              f"({v['share_of_busy']:.2%})"
+                              for k, v in out.items()))
+    return out
 
 
 def main(argv=None) -> int:
@@ -109,11 +131,13 @@ def main(argv=None) -> int:
         print(f"[untraced] {name}: median {statistics.median(walls):.3f} ms "
               f"of {[round(w, 3) for w in walls]}")
         regions.append({"region": f"untraced {name}", "walls_ms": walls})
+    ski = (ski_step_kernels(regions[1]) if args.arch == "ski-tnn-lm-wt103"
+           else None)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"device": torch.cuda.get_device_name(0), "arch": args.arch,
-             "regions": regions},
+             "regions": regions, "ski_kernels_a_step": ski},
             indent=1))
     return 0
 
