@@ -17,8 +17,15 @@ card or outside a checkout of this repository. Phases:
    median of 50 runs, L2 evicted before each) beside the plain version's,
    one PyTorch library call's (where one computes the same function), and
    the bound (bytes or operations over the card's published peak rate);
+   the fused ``causal_spectrum`` (plain and conjugated) and
+   ``causal_spectrum_adjoint`` at the FD path's (512, 513) and at d = 37
+   with n = 1, 2, 64 and 4096, also bitwise against a second call, timed
+   beside the plain PyTorch composition (irfft, window, rfft) and the
+   port's window route (cuFFT, ``hilbert_window``, cuFFT);
    the whole FD-TNO backward against autograd through the plain
-   ``ref.fd_tno_ref``, and under ``REPRO_PALLAS_GRAD=0``;
+   ``ref.fd_tno_ref`` at n = 512 (the fused route: 2 ``causal_spectrum``
+   and 1 ``causal_spectrum_adjoint`` launches) and n = 448 (the window
+   route: 3 ``hilbert_window``), and under ``REPRO_PALLAS_GRAD=0``;
    ``hilbert_window`` is differentiable, standalone ``fd_mul`` and
    ``fd_khat_grad`` refuse an input that requires grad; the SKI kernels
    ``interp_reduce``, ``interp_expand``, ``short_conv``,
@@ -46,11 +53,14 @@ card or outside a checkout of this repository. Phases:
 4. serve: the full-width fd-tnn-lm-wt103 (6 layers, d=512, vocab 50265,
    fp32, random weights from seed 0) scores 8 prompts of 448 tokens with
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
-   ``generate``; the serving launch counts are read from this phase;
+   ``generate``; the serving launch counts are read from this phase (a
+   prefill of 448 tokens completes its spectra on the window route);
 5. train: the same model, from seed 0, takes 30 AdamW steps through the
    port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step):
    5 warm-up steps, then a resume whose wall over the other 25 gives the
-   tokens/s; the training launch counts are read from this phase;
+   tokens/s; the training launch counts are read from this phase (per
+   layer a step: 2 ``causal_spectrum``, 1 ``causal_spectrum_adjoint``, 2
+   ``fd_mul``, 1 ``fd_khat_grad``);
 6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
@@ -278,6 +288,7 @@ def phase_kernels(peaks) -> dict:
             peaks=peaks)
         print(f"[kernel] hilbert_window kt ({d}, {2 * n}): {e}", flush=True)
         out.setdefault("hilbert_window", e)
+    out.update(phase_causal_spectrum(peaks))
     # fd_mul at the serving shape: 8 rows of the channel-major (d, n+1)
     # spectrum, d=512, n=512; and a ragged one
     for b, d, f in ((8, 512, 513), (3, 37, 45)):  # odd row: scalar path
@@ -345,6 +356,83 @@ def phase_kernels(peaks) -> dict:
     return out
 
 
+#: causal-spectrum shapes (label, d, n): the FD path (the response of
+#: d = 512 channels on the rfft grid of 2n = 1024) and the fused route's
+#: edges at a ragged d
+CS_SHAPES = (("path", 512, 512), ("n=1", 37, 1), ("n=2", 37, 2),
+             ("n=64", 37, 64), ("n=4096", 37, 4096))
+CS_REPLACES = "src/repro/kernels/fd_fused.py:80"
+
+
+def _cs_cost(d: int, n: int):
+    """(bytes, flops) of either causal-spectrum kernel: a (d, n+1) fp32
+    and a (d, n+1) complex64 tensor, one read and one written, and two
+    real FFTs of length 2n a row at 2.5 N log2 N flops each."""
+    return 12 * d * (n + 1), d * 2 * 2.5 * (2 * n) * math.log2(2 * n)
+
+
+def _cs_entry(name, label, d, n, kernel, plain, library, window, peaks):
+    """One causal-spectrum entry: the kernel within 1e-5 × max|plain| (two
+    FFTs a side, summed in another order than cuFFT's) and bitwise the same
+    over two calls; its time beside the plain version's, the plain PyTorch
+    composition's (``library_ms``) and the port's window route's (cuFFT,
+    ``hilbert_window``, cuFFT: ``window_route_ms``), each the median of 50
+    with L2 evicted."""
+    got = _repeat_equal(name, label, kernel)
+    want = plain()
+    if got.is_complex():
+        got, want = torch.view_as_real(got), torch.view_as_real(want)
+    nbytes, nops = _cs_cost(d, n)
+    e = _kernel_entry(name, CS_REPLACES, got, want, kernel, plain, library,
+                      nbytes=nbytes, nops=nops, peaks=peaks, tol=1e-5)
+    e["window_route_ms"] = time_ms(window)
+    print(f"[kernel] {name} {label} ({d}, {n + 1}): {e}", flush=True)
+    return e
+
+
+def phase_causal_spectrum(peaks) -> dict:
+    """The fused causal spectrum (plain and conjugated) and its adjoint at
+    every ``CS_SHAPES`` shape against their plain versions on the card,
+    with the timings of ``_cs_entry``; the adjoint's random cotangent keeps
+    imaginary parts at bins 0 and n, which both sides drop."""
+    from repro_torch.kernels import backend, fd_fused, ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for label, d, n in CS_SHAPES:
+        if backend.causal_spectrum_route(n) != "fused":
+            raise AssertionError(f"causal spectrum {label}: n = {n} is off "
+                                 "the fused route")
+        w = ref.hilbert_window_ref(torch.ones(1, 2 * n, device="cuda"),
+                                   n)[0]
+        c = torch.full((n + 1,), 1.0 / n, device="cuda")
+        c[0] = c[n] = 0.5 / n
+        u = torch.randn(d, n + 1, device="cuda", generator=g)
+        dk = torch.randn(d, n + 1, dtype=torch.complex64, device="cuda",
+                         generator=g)
+        for conj in (False, True):
+            tag = f"{label} conj" if conj else label
+
+            def library(conj=conj):
+                k = torch.fft.rfft(torch.fft.irfft(u, n=2 * n) * w, n=2 * n)
+                return torch.conj_physical(k) if conj else k
+            e = _cs_entry(
+                "causal_spectrum", tag, d, n,
+                lambda conj=conj: fd_fused.causal_spectrum(u, conj),
+                lambda conj=conj: ref.causal_spectrum_ref(u, conj), library,
+                lambda conj=conj: fd_fused.window_route_spectrum(u, conj),
+                peaks)
+            out.setdefault("causal_spectrum", e)
+        e = _cs_entry(
+            "causal_spectrum_adjoint", label, d, n,
+            lambda: fd_fused.causal_spectrum_adjoint(dk, n),
+            lambda: ref.causal_spectrum_adjoint_ref(dk, n),
+            lambda: c * torch.fft.rfft(torch.fft.irfft(dk, n=2 * n) * w,
+                                       n=2 * n).real,
+            lambda: fd_fused.window_route_cotangent(dk, u, n), peaks)
+        out.setdefault("causal_spectrum_adjoint", e)
+    return out
+
+
 def reference_grad():
     """``REPRO_PALLAS_GRAD=0`` for the duration of a ``with``: the autograd
     Functions keep their kernel forwards and return autograd's cotangents
@@ -364,41 +452,66 @@ def _grads_close(what, got, want, names, tol=1e-5) -> str:
     return "; ".join(errs)
 
 
+#: FDTNO launches for one differentiated forward and its kernel backward,
+#: and with the backward through the reference (REPRO_PALLAS_GRAD=0: the
+#: forward's launches alone, as in an inference forward), by the route of
+#: n: the fused route's causal spectrum is one launch forward
+#: and one conjugated plus one adjoint backward; the window route's
+#: Hilbert completion is one ``hilbert_window`` each time
+FD_OP_LAUNCHES = {
+    "fused": ({"hilbert_window": 0, "causal_spectrum": 2,
+               "causal_spectrum_adjoint": 1, "fd_mul": 2, "fd_khat_grad": 1},
+              {"hilbert_window": 0, "causal_spectrum": 1,
+               "causal_spectrum_adjoint": 0, "fd_mul": 1,
+               "fd_khat_grad": 0}),
+    "window": ({"hilbert_window": 3, "causal_spectrum": 0,
+                "causal_spectrum_adjoint": 0, "fd_mul": 2, "fd_khat_grad": 1},
+               {"hilbert_window": 1, "causal_spectrum": 0,
+                "causal_spectrum_adjoint": 0, "fd_mul": 1,
+                "fd_khat_grad": 0})}
+
+
 def check_fd_tno_backward(g) -> None:
     """The whole FDTNO backward (conj-spectrum fd_mul, fd_khat_grad, the
-    window twice, the irfft adjoint) at the training shape, x (8, 512, 512)
-    fp32 and khat_real (512, 513), against torch.autograd through the plain
-    ref.fd_tno_ref on the card: dx and dkhat_real within 1e-5 × max (the
-    fp32 tier: the batch sums run in another order). Under
-    REPRO_PALLAS_GRAD=0 the backward is that autograd, counted as bwd_ref,
-    with no backward kernel launched."""
-    from repro_torch.kernels import fd_fused, ops, ref
-    b, n, d = 8, 512, 512
-    x = torch.randn(b, n, d, device="cuda", generator=g, requires_grad=True)
-    k = torch.randn(d, n + 1, device="cuda", generator=g, requires_grad=True)
-    cot = torch.randn(b, n, d, device="cuda", generator=g)
-    fd_fused.reset_counters()
-    got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
-    ran = dict(fd_fused.counters, **fd_fused.op_counters)
-    want = torch.autograd.grad(ref.fd_tno_ref(x, k), (x, k), cot)
-    names = ("dx", "dkhat_real")
-    report = _grads_close("FDTNO backward", got, want, names)
-    if ran != {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1,
-               "fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}:
-        raise AssertionError(f"FDTNO forward + backward launched {ran}")
-    print(f"[kernel] FDTNO backward x ({b}, {n}, {d}) vs autograd through "
-          f"ref.fd_tno_ref: {report}; launches {ran}", flush=True)
-    fd_fused.reset_counters()
-    with reference_grad():
-        ref_got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
-    ran = dict(fd_fused.counters, **fd_fused.op_counters)
-    report = _grads_close("FDTNO REPRO_PALLAS_GRAD=0 backward", ref_got, got,
-                          names)
-    if ran != {"hilbert_window": 1, "fd_mul": 1, "fd_khat_grad": 0,
-               "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
-        raise AssertionError(f"FDTNO under REPRO_PALLAS_GRAD=0 launched {ran}")
-    print(f"[kernel] FDTNO under REPRO_PALLAS_GRAD=0 vs the kernel backward: "
-          f"{report}; launches {ran}", flush=True)
+    causal spectrum's adjoint) at the training shape, x (8, 512, 512) fp32
+    and khat_real (512, 513), on the fused route, and at n = 448 (the
+    prefill's length) on the window route, against torch.autograd through
+    the plain ref.fd_tno_ref on the card: dx and dkhat_real within 1e-5 ×
+    max (the fp32 tier: the batch sums and FFTs run in another order), with
+    the launches of ``FD_OP_LAUNCHES``. Under REPRO_PALLAS_GRAD=0 the
+    backward is that autograd, counted as bwd_ref, with no backward kernel
+    launched."""
+    from repro_torch.kernels import backend, fd_fused, ops, ref
+    for b, n, d in ((8, 512, 512), (8, 448, 512)):
+        route = backend.causal_spectrum_route(n)
+        launches, ref_launches = FD_OP_LAUNCHES[route]
+        x = torch.randn(b, n, d, device="cuda", generator=g,
+                        requires_grad=True)
+        k = torch.randn(d, n + 1, device="cuda", generator=g,
+                        requires_grad=True)
+        cot = torch.randn(b, n, d, device="cuda", generator=g)
+        fd_fused.reset_counters()
+        got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
+        ran = dict(fd_fused.counters, **fd_fused.op_counters)
+        want = torch.autograd.grad(ref.fd_tno_ref(x, k), (x, k), cot)
+        names = ("dx", "dkhat_real")
+        report = _grads_close("FDTNO backward", got, want, names)
+        if ran != {**launches, "fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}:
+            raise AssertionError(f"FDTNO forward + backward launched {ran}")
+        print(f"[kernel] FDTNO backward x ({b}, {n}, {d}), {route} route, "
+              f"vs autograd through ref.fd_tno_ref: {report}; launches "
+              f"{ran}", flush=True)
+        fd_fused.reset_counters()
+        with reference_grad():
+            ref_got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
+        ran = dict(fd_fused.counters, **fd_fused.op_counters)
+        report = _grads_close("FDTNO REPRO_PALLAS_GRAD=0 backward", ref_got,
+                              got, names)
+        if ran != {**ref_launches, "fwd": 1, "bwd_kernel": 0, "bwd_ref": 1}:
+            raise AssertionError(f"FDTNO under REPRO_PALLAS_GRAD=0 launched "
+                                 f"{ran}")
+        print(f"[kernel] FDTNO x ({b}, {n}, {d}) under REPRO_PALLAS_GRAD=0 "
+              f"vs the kernel backward: {report}; launches {ran}", flush=True)
 
 
 #: SKI kernel shapes (label, b, n, d, r, m, left): the SKI path with
@@ -919,7 +1032,7 @@ def phase_window_kernels(peaks, device="cuda") -> dict:
 # --------------------------------------------------------------- phase 4
 def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
     """Returns (model, prompt tokens, generated sequences, launch counts)."""
-    from repro_torch.kernels import fd_fused
+    from repro_torch.kernels import backend, fd_fused
     from repro_torch.launch.serve import generate
     from repro_torch.models.serving import prefill
     from repro_torch.models.transformer import init_model
@@ -971,11 +1084,13 @@ def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
           f"{decode_tps:.1f} tok/s; wall {wall:.3f} s", flush=True)
     print(f"[serve] kernel launches: prefill {in_prefill}, prefill + "
           f"generate {launches}", flush=True)
-    for name in ("hilbert_window", "fd_mul"):
-        count = in_prefill[name]
-        if count < cfg.n_layers:
-            raise AssertionError(f"{name} launched {count} times in prefill,"
-                                 f" < one per layer ({cfg.n_layers})")
+    # one inference forward a layer: its Hilbert completion on the route of
+    # the prompt's length (n = 448: the window route) and one fd_mul
+    route = backend.causal_spectrum_route(prompt_len)
+    want = {k: v * cfg.n_layers for k, v in FD_OP_LAUNCHES[route][1].items()}
+    if in_prefill != want:
+        raise AssertionError(f"prefill ({route} route) launched "
+                             f"{in_prefill}, not {want}")
     return model, prompt_len, seqs, launches
 
 
@@ -1007,7 +1122,7 @@ def _ski_counts(coef: bool = False):
 #: kernel launches a layer makes in one training step (forward + backward):
 #: the FD model, the SKI model on the dense Gram, and on the large-rank
 #: "windowed" and "fft" routes
-TRAIN_LAUNCHES = {"fd": {"hilbert_window": 3, "fd_mul": 2, "fd_khat_grad": 1},
+TRAIN_LAUNCHES = {"fd": FD_OP_LAUNCHES["fused"][0],
                   "ski": {"interp_reduce": 3, "ski_fused_pass2": 2,
                           "gram_grad": 1, "conv_tap_grad": 1},
                   "ski_windowed": {"interp_reduce": 3,
@@ -2287,7 +2402,8 @@ def main() -> int:
     kernels.update(mamba_kernels)
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
-             "train": (train_launches, tuple(TRAIN_LAUNCHES["fd"])),
+             "train": (train_launches, tuple(
+                 k for k, v in TRAIN_LAUNCHES["fd"].items() if v)),
              "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),
              "ski_train": (ski_train_launches,
                            tuple(TRAIN_LAUNCHES["ski"])),

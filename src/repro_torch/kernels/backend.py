@@ -132,6 +132,25 @@ def ski_rank_variant(r: int, d: int | None = None) -> str:
     return "fft"
 
 
+#: largest n of the fused causal-spectrum kernels (2n = 8192; the
+#: source's ``kCsMaxHalf``)
+CAUSAL_SPECTRUM_NMAX = 4096
+
+
+def causal_spectrum_route(n: int) -> str:
+    """How the causal FD-TNO completes a (d, n+1) real response into its
+    causal spectrum k̂ = rfft(w ⊙ irfft(u, 2n)) and pulls a spectrum
+    cotangent back: "fused" (``fd_fused.causal_spectrum`` and
+    ``causal_spectrum_adjoint``, one launch each) for n a power of two
+    with 1 <= n <= :data:`CAUSAL_SPECTRUM_NMAX`, whose transforms the
+    kernels do in shared memory; "window" (cuFFT, the ``hilbert_window``
+    kernel, cuFFT) for every other n, e.g. 448 or an odd n. A route by
+    shape on both devices, never a fallback."""
+    if 1 <= n <= CAUSAL_SPECTRUM_NMAX and n & (n - 1) == 0:
+        return "fused"
+    return "window"
+
+
 #: default of ``REPRO_SKI_BAND_MAX`` on Hopper (the JAX package's 128 was
 #: sized for TPU VMEM); see :func:`band_budget`
 SKI_BAND_MAX = 160

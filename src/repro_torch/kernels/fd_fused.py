@@ -18,13 +18,21 @@ Counterpart of ``repro/kernels/fd_fused.py``:
 * :func:`fd_khat_grad` — the backward's batch reduction Σ_b ĝ ⊙ conj(x̂)
   (replaces the Pallas ``_khat_grad_kernel``); :func:`fd_khat_grad_planes`
   keeps the planes signature.
+* :func:`causal_spectrum` and :func:`causal_spectrum_adjoint` — the
+  Hilbert completion k̂ = rfft(w ⊙ irfft(u, 2n)) of a (d, n+1) real
+  response and its adjoint, each in one launch that does both transforms
+  and the window in shared memory (replace ``causal_khat_planes`` and the
+  end of ``_fd_bwd``: irfft → ``_window_call`` → rfft or the irfft VJP),
+  for the lengths of ``backend.causal_spectrum_route``'s "fused" route;
+  every other length keeps cuFFT around :func:`hilbert_window`.
 * :class:`FDTNO` — the differentiable op :func:`fd_tno`, with the
   structure of ``fd_tno_pallas``'s custom VJP: residuals are the inputs
   (x, khat_real) only; the backward recomputes both spectra and runs
   ``fd_mul`` with the spectrum conjugated for dx, ``fd_khat_grad`` for the
-  spectrum cotangent, then ``hilbert_window`` and the exact irfft adjoint
-  for dkhat_real. :data:`op_counters` counts its differentiated forwards
-  and which backward ran (``bwd_kernel``, or ``bwd_ref`` under
+  spectrum cotangent, then the window and the exact irfft adjoint
+  (:func:`causal_spectrum_adjoint` on the fused route) for dkhat_real.
+  :data:`op_counters` counts its differentiated forwards and which
+  backward ran (``bwd_kernel``, or ``bwd_ref`` under
   ``REPRO_PALLAS_GRAD=0``), as ``repro/kernels/fd_fused.py`` does, beside
   the kernels' launch counts in :data:`counters`.
 
@@ -54,7 +62,8 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import backend, ref
 
 #: kernel launches per wrapper (CUDA path only; the CPU path counts nothing)
-counters = {"hilbert_window": 0, "fd_mul": 0, "fd_khat_grad": 0}
+counters = {"hilbert_window": 0, "causal_spectrum": 0,
+            "causal_spectrum_adjoint": 0, "fd_mul": 0, "fd_khat_grad": 0}
 #: differentiated :func:`fd_tno` forwards (grad enabled and an input that
 #: requires grad) and :class:`FDTNO` backwards: the kernel backward, or
 #: autograd through the plain version (``backend.resolve_pallas_grad``)
@@ -77,6 +86,10 @@ def _lib() -> ctypes.CDLL:
     lib.fd_mul_c64.restype = ctypes.c_int
     lib.fd_khat_grad_c64.argtypes = [p, p, p, i64, i64, p]
     lib.fd_khat_grad_c64.restype = ctypes.c_int
+    lib.causal_spectrum_f32.argtypes = [p, p, i64, i64, ctypes.c_int, p]
+    lib.causal_spectrum_f32.restype = ctypes.c_int
+    lib.causal_spectrum_adjoint_f32.argtypes = [p, p, i64, i64, p]
+    lib.causal_spectrum_adjoint_f32.restype = ctypes.c_int
     return lib
 
 
@@ -202,6 +215,68 @@ def fd_khat_grad_planes(gr, gi, xr, xi):
     return dk.real, dk.imag
 
 
+# ------------------------------------------------ causal spectrum, fused
+def _fused_length(t: torch.Tensor, what: str) -> int:
+    """n of a (d, n+1) spectrum on the fused route (d >= 1), or raise."""
+    if t.dim() != 2 or t.shape[0] < 1 or t.shape[1] < 2:
+        raise ValueError(f"{what}: {tuple(t.shape)} is not (d, n+1) with "
+                         "d >= 1 and n >= 1")
+    n = t.shape[1] - 1
+    if backend.causal_spectrum_route(n) != "fused":
+        raise ValueError(f"{what}: n = {n} is not on the fused route (a "
+                         "power of two up to "
+                         f"{backend.CAUSAL_SPECTRUM_NMAX}); other lengths "
+                         "take irfft, hilbert_window and rfft")
+    return n
+
+
+def causal_spectrum(u: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """Causal spectrum k̂ = rfft(w ⊙ irfft(u, 2n), 2n) of u (d, n+1) fp32
+    contiguous, n on ``backend.causal_spectrum_route``'s "fused" route:
+    a new (d, n+1) complex64 tensor, conj(k̂) with ``conj``. One launch
+    on the card, bitwise the same from call to call; forward-only there
+    (gradients go through :func:`fd_tno`). CPU:
+    :func:`ref.causal_spectrum_ref`."""
+    n = _fused_length(u, "causal_spectrum")
+    if u.device.type == "cpu":
+        return ref.causal_spectrum_ref(u, conj)
+    _forward_only("causal_spectrum", u)
+    backend.require_cuda(u, "causal_spectrum u", torch.float32)
+    out = torch.empty(u.shape, dtype=torch.complex64, device=u.device)
+    lib = _lib()
+    with torch.cuda.device(u.device):
+        rc = lib.causal_spectrum_f32(u.data_ptr(), out.data_ptr(),
+                                     u.shape[0], n, int(conj),
+                                     backend.stream(u))
+    backend.check(lib, rc, "causal_spectrum")
+    counters["causal_spectrum"] += 1
+    return out
+
+
+def causal_spectrum_adjoint(dk: torch.Tensor, n: int) -> torch.Tensor:
+    """The spectrum cotangent dk (d, n+1) complex64 contiguous pulled back
+    to the real response: irfftᵀ(w ⊙ irfft(dk, 2n)), the imaginary parts
+    of bins 0 and n dropped. A new (d, n+1) fp32 tensor; n on the "fused"
+    route. One launch on the card, bitwise the same from call to call;
+    forward-only there. CPU: :func:`ref.causal_spectrum_adjoint_ref`."""
+    if _fused_length(dk, "causal_spectrum_adjoint") != n:
+        raise ValueError(f"causal_spectrum_adjoint: dk {tuple(dk.shape)} "
+                         f"is not (d, n+1) with n = {n}")
+    if dk.device.type == "cpu":
+        return ref.causal_spectrum_adjoint_ref(dk, n)
+    _forward_only("causal_spectrum_adjoint", dk)
+    backend.require_cuda(dk, "causal_spectrum_adjoint dk", torch.complex64)
+    out = torch.empty(dk.shape, dtype=torch.float32, device=dk.device)
+    lib = _lib()
+    with torch.cuda.device(dk.device):
+        rc = lib.causal_spectrum_adjoint_f32(dk.data_ptr(), out.data_ptr(),
+                                             dk.shape[0], n,
+                                             backend.stream(dk))
+    backend.check(lib, rc, "causal_spectrum_adjoint")
+    counters["causal_spectrum_adjoint"] += 1
+    return out
+
+
 # --------------------------------------------------------- the fused op
 def causal_khat_planes(khat_real: torch.Tensor):
     """(d, n+1) real response → (n+1, d) re/im planes of the causal
@@ -219,9 +294,46 @@ def _spectrum(s: torch.Tensor, n: int) -> torch.Tensor:
                           dim=-1).contiguous()
 
 
-def _causal_khat(khat_real: torch.Tensor) -> torch.Tensor:
-    from repro_torch.core.hilbert import causal_spectrum
-    return causal_spectrum(khat_real).contiguous()            # (d, n+1)
+def window_route_spectrum(khat_real: torch.Tensor,
+                          conj: bool = False) -> torch.Tensor:
+    """The causal spectrum off the fused route: irfft,
+    :func:`hilbert_window`, rfft (``core.hilbert.causal_spectrum``), then
+    ``conj_physical`` with ``conj`` (the kernels read raw memory).
+    Contiguous (d, n+1) complex64."""
+    from repro_torch.core.hilbert import causal_spectrum as completion
+    khat = completion(khat_real).contiguous()                 # (d, n+1)
+    return torch.conj_physical(khat) if conj else khat
+
+
+def window_route_cotangent(dk: torch.Tensor, khat_real: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """dkhat_real off the fused route: irfft of the spectrum cotangent, the
+    self-adjoint :func:`hilbert_window`, and the exact irfft adjoint by
+    autograd, in khat_real's dtype."""
+    dkt = hilbert_window(torch.fft.irfft(dk, n=2 * n, dim=-1), n)
+    with torch.enable_grad():
+        k = khat_real.detach().requires_grad_()
+        (dkhat_real,) = torch.autograd.grad(
+            torch.fft.irfft(k.float(), n=2 * n, dim=-1), k, dkt)
+    return dkhat_real
+
+
+def _causal_khat(khat_real: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """The contiguous (d, n+1) causal spectrum, conjugated with ``conj``,
+    on the route ``backend.causal_spectrum_route`` gives its length."""
+    n = khat_real.shape[-1] - 1
+    if backend.causal_spectrum_route(n) == "fused":
+        return causal_spectrum(khat_real.float().contiguous(), conj)
+    return window_route_spectrum(khat_real, conj)
+
+
+def _khat_real_cotangent(dk: torch.Tensor, khat_real: torch.Tensor,
+                         n: int) -> torch.Tensor:
+    """dkhat_real = irfftᵀ(w ⊙ irfft(dk)) from the spectrum cotangent dk
+    (d, n+1), on the route of its length."""
+    if backend.causal_spectrum_route(n) == "fused":
+        return causal_spectrum_adjoint(dk, n).to(khat_real.dtype)
+    return window_route_cotangent(dk, khat_real, n)
 
 
 class FDTNO(torch.autograd.Function):
@@ -231,11 +343,12 @@ class FDTNO(torch.autograd.Function):
 
         dx      = slice_n( irfft( rfft(pad g) ⊙ conj k̂ ) )   fd_mul, conj k̂
         dk̂_time = irfft( Σ_b rfft(pad g) ⊙ conj(rfft(pad x)) )   fd_khat_grad
-        dkhat   = irfftᵀ( w ⊙ dk̂_time )                      hilbert_window
+        dkhat   = irfftᵀ( w ⊙ dk̂_time )          causal_spectrum_adjoint
 
     Residuals are the inputs only; the backward recomputes k̂ (one more
-    window launch) and x̂ rather than keep 2 MB a layer of spectrum.
-    Under ``REPRO_PALLAS_GRAD=0`` the backward is autograd through
+    ``causal_spectrum`` launch, or window launch off the fused route) and
+    x̂ rather than keep 2 MB a layer of spectrum. Under
+    ``REPRO_PALLAS_GRAD=0`` the backward is autograd through
     :func:`ref.fd_tno_ref` instead, and launches no kernel."""
 
     @staticmethod
@@ -257,21 +370,15 @@ class FDTNO(torch.autograd.Function):
         n = x.shape[1]
         ghat = _spectrum(g, n)
         # signal cotangent: the forward multiply with the spectrum
-        # conjugated (adjoint of causal conv = anticausal correlation);
-        # conj_physical, since the kernel reads raw memory
-        khat_c = torch.conj_physical(_causal_khat(khat_real))
-        dx = torch.fft.irfft(fd_mul(ghat, khat_c), n=2 * n, dim=-1)
+        # conjugated (adjoint of causal conv = anticausal correlation)
+        dx = torch.fft.irfft(fd_mul(ghat, _causal_khat(khat_real, conj=True)),
+                             n=2 * n, dim=-1)
         dx = dx[..., :n].transpose(1, 2).to(x.dtype)
         # kernel cotangent: Σ_b ĝ ⊙ conj(x̂); its irfft is exactly the time
         # cotangent of the causal kernel; then the self-adjoint window and
-        # the exact irfft adjoint (by autograd) pull it back to khat_real
+        # the exact irfft adjoint pull it back to khat_real
         dk = fd_khat_grad(ghat, _spectrum(x, n))              # (d, n+1)
-        dkt = hilbert_window(torch.fft.irfft(dk, n=2 * n, dim=-1), n)
-        with torch.enable_grad():
-            k = khat_real.detach().requires_grad_()
-            (dkhat_real,) = torch.autograd.grad(
-                torch.fft.irfft(k.float(), n=2 * n, dim=-1), k, dkt)
-        return dx, dkhat_real
+        return dx, _khat_real_cotangent(dk, khat_real, n)
 
 
 def fd_tno(x: torch.Tensor, khat_real: torch.Tensor) -> torch.Tensor:

@@ -258,13 +258,35 @@ def fd_khat_grad_ref(ghat: torch.Tensor, xhat: torch.Tensor) -> torch.Tensor:
     return torch.complex(dr, di)
 
 
-def causal_spectrum_ref(khat_real: torch.Tensor) -> torch.Tensor:
+def causal_spectrum_ref(khat_real: torch.Tensor,
+                        conj: bool = False) -> torch.Tensor:
     """(d, n+1) real response → complex (d, n+1) causal spectrum
     ``khat - i·H{khat}`` via the lag window (plain version of
-    ``core.hilbert.causal_spectrum``)."""
+    ``core.hilbert.causal_spectrum`` and of the ``causal_spectrum``
+    kernel); its conjugate with ``conj``."""
     n = khat_real.shape[-1] - 1
     kt = torch.fft.irfft(khat_real.float(), n=2 * n, dim=-1)
-    return torch.fft.rfft(hilbert_window_ref(kt, n), n=2 * n, dim=-1)
+    khat = torch.fft.rfft(hilbert_window_ref(kt, n), n=2 * n, dim=-1)
+    return torch.conj_physical(khat) if conj else khat
+
+
+def causal_spectrum_adjoint_ref(dk: torch.Tensor, n: int) -> torch.Tensor:
+    """Pull a (d, n+1) complex spectrum cotangent back to the real
+    response: irfftᵀ(w ⊙ irfft(dk, 2n)), the irfft's adjoint by autograd,
+    as the FD-TNO backward's window route does it. The imaginary parts of
+    bins 0 and n are dropped first, as a C2R irfft assumes (pocketfft
+    ignores them; cuFFT's result for them differs by length). Plain
+    version of the ``causal_spectrum_adjoint`` kernel; (d, n+1) fp32."""
+    edge = torch.zeros(n + 1, dtype=torch.bool, device=dk.device)
+    edge[0] = edge[n] = True
+    dk = torch.where(edge, dk.real.to(dk.dtype), dk)
+    dkt = hilbert_window_ref(torch.fft.irfft(dk, n=2 * n, dim=-1), n)
+    with torch.enable_grad():
+        k = torch.zeros(dk.shape, dtype=torch.float32, device=dk.device,
+                        requires_grad=True)
+        (dkhat_real,) = torch.autograd.grad(
+            torch.fft.irfft(k, n=2 * n, dim=-1), k, dkt, create_graph=True)
+    return dkhat_real
 
 
 def fd_tno_ref(x: torch.Tensor, khat_real: torch.Tensor) -> torch.Tensor:

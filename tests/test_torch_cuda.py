@@ -139,3 +139,23 @@ def test_ssd_scan_runs_on_each_card():
             want = ssd_chunked.ssd_scan_chunked(x, dt, a, b, c, d, chunk=q)
             assert got.dtype == dtype
             _close(got.float(), want.float(), tol)
+
+
+def test_causal_spectrum_runs_on_each_card():
+    """causal_spectrum and causal_spectrum_adjoint at n = 4096 (98,320
+    bytes of shared memory a block) and at the FD path's n = 512, on card
+    0, then on card 1: each card needs its own shared-memory attribute."""
+    from repro_torch.kernels import fd_fused
+    for dev in _two_cards():
+        g = torch.Generator(device=dev).manual_seed(dev.index)
+        for d, n in ((37, 4096), (512, 512)):
+            u = torch.randn(d, n + 1, device=dev, generator=g)
+            dk = torch.randn(d, n + 1, dtype=torch.complex64, device=dev,
+                             generator=g)
+            got = fd_fused.causal_spectrum(u, conj=True)
+            torch.cuda.synchronize(dev)
+            _close(torch.view_as_real(got), torch.view_as_real(
+                ref.causal_spectrum_ref(u, conj=True)), 1e-5)
+            got = fd_fused.causal_spectrum_adjoint(dk, n)
+            torch.cuda.synchronize(dev)
+            _close(got, ref.causal_spectrum_adjoint_ref(dk, n), 1e-5)

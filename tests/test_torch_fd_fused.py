@@ -100,7 +100,8 @@ def test_fd_tno_matches_jax(b, n, d):
     assert _rel(got, jref.fd_tno_ref(jnp.asarray(x), jnp.asarray(khat))) <= TOL
     assert _rel(got, ref.fd_tno_ref(_t(x), _t(khat))) <= TOL
     # the CPU path runs the plain versions: no kernel launch is counted
-    assert fd_fused.counters == {"hilbert_window": 0, "fd_mul": 0,
+    assert fd_fused.counters == {"hilbert_window": 0, "causal_spectrum": 0,
+                                 "causal_spectrum_adjoint": 0, "fd_mul": 0,
                                  "fd_khat_grad": 0}
 
 

@@ -5,7 +5,8 @@
                                [--out chiprun_out/ab_NAME.json]
 
 ``NAME`` is a key of ``repro_torch.kernels.backend.SOURCES`` that
-:data:`CHECKS` has a check for (``ssd_scan``, ``ski``, ``ski_grad``). Each
+:data:`CHECKS` has a check for (``fd_fused``: its two causal-spectrum
+kernels; ``ssd_scan``, ``ski``, ``ski_grad``). Each
 ``--old`` is another version of that source with the same C interface, for
 example an earlier commit's file (``git show
 <rev>:src/repro_torch/kernels/csrc/ssd_scan.cu > build/ab/ssd_scan_v2.cu``),
@@ -58,6 +59,7 @@ AB_DIR = ROOT / "build" / "ab"
 #: library name -> the chip_smoke.py check of its kernels at their shapes;
 #: each takes the card's peaks and returns {kernel: entry with "ms"}
 CHECKS = {
+    "fd_fused": chip_smoke.phase_causal_spectrum,
     "ski": lambda peaks: {**chip_smoke.phase_ski_kernels(peaks),
                           **chip_smoke.phase_window_kernels(peaks)},
     "ski_grad": chip_smoke.phase_grad_kernels,

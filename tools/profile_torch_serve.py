@@ -54,8 +54,10 @@ def _busy_us(events) -> float:
 #: the repository's own CUDA kernels (csrc/*.cu), by the prefix of their
 #: function names (the dense pass 2 of ``ski_fused_pass2`` is
 #: ``ski_dense_pass2_kernel``, the large-rank ones ``ski_window_pass2_kernel``;
-#: ``tap_grad_reduce`` is the second kernel of conv_tap_grad before PR 23)
-PORT_KERNELS = ("hilbert_window", "fd_mul", "fd_khat_grad", "interp_reduce",
+#: ``tap_grad_reduce`` is the second kernel of conv_tap_grad before PR 23;
+#: ``causal_spectrum_adjoint``'s kernel is ``spectrum_adjoint_kernel``)
+PORT_KERNELS = ("hilbert_window", "causal_spectrum", "spectrum_adjoint",
+                "fd_mul", "fd_khat_grad", "interp_reduce",
                 "interp_expand", "ski_dense_pass2", "ski_window_pass2",
                 "short_conv", "gram_grad", "conv_tap_grad", "tap_grad_reduce",
                 "ssd_scan")
