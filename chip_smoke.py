@@ -25,7 +25,10 @@ card or outside a checkout of this repository. Phases:
    the whole FD-TNO backward against autograd through the plain
    ``ref.fd_tno_ref`` at n = 512 (the fused route: 2 ``causal_spectrum``
    and 1 ``causal_spectrum_adjoint`` launches) and n = 448 (the window
-   route: 3 ``hilbert_window``), and under ``REPRO_PALLAS_GRAD=0``;
+   route: 3 ``hilbert_window``), and under ``REPRO_PALLAS_GRAD=0``; the
+   window route's spectrum cotangent (``window_route_cotangent``, its
+   edge bins' imaginary parts non-zero) at n = 448 and 8192 and the whole
+   FD-TNO backward at x (1, 8192, 37) against the CPU's plain versions;
    ``hilbert_window`` is differentiable, standalone ``fd_mul`` and
    ``fd_khat_grad`` refuse an input that requires grad; the SKI kernels
    ``interp_reduce``, ``interp_expand``, ``short_conv``,
@@ -46,7 +49,8 @@ card or outside a checkout of this repository. Phases:
    m = 1, the windowed one also under ``REPRO_SKI_BAND_MAX=16``, against
    a float64 version and against itself (two calls, the same bits; its
    Gram runs on the tensor cores in 3xTF32 and its bound prices it at
-   three TF32 products), the expand one also at n = r = 8192; the
+   three TF32 products), the expand one also at n = r = 8192 and at a
+   large "fft"-route input x (2, 8192, 512), r = 8192 and 4097; the
    whole SKIFusedTNOCoef backward, both variants, causal and
    bidirectional, against autograd through ``ref.ski_fused_tno_coef_ref``
    and under ``REPRO_PALLAS_GRAD=0``;
@@ -327,6 +331,7 @@ def phase_kernels(peaks) -> dict:
               flush=True)
         out.setdefault("fd_khat_grad", e)
     check_fd_tno_backward(g)
+    check_window_route_cotangent(g)
     # hilbert_window is differentiable (self-adjoint: its gradient is the
     # window of the cotangent); standalone fd_mul and fd_khat_grad are
     # forward-only and refuse an input that requires grad, not detach it
@@ -514,6 +519,69 @@ def check_fd_tno_backward(g) -> None:
               f"vs the kernel backward: {report}; launches {ran}", flush=True)
 
 
+#: window-route lengths of the spectrum-cotangent checks: the FD prefill's
+#: 448 and 8192 (2n = 16384, past the fused route, where cuFFT's C2R keeps
+#: the edge bins' imaginary parts that pocketfft drops)
+WINDOW_ROUTE_NS = (448, 8192)
+
+
+def check_window_route_cotangent(g) -> None:
+    """The window route's spectrum cotangent on the card against the CPU's
+    plain versions, within 1e-5 × max (FFTs summed in another order):
+
+    * ``fd_fused.window_route_cotangent`` of a dk (37, n+1) whose bins 0
+      and n have non-zero imaginary parts, at each ``WINDOW_ROUTE_NS``,
+      against ``ref.causal_spectrum_adjoint_ref`` on the CPU (which drops
+      them, as pocketfft's irfft and the fused kernel do);
+    * the whole FDTNO backward at x (1, 8192, 37) (the window route: 3
+      ``hilbert_window`` launches) against autograd through
+      ``ref.fd_tno_ref`` on the CPU.
+
+    Prints every reading, then raises if any missed."""
+    from repro_torch.kernels import backend, fd_fused, ops, ref
+    d, missed = 37, []
+    for n in WINDOW_ROUTE_NS:
+        if backend.causal_spectrum_route(n) != "window":
+            raise AssertionError(f"n = {n} is on the fused route")
+        dk = torch.randn(d, n + 1, dtype=torch.complex64, device="cuda",
+                         generator=g)
+        k = torch.randn(d, n + 1, device="cuda", generator=g)
+        edge = float(dk.imag[:, [0, n]].abs().max())
+        got = fd_fused.window_route_cotangent(dk, k, n).cpu()
+        want = ref.causal_spectrum_adjoint_ref(dk.cpu(), n)
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        print(f"[kernel] window_route_cotangent dk ({d}, {n + 1}), edge "
+              f"bins' imaginary parts up to {edge:.3f}, vs the CPU's "
+              f"ref.causal_spectrum_adjoint_ref: max abs err {err:.3e} "
+              f"(scale {scale:.3e}, limit {1e-5 * scale:.3e})", flush=True)
+        if not err <= 1e-5 * scale:
+            missed.append(f"window_route_cotangent n={n}: {err} > 1e-5 x "
+                          f"{scale}")
+    b, n = 1, 8192
+    x = torch.randn(b, n, d, device="cuda", generator=g, requires_grad=True)
+    k = torch.randn(d, n + 1, device="cuda", generator=g, requires_grad=True)
+    cot = torch.randn(b, n, d, device="cuda", generator=g)
+    fd_fused.reset_counters()
+    got = torch.autograd.grad(ops.fd_tno(x, k), (x, k), cot)
+    ran = dict(fd_fused.counters)
+    xc, kc = (t.detach().cpu().requires_grad_() for t in (x, k))
+    want = torch.autograd.grad(ref.fd_tno_ref(xc, kc), (xc, kc), cot.cpu())
+    try:
+        report = _grads_close("FDTNO backward n=8192",
+                              tuple(t.cpu() for t in got), want,
+                              ("dx", "dkhat_real"))
+    except AssertionError as e:
+        report = str(e)
+        missed.append(report)
+    if ran != FD_OP_LAUNCHES["window"][0]:
+        missed.append(f"FDTNO at n = {n} launched {ran}")
+    print(f"[kernel] FDTNO backward x ({b}, {n}, {d}), window route, vs "
+          f"autograd through ref.fd_tno_ref on the CPU: {report}; launches "
+          f"{ran}", flush=True)
+    if missed:
+        raise AssertionError("; ".join(missed))
+
+
 #: SKI kernel shapes (label, b, n, d, r, m, left): the SKI path with
 #: causal and bidirectional taps and the offsets the backward mirrors them
 #: to, ragged, n < m, r = n (h = 1), one tap
@@ -672,7 +740,7 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
     (sums of at most 2h+1 and two terms), ski_fused_pass2 and short_conv
     within 1e-5 × max|plain|; the interp pair also at r = 2 and as
     adjoints; then pass 2 at PASS2_CEILING in both orientations. Returns
-    the entries at the path's shape."""
+    the entries at every SKI_SHAPES shape, {label: {kernel: entry}}."""
     from repro_torch.core import ski
     g = torch.Generator(device=device).manual_seed(1)
     out = {}
@@ -686,8 +754,7 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         entries["short_conv"] = _short_conv_entry(label, x, f, left, peaks)
         entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
                                                   peaks)
-        if label == "path":
-            out.update(entries)
+        out[label] = entries
     label, b, n, d, r = INTERP_R2
     lo, w_lo, _ = ski.make_inducing(n, r, device)
     _interp_entries(label, torch.randn(b, n, d, device=device, generator=g),
@@ -889,6 +956,13 @@ WINDOW_SHAPES = (("path", 8, 512, 512, 512, 32, 0),
                  ("r=n", 2, 64, 40, 64, 8, 3), ("r=2", 2, 40, 33, 2, 8, 3),
                  ("m=1", 2, 40, 33, 7, 1, 0))
 WINDOWED_REPLACES = "src/repro/kernels/ski_fused.py:296"
+#: ski_expand_pass2 beyond WINDOW_SHAPES (label, b, n, d, r, m, left):
+#: n = r = 8192, and a large input at the model's width on the "fft"
+#: route (r past the windowed ceiling of 4096, and just past it), x (2,
+#: 8192, 512) fp32: x, z2 and y 96 MB at r = 8192
+EXPAND_SHAPES = (("n=r=8192", 2, 8192, 16, 8192, 32, 16),
+                 ("large r=8192", 2, 8192, 512, 8192, 32, 0),
+                 ("large r=4097", 2, 8192, 512, 4097, 32, 0))
 
 
 def _window_tol(r: int) -> float:
@@ -1001,8 +1075,9 @@ def phase_window_kernels(peaks, device="cuda") -> dict:
     """ski_windowed_pass2 and ski_expand_pass2 against their plain versions
     at WINDOW_SHAPES; the windowed one also under REPRO_SKI_BAND_MAX=16
     (a tile then takes a window of 16 rows: many tiles, many chunks) and
-    against float64, the expand one also at n = r = 8192. Returns the
-    entries at the path's shape."""
+    against float64, the expand one also at EXPAND_SHAPES (n = r = 8192,
+    and x (2, 8192, 512) at r = 8192 and 4097). Returns the entries at
+    every shape, {label: {kernel: entry}}."""
     g = torch.Generator(device=device).manual_seed(7)
     out = {}
     for label, b, n, d, r, m, left in WINDOW_SHAPES:
@@ -1015,17 +1090,17 @@ def phase_window_kernels(peaks, device="cuda") -> dict:
                                                          left, peaks),
                    "ski_expand_pass2": _expand_entry(label, x, z, f, left,
                                                      peaks)}
+        out[label] = entries
         if label == "path":
-            out.update(entries)
             _windowed_vs_fp64(x, z, coef, f, left)
         if label in ("path", "r=4096"):
             with mock.patch.dict(os.environ, {"REPRO_SKI_BAND_MAX": "16"}):
                 _windowed_entry(label, x, z, coef, f, left, peaks)
-    b, n, d, r, m = 2, 8192, 16, 8192, 32
-    _expand_entry("n=r=8192", torch.randn(b, n, d, device=device, generator=g),
-                  torch.randn(b, r, d, device=device, generator=g),
-                  torch.randn(d, m, device=device, generator=g), m // 2,
-                  peaks)
+    for label, b, n, d, r, m, left in EXPAND_SHAPES:
+        out[label] = {"ski_expand_pass2": _expand_entry(
+            label, torch.randn(b, n, d, device=device, generator=g),
+            torch.randn(b, r, d, device=device, generator=g),
+            torch.randn(d, m, device=device, generator=g), left, peaks)}
     return out
 
 
@@ -1995,19 +2070,31 @@ def phase_mamba_kernels(peaks, device="cuda") -> dict:
     g = torch.Generator(device=device).manual_seed(3)
     out = {"ssd_scan": check_ssd_scan(peaks, device, g)["ssd_scan"]}
     ssd_scan.reset_counters()
-    # the bf16 short conv: Mamba's conv, then the SKI path's offsets
+    out["short_conv_bf16"] = check_short_conv_bf16(peaks, g, device)["mamba"]
+    _mamba_kernels_refuse(device)
+    return out
+
+
+def short_conv_bf16_inputs(g, device="cuda") -> list:
+    """The bf16 short conv's inputs, (label, x, f, left): Mamba's conv (x
+    (8, 2048, 5376), m = 4), then the SKI path's shape at its four
+    offsets."""
     x = torch.randn(MAMBA_BATCH, MAMBA_SEQ, 5376, device=device,
                     generator=g).bfloat16()
     f = (0.3 * torch.randn(5376, 4, device=device, generator=g)).bfloat16()
-    out["short_conv_bf16"] = _short_conv_entry(
-        "mamba", x, f, 0, peaks, tol=BF16_TOL, name="short_conv_bf16")
+    out = [("mamba", x, f, 0)]
     x = torch.randn(8, 512, 512, device=device, generator=g).bfloat16()
     f = torch.randn(512, 32, device=device, generator=g).bfloat16()
-    for left in (0, 16, 31, 15):
-        _short_conv_entry("ski path", x, f, left, peaks, tol=BF16_TOL,
-                          name="short_conv_bf16")
-    _mamba_kernels_refuse(device)
-    return out
+    return out + [(f"ski path left={left}", x, f, left)
+                  for left in (0, 16, 31, 15)]
+
+
+def check_short_conv_bf16(peaks, g, device="cuda") -> dict:
+    """The bf16 short conv at ``short_conv_bf16_inputs``, within
+    ``BF16_TOL``. Returns the entries, {label: entry}."""
+    return {label: _short_conv_entry(label, x, f, left, peaks, tol=BF16_TOL,
+                                     name="short_conv_bf16")
+            for label, x, f, left in short_conv_bf16_inputs(g, device)}
 
 
 def _mamba_kernels_refuse(device) -> None:
@@ -2377,9 +2464,9 @@ def main() -> int:
     peak_name, peaks = _peaks(smi)
     phase_build()
     kernels = phase_kernels(peaks)
-    kernels.update(phase_ski_kernels(peaks))
+    kernels.update(phase_ski_kernels(peaks)["path"])
     kernels.update(phase_grad_kernels(peaks))
-    kernels.update(phase_window_kernels(peaks))
+    kernels.update(phase_window_kernels(peaks)["path"])
     check_coef_backward()
     cfg = get_config("fd-tnn-lm-wt103")
     model, prompt_len, seqs, serve_launches = phase_serve(

@@ -305,17 +305,30 @@ def window_route_spectrum(khat_real: torch.Tensor,
     return torch.conj_physical(khat) if conj else khat
 
 
+def irfft_adjoint(g: torch.Tensor, n: int) -> torch.Tensor:
+    """The adjoint of ``irfft(·, 2n)`` on a real (..., n+1) input, applied
+    to a real (..., 2n) cotangent g: (c_s / 2n) · Re rfft(g)[s], c_0 = c_n =
+    1 and c_s = 2 between (irfft(k)[t] = (k_0 + (-1)^t k_n + 2 Σ_s k_s
+    cos(π s t / n)) / 2n). One rfft and one scale: the closed form of
+    autograd's irfft VJP, and what ``causal_spectrum_adjoint`` computes."""
+    out = torch.fft.rfft(g, n=2 * n, dim=-1).real / n
+    out[..., ::n] *= 0.5  # bins 0 and n
+    return out
+
+
 def window_route_cotangent(dk: torch.Tensor, khat_real: torch.Tensor,
                            n: int) -> torch.Tensor:
-    """dkhat_real off the fused route: irfft of the spectrum cotangent, the
-    self-adjoint :func:`hilbert_window`, and the exact irfft adjoint by
-    autograd, in khat_real's dtype."""
+    """dkhat_real off the fused route, in khat_real's dtype: the imaginary
+    parts of bins 0 and n of the spectrum cotangent dropped (a C2R irfft
+    assumes them 0; cuFFT keeps them at some lengths, pocketfft never), its
+    irfft, the self-adjoint :func:`hilbert_window`, and the closed-form irfft
+    adjoint (:func:`irfft_adjoint`), as the fused
+    :func:`causal_spectrum_adjoint` and ``ref.causal_spectrum_adjoint_ref``
+    compute it."""
+    dk = dk.clone()
+    dk.imag[..., ::n] = 0  # bins 0 and n
     dkt = hilbert_window(torch.fft.irfft(dk, n=2 * n, dim=-1), n)
-    with torch.enable_grad():
-        k = khat_real.detach().requires_grad_()
-        (dkhat_real,) = torch.autograd.grad(
-            torch.fft.irfft(k.float(), n=2 * n, dim=-1), k, dkt)
-    return dkhat_real
+    return irfft_adjoint(dkt, n).to(khat_real.dtype)
 
 
 def _causal_khat(khat_real: torch.Tensor, conj: bool = False) -> torch.Tensor:

@@ -6,7 +6,7 @@
 
 ``NAME`` is a key of ``repro_torch.kernels.backend.SOURCES`` that
 :data:`CHECKS` has a check for (``fd_fused``: its two causal-spectrum
-kernels; ``ssd_scan``, ``ski``, ``ski_grad``). Each
+kernels; ``ssd_scan``, ``ski``, ``ski_grad``, ``short_conv``). Each
 ``--old`` is another version of that source with the same C interface, for
 example an earlier commit's file (``git show
 <rev>:src/repro_torch/kernels/csrc/ssd_scan.cu > build/ab/ssd_scan_v2.cu``),
@@ -21,7 +21,9 @@ its file's stem. Then:
 * runs ``chip_smoke.py``'s check of the library's kernels (:data:`CHECKS`:
   every shape and tolerance of the smoke run, and its timings, CUDA events
   with L2 evicted) with the port's wrappers loading each build in turn, in
-  the order old, new, new, old for each old build.
+  the order old, new, new, old for each old build; for ``ski`` and
+  ``short_conv`` every kernel is timed at every shape of the check, not
+  only the path's.
 
 With ``--time-only`` the checks are skipped and each build times only
 the kernels of :data:`TIMERS` at the main path's shape: for builds that do
@@ -56,14 +58,35 @@ import chip_smoke  # noqa: E402
 
 AB_DIR = ROOT / "build" / "ab"
 
+
+def _every(shapes: dict, *names: str) -> dict:
+    """{"<kernel> <label>": entry} of a chip_smoke check's {label: {kernel:
+    entry}}, for the kernels in ``names`` (all when none)."""
+    return {f"{kernel} {label}": e for label, entries in shapes.items()
+            for kernel, e in entries.items() if not names or kernel in names}
+
+
+def _check_short_conv(peaks) -> dict:
+    """chip_smoke's short_conv checks, each shape kept: fp32 at every
+    SKI_SHAPES shape and offset (in ``phase_ski_kernels``, 1e-5 ×
+    max|plain|), bf16 at Mamba's conv and the SKI path's four offsets
+    (BF16_TOL)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return {**_every(chip_smoke.phase_ski_kernels(peaks), "short_conv"),
+            **{f"short_conv_bf16 {label}": e for label, e in
+               chip_smoke.check_short_conv_bf16(peaks, g).items()}}
+
+
 #: library name -> the chip_smoke.py check of its kernels at their shapes;
 #: each takes the card's peaks and returns {kernel: entry with "ms"}
 CHECKS = {
     "fd_fused": chip_smoke.phase_causal_spectrum,
-    "ski": lambda peaks: {**chip_smoke.phase_ski_kernels(peaks),
-                          **chip_smoke.phase_window_kernels(peaks)},
+    "ski": lambda peaks: {
+        **_every(chip_smoke.phase_ski_kernels(peaks)),
+        **_every(chip_smoke.phase_window_kernels(peaks))},
     "ski_grad": chip_smoke.phase_grad_kernels,
     "ssd_scan": chip_smoke.check_ssd_scan,
+    "short_conv": _check_short_conv,
 }
 
 
@@ -82,12 +105,26 @@ def _dense_inputs(b, n, d, r, m, seed):
             torch.randn(d, m, device="cuda", generator=g))
 
 
+def _expand_shapes():
+    """ski_expand_pass2's shapes in the smoke run (label, b, n, d, r, m,
+    left): chip_smoke's WINDOW_SHAPES and EXPAND_SHAPES."""
+    return (*chip_smoke.WINDOW_SHAPES, *chip_smoke.EXPAND_SHAPES)
+
+
+def _expand_inputs(b, n, d, r, m, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(b, n, d, device="cuda", generator=g),
+            torch.randn(b, r, d, device="cuda", generator=g),
+            torch.randn(d, m, device="cuda", generator=g))
+
+
 def _time_ski(peaks) -> dict:
     """Unchecked, timed as chip_smoke times them: interp_reduce at the SKI
     path's shape (x (8, 512, 512), r = 64), ski_fused_pass2 (causal) at
     DENSE_SHAPES and, at the path's shape, in the signal backward's
-    orientation (Aᵀ, left m - 1), and ski_windowed_pass2 at the large-rank
-    path's shape (x (8, 512, 512), r = 512, m = 32, causal)."""
+    orientation (Aᵀ, left m - 1), ski_windowed_pass2 at the large-rank
+    path's shape (x (8, 512, 512), r = 512, m = 32, causal), and
+    ski_expand_pass2 at every shape of ``_expand_shapes``."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
     out = {}
@@ -123,13 +160,21 @@ def _time_ski(peaks) -> dict:
     nbytes, gram, rest = chip_smoke._windowed_cost(b, n, d, r, m)
     bound = max(nbytes / peaks[0], 3 * gram / peaks[2] + rest / peaks[1])
     out["ski_windowed_pass2"] = {"ms": ms, "bound_ms": bound * 1e3}
+    for label, b, n, d, r, m, left in _expand_shapes():
+        x, z2, f = _expand_inputs(b, n, d, r, m, seed=8)
+        out[f"ski_expand_pass2 {label}"] = {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_expand_pass2(
+                x, z2, f, True, left=left)),
+            "bound_ms": 4 * (2 * x.numel() + z2.numel() + f.numel())
+            / peaks[0] * 1e3}
     return out
 
 
 def _ski_outputs() -> dict:
     """The dense forward's two kernels on fixed inputs, for max |new - old|:
     interp_reduce and ski_fused_pass2 at DENSE_SHAPES (causal), and the
-    backward's pass 2 (Aᵀ, taps flipped, left m - 1)."""
+    backward's pass 2 (Aᵀ, taps flipped, left m - 1); ski_expand_pass2 at
+    every shape of ``_expand_shapes``."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
     out = {}
@@ -143,6 +188,10 @@ def _ski_outputs() -> dict:
         out[f"ski_fused_pass2 {label} backward"] = ski_fused.ski_fused_pass2(
             x, z, a, f.flip(-1).contiguous(), True, left=m - 1,
             transpose_a=True)
+    for label, b, n, d, r, m, left in _expand_shapes():
+        x, z2, f = _expand_inputs(b, n, d, r, m, seed=9)
+        out[f"ski_expand_pass2 {label}"] = ski_fused.ski_expand_pass2(
+            x, z2, f, True, left=left)
     return out
 
 
@@ -200,11 +249,44 @@ def _ski_grad_outputs() -> dict:
     return out
 
 
+def _short_conv_inputs(seed):
+    """short_conv's inputs at every shape of the smoke run (label, x, f,
+    left): fp32 at SKI_SHAPES, bf16 at ``short_conv_bf16_inputs``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for label, b, n, d, r, m, left in chip_smoke.SKI_SHAPES:
+        out.append((label, torch.randn(b, n, d, device="cuda", generator=g),
+                    torch.randn(d, m, device="cuda", generator=g), left))
+    return out + [(f"{label} bf16", x, f, left) for label, x, f, left
+                  in chip_smoke.short_conv_bf16_inputs(g)]
+
+
+def _time_short_conv(peaks) -> dict:
+    """Unchecked, timed as chip_smoke times it: short_conv at every shape
+    of ``_short_conv_inputs``, with its bytes bound."""
+    from repro_torch.kernels import short_conv
+    return {f"short_conv {label}": {
+        "ms": chip_smoke.time_ms(lambda: short_conv.short_conv(x, f, left)),
+        "bound_ms": x.element_size() * (2 * x.numel() + f.numel())
+        / peaks[0] * 1e3}
+        for label, x, f, left in _short_conv_inputs(seed=8)}
+
+
+def _short_conv_outputs() -> dict:
+    """short_conv at every shape of ``_short_conv_inputs``, for
+    max |new - old|."""
+    from repro_torch.kernels import short_conv
+    return {f"short_conv {label}": short_conv.short_conv(x, f, left)
+            for label, x, f, left in _short_conv_inputs(seed=9)}
+
+
 #: library name -> the unchecked timing of ``--time-only``
-TIMERS = {"ski": _time_ski, "ski_grad": _time_ski_grad}
+TIMERS = {"ski": _time_ski, "ski_grad": _time_ski_grad,
+          "short_conv": _time_short_conv}
 #: library name -> its kernels' outputs on fixed inputs, compared between
 #: builds (max |build - new|)
-OUTPUTS = {"ski": _ski_outputs, "ski_grad": _ski_grad_outputs}
+OUTPUTS = {"ski": _ski_outputs, "ski_grad": _ski_grad_outputs,
+           "short_conv": _short_conv_outputs}
 
 
 def tool(name: str) -> str:
@@ -388,7 +470,8 @@ def main() -> int:
     report["ms"] = times
     if outputs:
         report["max_abs_diff_vs_new"] = {
-            build: {k: float((v - outputs["new"][k]).abs().max())
+            build: {k: float((v.float() - outputs["new"][k].float())
+                             .abs().max())
                     for k, v in outs.items()}
             for build, outs in outputs.items() if build != "new"}
         print(f"[diff] max |build - new| on the same inputs: "
