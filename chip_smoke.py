@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, SKI scoring, SKI training,
-unfused SKI, large-rank SKI and Mamba-2 serving paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch port's serving, continuous-batching engine, training,
+SKI scoring, SKI training, unfused SKI, large-rank SKI and Mamba-2 serving
+paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -59,6 +59,28 @@ card or outside a checkout of this repository. Phases:
    ``prefill`` and greedily generates 64 tokens each (max_len 512) with
    ``generate``; the serving launch counts are read from this phase (a
    prefill of 448 tokens completes its spectra on the window route);
+4b. engine: the same model through the continuous-batching engine
+   (``repro_torch.serving_engine.Engine``, S = 8 slots, max_len 512, C =
+   64, prompt buckets 64/128/256/512): 16 requests with prompts of 1, 17,
+   63, 64, 65, 100, 128, 200, 255, 300, 333, 384, 400, 420, 447 and 448
+   tokens and 8-64 new tokens each (seed 0), the first 8 admitted as one
+   ``prefill_packed`` wave, the rest one by one by ``prefill`` as slots
+   free, one masked ``generate`` step over all slots at a time; each
+   request's tokens held against ``launch.serve.generate`` of its prompt
+   alone at max_len 512 up to the first new token where the kernel-path
+   forward over the solo sequence has a top-2 margin <= 1e-3 (cuBLAS may
+   round an 8-row product differently from a 1-row one), the positions
+   checked and skipped printed; the same traffic with request 3's slot
+   poisoned before step 5 (it alone ends not ok, after 6 tokens, and the
+   others keep the clean run's tokens under the same rule); a sampled
+   engine (T = 0.7, top_k = 8, seeds 100 + i) run twice with the same
+   tokens; asserted launches: 6 ``hilbert_window`` (one per layer: one
+   Engine realises its kernel constants once and every template shares
+   them) and no other kernel, for the greedy Engine with both its runs and
+   for the sampled Engine with both of its; printed, not claimed: each
+   run's new tokens/s over its ``generate`` steps, each prefill wave's
+   ms, the counts of steps, prefills and packed prefills, and beside them
+   the solo decode rate of the same requests (host clock, synchronised);
 5. train: the same model, from seed 0, takes 30 AdamW steps through the
    port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step):
    5 warm-up steps, then a resume whose wall over the other 25 gives the
@@ -1167,6 +1189,237 @@ def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
         raise AssertionError(f"prefill ({route} route) launched "
                              f"{in_prefill}, not {want}")
     return model, prompt_len, seqs, launches
+
+
+# -------------------------------------------------------------- phase 4b
+#: the engine phase's traffic: 16 prompt lengths, chunk-aligned (64, 128,
+#: 384, 448) and ones that need the token remainder, each with 8-64 new
+#: tokens (seeded), through S = 8 slots of max_len 512 (C = 64, buckets
+#: 64/128/256/512): the first 8 as one packed prefill wave, the rest one
+#: by one as slots free
+ENGINE_PLENS = (1, 17, 63, 64, 65, 100, 128, 200, 255, 300, 333, 384, 400,
+                420, 447, 448)
+ENGINE_SLOTS, ENGINE_MAX_LEN = 8, 512
+#: the poison run poisons this request's slot before this generate step
+ENGINE_POISON = (5, 3)
+#: the sampled runs' settings; request i is seeded 100 + i
+ENGINE_SAMPLED = {"temperature": 0.7, "top_k": 8}
+
+
+def _engine_traffic(vocab: int, plens, max_len: int):
+    """Seeded prompts and new-token counts (8-64, within max_len)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, vocab, (p,)) for p in plens]
+    gens = [min(int(g), max_len - p)
+            for g, p in zip(rng.integers(8, 65, len(plens)), plens)]
+    return prompts, gens
+
+
+def engine_run(eng, prompts, gens, seeds=None, poison=None) -> dict:
+    """Serve every request through ``eng``: the first S prompts as one
+    ``prefill_packed`` wave, the others one by one by ``prefill`` as slots
+    free, one ``generate`` a step, finished slots released. ``poison`` =
+    (step, request) poisons that request's slot before that step. Returns
+    tokens and ok per request, the prefill waves' ms, the generate steps'
+    seconds and the counts (host clock, ``_sync`` before each read)."""
+    dev = eng.device
+    seeds = seeds or [0] * len(prompts)
+    queue = list(range(len(prompts)))
+    out = {i: [] for i in queue}
+    oks = {i: True for i in queue}
+    slot_of, free = {}, list(range(eng.slots))
+    waves, t_gen, steps, packed = [], 0.0, 0, 0
+    state = eng.init_state()
+
+    def admit(state, i, slot, cache, first, plen, row=None):
+        out[i].append(int(first))
+        slot_of[slot] = i
+        if row is None:
+            return eng.insert(state, cache, plen, first, slot, seed=seeds[i])
+        return eng.insert_from(state, cache, row, plen, first, slot,
+                               seed=seeds[i])
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    wave = [queue.pop(0) for _ in range(min(len(free), len(queue)))]
+    cache, first, plens = eng.prefill_packed([prompts[i] for i in wave],
+                                             [seeds[i] for i in wave])
+    _sync(dev)
+    waves.append((len(wave), (time.perf_counter() - t0) * 1e3))
+    packed += 1
+    for row, i in enumerate(wave):
+        state = admit(state, i, free.pop(0), cache, first[row], plens[row],
+                      row)
+    while queue or slot_of:
+        while queue and free:
+            i = queue.pop(0)
+            t0 = time.perf_counter()
+            cache, first, plen = eng.prefill(prompts[i], seed=seeds[i])
+            _sync(dev)
+            waves.append((1, (time.perf_counter() - t0) * 1e3))
+            state = admit(state, i, free.pop(0), cache, first, plen)
+        if poison is not None and steps == poison[0]:
+            slot = next(s for s, i in slot_of.items() if i == poison[1])
+            state = eng.poison_slot(state, slot)
+        t0 = time.perf_counter()
+        state, toks, ok = eng.generate(state)      # reads back: synced
+        t_gen += time.perf_counter() - t0
+        steps += 1
+        for slot, i in list(slot_of.items()):
+            if ok[slot]:
+                out[i].append(int(toks[slot]))
+            else:
+                oks[i] = False
+            if not ok[slot] or len(out[i]) >= gens[i]:
+                state = eng.release(state, slot)
+                del slot_of[slot]
+                free.append(slot)
+    new = sum(len(t) - 1 for t in out.values())     # tokens of the steps
+    return {"tokens": out, "ok": oks, "waves": waves, "t_gen": t_gen,
+            "steps": steps, "prefills": len(waves), "packed": packed,
+            "new": new}
+
+
+def _engine_report(tag: str, run: dict) -> None:
+    waves = ", ".join(f"{b}x{ms:.3f}" for b, ms in run["waves"])
+    print(f"[engine] {tag}: {run['steps']} generate steps, {run['new']} new "
+          f"tokens in {run['t_gen']:.3f} s ({run['new'] / run['t_gen']:.1f} "
+          f"new tok/s); {run['prefills']} prefills ({run['packed']} packed); "
+          f"prefill waves (prompts x ms): {waves}", flush=True)
+
+
+def _margin_limits(model, cfg, solo, prompts) -> list:
+    """For each request, how many of its new tokens come before the first
+    position where the kernel-path forward over its solo sequence has a
+    top-2 margin <= MARGIN (the first new token has none before it)."""
+    from repro_torch.models.transformer import forward
+    limits = []
+    with torch.inference_mode():
+        for seq, pr in zip(solo, prompts):
+            logits = forward(model, cfg, seq[None])[0, len(pr) - 1:-1]
+            top2 = torch.topk(logits, 2, dim=-1).values
+            low = ((top2[:, 0] - top2[:, 1]) <= MARGIN).nonzero()
+            limits.append(int(low[0]) if len(low) else logits.shape[0])
+    return limits
+
+
+def _held(what: str, got: dict, want: list, limits: list,
+          skip=()) -> tuple[int, int]:
+    """Compare each request's tokens with ``want`` up to its limit; a
+    mismatch raises. Returns (positions checked, positions skipped)."""
+    checked = skipped = 0
+    for i, lim in enumerate(limits):
+        if i in skip:
+            continue
+        n = min(lim, len(got[i]), len(want[i]))
+        if got[i][:n] != want[i][:n]:
+            bad = next(k for k in range(n) if got[i][k] != want[i][k])
+            raise AssertionError(f"{what}: request {i} differs at new token "
+                                 f"{bad} (margin limit {lim}): "
+                                 f"{got[i][:n]} != {want[i][:n]}")
+        checked += n
+        skipped += len(want[i]) - n
+    return checked, skipped
+
+
+def phase_engine(cfg, model, device, plens=ENGINE_PLENS,
+                 slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN) -> dict:
+    """The continuous-batching engine on the serve phase's model: the
+    traffic of :data:`ENGINE_PLENS` greedily (launch counts read from
+    this run: one Engine realises its kernel constants once), each
+    request's tokens held against ``launch.serve.generate`` of its prompt
+    alone at the same max_len under the margin rule; the same traffic
+    with one slot poisoned (only that request ends not-ok, the others keep
+    the clean run's tokens); and a sampled engine run twice (the same
+    tokens). Returns the launch counts of the engine path."""
+    from repro_torch.kernels import fd_fused
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving_engine import Engine
+    prompts, gens = _engine_traffic(cfg.vocab, plens, max_len)
+    print(f"[engine] {cfg.name}: {len(prompts)} requests, prompts "
+          f"{list(plens)}, new tokens {gens}, S={slots}, max_len {max_len}",
+          flush=True)
+    fd_fused.reset_counters()
+    eng = Engine(cfg, model, slots=slots, max_len=max_len)
+    clean = engine_run(eng, prompts, gens)
+    poisoned = engine_run(eng, prompts, gens, poison=ENGINE_POISON)
+    launches = dict(fd_fused.counters)
+    print(f"[engine] buckets {eng.buckets}, C={eng._chunk_c}, capacity "
+          f"{eng.capacity}; shapes {eng.trace_counts}; kernel launches "
+          f"(Engine + clean and poisoned runs) {launches}", flush=True)
+    _engine_report("greedy", clean)
+    if torch.device(device).type == "cuda":
+        want = {k: 0 for k in launches}
+        want["hilbert_window"] = cfg.n_layers
+        if launches != want:
+            raise AssertionError(f"engine path launched {launches}, not "
+                                 f"{want}: the kernel constants are "
+                                 "realised once per Engine and prefill "
+                                 "runs no fd_mul")
+
+    # solo decode of each request alone, and its rate beside the engine's
+    solo, t_new, n_new = [], 0.0, 0
+    with torch.inference_mode():
+        for pr, g in zip(prompts, gens):
+            p = torch.from_numpy(pr)[None].to(device)
+            _sync(device)
+            t0 = time.perf_counter()
+            generate(model, cfg, p, 1, max_len=max_len)
+            _sync(device)
+            t1 = time.perf_counter()
+            seq = generate(model, cfg, p, g, max_len=max_len)
+            _sync(device)
+            t_new += time.perf_counter() - t1 - (t1 - t0)
+            n_new += g - 1
+            solo.append(seq[0])
+    solo_new = [s[len(pr):].tolist() for s, pr in zip(solo, prompts)]
+    print(f"[engine] solo decode of the same requests: {n_new} new tokens "
+          f"in {t_new:.3f} s ({n_new / t_new:.1f} new tok/s, prefill "
+          f"excluded)", flush=True)
+    limits = _margin_limits(model, cfg, solo, prompts)
+    checked, skipped = _held("engine vs solo", clean["tokens"], solo_new,
+                             limits)
+    print(f"[engine] engine vs solo decode: {checked} new tokens checked, "
+          f"{skipped} skipped (after a top-2 margin <= {MARGIN}), 0 "
+          "mismatches", flush=True)
+    if not all(clean["ok"].values()):
+        raise AssertionError(f"clean run not ok: {clean['ok']}")
+
+    step, victim = ENGINE_POISON
+    bad = [i for i, ok in poisoned["ok"].items() if not ok]
+    if bad != [victim] or len(poisoned["tokens"][victim]) != step + 1:
+        raise AssertionError(f"poisoned run: not ok {bad}, request "
+                             f"{victim} kept "
+                             f"{len(poisoned['tokens'][victim])} tokens")
+    pc, ps = _held("poisoned vs clean", poisoned["tokens"],
+                   [clean["tokens"][i] for i in range(len(prompts))], limits,
+                   skip=(victim,))
+    print(f"[engine] poisoned request {victim} before step {step}: it alone "
+          f"ended not ok after {step + 1} tokens; the others equal the "
+          f"clean run ({pc} checked, {ps} skipped)", flush=True)
+
+    fd_fused.reset_counters()
+    sampler = Engine(cfg, model, slots=slots, max_len=max_len,
+                     **ENGINE_SAMPLED)
+    seeds = [100 + i for i in range(len(prompts))]
+    runs = [engine_run(sampler, prompts, gens, seeds=seeds)
+            for _ in range(2)]
+    sampled_launches = dict(fd_fused.counters)
+    same = runs[0]["tokens"] == runs[1]["tokens"]
+    toks = [t for r in runs for v in r["tokens"].values() for t in v]
+    differ = sum(runs[0]["tokens"][i] != clean["tokens"][i]
+                 for i in range(len(prompts)))
+    print(f"[engine] sampled T={ENGINE_SAMPLED['temperature']} "
+          f"top_k={ENGINE_SAMPLED['top_k']}, seeds 100+i, run twice: same "
+          f"tokens {same}; {differ}/{len(prompts)} requests differ from "
+          f"greedy; launches {sampled_launches}", flush=True)
+    _engine_report("sampled, second run", runs[1])
+    if not (same and all(r["ok"][i] for r in runs for i in r["ok"])
+            and min(toks) >= 0 and max(toks) < cfg.vocab):
+        raise AssertionError("sampled engine runs differ or went wrong")
+    if torch.device(device).type == "cuda" and sampled_launches != want:
+        raise AssertionError(f"sampled engine launched {sampled_launches}")
+    return launches
 
 
 # --------------------------------------------------------------- phase 5
@@ -2471,6 +2724,7 @@ def main() -> int:
     cfg = get_config("fd-tnn-lm-wt103")
     model, prompt_len, seqs, serve_launches = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
+    engine_launches = phase_engine(cfg, model, "cuda")
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
     score_launches = phase_ski_score("cuda")
@@ -2489,6 +2743,7 @@ def main() -> int:
     kernels.update(mamba_kernels)
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
+             "engine": (engine_launches, ("hilbert_window",)),
              "train": (train_launches, tuple(
                  k for k, v in TRAIN_LAUNCHES["fd"].items() if v)),
              "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),

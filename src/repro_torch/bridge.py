@@ -15,7 +15,9 @@ Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
 
 ``checkpoint/manifest.py`` stores trees in this layout, so checkpoints
 pass between the two packages: :func:`train_state_to_jax` before a save,
-:func:`load_train_state` after a restore.
+:func:`load_train_state` after a restore. :func:`cache_from_jax` carries a
+JAX serving cache (FD stream and Mamba leaves) the same way into the
+port's list of per-layer caches.
 """
 from __future__ import annotations
 
@@ -121,6 +123,34 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda") -> Model:
     state = {k: _tensor(v, device) for k, v in leaves.items()}
     model.load_state_dict(state, assign=True)
     return model
+
+
+#: the cache leaves the port's serving has: FD overlap-save stream
+#: (kernels/fd_stream.py) and Mamba (models/mamba.mamba_cache_init)
+_CACHE_LEAVES = frozenset({"ring", "tail", "uspec_re", "uspec_im", "khead",
+                           "khs_re", "khs_im", "kseg_re", "kseg_im", "cap",
+                           "conv", "state"})
+
+
+def cache_from_jax(tree, cfg: ArchConfig, device="cuda") -> list:
+    """A JAX serving cache (``repro.models.serving.init_cache`` layout:
+    scanned ``blocks/sub<k>`` leaves with a leading layer axis, and
+    ``tail<i>`` layers; numpy or tensor leaves) → the port's list of
+    per-layer cache dicts on ``device``, each leaf a fresh tensor in its
+    own dtype. Raises on a leaf the port's caches do not have (the
+    hist-replay ``hist``/``kcoef``, attention ``k``/``v``) or a layer
+    left without one."""
+    layers = [{} for _ in range(cfg.n_layers)]
+    for name, arr in _port_leaves(tree, cfg).items():
+        head, i_s, leaf = name.split(".")
+        if head != "layers" or leaf not in _CACHE_LEAVES:
+            raise ValueError(f"JAX cache leaf {name!r} has no port "
+                             "counterpart")
+        layers[int(i_s)][leaf] = _tensor(arr, device)
+    empty = [i for i, lc in enumerate(layers) if not lc]
+    if empty:
+        raise ValueError(f"JAX cache has no leaves for layers {empty}")
+    return layers
 
 
 # ---------------------------------------------------------- the way back

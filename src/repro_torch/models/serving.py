@@ -10,6 +10,11 @@ card. A ``mamba`` layer's is O(1) in the length: the conv window and the
 fp32 SSD state (``models/mamba.mamba_cache_init``). The JAX package's
 hist-replay fallback for FD (``REPRO_FD_STREAM=0``, or an ``init_cache``
 without params) is not ported and raises.
+
+``decode_step`` takes one int position (every row in lockstep) or per-row
+host positions (the continuous-batching engine, ``repro_torch.
+serving_engine``): the scalar case is the per-row case broadcast, so
+lockstep and ragged decode give the same bits per row.
 """
 from __future__ import annotations
 
@@ -37,11 +42,11 @@ def _realise_kcoef(cfg: ArchConfig, mixer: str, layer_params,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               params: Model | None = None) -> list:
+               params: Model | None = None, dtype=None) -> list:
     """One cache per layer, on the parameters' device. Only an all-mamba
     model takes no parameters (its cache holds no parameter-derived leaf;
-    then on the CPU). Mamba caches take the activation dtype
-    ``cfg.dtype``, as in the JAX package."""
+    then on the CPU). Mamba caches take ``dtype`` (a torch dtype; default
+    the activation dtype ``cfg.dtype``), as in the JAX package."""
     mixers = {mixer for mixer, _ in cfg.layers_spec}
     if "ski" in mixers:          # as repro/models/serving.py:99 raises
         raise NotImplementedError("decode for mixer ski (ski: Appendix "
@@ -57,8 +62,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     cache = []
     for i, (mixer, _) in enumerate(cfg.layers_spec):
         if mixer == "mamba":
-            cache.append(mamba_cache_init(cfg, batch,
-                                          getattr(torch, cfg.dtype), device))
+            cache.append(mamba_cache_init(
+                cfg, batch, dtype or getattr(torch, cfg.dtype), device))
             continue
         kt = _realise_kcoef(cfg, mixer, params.layers[i].mixer, max_len)
         cache.append(fd_stream.fd_stream_cache(kt, batch, max_len,
@@ -66,9 +71,20 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     return cache
 
 
+def cache_capacity(cache) -> int | None:
+    """Slot capacity (max positions a slot can hold) of a model cache:
+    the min over its streaming layers' ``cap`` markers, None when no layer
+    is length-bounded (an all-mamba model). The serving engine gates
+    admission on it."""
+    caps = [fd_stream.stream_capacity(lc) for lc in cache
+            if fd_stream.is_stream_cache(lc)]
+    return min(caps) if caps else None
+
+
 # ------------------------------------------------------- tno decode mixer
 def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
-    """GTU decode through the overlap-save step: x (b, 1, d)."""
+    """GTU decode through the overlap-save step: x (b, 1, d) at
+    ``cur_len`` (an int or ``fd_stream.Positions``)."""
     act = ACTS[_tno_cfg(cfg, mixer).act]
     u = act(dense(params.wu.w, x))                     # (b, 1, d)
     v = act(dense(params.wv.w, x))
@@ -94,8 +110,15 @@ def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
 
 
 def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
-    """One new token: tokens (b, 1) at position ``cur_len`` (an int, the
-    same in every row). Returns (logits (b, 1, V_pad), new cache)."""
+    """One new token: tokens (b, 1) at position ``cur_len``: an int (every
+    row at the same position) or per-row host positions (a list, numpy
+    array or CPU tensor of b ints, or ``fd_stream.Positions``; the
+    continuous-batching engine). FD layers take them, moved to the card
+    once for all layers; Mamba layers ignore them, as in JAX. Returns
+    (logits (b, 1, V_pad), new cache)."""
+    if any(fd_stream.is_stream_cache(lc) for lc in cache):
+        cur_len = fd_stream.positions(cur_len, tokens.shape[0],
+                                      tokens.device)
     x = embed_tokens(params, cfg, tokens)
     new_cache = []
     for (mixer, ffn), layer, lc in zip(cfg.layers_spec, params.layers,

@@ -131,9 +131,6 @@ def test_generate_is_token_exact_vs_jax(models, p, gen):
 
 def test_unported_paths_raise(models, monkeypatch):
     _, cfg, _, model = models
-    prompt = torch.zeros(1, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="sampled decode"):
-        serve.generate(model, cfg, prompt, 2, temperature=0.7)
     with pytest.raises(NotImplementedError, match="hist-replay"):
         serving.init_cache(cfg, 1, 8)
     monkeypatch.setenv("REPRO_FD_STREAM", "0")

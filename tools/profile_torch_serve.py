@@ -10,7 +10,12 @@ warms up, then traces three regions with ``torch.profiler``:
 * ``prefill``: one ``serving.prefill`` of the 8 x 448 prompts;
 * ``chunk``: ``init_cache`` plus the 7 chunked-prefill blocks of C = 64;
 * ``decode``: 16 lockstep ``decode_step`` calls (positions 448..463, no
-  block boundary among them).
+  block boundary among them);
+* ``engine_decode``: 16 ``Engine.generate`` steps over 8 slots at ragged
+  positions (prompts of 448 - 8 i tokens, i = 0..7, so slots end their
+  blocks on different steps);
+* ``engine_prefill``: one ``Engine.prefill`` of a 447-token prompt (6
+  whole blocks, then 63 masked token steps).
 
 For each region it prints the host wall time (ending in a synchronise),
 the device busy time (union of the traced kernels' intervals), the idle
@@ -118,6 +123,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import generate
     from repro_torch.models import serving
     from repro_torch.models.transformer import init_model
+    from repro_torch.serving_engine import Engine
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip())
@@ -145,14 +151,33 @@ def main(argv=None) -> int:
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             logits, cache = serving.decode_step(model, cfg, tok, cache, pos)
 
+    eng = Engine(cfg, model, slots=b, max_len=max_len)
+
+    def admit():
+        st = eng.init_state()
+        for i in range(b):
+            cache, first, plen = eng.prefill(prompt[i, :p - 8 * i].cpu())
+            st = eng.insert(st, cache, plen, first, i)
+        state["engine"] = st
+
+    def engine_decode():
+        st = state["engine"]
+        for _ in range(16):
+            st = eng.generate(st)[0]
+
     with torch.inference_mode():
         serving.prefill(model, cfg, prompt)               # warm-up
         generate(model, cfg, prompt, 2, max_len=max_len)
         chunk()
         decode()
+        admit()
+        engine_decode()
         regions = [trace("prefill", lambda: serving.prefill(model, cfg,
                                                             prompt)),
-                   trace("chunk", chunk), trace("decode", decode)]
+                   trace("chunk", chunk), trace("decode", decode),
+                   trace("engine_decode", engine_decode),
+                   trace("engine_prefill",
+                         lambda: eng.prefill(prompt[0, :p - 1].cpu()))]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
