@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, continuous-batching engine, training,
-SKI scoring, SKI training, unfused SKI, large-rank SKI and Mamba-2 serving
-paths on one NVIDIA card and check them.
+"""Drive the PyTorch port's serving, continuous-batching engine and its
+supervised scheduler, training, SKI scoring, SKI training, unfused SKI,
+large-rank SKI and Mamba-2 serving paths on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -17,6 +18,9 @@ card or outside a checkout of this repository. Phases:
    median of 50 runs, L2 evicted before each) beside the plain version's,
    one PyTorch library call's (where one computes the same function), and
    the bound (bytes or operations over the card's published peak rate);
+   ``interp_reduce`` and ``interp_expand`` at the SKI path's shape also
+   as ``ms_run``: 64 launches between one event pair over input and
+   output sets of more than 200 MB, median of 5 (``time_ms_run``);
    the fused ``causal_spectrum`` (plain and conjugated) and
    ``causal_spectrum_adjoint`` at the FD path's (512, 513) and at d = 37
    with n = 1, 2, 64 and 4096, also bitwise against a second call, timed
@@ -81,6 +85,23 @@ card or outside a checkout of this repository. Phases:
    run's new tokens/s over its ``generate`` steps, each prefill wave's
    ms, the counts of steps, prefills and packed prefills, and beside them
    the solo decode rate of the same requests (host clock, synchronised);
+4c. scheduler: the same traffic through the supervised
+   ``repro_torch.serving_engine.Scheduler`` (packing 4, asynchronous
+   detokenising, a metrics registry and a span tracer): greedy, every
+   outcome ok and the tokens held against solo decode under the same
+   margin rule, every request span closed; a chaos run (a seeded
+   ``FaultInjector``, the launchers' ``--chaos`` rates): every request
+   terminal, every error an ``InjectedFault``, the ok requests held as
+   before; a run preempted after 20 decode steps, snapshotted and restored
+   into a new Engine and Scheduler whose tokens equal the greedy run's
+   exactly; ``launch.serve.main --engine --batch 16 --slots 8`` in
+   process, its metrics JSON and one closed request span per request;
+   asserted launches: 6 ``hilbert_window`` for the Engine and its greedy
+   run, and 6 for the restored Engine and its run; printed, not claimed,
+   beside the card's name and power limit: new tokens/s over ``run()``'s
+   wall and over its decode steps beside the engine phase's rate, steps,
+   prefills, packed waves, the TTFT and TPOT medians (the registry's
+   buckets and the spans), the snapshot's bytes and write ms;
 5. train: the same model, from seed 0, takes 30 AdamW steps through the
    port's ``Trainer`` on the synthetic pipeline (8 × 512 tokens a step):
    5 warm-up steps, then a resume whose wall over the other 25 gives the
@@ -231,6 +252,56 @@ def time_ms(fn, reps: int = 50) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+#: time_ms_run: launches between one event pair, runs (median taken), and
+#: the bytes its input and output sets must exceed (four times the 50 MB L2)
+RUN_LAUNCHES, RUN_REPS, RUN_COLD_BYTES = 64, 5, 200e6
+
+
+def time_ms_run(calls, k: int = RUN_LAUNCHES, runs: int = RUN_REPS) -> dict:
+    """Device time a launch, the median over ``runs`` of one event pair
+    around ``k`` launches, divided by ``k``: for a launch of a few
+    microseconds one event pair around one launch (``time_ms``) reads
+    mostly the timer. ``calls`` are closures over distinct input sets,
+    taken in turn; each launch's output is kept until the run ends, so the
+    inputs and outputs together exceed ``RUN_COLD_BYTES`` and every launch
+    starts cold in L2. A ``torch.cuda._sleep`` ahead of the start event
+    holds the stream while the host enqueues the k launches, so the host's
+    launch cost stays out of the figure; that the enqueue ended inside the
+    sleep is checked. Returns {"ms_run", "enqueue_ms" (the median over the
+    runs), "sleep_ms" (the sleep's one reading)}."""
+    seq = [calls[i % len(calls)] for i in range(k)]
+    for _ in range(2):                   # warm-up; the allocator keeps blocks
+        outs = [fn() for fn in seq]
+        del outs
+    torch.cuda.synchronize()
+    cycles = 40_000_000
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s0.record()
+    torch.cuda._sleep(cycles)
+    s1.record()
+    s1.synchronize()
+    sleep_ms = s0.elapsed_time(s1)
+    times, enqueue = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        outs = [fn() for fn in seq]
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        del outs
+        times.append(start.elapsed_time(end) / k)
+    if max(enqueue) >= sleep_ms:
+        raise AssertionError(f"time_ms_run: enqueuing {k} launches took "
+                             f"{max(enqueue):.3f} ms, past the "
+                             f"{sleep_ms:.3f} ms sleep")
+    return {"ms_run": statistics.median(times),
+            "enqueue_ms": statistics.median(enqueue), "sleep_ms": sleep_ms}
 
 
 # ------------------------------------------------------------- phase 1-2
@@ -756,6 +827,40 @@ def check_interp_adjoint(device="cuda") -> None:
                              f"adjoint on the card: {rel}")
 
 
+def interp_runs(entries, device, g) -> None:
+    """``ms_run`` of interp_reduce and interp_expand at the SKI path's
+    shape (``time_ms_run``: 64 launches an event pair over input and
+    output sets of more than 200 MB, median of 5) into their entries."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec
+    _, b, n, d, r, _, _ = SKI_SHAPES[0]
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    sets = math.ceil(RUN_COLD_BYTES / (4 * (b * n * d + b * r * d))) + 1
+    xs = [torch.randn(b, n, d, device=device, generator=g)
+          for _ in range(sets)]
+    zs = [torch.randn(b, r, d, device=device, generator=g)
+          for _ in range(sets)]
+    for name, shape, calls in (
+            ("interp_reduce", f"x ({b}, {n}, {d}), r={r}",
+             [lambda x=x: interp_matvec.interp_reduce(x, lo, w_lo, r)
+              for x in xs]),
+            ("interp_expand", f"z ({b}, {r}, {d}), n={n}",
+             [lambda z=z: interp_matvec.interp_expand(z, lo, w_lo)
+              for z in zs])):
+        run = time_ms_run(calls)
+        e = entries[name]
+        e["ms_run"] = run["ms_run"]
+        print(f"[kernel] {name} path {shape}: ms_run "
+              f"{run['ms_run']:.5f} ({RUN_LAUNCHES} launches an event "
+              f"pair over {sets} input sets and {RUN_LAUNCHES} outputs, "
+              f"median of {RUN_REPS}; host enqueue {run['enqueue_ms']:.3f} "
+              f"ms inside a {run['sleep_ms']:.3f} ms sleep); ms (one launch "
+              f"an event pair) {e['ms']:.5f}; bound {e['bound_ms']:.5f} "
+              f"({e['bound_by']}); ms_run / bound "
+              f"{run['ms_run'] / e['bound_ms']:.2f}", flush=True)
+    del xs, zs
+
+
 def phase_ski_kernels(peaks, device="cuda") -> dict:
     """The dense forward's four SKI kernels against their plain versions at
     SKI_SHAPES: interp_reduce and interp_expand within 1e-6 × max|plain|
@@ -777,6 +882,7 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
                                                   peaks)
         out[label] = entries
+    interp_runs(out["path"], device, g)
     label, b, n, d, r = INTERP_R2
     lo, w_lo, _ = ski.make_inducing(n, r, device)
     _interp_entries(label, torch.randn(b, n, d, device=device, generator=g),
@@ -1331,7 +1437,8 @@ def phase_engine(cfg, model, device, plens=ENGINE_PLENS,
     alone at the same max_len under the margin rule; the same traffic
     with one slot poisoned (only that request ends not-ok, the others keep
     the clean run's tokens); and a sampled engine run twice (the same
-    tokens). Returns the launch counts of the engine path."""
+    tokens). Returns the launch counts of the engine path, the traffic,
+    the solo tokens and margin limits, and the greedy run's new tok/s."""
     from repro_torch.kernels import fd_fused
     from repro_torch.launch.serve import generate
     from repro_torch.serving_engine import Engine
@@ -1419,6 +1526,239 @@ def phase_engine(cfg, model, device, plens=ENGINE_PLENS,
         raise AssertionError("sampled engine runs differ or went wrong")
     if torch.device(device).type == "cuda" and sampled_launches != want:
         raise AssertionError(f"sampled engine launched {sampled_launches}")
+    return {"launches": launches, "prompts": prompts, "gens": gens,
+            "solo_new": solo_new, "limits": limits, "slots": slots,
+            "max_len": max_len, "rate": clean["new"] / clean["t_gen"]}
+
+
+# -------------------------------------------------------------- phase 4c
+#: the chaos run's fault rates (the launchers' ``--chaos``) and seed
+SCHED_CHAOS, SCHED_CHAOS_SEED = ({"prefill": 0.15, "decode": 0.02,
+                                  "callback": 0.1}, 0)
+#: the preempted run stops once this many decode steps have run
+SCHED_PREEMPT_STEPS = 20
+
+
+def _sched_requests(prompts, gens, on_token=None):
+    from repro_torch.serving_engine import Request
+    return [Request(uid=f"r{i}", prompt=pr, max_new=g, on_token=on_token)
+            for i, (pr, g) in enumerate(zip(prompts, gens))]
+
+
+def _by_index(results: dict) -> dict:
+    return {int(uid[1:]): list(toks) for uid, toks in results.items()}
+
+
+def _hist_median(reg, name: str) -> float:
+    """The upper bound of the bucket that holds the median observation of
+    a registry histogram (``inf`` past the last bucket)."""
+    series = reg.to_dict()[name]["series"][0]
+    half = series["count"] / 2
+    for le, cum in zip(series["buckets"], series["counts"]):
+        if cum >= half:
+            return le
+    return math.inf
+
+
+def _span_latencies(events) -> tuple[list, list]:
+    """Exact TTFT (request begin → first_token) and TPOT (gaps between a
+    request's token instants) in seconds from a trace."""
+    begin, last, ttft, tpot = {}, {}, [], []
+    for ev in events:
+        uid = ev.get("uid")
+        if ev["name"] == "request" and ev["ph"] == "B":
+            begin[uid] = ev["ts"]
+        elif ev["name"] == "first_token":
+            ttft.append(ev["ts"] - begin[uid])
+            last[uid] = ev["ts"]
+        elif ev["name"] == "token":
+            tpot.append(ev["ts"] - last[uid])
+            last[uid] = ev["ts"]
+    return ttft, tpot
+
+
+def phase_scheduler(cfg, model, device, engine: dict, smi: str,
+                    cli=("--arch", "fd-tnn-lm-wt103")) -> dict:
+    """The engine phase's traffic through the supervised ``Scheduler``
+    (default packing of 4, asynchronous detokenising, a metrics registry
+    and a span tracer): (1) greedy, every outcome ok and each request's
+    tokens held against solo decode under the margin rule; (2) chaos, a
+    seeded ``FaultInjector`` at the launchers' ``--chaos`` rates: every
+    request terminal, every error an ``InjectedFault``, the ok requests
+    held as in (1); (3) preempted after ``SCHED_PREEMPT_STEPS`` decode
+    steps, snapshotted, restored into a new Engine and Scheduler: the
+    tokens equal (1)'s exactly, and the restored Engine launches only its
+    6 ``hilbert_window``; (4) ``launch.serve.main --engine`` in process,
+    its metrics JSON and request spans checked. Prints, recorded and not
+    claimed, beside the card: the served new tok/s over ``run()``'s wall
+    and over its decode steps, the engine phase's rate, steps, prefills,
+    packed prefills, the TTFT and TPOT medians, snapshot bytes and write
+    ms. Returns the launch counts of (1)."""
+    from repro_torch.kernels import fd_fused
+    from repro_torch.launch import serve
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    from repro_torch.serving_engine import (Engine, EngineStepError,
+                                            FaultInjector, Scheduler)
+    prompts, gens = engine["prompts"], engine["gens"]
+    geometry = {"slots": engine["slots"], "max_len": engine["max_len"]}
+    n_req = len(prompts)
+    cuda = torch.device(device).type == "cuda"
+
+    # (1) greedy
+    fd_fused.reset_counters()
+    reg, tracer = obs_metrics.Registry(), obs_tracing.Tracer()
+    eng = Engine(cfg, model, metrics=reg, **geometry)
+    sched = Scheduler(eng, metrics=reg, tracer=tracer)
+    for r in _sched_requests(prompts, gens):
+        sched.submit(r)
+    _sync(device)
+    t0 = time.perf_counter()
+    results, _ = sched.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = dict(fd_fused.counters)
+    if cuda:
+        want = {k: 0 for k in launches}
+        want["hilbert_window"] = cfg.n_layers
+        if launches != want:
+            raise AssertionError(f"scheduler path launched {launches}, not "
+                                 f"{want}")
+    bad = {u: o for u, o in sched.outcomes.items() if o.status != "ok"}
+    if bad:
+        raise AssertionError(f"greedy scheduler run: outcomes not ok {bad}")
+    clean = _by_index(results)
+    checked, skipped = _held("scheduler vs solo", clean,
+                             engine["solo_new"], engine["limits"])
+    spans = obs_tracing.validate_spans(tracer.events)
+    if sorted(spans) != sorted(f"r{i}" for i in range(n_req)):
+        raise AssertionError(f"greedy trace spans for {sorted(spans)}")
+    new = sum(len(t) - 1 for t in clean.values())
+    step_s = reg.to_dict()["repro_decode_step_seconds"]["series"][0]["sum"]
+    ttft, tpot = _span_latencies(tracer.events)
+    print(f"[scheduler] {cfg.name}, {n_req} requests over S={eng.slots}, "
+          f"max_len {eng.max_len}, prefill_pack {sched.prefill_pack}, "
+          f"detok_async {sched.detok_async}: launches {launches}; scheduler "
+          f"vs solo {checked} new tokens checked, {skipped} skipped (after "
+          f"a top-2 margin <= {MARGIN}), 0 mismatches; {len(spans)} request "
+          "spans closed", flush=True)
+    print(f"[scheduler] greedy ({smi}): {new} new tokens in {wall:.3f} s of "
+          f"run() ({new / wall:.1f} new tok/s; over its {sched.steps} decode "
+          f"steps' {step_s:.3f} s: {new / step_s:.1f}); the engine phase "
+          f"{engine['rate']:.1f} new tok/s over its generate steps; "
+          f"prefills {sched.prefills} (packed waves "
+          f"{sched.packed_prefills}); TTFT median <= "
+          f"{_hist_median(reg, 'repro_ttft_seconds')} s by the registry's "
+          f"buckets ({statistics.median(ttft):.4f} s from the spans), TPOT "
+          f"median <= {_hist_median(reg, 'repro_tpot_seconds')} s "
+          f"({statistics.median(tpot) * 1e3:.3f} ms)", flush=True)
+
+    # (2) chaos
+    inj = FaultInjector(seed=SCHED_CHAOS_SEED, rates=SCHED_CHAOS)
+    streamed = {}
+    chaos = Scheduler(eng, injector=inj)
+    for r in _sched_requests(prompts, gens, on_token=lambda u, t:
+                             streamed.setdefault(u, []).append(t)):
+        chaos.submit(r)
+    reruns = 0
+    while True:
+        try:
+            chaos.run()
+            break
+        except EngineStepError:          # retries exhausted: queue kept
+            reruns += 1
+            if reruns > 3:
+                raise
+    status = {u: o.status for u, o in chaos.outcomes.items()}
+    for u, o in chaos.outcomes.items():
+        if o.status not in ("ok", "error"):
+            raise AssertionError(f"chaos: {u} ended {o.status}")
+        for msg in (o.error, o.callback_error):
+            if msg is not None and "InjectedFault" not in msg:
+                raise AssertionError(f"chaos: {u} failed without an "
+                                     f"injected fault: {msg}")
+    not_ok = {int(u[1:]) for u, st in status.items() if st != "ok"}
+    c_checked, c_skipped = _held("chaos vs solo", _by_index(chaos.results),
+                                 engine["solo_new"], engine["limits"],
+                                 skip=not_ok)
+    cb_errors = sum(o.callback_error is not None
+                    for o in chaos.outcomes.values())
+    print(f"[scheduler] chaos (FaultInjector seed {SCHED_CHAOS_SEED}, rates "
+          f"{SCHED_CHAOS}): {inj.fired} faults fired, {chaos.retries} "
+          f"retries, {reruns} re-runs after EngineStepError; outcomes "
+          f"{sorted(status.items())}; {cb_errors} callbacks detached; every "
+          "error an InjectedFault; the ok requests vs solo: "
+          f"{c_checked} checked, {c_skipped} skipped, 0 mismatches; "
+          f"log {inj.log}", flush=True)
+
+    # (3) preempt, snapshot, restore into a new Engine and Scheduler
+    with tempfile.TemporaryDirectory() as snap_dir:
+        reg3 = obs_metrics.Registry()
+        pre = Scheduler(eng, snapshot_dir=snap_dir, metrics=reg3)
+
+        def stop_at(uid, tok):
+            if pre.steps >= SCHED_PREEMPT_STEPS:
+                pre.preempt()
+
+        for r in _sched_requests(prompts, gens, on_token=stop_at):
+            pre.submit(r)
+        pre.run()
+        if not pre.preempted:
+            raise AssertionError("the preempted run was not preempted")
+        snap_bytes = reg3.get("repro_snapshot_bytes").get()
+        snap_ms = reg3.to_dict()["repro_snapshot_seconds"]["series"][0][
+            "sum"] * 1e3
+        partial = sum(len(t) for t in pre.results.values())
+        fd_fused.reset_counters()
+        eng_b = Engine(cfg, model, **geometry)
+        resumed = Scheduler(eng_b, snapshot_dir=snap_dir)
+        t0 = time.perf_counter()
+        if not resumed.try_restore():
+            raise AssertionError("no snapshot to restore")
+        _sync(device)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        resumed.run()
+        restored_launches = dict(fd_fused.counters)
+    if cuda and restored_launches != want:
+        raise AssertionError(f"restored Engine and run launched "
+                             f"{restored_launches}, not {want}")
+    if _by_index(resumed.results) != clean or any(
+            o.status != "ok" for o in resumed.outcomes.values()):
+        raise AssertionError("the restored run's tokens differ from the "
+                             "uninterrupted greedy run's")
+    print(f"[scheduler] preempted at decode step {pre.steps} with {partial} "
+          f"tokens served, snapshot {int(snap_bytes)} bytes written in "
+          f"{snap_ms:.3f} ms, restored into a new Engine in {restore_ms:.3f} "
+          f"ms ({smi}); the union of tokens equals the greedy run's "
+          f"exactly; launches of the new Engine and the resumed run "
+          f"{restored_launches}", flush=True)
+
+    # (4) the launcher, in process
+    with tempfile.TemporaryDirectory() as out:
+        mfile, tfile = os.path.join(out, "m.json"), os.path.join(out,
+                                                                  "t.jsonl")
+        try:
+            rc = serve.main(list(cli) + ["--engine", "--batch", str(n_req),
+                                         "--slots", str(eng.slots), "--device",
+                                         str(device), "--metrics-file", mfile,
+                                         "--trace-file", tfile])
+        finally:
+            obs_metrics.set_default_registry(None)
+        if rc != 0:
+            raise AssertionError(f"launch.serve --engine returned {rc}")
+        with open(mfile) as f:
+            dump = json.load(f)["metrics"]
+        cli_spans = obs_tracing.validate_spans(obs_tracing.load_jsonl(tfile))
+    finished = {s["labels"]["status"]: s["value"]
+                for s in dump["repro_requests_finished_total"]["series"]}
+    cli_status = {u: [x["status"] for x in r] for u, r in cli_spans.items()}
+    if (cli_status != {f"req{i}": ["ok"] for i in range(n_req)}
+            or finished != {"ok": n_req}):
+        raise AssertionError(f"launch.serve --engine: spans {cli_status}, "
+                             f"finished {finished}")
+    print(f"[scheduler] launch.serve --engine --batch {n_req} --slots "
+          f"{eng.slots}: metrics JSON of {len(dump)} metrics, "
+          f"{len(cli_spans)} closed request spans, all ok", flush=True)
     return launches
 
 
@@ -2724,7 +3064,8 @@ def main() -> int:
     cfg = get_config("fd-tnn-lm-wt103")
     model, prompt_len, seqs, serve_launches = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
-    engine_launches = phase_engine(cfg, model, "cuda")
+    engine = phase_engine(cfg, model, "cuda")
+    scheduler_launches = phase_scheduler(cfg, model, "cuda", engine, smi)
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
     score_launches = phase_ski_score("cuda")
@@ -2743,7 +3084,8 @@ def main() -> int:
     kernels.update(mamba_kernels)
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
-             "engine": (engine_launches, ("hilbert_window",)),
+             "engine": (engine["launches"], ("hilbert_window",)),
+             "scheduler": (scheduler_launches, ("hilbert_window",)),
              "train": (train_launches, tuple(
                  k for k, v in TRAIN_LAUNCHES["fd"].items() if v)),
              "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),

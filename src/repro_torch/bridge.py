@@ -17,9 +17,14 @@ Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
 pass between the two packages: :func:`train_state_to_jax` before a save,
 :func:`load_train_state` after a restore. :func:`cache_from_jax` carries a
 JAX serving cache (FD stream and Mamba leaves) the same way into the
-port's list of per-layer caches.
+port's list of per-layer caches, and :func:`decode_state_from_jax` a JAX
+``DecodeState`` (the serving engine's slots) into the port's; the
+engine's snapshots store :func:`decode_state_to_jax`'s layout, so a
+snapshot written by either package's scheduler resumes in the port.
 """
 from __future__ import annotations
+
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +32,7 @@ import torch
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import Model
 from repro_torch.optim.adamw import OptState
+from repro_torch.serving_engine import state as st
 
 
 def _flatten(tree, prefix=""):
@@ -132,25 +138,90 @@ _CACHE_LEAVES = frozenset({"ring", "tail", "uspec_re", "uspec_im", "khead",
                            "conv", "state"})
 
 
-def cache_from_jax(tree, cfg: ArchConfig, device="cuda") -> list:
+def cache_from_jax(tree, cfg: ArchConfig, device="cuda",
+                   shared: list | None = None) -> list:
     """A JAX serving cache (``repro.models.serving.init_cache`` layout:
     scanned ``blocks/sub<k>`` leaves with a leading layer axis, and
     ``tail<i>`` layers; numpy or tensor leaves) → the port's list of
     per-layer cache dicts on ``device``, each leaf a fresh tensor in its
-    own dtype. Raises on a leaf the port's caches do not have (the
-    hist-replay ``hist``/``kcoef``, attention ``k``/``v``) or a layer
-    left without one."""
+    own dtype. ``shared`` (a port cache of the same cfg, params and
+    max_len) lends its shared leaves (``state.SHARED_LEAVES``: the kernel
+    constants and the capacity marker) themselves in place of copies of
+    the JAX ones, each checked for the JAX leaf's shape. Raises on a leaf
+    the port's caches do not have (the hist-replay ``hist``/``kcoef``,
+    attention ``k``/``v``) or a layer left without one."""
     layers = [{} for _ in range(cfg.n_layers)]
     for name, arr in _port_leaves(tree, cfg).items():
         head, i_s, leaf = name.split(".")
         if head != "layers" or leaf not in _CACHE_LEAVES:
             raise ValueError(f"JAX cache leaf {name!r} has no port "
                              "counterpart")
-        layers[int(i_s)][leaf] = _tensor(arr, device)
+        i = int(i_s)
+        if shared is not None and leaf in st.SHARED_LEAVES:
+            t = shared[i][leaf]
+            if tuple(t.shape) != tuple(arr.shape):
+                raise ValueError(f"JAX cache leaf {name}: shape "
+                                 f"{tuple(arr.shape)} != the shared "
+                                 f"leaf's {tuple(t.shape)}")
+            layers[i][leaf] = t
+        else:
+            layers[i][leaf] = _tensor(arr, device)
     empty = [i for i, lc in enumerate(layers) if not lc]
     if empty:
         raise ValueError(f"JAX cache has no leaves for layers {empty}")
     return layers
+
+
+class JaxDecodeState(NamedTuple):
+    """A ``DecodeState`` in the JAX package's layout: ``cache`` a JAX
+    serving-cache tree, the rest (S,) or (S, 2) arrays. Its fields are in
+    the order JAX flattens its ``DecodeState``, so a checkpoint manifest
+    of either holds the same leaves in the same order."""
+    cache: Any
+    cur_len: Any
+    tokens: Any
+    active: Any
+    rng: Any
+
+
+def decode_state_from_jax(state, cfg: ArchConfig, device="cuda", *,
+                          template: list | None = None) -> st.DecodeState:
+    """A JAX ``DecodeState`` (``repro.serving_engine.state``, or a
+    :class:`JaxDecodeState`; numpy or tensor leaves) → the port's on
+    ``device``: the cache through :func:`cache_from_jax`, ``cur_len``
+    (int64) and ``active`` (bool) on the host, ``tokens`` (int64) on the
+    device. ``template`` (the Engine's batch-1 cache) lends its kernel
+    constants, as every state of one Engine shares them, so none is
+    realised or copied again. The sampling lanes start at zero: JAX's
+    uint32 PRNG keys have no counterpart in the port's counter-hash
+    sampler (a greedy engine never reads them, and the scheduler re-derives
+    a restored request's lane from its seed and token count)."""
+    cur_len = _as_torch(state.cur_len).to(torch.int64, copy=True)
+    active = _as_torch(state.active).to(torch.bool, copy=True)
+    if cur_len.dim() != 1 or active.shape != cur_len.shape:
+        raise ValueError(f"DecodeState cur_len {tuple(cur_len.shape)} and "
+                         f"active {tuple(active.shape)} are not (S,)")
+    cache = cache_from_jax(state.cache, cfg, device, shared=template)
+    if st.batch_size(cache) != cur_len.shape[0]:
+        raise ValueError(f"DecodeState cache has {st.batch_size(cache)} "
+                         f"rows for {cur_len.shape[0]} slots")
+    return st.DecodeState(
+        cache=cache, cur_len=cur_len,
+        tokens=_tensor(state.tokens, device, torch.int64),
+        active=active,
+        rng=torch.zeros(cur_len.shape[0], 2, dtype=torch.int64,
+                        device=device))
+
+
+def decode_state_to_jax(state: st.DecodeState,
+                        cfg: ArchConfig) -> JaxDecodeState:
+    """The port's ``DecodeState`` in the JAX layout (tensors on the state's
+    devices; the layers' leaves stacked into new tensors). ``rng`` holds
+    the port's (key, draws) lanes, which JAX's sampler cannot use."""
+    flat = {f"layers.{i}.{k}": v for i, lc in enumerate(state.cache)
+            for k, v in lc.items()}
+    return JaxDecodeState(_jax_tree(flat, cfg), state.cur_len, state.tokens,
+                          state.active, state.rng)
 
 
 # ---------------------------------------------------------- the way back

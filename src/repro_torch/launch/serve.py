@@ -1,13 +1,17 @@
 """Serving launcher: chunked prefill + greedy or sampled decode loop,
-counterpart of ``repro/launch/serve.py`` (solo path; the
-continuous-batching engine is ``repro_torch.serving_engine``, and the
-``--engine`` front end that drives it through a scheduler is a later
-slice).
+counterpart of ``repro/launch/serve.py``.
 
 ``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` (or
 ``--arch mamba2-2.7b``) serves a randomly initialised full-width model on
 the card; ``--smoke --device cpu`` runs the CPU smoke size with the plain
-kernels.
+kernels. ``--engine`` serves ``--batch`` requests through the
+continuous-batching engine's supervised scheduler
+(``repro_torch.serving_engine``: ``--slots`` decode slots, ``--chaos
+SEED`` seeded fault injection, ``--deadline``, ``--queue-cap``,
+``--trace-file`` request spans); ``--metrics-file`` dumps the metrics
+registry on exit. The flags, their refusals and the ``[serve]
+engine(...)`` line are the JAX launcher's; its ``--production-mesh`` is
+not ported.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.models import sampling, serving
 from repro_torch.models.transformer import init_model
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
 
 
 def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
@@ -110,11 +116,71 @@ def main(argv=None):
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy decode (the default); > 0 samples, "
-                         "seeded by --seed")
+                         "seeded by --seed — both modes work solo and with "
+                         "--engine (per-slot lanes)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="engine mode: truncate sampling to the k most "
+                         "likely tokens (0 = full distribution; requires "
+                         "--temperature > 0)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--engine", action="store_true",
+                    help="continuous-batching engine: --batch requests "
+                         "through S decode slots (repro_torch.serving_engine)")
+    ap.add_argument("--slots", type=int, default=None,
+                    help="engine decode slots (default REPRO_ENGINE_SLOTS)")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="engine mode: seeded FaultInjector chaos run "
+                         "(deterministic prefill/decode/callback faults; "
+                         "faulted requests end in explicit error outcomes, "
+                         "the rest are unaffected)")
+    ap.add_argument("--deadline", type=float, default=None, metavar="SEC",
+                    help="engine mode: per-request TTL in seconds "
+                         "(watchdog evicts expired slots)")
+    ap.add_argument("--queue-cap", type=int, default=None,
+                    help="engine mode: bounded request queue "
+                         "(admission rejects with QueueFull when full)")
+    ap.add_argument("--metrics-file", default=None, metavar="PATH",
+                    help="dump the obs metrics registry on exit "
+                         "(.json = JSON dump, anything else = Prometheus "
+                         "text exposition); also installs the registry as "
+                         "the process default")
+    ap.add_argument("--trace-file", default=None, metavar="PATH",
+                    help="engine mode: stream request span events to PATH "
+                         "as JSONL and write a Chrome trace_event export "
+                         "(PATH + '.chrome.json', Perfetto-loadable) on "
+                         "exit")
     args = ap.parse_args(argv)
+    if not args.engine and (args.chaos is not None
+                            or args.deadline is not None
+                            or args.queue_cap is not None):
+        ap.error("--chaos/--deadline/--queue-cap require --engine "
+                 "(the supervised scheduler owns those knobs)")
+    if args.trace_file is not None and not args.engine:
+        ap.error("--trace-file requires --engine (request spans are "
+                 "emitted by the supervised scheduler)")
+    if args.temperature < 0:
+        ap.error(f"--temperature {args.temperature} must be >= 0")
+    if args.top_k < 0:
+        ap.error(f"--top-k {args.top_k} must be >= 0")
+    if args.top_k > 0 and args.temperature <= 0:
+        # greedy decode ignores top-k; a silently inert knob is worse
+        # than a loud one
+        ap.error("--top-k requires --temperature > 0 "
+                 "(greedy decode never consults it)")
+    if args.top_k > 0 and not args.engine:
+        ap.error("--top-k requires --engine (the solo path samples the "
+                 "full distribution)")
+
+    reg = None
+    if args.metrics_file is not None:
+        reg = obs_metrics.Registry()
+        # process default too: an engine built without an explicit
+        # registry reports into the same dump
+        obs_metrics.set_default_registry(reg)
+    tracer = (obs_tracing.Tracer(args.trace_file)
+              if args.trace_file is not None else None)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -123,8 +189,10 @@ def main(argv=None):
     params = init_model(cfg, torch.Generator().manual_seed(args.seed),
                         device=device)
     rng = np.random.default_rng(args.seed)
-    prompt = torch.from_numpy(
-        rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
+    prompt_np = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
+    if args.engine:
+        return _serve_engine(args, cfg, params, prompt_np, reg, tracer)
+    prompt = torch.from_numpy(prompt_np).to(device)
     with torch.inference_mode():
         t0 = time.perf_counter()
         toks = generate(params, cfg, prompt, args.gen_len,
@@ -136,7 +204,71 @@ def main(argv=None):
     print(f"[serve] {cfg.name} on {device}: generated {n_new} tokens in "
           f"{dt:.2f}s ({n_new / dt:.1f} tok/s); sample row: "
           f"{toks[0, :16].tolist()}")
+    _dump_metrics(reg, args.metrics_file)
     return 0
+
+
+def _serve_engine(args, cfg, params, prompt_np, reg, tracer) -> int:
+    """``--engine``: every prompt row as one request through the
+    supervised scheduler; prints the JAX launcher's ``[serve]
+    engine(...)`` line (and the chaos line under ``--chaos``)."""
+    from repro_torch.serving_engine import (Engine, FaultInjector, Request,
+                                            Scheduler)
+    eng = Engine(cfg, params, slots=args.slots,
+                 max_len=args.prompt_len + args.gen_len,
+                 temperature=args.temperature, top_k=args.top_k)
+    injector = None
+    if args.chaos is not None:
+        injector = FaultInjector(seed=args.chaos, rates={
+            "prefill": 0.15, "decode": 0.02, "callback": 0.1})
+    sched = Scheduler(eng, injector=injector,
+                      default_deadline=args.deadline,
+                      queue_cap=args.queue_cap,
+                      metrics=reg, tracer=tracer,
+                      log=print if args.chaos is not None else None)
+    for i in range(args.batch):
+        sched.submit(Request(uid=f"req{i}", prompt=prompt_np[i],
+                             max_new=args.gen_len, seed=args.seed + i))
+    t0 = time.perf_counter()
+    results, _ = sched.run()
+    dt = time.perf_counter() - t0
+    n_new = sum(len(v) for v in results.values())
+    by_status = {}
+    for out in sched.outcomes.values():
+        by_status[out.status] = by_status.get(out.status, 0) + 1
+    ok_uid = next((u for u, o in sched.outcomes.items()
+                   if o.status == "ok"), None)
+    mode = ("greedy" if args.temperature == 0 else
+            f"T={args.temperature}"
+            + (f"/top{args.top_k}" if args.top_k else ""))
+    print(f"[serve] engine({eng.slots} slots, {mode}) generated "
+          f"{n_new} tokens in {dt:.2f}s ({n_new / dt:.1f} tok/s); "
+          f"steps={sched.steps} prefills={sched.prefills} "
+          f"(packed={sched.packed_prefills}) "
+          f"retries={sched.retries}; outcomes={by_status}; "
+          f"sample: "
+          f"{results[ok_uid][:16] if ok_uid else '(none ok)'}")
+    if injector is not None:
+        print(f"[serve] chaos(seed={args.chaos}): "
+              f"{injector.fired} faults fired; log={injector.log}")
+    if tracer is not None:
+        tracer.close()
+        chrome = args.trace_file + ".chrome.json"
+        obs_tracing.write_chrome(tracer.events, chrome)
+        print(f"[serve] trace: {args.trace_file} (JSONL), "
+              f"{chrome} (Perfetto)")
+    _dump_metrics(reg, args.metrics_file)
+    return 0
+
+
+def _dump_metrics(reg, path):
+    if reg is None or path is None:
+        return
+    if path.endswith(".json"):
+        reg.dump_json(path)
+    else:
+        reg.dump_prometheus(path)
+    print(f"[serve] metrics: {path}")
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Continuous-batching inference engine: prefill → insert → generate,
 counterpart of ``repro/serving_engine/engine.py``.
 
-The device half of the serving engine (the host queue, ``scheduler.py``,
-is a later slice). Functions over a :class:`~.state.DecodeState` of S
+The device half of the serving engine (``scheduler.py`` is the host
+half that drives it). Functions over a :class:`~.state.DecodeState` of S
 slots:
 
 * ``prefill(prompt)`` — one request's prompt through a **batch-1** cache:
@@ -31,7 +31,9 @@ Where JAX compiles one executable per argument shape, the port runs
 eagerly; ``trace_counts`` keeps the JAX keys and counts a function's first
 call at each new argument shape, as a jit trace would, so the bucketing
 contract (one ``prefill_bucket`` shape per (batch, bucket, remainder
-length), not one per prompt length) stays testable. Positions, admission
+length), not one per prompt length) stays testable. Under a live metrics
+registry (``metrics=``, or the ``REPRO_METRICS`` process default) the same
+counts feed ``repro_engine_traces_total{fn}``. Positions, admission
 and the masks of a prefill are decided on the host: a prefill moves its
 tokens and masks to the card once, a ``generate`` step moves the slots'
 positions and liveness once and reads back its tokens and ``ok`` once. The
@@ -45,6 +47,7 @@ buckets).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -53,6 +56,7 @@ import torch
 from repro_torch.kernels import fd_stream
 from repro_torch.models import sampling, serving
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving_engine import state as st
 
 _ENV_SLOTS = "REPRO_ENGINE_SLOTS"
@@ -87,7 +91,7 @@ class Engine:
                  max_len: int = 256, dtype=None,
                  guard_nonfinite: bool = True, temperature: float = 0.0,
                  top_k: int = 0, bucket0: int | None = None,
-                 use_buckets: bool | None = None):
+                 use_buckets: bool | None = None, metrics=None):
         if cfg.kind != "decoder":
             raise NotImplementedError(
                 f"serving engine supports decoder archs, got {cfg.kind}")
@@ -122,8 +126,20 @@ class Engine:
             bucket0 = int(os.environ.get(_ENV_BUCKET0) or 16)
         self.buckets = self._bucket_ladder(int(bucket0))
         self._templates = {1: self._prefix_template}
-        self.trace_counts = {"generate": 0, "insert": 0, "insert_from": 0,
-                             "decode1": 0, "chunk1": 0, "prefill_bucket": 0}
+        reg = (metrics if metrics is not None
+               else obs_metrics.default_registry())
+        self.metrics = reg
+        initial = {"generate": 0, "insert": 0, "insert_from": 0,
+                   "decode1": 0, "chunk1": 0, "prefill_bucket": 0}
+        if isinstance(reg, obs_metrics.NullRegistry):
+            self.trace_counts = dict(initial)
+        else:
+            self.trace_counts = obs_metrics.MirroredCounts(
+                initial,
+                reg.counter("repro_engine_traces_total",
+                            "jitted engine fn retraces (trace_counts)",
+                            ("fn",)),
+                "fn")
         self._shapes = {name: set() for name in self.trace_counts}
 
     # ------------------------------------------------------------ plumbing
@@ -259,6 +275,16 @@ class Engine:
                                     self.max_len, self.dtype,
                                     template=self._prefix_template)
 
+    @torch.inference_mode()
+    def state_from_jax(self, state) -> st.DecodeState:
+        """A DecodeState in the JAX layout (a JAX engine's state or a
+        snapshot's arrays; see ``bridge.decode_state_from_jax``) as this
+        engine's state on its device, holding the engine's own kernel
+        constants rather than copies."""
+        from repro_torch import bridge
+        return bridge.decode_state_from_jax(state, self.cfg, self.device,
+                                            template=self._prefix_template)
+
     def _check_prompt_len(self, p: int):
         if p < 1:
             raise ValueError("empty prompt")
@@ -343,6 +369,18 @@ class Engine:
         """A slot's lane after its prefill took draw 0: (key, 1)."""
         return self._to_device(np.array([sampling.seed_key(seed), 1],
                                         np.int64))
+
+    @torch.inference_mode()
+    def with_lanes(self, state, lanes: dict) -> st.DecodeState:
+        """``state`` with slot s's sampling lane set to (key of seed,
+        draws) for each ``lanes[s] = (seed, draws)``. A request that has
+        emitted k tokens has taken k draws (its prefill draw 0 and one per
+        advancing step), so a restored request resumes its stream where
+        it stopped; a greedy engine never reads the lanes."""
+        rng = state.rng.to("cpu", copy=True)
+        for slot, (seed, draws) in lanes.items():
+            rng[slot] = torch.tensor([sampling.seed_key(seed), draws])
+        return dataclasses.replace(state, rng=rng.to(self.device))
 
     @torch.inference_mode()
     def insert(self, state, prefix_cache, plen, token, slot, seed: int = 0):
