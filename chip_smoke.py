@@ -18,9 +18,11 @@ card or outside a checkout of this repository. Phases:
    median of 50 runs, L2 evicted before each) beside the plain version's,
    one PyTorch library call's (where one computes the same function), and
    the bound (bytes or operations over the card's published peak rate);
-   ``interp_reduce`` and ``interp_expand`` at the SKI path's shape also
-   as ``ms_run``: 64 launches between one event pair over input and
-   output sets of more than 200 MB, median of 5 (``time_ms_run``);
+   ``interp_reduce`` at the SKI path's shape also as ``ms_run``: 64
+   launches between one event pair over input and output sets of more
+   than 200 MB, median of 5 (``time_ms_run``); ``interp_expand`` so at
+   the path, at r = 8 and at r = n, beside the same timing of
+   ``y.zero_()`` on the path's y (the card's floor for the write alone);
    the fused ``causal_spectrum`` (plain and conjugated) and
    ``causal_spectrum_adjoint`` at the FD path's (512, 513) and at d = 37
    with n = 1, 2, 64 and 4096, also bitwise against a second call, timed
@@ -827,38 +829,87 @@ def check_interp_adjoint(device="cuda") -> None:
                              f"adjoint on the card: {rel}")
 
 
-def interp_runs(entries, device, g) -> None:
-    """``ms_run`` of interp_reduce and interp_expand at the SKI path's
-    shape (``time_ms_run``: 64 launches an event pair over input and
-    output sets of more than 200 MB, median of 5) into their entries."""
+#: interp_expand's ``ms_run`` shapes (label, b, n, d, r): the SKI path
+#: (h = 8.1), eight nodes (h = 73, the most rows on one node pair) and
+#: r = n (h = 1: a node a row)
+EXPAND_RUN_SHAPES = (("path", 8, 512, 512, 64), ("r=8", 8, 512, 512, 8),
+                     ("r=n", 8, 512, 512, 512))
+
+
+def _run_sets(nbytes: int) -> int:
+    """Distinct input sets of ``nbytes`` each that a ``time_ms_run`` cycles
+    through, so that the launches' inputs and outputs exceed
+    RUN_COLD_BYTES."""
+    return math.ceil(RUN_COLD_BYTES / nbytes) + 1
+
+
+def expand_runs(peaks, device, g) -> dict:
+    """``ms_run`` and ``ms`` of interp_expand at EXPAND_RUN_SHAPES with
+    their bytes bounds, {label: {"ms_run", "ms", "bound_ms", "sets"}}, and
+    under "write floor" the card's floor for writing the path's y alone in
+    one launch: ``y.zero_()`` on a (8, 512, 512) fp32 tensor, timed the
+    same way."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec
+    out = {}
+    for label, b, n, d, r in EXPAND_RUN_SHAPES:
+        lo, w_lo, _ = ski.make_inducing(n, r, device)
+        sets = _run_sets(4 * (b * n * d + b * r * d))
+        zs = [torch.randn(b, r, d, device=device, generator=g)
+              for _ in range(sets)]
+        calls = [lambda z=z: interp_matvec.interp_expand(z, lo, w_lo)
+                 for z in zs]
+        out[label] = {"ms_run": time_ms_run(calls)["ms_run"],
+                      "ms": time_ms(calls[0]),
+                      "bound_ms": 4 * (b * n * d + b * r * d) / peaks[0] * 1e3,
+                      "sets": sets}
+        del zs, calls
+    _, b, n, d, _ = EXPAND_RUN_SHAPES[0]
+    sets = _run_sets(4 * b * n * d)
+    ys = [torch.empty(b, n, d, device=device) for _ in range(sets)]
+    calls = [lambda y=y: y.zero_() for y in ys]
+    out["write floor"] = {"ms_run": time_ms_run(calls)["ms_run"],
+                          "ms": time_ms(calls[0]),
+                          "bound_ms": 4 * b * n * d / peaks[0] * 1e3,
+                          "sets": sets}
+    return out
+
+
+def interp_runs(entries, peaks, device, g) -> None:
+    """``ms_run`` (``time_ms_run``: 64 launches an event pair over input and
+    output sets of more than 200 MB, median of 5) of interp_reduce at the
+    SKI path's shape into its entry, and of interp_expand at
+    EXPAND_RUN_SHAPES beside the write floor (``expand_runs``); the path's
+    into interp_expand's entry."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec
     _, b, n, d, r, _, _ = SKI_SHAPES[0]
     lo, w_lo, _ = ski.make_inducing(n, r, device)
-    sets = math.ceil(RUN_COLD_BYTES / (4 * (b * n * d + b * r * d))) + 1
+    sets = _run_sets(4 * (b * n * d + b * r * d))
     xs = [torch.randn(b, n, d, device=device, generator=g)
           for _ in range(sets)]
-    zs = [torch.randn(b, r, d, device=device, generator=g)
-          for _ in range(sets)]
-    for name, shape, calls in (
-            ("interp_reduce", f"x ({b}, {n}, {d}), r={r}",
-             [lambda x=x: interp_matvec.interp_reduce(x, lo, w_lo, r)
-              for x in xs]),
-            ("interp_expand", f"z ({b}, {r}, {d}), n={n}",
-             [lambda z=z: interp_matvec.interp_expand(z, lo, w_lo)
-              for z in zs])):
-        run = time_ms_run(calls)
-        e = entries[name]
-        e["ms_run"] = run["ms_run"]
-        print(f"[kernel] {name} path {shape}: ms_run "
-              f"{run['ms_run']:.5f} ({RUN_LAUNCHES} launches an event "
-              f"pair over {sets} input sets and {RUN_LAUNCHES} outputs, "
-              f"median of {RUN_REPS}; host enqueue {run['enqueue_ms']:.3f} "
-              f"ms inside a {run['sleep_ms']:.3f} ms sleep); ms (one launch "
-              f"an event pair) {e['ms']:.5f}; bound {e['bound_ms']:.5f} "
-              f"({e['bound_by']}); ms_run / bound "
-              f"{run['ms_run'] / e['bound_ms']:.2f}", flush=True)
-    del xs, zs
+    run = time_ms_run([lambda x=x: interp_matvec.interp_reduce(x, lo, w_lo, r)
+                       for x in xs])
+    del xs
+    e = entries["interp_reduce"]
+    e["ms_run"] = run["ms_run"]
+    print(f"[kernel] interp_reduce path x ({b}, {n}, {d}), r={r}: ms_run "
+          f"{run['ms_run']:.5f} ({RUN_LAUNCHES} launches an event pair over "
+          f"{sets} input sets and {RUN_LAUNCHES} outputs, median of "
+          f"{RUN_REPS}; host enqueue {run['enqueue_ms']:.3f} ms inside a "
+          f"{run['sleep_ms']:.3f} ms sleep); ms (one launch an event pair) "
+          f"{e['ms']:.5f}; bound {e['bound_ms']:.5f} ({e['bound_by']}); "
+          f"ms_run / bound {run['ms_run'] / e['bound_ms']:.2f}", flush=True)
+    runs = expand_runs(peaks, device, g)
+    entries["interp_expand"]["ms_run"] = runs["path"]["ms_run"]
+    entries["interp_expand"]["ms_run_shapes"] = runs
+    for label, t in runs.items():
+        what = ("y.zero_() of the path's y" if label == "write floor" else
+                "interp_expand " + label)
+        print(f"[kernel] {what}: ms_run {t['ms_run']:.5f} (over {t['sets']} "
+              f"sets), ms (one launch an event pair) {t['ms']:.5f}; bound "
+              f"{t['bound_ms']:.5f} (bytes); ms_run / bound "
+              f"{t['ms_run'] / t['bound_ms']:.2f}", flush=True)
 
 
 def phase_ski_kernels(peaks, device="cuda") -> dict:
@@ -867,7 +918,8 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
     (sums of at most 2h+1 and two terms), ski_fused_pass2 and short_conv
     within 1e-5 × max|plain|; the interp pair also at r = 2 and as
     adjoints; then pass 2 at PASS2_CEILING in both orientations. Returns
-    the entries at every SKI_SHAPES shape, {label: {kernel: entry}}."""
+    the entries at every SKI_SHAPES shape and the interp pair's at
+    INTERP_R2, {label: {kernel: entry}}."""
     from repro_torch.core import ski
     g = torch.Generator(device=device).manual_seed(1)
     out = {}
@@ -882,12 +934,12 @@ def phase_ski_kernels(peaks, device="cuda") -> dict:
         entries["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, left,
                                                   peaks)
         out[label] = entries
-    interp_runs(out["path"], device, g)
+    interp_runs(out["path"], peaks, device, g)
     label, b, n, d, r = INTERP_R2
     lo, w_lo, _ = ski.make_inducing(n, r, device)
-    _interp_entries(label, torch.randn(b, n, d, device=device, generator=g),
-                    torch.randn(b, r, d, device=device, generator=g), lo,
-                    w_lo, peaks)
+    out[label] = _interp_entries(
+        label, torch.randn(b, n, d, device=device, generator=g),
+        torch.randn(b, r, d, device=device, generator=g), lo, w_lo, peaks)
     check_interp_adjoint(device)
     for label, b, n, d, r, m in PASS2_CEILING:
         x = torch.randn(b, n, d, device=device, generator=g)

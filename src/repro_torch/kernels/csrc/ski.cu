@@ -61,13 +61,36 @@
 //   Bound: z read once and y written once, 4 (b r d + b n d) bytes; 3 flops
 //   an output. At (8, 512, 512), r = 64: 9,437,184 bytes, 2.82 us at
 //   3.35 TB/s (H100 SXM): bound by bytes, nine tenths of it the write of y.
-//   Design: a block owns 8 rows of one batch row; its first threads compute
-//   the 8 rows' (lo, w_lo) into shared memory (one division a row), then the
-//   256 threads sweep the rows' channels, 4 at a time with 16-byte loads and
-//   stores when d % 4 == 0 (z and y 16-byte aligned), else one at a time.
-//   z (1 MB at the path shape) stays in L2 for the neighbouring rows that
-//   re-read its nodes. Every n >= 2 and 2 <= r <= n, r = n and r = 2
-//   included, runs here: no fallback.
+//   Design: a thread carries one channel quad (16-byte loads and stores when
+//   d % 4 == 0 and z, y are 16-byte aligned; else one channel) down a span
+//   of kExpandSpan = 4 rows. Each lane of a span's group divides for one
+//   row (hat_row) and the group's lanes take the span's (lo, w_lo) by warp
+//   shuffles: no shared memory, no barrier. Where the span touches at most
+//   kExpandWindow = 3 node rows (h >= 1.5, all but r near n), each is read
+//   once into registers before the first store; else (r = n) the thread
+//   issues every row's pair before its first store. y goes out by __stcs
+//   (st.global.cs: evict-first, y is never re-read here). Blocks of qx = 32
+//   quads (fewer at narrow d) by sy spans, sy halved from 256 threads to 64
+//   until every SM has kExpandWave = 4 blocks: at the path 1,024 blocks of
+//   128 threads, one wave. One 32-bit division a thread, none in the store
+//   loop. Each output is the same expression as before, so y keeps its
+//   bits. Every n >= 2 and 2 <= r <= n, r = n and r = 2 included, runs
+//   here: no fallback.
+//   Times on an H100 (NVIDIA H100 80GB HBM3, 700.00 W; tools/ab_kernel.py
+//   ski --time-only --only interp, PERF.md), ms_run (64 launches an event
+//   pair, cold) at the path / r = 8 / r = n: 5.63-5.91 / 4.92-5.00 /
+//   8.77-8.82 us; the earlier kernel (a block of 8 rows, 256 threads
+//   sweeping their quads with a 64-bit index, each quad loading both of
+//   its nodes, 4 dependent load-store steps a thread behind 8 divisions
+//   and a barrier) 6.17-6.21 / 5.89-5.92 / 9.69-9.71. Writing the path's y
+//   alone (y.zero_()) reads 4.70-4.82: that, not 2.82, is the floor under
+//   this timing. Its ablations: a 32-bit index 0.2 us faster, stores with
+//   no loads of z 5.20-5.22 at the path, the pair loaded once a thread
+//   5.80. So the loads' latency ahead of the stores held it back, the
+//   division little. Also timed: spans of 8 rows 5.49-5.76 / 4.72-4.78 /
+//   8.95-8.99 but 0.2-0.6 us slower at the smallest smoke shapes (more
+//   serial work a thread); 2 rows 6.34-6.40 at the path; plain stores in
+//   place of __stcs 6.20 / 5.68-5.69.
 //
 // ski_fused_pass2  replaces src/repro/kernels/ski_fused.py _fused_kernel /
 //   _fused_call (ski_fused_pass2_pallas):
@@ -198,8 +221,11 @@
 namespace {
 
 constexpr int kReduceThreads = 128;
-constexpr int kExpandThreads = 256;
-constexpr int kExpandRows = 8;   // rows of y an interp_expand block writes
+constexpr int kExpandThreads = 256;  // interp_expand threads a block, at most
+constexpr int kExpandSpan = 4;   // rows of y an interp_expand thread stores
+constexpr int kExpandWindow = 3; // node rows a span keeps in registers
+constexpr int kExpandWave = 4;   // interp_expand blocks aimed at per SM
+constexpr int kExpandMinThreads = 64;  // and threads a block, at least
 constexpr int kLanes = 32;       // (batch row, channel) columns of a block
 constexpr int kZ2Pitch = kLanes + 1;
 constexpr int kMaxCB = 8;        // batch rows of a pass-2 block, at most
@@ -266,49 +292,90 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (c < d) z[(bi * r + j) * d + c] = acc;
 }
 
+// One hat row of y from its node pair, float or float4 lanes: the parent
+// kernel's expression, so y keeps its bits.
+__device__ __forceinline__ float expand_row(float wl, float a, float b) {
+  const float wh = 1.f - wl;
+  return wl * a + wh * b;
+}
+
+__device__ __forceinline__ float4 expand_row(float wl, float4 a, float4 b) {
+  const float wh = 1.f - wl;
+  float4 o;
+  o.x = wl * a.x + wh * b.x;
+  o.y = wl * a.y + wh * b.y;
+  o.z = wl * a.z + wh * b.z;
+  o.w = wl * a.w + wh * b.w;
+  return o;
+}
+
+// V is float4 (d % 4 == 0, z and y 16-byte aligned) or float; cols = d / 4
+// or d lanes of V a row. Block (qx, sy): qx lanes of V along a row (a power
+// of two, kExpandSpan <= qx <= 32) by sy spans of kExpandSpan rows;
+// blockIdx.x = span block * slabs + slab, blockIdx.y the batch row.
+template <typename V>
 __global__ void __launch_bounds__(kExpandThreads)
     interp_expand_kernel(const float* __restrict__ z, float* __restrict__ y,
-                         long long n, long long d, int r, float hf,
-                         bool vec4) {
-  __shared__ int slo[kExpandRows];         // node lo of the block's rows
-  __shared__ float sw[kExpandRows];        // and w_lo
-  const long long i0 = blockIdx.x * (long long)kExpandRows;
+                         int n, int cols, int r, float hf, int slabs) {
+  const int qx = blockDim.x, lane_x = threadIdx.x;
+  const int sb = blockIdx.x / slabs;                 // 32-bit, once
+  const int c = (blockIdx.x - sb * slabs) * qx + lane_x;
+  const int i0 = (sb * blockDim.y + threadIdx.y) * kExpandSpan;
   const long long bi = blockIdx.y;
-  const int rows = n - i0 < kExpandRows ? (int)(n - i0) : kExpandRows;
-  if ((int)threadIdx.x < rows) {
-    float w_lo;
-    slo[threadIdx.x] = hat_row(i0 + threadIdx.x, hf, r, w_lo);
-    sw[threadIdx.x] = w_lo;
+  // lane x of a span's group divides for row i0 + x % kExpandSpan (rows
+  // past n repeat row n - 1); the group's lanes read the span's rows by
+  // shuffles, so no lane waits on shared memory or a barrier
+  int row = i0 + (lane_x & (kExpandSpan - 1));
+  row = row < n ? row : n - 1;
+  float w_row;
+  const int lo_row = hat_row(row, hf, r, w_row);
+  const int group = (threadIdx.y * qx) & 31;         // the group's first lane
+  int lo[kExpandSpan];
+  float wl[kExpandSpan];
+#pragma unroll
+  for (int j = 0; j < kExpandSpan; ++j) {
+    lo[j] = __shfl_sync(0xffffffffu, lo_row, group + j);
+    wl[j] = __shfl_sync(0xffffffffu, w_row, group + j);
   }
-  __syncthreads();
-  const float* zb = z + bi * r * d;
-  float* yb = y + (bi * n + i0) * d;
-  if (vec4) {
-    const long long d4 = d / 4;
-    for (long long e = threadIdx.x; e < rows * d4; e += kExpandThreads) {
-      const int q = (int)(e / d4);
-      const long long c4 = e - q * d4;
-      const float wl = sw[q], wh = 1.f - wl;
-      const float4 a = __ldg(reinterpret_cast<const float4*>(
-                                 zb + slo[q] * d) + c4);
-      const float4 b = __ldg(reinterpret_cast<const float4*>(
-                                 zb + (slo[q] + 1) * d) + c4);
-      float4 o;
-      o.x = wl * a.x + wh * b.x;
-      o.y = wl * a.y + wh * b.y;
-      o.z = wl * a.z + wh * b.z;
-      o.w = wl * a.w + wh * b.w;
-      reinterpret_cast<float4*>(yb + q * d)[c4] = o;
+  if (c >= cols || i0 >= n) return;
+  const V* zc = reinterpret_cast<const V*>(z) + bi * r * cols + c;
+  V* yc = reinterpret_cast<V*>(y) + (bi * n + i0) * cols + c;
+  const int rows = n - i0 < kExpandSpan ? n - i0 : kExpandSpan;
+  const int l0 = lo[0];
+  if (lo[kExpandSpan - 1] - l0 < kExpandWindow - 1) {
+    // the span's rows lie on at most kExpandWindow nodes: each node row is
+    // read once, into registers, before the first store
+    const int kn = lo[kExpandSpan - 1] - l0 + 2;
+    V win[kExpandWindow];
+    win[0] = __ldg(zc + (long long)l0 * cols);
+#pragma unroll
+    for (int k = 1; k < kExpandWindow; ++k)
+      win[k] = k < kn ? __ldg(zc + (long long)(l0 + k) * cols) : win[k - 1];
+#pragma unroll
+    for (int j = 0; j < kExpandSpan; ++j) {
+      if (j < rows) {
+        const int k = lo[j] - l0;
+        V a = win[0], b = win[1];
+#pragma unroll
+        for (int q = 1; q < kExpandWindow - 1; ++q)
+          if (k == q) { a = win[q]; b = win[q + 1]; }
+        __stcs(yc + (long long)j * cols, expand_row(wl[j], a, b));
+      }
     }
     return;
   }
-  for (long long e = threadIdx.x; e < rows * d; e += kExpandThreads) {
-    const int q = (int)(e / d);
-    const long long c = e - q * d;
-    const float wl = sw[q];
-    yb[q * d + c] = wl * __ldg(zb + slo[q] * d + c) +
-                    (1.f - wl) * __ldg(zb + (slo[q] + 1) * d + c);
+  // more nodes than the window (h below about 1.5, r near n): every
+  // row's pair, all loads issued before the first store
+  V a[kExpandSpan], b[kExpandSpan];
+#pragma unroll
+  for (int j = 0; j < kExpandSpan; ++j) {
+    a[j] = __ldg(zc + (long long)lo[j] * cols);
+    b[j] = __ldg(zc + (long long)(lo[j] + 1) * cols);
   }
+#pragma unroll
+  for (int j = 0; j < kExpandSpan; ++j)
+    if (j < rows)
+      __stcs(yc + (long long)j * cols, expand_row(wl[j], a[j], b[j]));
 }
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid (src is
@@ -1221,15 +1288,36 @@ int interp_reduce_f32(const void* x, void* z, long long b, long long n,
 int interp_expand_f32(const void* z, void* y, long long b, long long n,
                       long long d, long long r, float hf, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long blocks = (n + kExpandRows - 1) / kExpandRows;
-  if (blocks > 2147483647LL || b > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, sms = 0;
+  const cudaError_t e = current_sms(&dev, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const dim3 grid((unsigned)blocks, (unsigned)b);
-  interp_expand_kernel<<<grid, kExpandThreads, 0, s>>>(
-      static_cast<const float*>(z), static_cast<float*>(y), n, d, (int)r, hf,
-      vec4);
+  const long long cols = vec4 ? d / 4 : d;
+  // qx lanes along a row: 32, or the row's lanes rounded up to a power of
+  // two, at least a span; sy spans a block, halved (down to
+  // kExpandMinThreads threads) until every SM has kExpandWave blocks
+  int qx = kExpandSpan;
+  while (qx < 32 && qx < cols) qx *= 2;
+  int sy = kExpandThreads / qx;
+  const long long spans = (n + kExpandSpan - 1) / kExpandSpan;
+  const long long slabs = (cols + qx - 1) / qx;
+  while (qx * sy > kExpandMinThreads &&
+         (spans + sy - 1) / sy * slabs * b < (long long)kExpandWave * sms)
+    sy /= 2;
+  const long long blocks = (spans + sy - 1) / sy * slabs;
+  if (blocks > 2147483647LL || b > 65535 || n > 2147483647LL - kExpandSpan ||
+      cols > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)blocks, (unsigned)b), block(qx, sy);
+  if (vec4)
+    interp_expand_kernel<float4><<<grid, block, 0, s>>>(
+        static_cast<const float*>(z), static_cast<float*>(y), (int)n,
+        (int)cols, (int)r, hf, (int)slabs);
+  else
+    interp_expand_kernel<float><<<grid, block, 0, s>>>(
+        static_cast<const float*>(z), static_cast<float*>(y), (int)n,
+        (int)cols, (int)r, hf, (int)slabs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -28,9 +28,14 @@ its file's stem. Then:
 With ``--time-only`` the checks are skipped and each build times only
 the kernels of :data:`TIMERS` at the main path's shape: for builds that do
 not compute the function (an ablation that drops one phase of a kernel, to
-see what that phase costs). Where :data:`OUTPUTS` has the library, each
-build's outputs on the same fixed inputs are compared with the current
-build's (max |build - new|, printed and kept in the report).
+see what that phase costs). For ``ski`` the interp pair is also timed as
+``ms_run`` (``chip_smoke.time_ms_run``: 64 launches an event pair, cold),
+``interp_expand`` at ``chip_smoke.EXPAND_RUN_SHAPES`` beside the write
+floor (``y.zero_()`` of the path's y); ``--only interp`` (or ``dense``,
+``windowed``; repeatable) times those groups of :data:`SKI_TIMERS` alone.
+Where :data:`OUTPUTS` has the library, each build's outputs on the same
+fixed inputs are compared with the current build's (max |build - new|,
+printed and kept in the report).
 
 Prints one JSON object as its last line and writes it to ``--out``. Needs a
 CUDA card and ``nvcc``; exits non-zero without them or if a check fails.
@@ -118,24 +123,53 @@ def _expand_inputs(b, n, d, r, m, seed):
             torch.randn(d, m, device="cuda", generator=g))
 
 
-def _time_ski(peaks) -> dict:
-    """Unchecked, timed as chip_smoke times them: interp_reduce at the SKI
-    path's shape (x (8, 512, 512), r = 64), ski_fused_pass2 (causal) at
-    DENSE_SHAPES and, at the path's shape, in the signal backward's
-    orientation (Aᵀ, left m - 1), ski_windowed_pass2 at the large-rank
-    path's shape (x (8, 512, 512), r = 512, m = 32, causal), and
-    ski_expand_pass2 at every shape of ``_expand_shapes``."""
+def _time_interp(peaks) -> dict:
+    """interp_reduce at the SKI path's shape (x (8, 512, 512), r = 64) and
+    interp_expand at chip_smoke's EXPAND_RUN_SHAPES, each as ``ms`` (one
+    launch an event pair) and ``ms_run`` (64 launches an event pair, cold),
+    and the write floor (``y.zero_()`` on the path's y, timed the same
+    way: a control that no build changes), under "interp_expand run
+    <label>"; interp_expand also as ``ms`` at SKI_SHAPES and INTERP_R2 (the
+    first label of each shape)."""
     from repro_torch.core import ski
-    from repro_torch.kernels import interp_matvec, ski_fused
+    from repro_torch.kernels import interp_matvec
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _, b, n, d, r, _, _ = chip_smoke.SKI_SHAPES[0]
+    lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
+    xs = [torch.randn(b, n, d, device="cuda", generator=g) for _ in
+          range(chip_smoke._run_sets(4 * (b * n * d + b * r * d)))]
+    calls = [lambda x=x: interp_matvec.interp_reduce(x, lo, w_lo, r)
+             for x in xs]
+    out = {"interp_reduce": {
+        "ms": chip_smoke.time_ms(calls[0]),
+        "ms_run": chip_smoke.time_ms_run(calls)["ms_run"],
+        "bound_ms": 4 * (b * n * d + b * r * d) / peaks[0] * 1e3}}
+    del xs, calls
+    seen = set()
+    for label, z, n in _expand_output_inputs(seed=5)[:-1]:
+        if label.startswith("run ") or (z.shape, n) in seen:
+            continue
+        seen.add((z.shape, n))
+        lo, w_lo, _ = ski.make_inducing(n, z.shape[1], "cuda")
+        out[f"interp_expand {label}"] = {
+            "ms": chip_smoke.time_ms(
+                lambda: interp_matvec.interp_expand(z, lo, w_lo)),
+            "bound_ms": 4 * (z.numel() + z.shape[0] * n * z.shape[2])
+            / peaks[0] * 1e3}
+    for label, e in chip_smoke.expand_runs(peaks, "cuda", g).items():
+        name = "write floor" if label == "write floor" else (
+            f"interp_expand run {label}")
+        out[name] = {k: e[k] for k in ("ms", "ms_run", "bound_ms")}
+    return out
+
+
+def _time_dense(peaks) -> dict:
+    """ski_fused_pass2 (causal) at DENSE_SHAPES and, at the path's shape,
+    in the signal backward's orientation (Aᵀ, left m - 1)."""
+    from repro_torch.kernels import ski_fused
     out = {}
     for label, b, n, d, r, m in DENSE_SHAPES:
         x, z, a, f = _dense_inputs(b, n, d, r, m, seed=5)
-        if label == "path":
-            lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
-            out["interp_reduce"] = {
-                "ms": chip_smoke.time_ms(
-                    lambda: interp_matvec.interp_reduce(x, lo, w_lo, r)),
-                "bound_ms": 4 * (x.numel() + z.numel()) / peaks[0] * 1e3}
         key = "ski_fused_pass2" + ("" if label == "path" else f" {label}")
         bound = 4 * (2 * x.numel() + z.numel() + a.numel()
                      + f.numel()) / peaks[0] * 1e3
@@ -149,6 +183,14 @@ def _time_ski(peaks) -> dict:
                     lambda: ski_fused.ski_fused_pass2(
                         x, z, a, f, True, left=m - 1, transpose_a=True)),
                 "bound_ms": bound}
+    return out
+
+
+def _time_windowed(peaks) -> dict:
+    """ski_windowed_pass2 at the large-rank path's shape (x (8, 512, 512),
+    r = 512, m = 32, causal) and ski_expand_pass2 at every shape of
+    ``_expand_shapes``."""
+    from repro_torch.kernels import ski_fused
     g = torch.Generator(device="cuda").manual_seed(7)
     b, n, d, r, m = 8, 512, 512, 512, 32
     x = torch.randn(b, n, d, device="cuda", generator=g)
@@ -159,7 +201,7 @@ def _time_ski(peaks) -> dict:
         lambda: ski_fused.ski_windowed_pass2(x, z, coef, f, True))
     nbytes, gram, rest = chip_smoke._windowed_cost(b, n, d, r, m)
     bound = max(nbytes / peaks[0], 3 * gram / peaks[2] + rest / peaks[1])
-    out["ski_windowed_pass2"] = {"ms": ms, "bound_ms": bound * 1e3}
+    out = {"ski_windowed_pass2": {"ms": ms, "bound_ms": bound * 1e3}}
     for label, b, n, d, r, m, left in _expand_shapes():
         x, z2, f = _expand_inputs(b, n, d, r, m, seed=8)
         out[f"ski_expand_pass2 {label}"] = {
@@ -170,14 +212,68 @@ def _time_ski(peaks) -> dict:
     return out
 
 
+#: the groups of the ski timing (``--only`` picks some)
+SKI_TIMERS = {"interp": _time_interp, "dense": _time_dense,
+              "windowed": _time_windowed}
+
+
+def _time_ski(peaks, only=None) -> dict:
+    """Unchecked, timed as chip_smoke times them: each group of
+    SKI_TIMERS (all, or those named in ``only``)."""
+    out = {}
+    for name, timer in SKI_TIMERS.items():
+        if not only or name in only:
+            out.update(timer(peaks))
+    return out
+
+
+def _expand_output_inputs(seed):
+    """interp_expand's compared calls (label, z, n): every SKI_SHAPES shape,
+    INTERP_R2, EXPAND_RUN_SHAPES, and z and y one float past 16-byte
+    alignment at the path (the scalar path, as d = 33 and 45)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(label, b, n, d, r) for label, b, n, d, r, _, _
+              in chip_smoke.SKI_SHAPES]
+    shapes += [chip_smoke.INTERP_R2, *(
+        (f"run {label}", *rest) for label, *rest
+        in chip_smoke.EXPAND_RUN_SHAPES)]
+    out = [(label, torch.randn(b, r, d, device="cuda", generator=g), n)
+           for label, b, n, d, r in shapes]
+    _, b, n, d, r = chip_smoke.EXPAND_RUN_SHAPES[0]
+    flat = torch.randn(b * r * d + 1, device="cuda", generator=g)
+    out.append(("unaligned", flat[1:].view(b, r, d), n))
+    return out
+
+
+def _expand_outputs(seed) -> dict:
+    """interp_expand at every call of ``_expand_output_inputs``; the
+    unaligned call also writes a y one float past alignment."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec
+    out = {}
+    for label, z, n in _expand_output_inputs(seed):
+        lo, w_lo, _ = ski.make_inducing(n, z.shape[1], "cuda")
+        y = interp_matvec.interp_expand(z, lo, w_lo)
+        if label == "unaligned":
+            assert z.data_ptr() % 16 != 0
+            buf = torch.empty(y.numel() + 1, device="cuda")
+            with mock.patch.object(torch, "empty",
+                                   lambda *a, **k: buf[1:].view(y.shape)):
+                y = interp_matvec.interp_expand(z, lo, w_lo)
+            assert y.data_ptr() % 16 != 0
+        out[f"interp_expand {label}"] = y
+    return out
+
+
 def _ski_outputs() -> dict:
-    """The dense forward's two kernels on fixed inputs, for max |new - old|:
-    interp_reduce and ski_fused_pass2 at DENSE_SHAPES (causal), and the
-    backward's pass 2 (Aᵀ, taps flipped, left m - 1); ski_expand_pass2 at
-    every shape of ``_expand_shapes``."""
+    """The SKI kernels on fixed inputs, for max |new - old|: interp_reduce
+    and ski_fused_pass2 at DENSE_SHAPES (causal), and the backward's pass 2
+    (Aᵀ, taps flipped, left m - 1); ski_expand_pass2 at every shape of
+    ``_expand_shapes``; interp_expand at every call of
+    ``_expand_output_inputs``."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
-    out = {}
+    out = _expand_outputs(seed=10)
     for label, b, n, d, r, m in DENSE_SHAPES:
         x, z, a, f = _dense_inputs(b, n, d, r, m, seed=6)
         lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
@@ -427,9 +523,13 @@ def main() -> int:
     ap.add_argument("--out", type=Path)
     ap.add_argument("--time-only", action="store_true",
                     help="time the kernels of TIMERS without the checks")
+    ap.add_argument("--only", action="append", choices=sorted(SKI_TIMERS),
+                    help="ski --time-only: time these groups alone")
     args = ap.parse_args()
     if args.time_only and args.name not in TIMERS:
         ap.error(f"--time-only: no timing for {args.name}")
+    if args.only and not (args.time_only and args.name == "ski"):
+        ap.error("--only needs ski --time-only")
     out = args.out or ROOT / "chiprun_out" / f"ab_{args.name}.json"
     if not torch.cuda.is_available():
         print("ab_kernel: no CUDA device", file=sys.stderr)
@@ -457,15 +557,22 @@ def main() -> int:
     for build in order:
         print(f"[ab] {args.name}: build {build}", flush=True)
         with loading(args.name, paths[build]):
-            entries = (TIMERS if args.time_only else CHECKS)[args.name](
-                peaks)
+            if args.only:
+                entries = _time_ski(peaks, args.only)
+            else:
+                entries = (TIMERS if args.time_only else CHECKS)[args.name](
+                    peaks)
             if args.name in OUTPUTS and build not in outputs:
                 outputs[build] = {k: v.cpu() for k, v in
                                   OUTPUTS[args.name]().items()}
         for kernel, e in entries.items():
-            times.setdefault(kernel, {}).setdefault(build, []).append(
-                e["ms"])
-            print(f"[time] {kernel} {build}: {e['ms']:.4f} ms (bound "
+            for key in ("ms", "ms_run"):
+                if key in e:
+                    name = kernel + ("" if key == "ms" else " ms_run")
+                    times.setdefault(name, {}).setdefault(build, []).append(
+                        e[key])
+            run = (f", ms_run {e['ms_run']:.5f}" if "ms_run" in e else "")
+            print(f"[time] {kernel} {build}: {e['ms']:.4f} ms{run} (bound "
                   f"{e['bound_ms']:.4f})", flush=True)
     report["ms"] = times
     if outputs:
