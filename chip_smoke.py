@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, continuous-batching engine and its
-supervised scheduler, training, SKI scoring, SKI training, unfused SKI,
-large-rank SKI and Mamba-2 serving paths on one NVIDIA card and check
-them.
+supervised scheduler, training, the baseline TNN's scoring, training and
+hist-replay serving, SKI scoring, SKI training, unfused SKI, large-rank
+SKI and Mamba-2 serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -110,6 +110,29 @@ card or outside a checkout of this repository. Phases:
    tokens/s; the training launch counts are read from this phase (per
    layer a step: 2 ``causal_spectrum``, 1 ``causal_spectrum_adjoint``, 2
    ``fd_mul``, 1 ``fd_khat_grad``);
+5b. tno: the full-width baseline tnn-lm-wt103 (the ``tno`` mixer: the
+   RPE MLP at every lag times the decay bias, an FFT Toeplitz matvec;
+   66,031,744 parameters, as many as the FD model; random weights from
+   seed 0) scores 8 × 512 tokens through ``make_forward`` and the eval
+   ``loss_fn`` (card vs CPU logits and loss on 1 × 512 within 1e-4 ×
+   max), takes 10 AdamW steps of 8 × 512 through the ``Trainer`` (5
+   warm-up, 5 timed; the loss falls), and its smoke model's step-0
+   gradients, three losses and a checkpoint resume are held card vs CPU as
+   in phase 10; it serves the serve phase's shape (8 × (448 + 64), max_len
+   512) greedily through the hist-replay cache, held to the kernel-path
+   forward over the 512-token sequences under the margin rule, and four of
+   the engine phase's requests (prompts of 17, 100, 255 and 420 tokens)
+   through an ``Engine`` of 4 slots at max_len 512, held to solo
+   ``generate`` under the margin rule with the forward at n = 512;
+   asserted: no launch of any hand-written kernel in all of that, the taps
+   realised once a layer a ``generate`` and an Engine; then the serve
+   phase's FD model under ``REPRO_FD_STREAM=0`` on its prompts through the
+   hist cache, its tokens held to the streaming ones under the margin
+   rule, asserted 6 ``hilbert_window`` (``kcoef`` realised once a layer)
+   and no other kernel; printed, not claimed, beside the card's name and
+   power limit: the scoring and training tokens/s and the new tokens/s of
+   the decode steps alone (the prompt fed untimed) of the baseline's and
+   FD's hist replay and of FD's stream;
 6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
@@ -1286,7 +1309,8 @@ def phase_window_kernels(peaks, device="cuda") -> dict:
 
 # --------------------------------------------------------------- phase 4
 def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
-    """Returns (model, prompt tokens, generated sequences, launch counts)."""
+    """Returns (model, prompt length, generated sequences, launch counts,
+    decode new tokens/s)."""
     from repro_torch.kernels import backend, fd_fused
     from repro_torch.launch.serve import generate
     from repro_torch.models.serving import prefill
@@ -1346,7 +1370,7 @@ def phase_serve(cfg, device, prompts: int, prompt_len: int, gen_len: int):
     if in_prefill != want:
         raise AssertionError(f"prefill ({route} route) launched "
                              f"{in_prefill}, not {want}")
-    return model, prompt_len, seqs, launches
+    return model, prompt_len, seqs, launches, decode_tps
 
 
 # -------------------------------------------------------------- phase 4b
@@ -1446,15 +1470,22 @@ def _engine_report(tag: str, run: dict) -> None:
           f"prefill waves (prompts x ms): {waves}", flush=True)
 
 
-def _margin_limits(model, cfg, solo, prompts) -> list:
+def _margin_limits(model, cfg, solo, prompts, n: int | None = None) -> list:
     """For each request, how many of its new tokens come before the first
     position where the kernel-path forward over its solo sequence has a
-    top-2 margin <= MARGIN (the first new token has none before it)."""
+    top-2 margin <= MARGIN (the first new token has none before it).
+    ``n`` pads each sequence with zeros to n tokens before the forward (a
+    causal model's earlier logits do not see the padding): the baseline's
+    kernel depends on the length, and its decode is the forward at n =
+    max_len."""
     from repro_torch.models.transformer import forward
     limits = []
     with torch.inference_mode():
         for seq, pr in zip(solo, prompts):
-            logits = forward(model, cfg, seq[None])[0, len(pr) - 1:-1]
+            m = len(seq)
+            if n is not None:
+                seq = torch.nn.functional.pad(seq, (0, n - m))
+            logits = forward(model, cfg, seq[None])[0, len(pr) - 1:m - 1]
             top2 = torch.topk(logits, 2, dim=-1).values
             low = ((top2[:, 0] - top2[:, 1]) <= MARGIN).nonzero()
             limits.append(int(low[0]) if len(low) else logits.shape[0])
@@ -1831,6 +1862,20 @@ def _fd_counts():
     return dict(fd_fused.counters), dict(fd_fused.op_counters)
 
 
+def _kernel_counts() -> dict:
+    """Launches of every hand-written kernel of the port since the last
+    :func:`_reset_kernel_counts` (``short_conv`` counts both dtypes)."""
+    from repro_torch.kernels import fd_fused, ops, ssd_scan
+    return {**fd_fused.counters, **ops.ski_counters(), **ssd_scan.counters}
+
+
+def _reset_kernel_counts() -> None:
+    from repro_torch.kernels import fd_fused, ops, ssd_scan
+    fd_fused.reset_counters()
+    ops.reset_ski_counters()
+    ssd_scan.reset_counters()
+
+
 def _ski_counts(coef: bool = False):
     """SKI launches and the counts of SKIFusedTNO (dense Gram) or, with
     ``coef``, SKIFusedTNOCoef."""
@@ -1842,7 +1887,8 @@ def _ski_counts(coef: bool = False):
 #: kernel launches a layer makes in one training step (forward + backward):
 #: the FD model, the SKI model on the dense Gram, and on the large-rank
 #: "windowed" and "fft" routes
-TRAIN_LAUNCHES = {"fd": FD_OP_LAUNCHES["fused"][0],
+TRAIN_LAUNCHES = {"tno": {},
+                  "fd": FD_OP_LAUNCHES["fused"][0],
                   "ski": {"interp_reduce": 3, "ski_fused_pass2": 2,
                           "gram_grad": 1, "conv_tap_grad": 1},
                   "ski_windowed": {"interp_reduce": 3,
@@ -1850,21 +1896,22 @@ TRAIN_LAUNCHES = {"fd": FD_OP_LAUNCHES["fused"][0],
                                    "conv_tap_grad": 1},
                   "ski_fft": {"interp_reduce": 3, "ski_expand_pass2": 2,
                               "conv_tap_grad": 1}}
-TRAIN_TAGS = {"fd": "[train]", "ski": "[ski-train]",
+TRAIN_TAGS = {"tno": "[tno train]", "fd": "[train]", "ski": "[ski-train]",
               "ski_windowed": "[large-r train]",
               "ski_fft": "[large-r fft train]"}
 
 
 def phase_train(cfg, device, steps: int, seq: int, batch: int,
-                mixer: str = "fd") -> dict:
+                mixer: str = "fd", report: dict | None = None) -> dict:
     """Returns the launch counts of the training run. The run is two
     ``Trainer.run`` calls on one model: steps 0..TRAIN_WARMUP-1, then a
     resume to ``steps``, whose wall (data, pre-step clone, step and
     logging, to a synchronise) gives the throughput. Every step must make
     TRAIN_LAUNCHES[mixer] launches a layer and one kernel backward a layer
-    (none through the reference)."""
+    (none through the reference); the baseline ``tno`` makes no launch of
+    any kernel of the port and has no autograd Function. ``report`` gets
+    the tokens/s and the losses."""
     from repro_torch.data.pipeline import DataConfig
-    from repro_torch.kernels import fd_fused, ops
     from repro_torch.runtime.trainer import Trainer, TrainerConfig
     model, opt, step_fn = _train_setup(cfg, device, 0, steps, warmup=5)
     data = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0)
@@ -1875,8 +1922,7 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
                        data, log=lambda line: print(line, flush=True))
     warm, timed = trainer(TRAIN_WARMUP), trainer(steps)
     torch.cuda.reset_peak_memory_stats(device)
-    fd_fused.reset_counters()
-    ops.reset_ski_counters()
+    _reset_kernel_counts()
     t0 = time.perf_counter()
     opt, _ = warm.run(model, opt)
     _sync(device)
@@ -1884,8 +1930,11 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
     opt, end = timed.run(model, opt, TRAIN_WARMUP)
     _sync(device)
     t2 = time.perf_counter()
-    launches, op_counts = (_fd_counts() if mixer == "fd"
-                           else _ski_counts(coef=mixer != "ski"))
+    if mixer == "tno":
+        launches, op_counts = _kernel_counts(), {}
+    else:
+        launches, op_counts = (_fd_counts() if mixer == "fd"
+                               else _ski_counts(coef=mixer != "ski"))
     peak = torch.cuda.max_memory_allocated(device)
     losses = [float(m["loss"])
               for m in warm.metrics_history + timed.metrics_history]
@@ -1914,13 +1963,250 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
         raise AssertionError(f"loss did not fall: {losses}")
     want = {k: TRAIN_LAUNCHES[mixer].get(k, 0) * cfg.n_layers
             for k in launches}
-    want_ops = {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
-                "bwd_ref": 0}
+    want_ops = ({} if mixer == "tno" else
+                {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
+                 "bwd_ref": 0})
     if end != steps or per_step != want or ops_per_step != want_ops:
         raise AssertionError(f"{steps} steps of {cfg.n_layers} layers made "
                              f"{per_step} launches and {ops_per_step} "
                              f"forwards/backwards a step, not {want} and "
                              f"{want_ops}")
+    if report is not None:
+        report.update(tok_s=tok_s, losses=losses)
+    return launches
+
+
+# -------------------------------------------------------------- phase 5b
+TNO_ARCH, TNO_TRAIN_STEPS = "tnn-lm-wt103", 10
+#: the engine phase's requests the tno phase serves (prompts of 17, 100,
+#: 255 and 420 tokens) through S slots at max_len PROMPT_LEN + GEN_LEN
+TNO_ENGINE_REQUESTS, TNO_ENGINE_SLOTS = (1, 5, 8, 13), 4
+
+
+def _decode_rate(model, cfg, seqs, p: int, max_len: int, device) -> float:
+    """New tokens/s of the decode steps alone: ``seqs``' first p tokens
+    teacher-forced untimed into a fresh cache (params-aware, so the
+    cache ``REPRO_FD_STREAM`` selects), then its other steps timed, each
+    with the argmax a greedy ``generate`` takes; host clock, synchronised.
+    (The serve phase's rate is the difference of two ``generate`` walls,
+    which reads noise where the decode steps are a small part of them.)"""
+    from repro_torch.models import serving
+    b, n = seqs.shape
+    with torch.inference_mode():
+        cache = serving.init_cache(cfg, b, max_len, params=model)
+        for t in range(p):
+            _, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
+                                           cache, t)
+        _sync(device)
+        t0 = time.perf_counter()
+        for t in range(p, n - 1):
+            logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
+                                                cache, t)
+            torch.argmax(logits[:, -1], dim=-1)
+        _sync(device)
+    return b * (n - 1 - p) / (time.perf_counter() - t0)
+
+
+def _hist_generate(tag: str, model, cfg, prompt, gen_len: int, max_len: int,
+                   device):
+    """One greedy ``generate`` of gen_len tokens at max_len through the
+    hist-replay cache (the prompt teacher-forced token by token), after a
+    short warm-up. Returns (sequences, new tokens/s of the decode steps
+    (:func:`_decode_rate` over the sequences), the kernel launches and
+    ``PLAN_EVALS`` of the ``generate`` call)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import serving
+    b, p = prompt.shape
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :8], 2, max_len=max_len)   # warm-up
+        _sync(device)
+        _reset_kernel_counts()
+        serving.PLAN_EVALS.update({k: 0 for k in serving.PLAN_EVALS})
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, gen_len, max_len=max_len)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        counts, evals = _kernel_counts(), dict(serving.PLAN_EVALS)
+    if seqs.shape != (b, p + gen_len) or not torch.equal(seqs[:, :p],
+                                                         prompt):
+        raise AssertionError(f"{tag} generate returned {tuple(seqs.shape)}")
+    rate = _decode_rate(model, cfg, seqs, p, max_len, device)
+    steps = p + gen_len - 1
+    print(f"{tag} {cfg.name} hist-replay generate {b} x ({p} + {gen_len}) "
+          f"at max_len {max_len}: {t_gen:.3f} s, {steps} decode steps "
+          f"({steps / t_gen:.1f} steps/s); decode alone {rate:.1f} new "
+          f"tok/s; kernel launches {counts}; PLAN_EVALS {evals}",
+          flush=True)
+    return seqs, rate, counts, evals
+
+
+def _expect_no_launches(what: str, counts: dict) -> None:
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched {counts}: the baseline path "
+                             "runs no hand-written kernel (cuFFT, cuBLAS)")
+
+
+def phase_tno(fd_cfg, fd_model, fd_seqs, fd_rate: float, engine: dict,
+              smi: str, device="cuda") -> dict:
+    """The baseline TNN at full width from seed 0: (1) score 8 × 512
+    through ``make_forward`` and the eval ``loss_fn``, card vs CPU on
+    1 × 512; (2) train TNO_TRAIN_STEPS AdamW steps through the Trainer,
+    and the smoke model's gradients, losses and checkpoint resume card vs
+    CPU; (3) serve 8 × (448 + 64) greedily at max_len 512 through the
+    hist-replay cache, held to the kernel-path forward under the margin
+    rule; (4) four of the engine phase's requests through an Engine of
+    TNO_ENGINE_SLOTS slots, held to solo ``generate`` under the margin
+    rule, with the forward at n = max_len; 0 launches of any hand-written
+    kernel in (1)-(4); (5) the serve phase's FD model under
+    REPRO_FD_STREAM=0 on the serve phase's prompts: its tokens held to
+    the streaming ones under the margin rule, 6 ``hilbert_window`` (one a
+    layer, realising ``kcoef``) and no other kernel. Prints the rates,
+    recorded and not claimed, beside the card. Returns the launch counts
+    by path."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.models import serving
+    from repro_torch.models.transformer import init_model, loss_fn
+    from repro_torch.serving_engine import Engine
+    t_phase = time.perf_counter()
+    cfg = get_config(TNO_ARCH)
+    model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_fd = sum(p.numel() for p in fd_model.parameters())
+    print(f"[tno] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"vocab {cfg.vocab}, {n_params} parameters ({fd_cfg.name}: "
+          f"{n_fd})", flush=True)
+    if n_params != n_fd:
+        raise AssertionError("the baseline and FD models should hold one "
+                             "RPE MLP of width d each")
+    launches = {}
+
+    # (1) score
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    fwd = make_forward(cfg)
+    fwd(model, batch["tokens"])                        # warm-up
+    _sync(device)
+    _reset_kernel_counts()
+    logits = fwd(model, batch["tokens"])
+    with torch.no_grad():
+        loss = float(loss_fn(model, cfg, batch)[0])
+    launches["tno_score"] = _kernel_counts()
+    if not (logits.shape == (SCORE_BATCH, SCORE_SEQ, cfg.vocab_padded)
+            and bool(torch.isfinite(logits).all()) and math.isfinite(loss)):
+        raise AssertionError(f"tno logits {tuple(logits.shape)} or loss "
+                             f"{loss} not finite or of the wrong shape")
+    walls = []
+    for _ in range(SCORE_REPS):
+        t0 = time.perf_counter()
+        fwd(model, batch["tokens"])
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls) * 1e3
+    score_tok_s = SCORE_BATCH * SCORE_SEQ / ms * 1e3
+    print(f"[tno score] make_forward {SCORE_BATCH}x{SCORE_SEQ}: median "
+          f"{ms:.3f} ms of {SCORE_REPS} (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}), {score_tok_s:.0f} tokens/s; eval loss "
+          f"{loss:.6f}; kernel launches {launches['tno_score']}", flush=True)
+    one = {k: v[:1] for k, v in batch.items()}
+    cpu_model = init_model(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    want = fwd(cpu_model, one["tokens"].cpu())
+    got = fwd(model, one["tokens"]).cpu()
+    with torch.no_grad():
+        want_loss = float(loss_fn(cpu_model, cfg,
+                                  {k: v.cpu() for k, v in one.items()})[0])
+        got_loss = float(loss_fn(model, cfg, one)[0])
+    del cpu_model
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    lerr = abs(got_loss - want_loss)
+    print(f"[tno score] card vs CPU, 1 x {SCORE_SEQ} tokens: logits max abs "
+          f"err {err:.3e} (scale {scale:.3e}, limit 1e-4 x scale); loss "
+          f"{got_loss:.6f} vs {want_loss:.6f}, err {lerr:.3e} (limit 1e-4 x "
+          f"loss)", flush=True)
+    if not (err <= 1e-4 * scale and lerr <= 1e-4 * abs(want_loss)):
+        raise AssertionError("card baseline scoring differs from the CPU's")
+
+    # (2) train
+    report = {}
+    launches["tno_train"] = phase_train(cfg, device, TNO_TRAIN_STEPS,
+                                        TRAIN_SEQ, TRAIN_BATCH, mixer="tno",
+                                        report=report)
+    small = reduce_for_smoke(cfg)
+    check_train_card_vs_cpu(small, device)
+    check_checkpoint_resume(small, device)
+
+    # (3) serve
+    max_len = PROMPT_LEN + GEN_LEN
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (PROMPTS, PROMPT_LEN))).to(device)
+    seqs, rate, launches["tno_serve"], evals = _hist_generate(
+        "[tno serve]", model, cfg, prompt, GEN_LEN, max_len, device)
+    if evals != {"fd": 0, "tno": cfg.n_layers}:
+        raise AssertionError(f"tno generate realised its taps {evals} times, "
+                             f"not once a layer")
+    check_decoded("[tno serve]", cfg, model, PROMPT_LEN, seqs)
+
+    # (4) engine
+    prompts = [engine["prompts"][i] for i in TNO_ENGINE_REQUESTS]
+    gens = [engine["gens"][i] for i in TNO_ENGINE_REQUESTS]
+    _reset_kernel_counts()
+    serving.PLAN_EVALS["tno"] = 0
+    eng = Engine(cfg, model, slots=TNO_ENGINE_SLOTS, max_len=max_len)
+    run = engine_run(eng, prompts, gens)
+    launches["tno_engine"] = _kernel_counts()
+    _engine_report(f"tno ({len(prompts)} requests, prompts "
+                   f"{[len(p) for p in prompts]}, S={TNO_ENGINE_SLOTS}, "
+                   f"buckets {eng.buckets})", run)
+    if serving.PLAN_EVALS["tno"] != cfg.n_layers or not all(
+            run["ok"].values()):
+        raise AssertionError(f"tno engine: PLAN_EVALS "
+                             f"{serving.PLAN_EVALS}, ok {run['ok']}")
+    with torch.inference_mode():
+        solo = [generate(model, cfg, torch.from_numpy(pr)[None].to(device), g,
+                         max_len=max_len)[0] for pr, g in zip(prompts, gens)]
+    limits = _margin_limits(model, cfg, solo, prompts, n=max_len)
+    checked, skipped = _held("tno engine vs solo", run["tokens"],
+                             [s[len(pr):].tolist()
+                              for s, pr in zip(solo, prompts)], limits)
+    print(f"[tno engine] engine vs solo decode at max_len {max_len}: "
+          f"{checked} new tokens checked, {skipped} skipped (after a top-2 "
+          f"margin <= {MARGIN} of the forward at n = {max_len}), 0 "
+          "mismatches", flush=True)
+    for path in ("tno_score", "tno_train", "tno_serve", "tno_engine"):
+        _expect_no_launches(path, launches[path])
+    del model, eng
+
+    # (5) FD through the hist cache
+    fprompt = fd_seqs[:, :PROMPT_LEN]
+    with mock.patch.dict(os.environ, {"REPRO_FD_STREAM": "0"}):
+        fseqs, frate, counts, evals = _hist_generate(
+            "[tno fd-hist]", fd_model, fd_cfg, fprompt, GEN_LEN, max_len,
+            device)
+    want = {k: 0 for k in counts}
+    if torch.device(device).type == "cuda":      # the plain versions count 0
+        want["hilbert_window"] = fd_cfg.n_layers
+    if counts != want or evals != {"fd": fd_cfg.n_layers, "tno": 0}:
+        raise AssertionError(f"FD hist generate launched {counts} and "
+                             f"realised {evals}, not {want} and one a layer")
+    launches["fd_hist"] = counts
+    limits = _margin_limits(fd_model, fd_cfg, list(fd_seqs), list(fprompt))
+    checked, skipped = _held(
+        "fd hist vs stream", {i: r[PROMPT_LEN:].tolist()
+                              for i, r in enumerate(fseqs)},
+        [r[PROMPT_LEN:].tolist() for r in fd_seqs], limits)
+    print(f"[tno fd-hist] hist-replay vs streaming tokens: {checked} checked, "
+          f"{skipped} skipped (after a top-2 margin <= {MARGIN}), 0 "
+          "mismatches", flush=True)
+    stream_rate = _decode_rate(fd_model, fd_cfg, fd_seqs, PROMPT_LEN,
+                               max_len, device)
+    print(f"[tno] rates ({smi}; host clock, recorded, not claimed): scoring "
+          f"{score_tok_s:.0f} tokens/s; training {report['tok_s']:.0f} "
+          f"tokens/s; decode alone, new tok/s: baseline hist {rate:.1f}, FD "
+          f"hist {frate:.1f}, FD streaming {stream_rate:.1f} (the serve "
+          f"phase's FD decode rate: {fd_rate:.1f})", flush=True)
+    print(f"[tno] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     return launches
 
 
@@ -2552,9 +2838,11 @@ def check_checkpoint_resume(small, device) -> None:
         raise AssertionError("the resumed run differs from the uninterrupted")
 
 
-def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
-    from repro_torch.configs import get_config, reduce_for_smoke
-    from repro_torch.models.transformer import forward, init_model
+def check_decoded(tag: str, cfg, model, prompt_len: int, seqs) -> None:
+    """The kernel-path forward over the generated (b, max_len) sequences
+    reproduces every decoded token where its top-2 margin exceeds
+    MARGIN."""
+    from repro_torch.models.transformer import forward
     with torch.inference_mode():
         logits = forward(model, cfg, seqs)                 # (b, max_len, V)
         if not bool(torch.isfinite(logits).all()):
@@ -2565,13 +2853,19 @@ def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
         pred = torch.clamp(torch.argmax(lg, dim=-1), max=cfg.vocab - 1)
         wrong = (pred != seqs[:, prompt_len:]) & checked
         n_checked, n_wrong = int(checked.sum()), int(wrong.sum())
-    print(f"[check] forward over generated {tuple(seqs.shape)}: "
+    print(f"{tag} forward over generated {tuple(seqs.shape)}: "
           f"{n_checked} positions checked, {checked.numel() - n_checked} "
           f"skipped (top-2 margin <= {MARGIN}), {n_wrong} mismatches",
           flush=True)
     if n_wrong:
         raise AssertionError(f"{n_wrong} decoded tokens disagree with the "
                              "kernel-path forward")
+
+
+def phase_check(cfg, model, prompt_len: int, seqs, device) -> None:
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models.transformer import forward, init_model
+    check_decoded("[check]", cfg, model, prompt_len, seqs)
     # the smoke model on the card (kernels) vs on the CPU (plain versions)
     small = reduce_for_smoke(cfg)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -3114,12 +3408,13 @@ def main() -> int:
     kernels.update(phase_window_kernels(peaks)["path"])
     check_coef_backward()
     cfg = get_config("fd-tnn-lm-wt103")
-    model, prompt_len, seqs, serve_launches = phase_serve(
+    model, prompt_len, seqs, serve_launches, decode_tps = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
     engine = phase_engine(cfg, model, "cuda")
     scheduler_launches = phase_scheduler(cfg, model, "cuda", engine, smi)
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
+    tno_launches = phase_tno(cfg, model, seqs, decode_tps, engine, smi)
     score_launches = phase_ski_score("cuda")
     ski_train_launches = phase_train(get_config("ski-tnn-lm-wt103"), "cuda",
                                      TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
@@ -3153,6 +3448,9 @@ def main() -> int:
                                    ("interp_reduce", "ski_expand_pass2")),
              "large_r_fft_train": (large_r["large_r_fft_train"],
                                    tuple(TRAIN_LAUNCHES["ski_fft"])),
+             **{path: (counts, ()) for path, counts in tno_launches.items()
+                if path != "fd_hist"},
+             "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),
              **{path: (counts, ("ssd_scan", "short_conv_bf16"))
                 for path, counts in mamba_launches.items()}}
     for path, (counts, names) in paths.items():

@@ -1,9 +1,10 @@
 """The paper's own architecture: TNN causal LM (Qin et al. 2023 config:
 6 decoder layers, d=512) with the token mixer selectable between baseline
 TNO / SKI-TNO / FD-TNO. GTU+GLU realised as mixer+ffn. Copy of
-``repro/configs/tnn_lm.py``. The port runs the ``fd`` mixer (serving and
-training) and the ``ski`` mixer (scoring and training; no decode, as in
-the JAX package); ``core/tno.py`` raises for the baseline ``tno``."""
+``repro/configs/tnn_lm.py``. The port scores, trains and serves the
+baseline ``tno`` (hist-replay decode) and the ``fd`` mixer (streaming
+decode), and scores and trains the ``ski`` mixer (no decode, as in the
+JAX package)."""
 import dataclasses
 
 from repro_torch.configs.base import register

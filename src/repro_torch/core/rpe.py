@@ -6,7 +6,9 @@
 * the interp RPE of SKI: d learned piecewise-linear functions on [-1, 1]
   (Prop. 1 shows the ReLU MLP is exactly this class), pinned to 0 at
   x = 0, evaluated through the inverse time warp x(t) = sign(t) λ^|t| so
-  that extrapolation in t becomes interpolation in x.
+  that extrapolation in t becomes interpolation in x;
+* the decay bias λ^|t| of the baseline TNN (Qin et al. 2023), which the
+  paper's variants drop.
 """
 from __future__ import annotations
 
@@ -100,3 +102,11 @@ def inverse_time_warp(t: torch.Tensor, lam: float) -> torch.Tensor:
     return torch.sign(t) * torch.pow(torch.tensor(lam, dtype=torch.float32,
                                                   device=t.device),
                                      torch.abs(t))
+
+
+def decay_bias(t: torch.Tensor, lam: float) -> torch.Tensor:
+    """The baseline TNN's decay bias λ^|t|, taken in fp32 from the Python
+    float ``lam``, as the JAX package takes it."""
+    t = t.float()
+    return torch.pow(torch.tensor(lam, dtype=torch.float32, device=t.device),
+                     torch.abs(t))

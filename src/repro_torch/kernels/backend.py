@@ -63,7 +63,7 @@ def _env_int(name: str, default: int) -> int:
 def fd_stream_enabled() -> bool:
     """``REPRO_FD_STREAM`` as the JAX package reads it: "auto" (default),
     1/true/on enable the overlap-save streaming decode cache; 0/false/off
-    ask for the hist-replay cache, which the port does not have yet."""
+    pin FD decode to the hist-replay cache (``models/serving.py``)."""
     v = os.environ.get(_ENV_FD_STREAM, "auto").lower()
     if v in ("1", "true", "on", "auto", ""):
         return True

@@ -2,10 +2,12 @@
 counterpart of ``repro/launch/serve.py``.
 
 ``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` (or
-``--arch mamba2-2.7b``) serves a randomly initialised full-width model on
-the card; ``--smoke --device cpu`` runs the CPU smoke size with the plain
-kernels. ``--engine`` serves ``--batch`` requests through the
-continuous-batching engine's supervised scheduler
+``--arch tnn-lm-wt103``, the baseline, or ``--arch mamba2-2.7b``) serves a
+randomly initialised full-width model on the card; ``--smoke --device
+cpu`` runs the CPU smoke size with the plain kernels. The baseline decodes
+through the hist-replay cache, as FD does under ``REPRO_FD_STREAM=0``.
+``--engine`` serves ``--batch`` requests through the continuous-batching
+engine's supervised scheduler
 (``repro_torch.serving_engine``: ``--slots`` decode slots, ``--chaos
 SEED`` seeded fault injection, ``--deadline``, ``--queue-cap``,
 ``--trace-file`` request spans); ``--metrics-file`` dumps the metrics
@@ -41,13 +43,15 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
     request with seed s. The port's bits are its own: JAX's
     ``jax.random.categorical`` stream cannot be reproduced.
 
-    Prefill: an all-FD model takes the prompt in whole C-token blocks
-    through the overlap-save machinery (``serving.decode_chunk``); the
-    remainder, and a Mamba model's whole prompt, is teacher-forced token
-    by token, as in the JAX package. ``None`` auto-detects; False forces
+    Prefill: an all-FD model with streaming caches takes the prompt in
+    whole C-token blocks through the overlap-save machinery
+    (``serving.decode_chunk``); the remainder, and the whole prompt of a
+    hist-replay or Mamba model, is teacher-forced token by token, as in the
+    JAX package. ``None`` auto-detects; False forces
     token-by-token. ``max_len`` sizes the decode cache (default exactly
     p + gen_len); the FD kernel is realised on the rfft grid of that
-    length, so token parity with another run needs the same ``max_len``.
+    length and the baseline's RPE at t / max_len, so token parity with
+    another run needs the same ``max_len``.
     Call under ``torch.inference_mode()`` on the card (the FD op and the
     SSD kernel are forward-only there)."""
     if temperature < 0:

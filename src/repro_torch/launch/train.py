@@ -4,8 +4,9 @@
 Wires ``launch/steps.make_train_step`` (loss, autograd, AdamW) + the data
 pipeline + the fault-tolerant ``runtime/trainer.Trainer`` on one device:
 ``cuda`` by default, where every FD-TNO and SKI-TNO forward and backward
-runs the hand-written kernels (``fd-tnn-lm-wt103``, ``ski-tnn-lm-wt103``);
-``--device cpu`` runs their plain versions.
+runs the hand-written kernels (``fd-tnn-lm-wt103``, ``ski-tnn-lm-wt103``)
+and the baseline ``tnn-lm-wt103`` runs cuFFT and cuBLAS (no hand kernel,
+as XLA ran it); ``--device cpu`` runs the plain versions.
 Multi-device meshes (``--production-mesh``) and the metrics / trace files
 come with later slices (ROADMAP Queue 1 items 10 and 12).
 """

@@ -1,15 +1,23 @@
 """Serving: prefill, chunked prefill and single-token decode with per-layer
-caches — counterpart of ``repro/models/serving.py`` for the FD TNN LM and
-Mamba-2.
+caches — counterpart of ``repro/models/serving.py`` for the TNN LMs (the
+baseline ``tno`` and ``fd`` mixers) and Mamba-2.
 
-The cache is a list with one cache per layer. An ``fd`` layer's is an
-overlap-save streaming cache (``kernels/fd_stream.py``), built from the
-layer's causal kernel, which is realised once per (layer, ``max_len``)
-through the FD spectrum and so runs the ``hilbert_window`` kernel on the
-card. A ``mamba`` layer's is O(1) in the length: the conv window and the
-fp32 SSD state (``models/mamba.mamba_cache_init``). The JAX package's
-hist-replay fallback for FD (``REPRO_FD_STREAM=0``, or an ``init_cache``
-without params) is not ported and raises.
+The cache is a list with one cache per layer:
+
+* an ``fd`` layer given the parameters gets the overlap-save streaming
+  cache (``kernels/fd_stream.py``), built from the layer's causal kernel,
+  realised once per (layer, ``max_len``) through the FD spectrum (on the
+  card the ``hilbert_window`` kernel);
+* a ``tno`` layer, and an ``fd`` layer under ``REPRO_FD_STREAM=0`` or
+  without parameters, gets the hist-replay cache: the mixer inputs
+  ``hist`` (b, max_len, d), replayed against the causal taps each step
+  (O(n·d) a token). With the parameters the taps are realised once per
+  layer into ``kcoef`` (d, max_len); without them every step realises them
+  again. :data:`PLAN_EVALS` counts the realisations. The baseline's RPE
+  reads t / n, so its taps depend on ``max_len``: decode matches the
+  forward run at n = ``max_len``;
+* a ``mamba`` layer's is O(1) in the length: the conv window and the fp32
+  SSD state (``models/mamba.mamba_cache_init``).
 
 ``decode_step`` takes one int position (every row in lockstep) or per-row
 host positions (the continuous-batching engine, ``repro_torch.
@@ -21,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import fd as fd_mod
+from repro_torch.core import tno as tno_mod
 from repro_torch.kernels import backend, fd_stream
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_cache_init, mamba_decode
@@ -28,67 +37,110 @@ from repro_torch.models.transformer import (Model, _tno_cfg, embed_tokens,
                                             ffn_apply, forward, unembed)
 from repro_torch.nn.layers import ACTS, dense, rmsnorm
 
-_HIST_NOT_PORTED = ("the hist-replay decode cache is not ported yet "
-                    "(ROADMAP Queue 1: hist decode fallback)")
+#: realisations of a layer's decode kernel (the FD spectrum or the
+#: baseline's coefficients), by mixer: one per layer at ``init_cache``
+#: with parameters, one per layer and step for a params-less hist cache
+PLAN_EVALS: dict = {"fd": 0, "tno": 0}
 
 
 # ------------------------------------------------------------- cache init
 def _realise_kcoef(cfg: ArchConfig, mixer: str, layer_params,
                    max_len: int) -> torch.Tensor:
-    """(d, max_len) causal kernel taps of an fd layer, lags 0..max_len-1."""
-    bcfg = _tno_cfg(cfg, mixer)
-    kt = fd_mod.fd_kernel_time(layer_params.tno, bcfg.tno.fd_cfg(), max_len)
-    return kt[:, :max_len]
+    """(d, max_len) causal kernel taps of a tno or fd layer, lags
+    0..max_len-1: what the hist replay uses at s = max_len."""
+    PLAN_EVALS[mixer] = PLAN_EVALS.get(mixer, 0) + 1
+    tcfg = _tno_cfg(cfg, mixer).tno
+    if mixer == "fd":
+        kt = fd_mod.fd_kernel_time(layer_params.tno, tcfg.fd_cfg(), max_len)
+        return kt[:, :max_len]
+    return tno_mod.baseline_coeffs(layer_params.tno, tcfg,
+                                   max_len)[:, max_len - 1:]
+
+
+def is_hist_cache(cache) -> bool:
+    return isinstance(cache, dict) and "hist" in cache
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                params: Model | None = None, dtype=None) -> list:
-    """One cache per layer, on the parameters' device. Only an all-mamba
-    model takes no parameters (its cache holds no parameter-derived leaf;
-    then on the CPU). Mamba caches take ``dtype`` (a torch dtype; default
-    the activation dtype ``cfg.dtype``), as in the JAX package."""
+    """One cache per layer (see the module docstring), on the parameters'
+    device (without them, on the CPU). ``dtype`` (a torch dtype; default
+    the activation dtype ``cfg.dtype``) is the hist and Mamba caches'
+    dtype, as in the JAX package."""
     mixers = {mixer for mixer, _ in cfg.layers_spec}
     if "ski" in mixers:          # as repro/models/serving.py:99 raises
         raise NotImplementedError("decode for mixer ski (ski: Appendix "
                                   "B); score prompts with "
                                   "launch.steps.make_forward")
-    if mixers - {"fd", "mamba"}:
+    if mixers - {"tno", "fd", "mamba"}:
         raise NotImplementedError(f"decode for mixers {sorted(mixers)}: "
-                                  "only fd and mamba are ported")
-    if "fd" in mixers and (params is None
-                           or not backend.fd_stream_enabled()):
-        raise NotImplementedError(_HIST_NOT_PORTED)
+                                  "only tno, fd and mamba are ported")
     device = None if params is None else params.embed.device
+    dtype = dtype or getattr(torch, cfg.dtype)
     cache = []
     for i, (mixer, _) in enumerate(cfg.layers_spec):
         if mixer == "mamba":
-            cache.append(mamba_cache_init(
-                cfg, batch, dtype or getattr(torch, cfg.dtype), device))
+            cache.append(mamba_cache_init(cfg, batch, dtype, device))
             continue
-        kt = _realise_kcoef(cfg, mixer, params.layers[i].mixer, max_len)
-        cache.append(fd_stream.fd_stream_cache(kt, batch, max_len,
-                                               backend.fd_stream_block()))
+        lp = None if params is None else params.layers[i].mixer
+        if mixer == "fd" and lp is not None and backend.fd_stream_enabled():
+            kt = _realise_kcoef(cfg, mixer, lp, max_len)
+            cache.append(fd_stream.fd_stream_cache(
+                kt, batch, max_len, backend.fd_stream_block()))
+            continue
+        lc = {"hist": torch.zeros(batch, max_len, cfg.d_model, dtype=dtype,
+                                  device=device)}
+        if lp is not None:
+            lc["kcoef"] = _realise_kcoef(cfg, mixer, lp, max_len)
+        cache.append(lc)
     return cache
 
 
 def cache_capacity(cache) -> int | None:
     """Slot capacity (max positions a slot can hold) of a model cache:
-    the min over its streaming layers' ``cap`` markers, None when no layer
-    is length-bounded (an all-mamba model). The serving engine gates
-    admission on it."""
+    the min over its streaming layers' ``cap`` markers and its hist
+    layers' lengths, None when no layer is length-bounded (an all-mamba
+    model). The serving engine gates admission on it."""
     caps = [fd_stream.stream_capacity(lc) for lc in cache
             if fd_stream.is_stream_cache(lc)]
+    caps += [lc["hist"].shape[-2] for lc in cache if is_hist_cache(lc)]
     return min(caps) if caps else None
 
 
 # ------------------------------------------------------- tno decode mixer
+def _hist_replay(params, cfg: ArchConfig, mixer: str, u, cache,
+                 pos: fd_stream.Positions):
+    """The hist-replay step: write u (b, 1, d) at each row's position,
+    then y_t = Σ_{τ=0..t} k[τ] u_{t-τ} over the history, summed in fp32.
+    Returns (y (b, d) fp32, new cache)."""
+    hist = cache["hist"]
+    s = hist.shape[1]
+    cur = pos.dev
+    idx = torch.arange(s, device=hist.device)
+    wsel = (idx[None, :] == cur[:, None])[..., None]       # (b, s, 1)
+    hist = torch.where(wsel, u.to(hist.dtype), hist)
+    k_causal = cache.get("kcoef")
+    if k_causal is None:         # params-less cache: realise every step
+        k_causal = _realise_kcoef(cfg, mixer, params, s)
+    # history index j holds lag τ = cur - j; a future index is masked
+    tau = cur[:, None] - idx[None, :]                      # (b, s)
+    kmat = torch.where(tau[None] >= 0, k_causal[:, tau.clamp(0, s - 1)],
+                       0.0)                                # (d, b, s)
+    y = torch.einsum("bsd,dbs->bd", hist.float(), kmat.float())
+    return y, dict(cache, hist=hist)
+
+
 def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
-    """GTU decode through the overlap-save step: x (b, 1, d) at
-    ``cur_len`` (an int or ``fd_stream.Positions``)."""
+    """GTU decode: x (b, 1, d) at ``cur_len`` (an int, or
+    ``fd_stream.Positions`` for a hist cache) through the overlap-save
+    step or the hist replay."""
     act = ACTS[_tno_cfg(cfg, mixer).act]
     u = act(dense(params.wu.w, x))                     # (b, 1, d)
     v = act(dense(params.wv.w, x))
-    y, cache = fd_stream.stream_step(cache, u[:, 0, :], cur_len)
+    if fd_stream.is_stream_cache(cache):
+        y, cache = fd_stream.stream_step(cache, u[:, 0, :], cur_len)
+    else:
+        y, cache = _hist_replay(params, cfg, mixer, u, cache, cur_len)
     o = y[:, None, :].to(x.dtype)
     # GTU internals run fp32: keep the residual dtype stable
     return dense(params.wo.w, o * v).to(x.dtype), cache
@@ -113,10 +165,11 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
     """One new token: tokens (b, 1) at position ``cur_len``: an int (every
     row at the same position) or per-row host positions (a list, numpy
     array or CPU tensor of b ints, or ``fd_stream.Positions``; the
-    continuous-batching engine). FD layers take them, moved to the card
+    continuous-batching engine). TNN layers take them, moved to the card
     once for all layers; Mamba layers ignore them, as in JAX. Returns
     (logits (b, 1, V_pad), new cache)."""
-    if any(fd_stream.is_stream_cache(lc) for lc in cache):
+    if any(fd_stream.is_stream_cache(lc) or is_hist_cache(lc)
+           for lc in cache):
         cur_len = fd_stream.positions(cur_len, tokens.shape[0],
                                       tokens.device)
     x = embed_tokens(params, cfg, tokens)
@@ -133,7 +186,7 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
 def supports_chunked_prefill(cfg: ArchConfig, cache) -> bool:
     """Chunked prefill rides the FD streaming block machinery: every layer
     must be a streaming ``fd`` layer with a dense FFN (so not mamba, as in
-    the JAX package)."""
+    the JAX package). A hist cache takes its prompt token by token."""
     if cfg.kind != "decoder":
         return False
     if not all(m == "fd" and f == "dense" for m, f in cfg.layers_spec):

@@ -1,7 +1,7 @@
 """Decoder LM assembly, counterpart of ``repro/models/transformer.py``
 restricted to ``kind="decoder"`` with TNN layers and a dense FFN (the
-``fd`` and ``ski`` mixers run; ``tno`` raises in ``core/tno.py``) or
-Mamba-2 layers without an FFN (``("mamba", "none")``, mamba2-2.7b).
+baseline ``tno``, ``ski`` and ``fd`` mixers) or Mamba-2 layers without an
+FFN (``("mamba", "none")``, mamba2-2.7b).
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on

@@ -111,11 +111,20 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
-    """The baseline TNO mixer still raises; the SKI model builds (its
-    forward is held against JAX in test_torch_ski.py)."""
-    with pytest.raises(NotImplementedError, match="baseline TNO"):
-        Model(reduce_for_smoke(get_config("tnn-lm-wt103")), device="meta")
-    model = Model(reduce_for_smoke(get_config("ski-tnn-lm-wt103")),
-                  device="meta")
-    assert all(type(layer.mixer.tno).__name__ == "SKIParams"
-               for layer in model.layers)
+    """Mixers outside the port (attention) still raise; the baseline TNO
+    and SKI models build, the baseline's mixer holding the RPE MLP alone
+    (their forwards are held against JAX in test_torch_tno_baseline.py and
+    test_torch_ski.py)."""
+    import dataclasses
+    attn = dataclasses.replace(reduce_for_smoke(get_config("tnn-lm-wt103")),
+                               pattern=(("attention", "dense"),))
+    with pytest.raises(NotImplementedError, match="attention"):
+        Model(attn, device="meta")
+    for arch, kind in (("tnn-lm-wt103", "BaselineParams"),
+                       ("ski-tnn-lm-wt103", "SKIParams")):
+        model = Model(reduce_for_smoke(get_config(arch)), device="meta")
+        assert all(type(layer.mixer.tno).__name__ == kind
+                   for layer in model.layers), arch
+        if kind == "BaselineParams":
+            assert {name for name, _ in
+                    model.layers[0].mixer.tno.named_children()} == {"rpe"}

@@ -130,12 +130,24 @@ def test_generate_is_token_exact_vs_jax(models, p, gen):
 
 
 def test_unported_paths_raise(models, monkeypatch):
+    """The FD fallbacks that once raised take the hist-replay cache: a
+    params-less ``init_cache`` (``hist`` alone) and ``REPRO_FD_STREAM=0``
+    (``hist`` and the memoised ``kcoef``); SKI decode still raises."""
+    import dataclasses
     _, cfg, _, model = models
-    with pytest.raises(NotImplementedError, match="hist-replay"):
-        serving.init_cache(cfg, 1, 8)
+    bare = serving.init_cache(cfg, 1, 8)
+    assert all(set(lc) == {"hist"} and lc["hist"].shape == (1, 8, 128)
+               for lc in bare)
     monkeypatch.setenv("REPRO_FD_STREAM", "0")
-    with pytest.raises(NotImplementedError, match="hist-replay"):
-        serving.init_cache(cfg, 1, 8, params=model)
+    with torch.no_grad():
+        hist = serving.init_cache(cfg, 1, 8, params=model)
+    assert all(set(lc) == {"hist", "kcoef"} and lc["kcoef"].shape == (128, 8)
+               for lc in hist)
+    assert serving.cache_capacity(hist) == 8
+    assert not serving.supports_chunked_prefill(cfg, hist)
+    ski = dataclasses.replace(cfg, pattern=(("ski", "dense"),))
+    with pytest.raises(NotImplementedError, match="Appendix B"):
+        serving.init_cache(ski, 1, 8)
 
 
 def test_serve_main_runs_on_cpu(capsys):
