@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, continuous-batching engine and its
 supervised scheduler, training, the baseline TNN's scoring, training and
-hist-replay serving, SKI scoring, SKI training, unfused SKI, large-rank
-SKI and Mamba-2 serving paths on one NVIDIA card and check them.
+hist-replay serving, the attention decoder gemma3-4b's scoring and
+serving (with the paper's mixers dropped in), SKI scoring, SKI training,
+unfused SKI, large-rank SKI and Mamba-2 serving paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
@@ -132,7 +134,45 @@ card or outside a checkout of this repository. Phases:
    and no other kernel; printed, not claimed, beside the card's name and
    power limit: the scoring and training tokens/s and the new tokens/s of
    the decode steps alone (the prompt fed untimed) of the baseline's and
-   FD's hist replay and of FD's stream;
+   FD's hist replay and of FD's stream; and, stage by stage on layer 0
+   with the same weights and inputs on both, the baseline's card-vs-CPU
+   gap (``[tno stages]``, ROADMAP Queue 3 item 9): ``decay_bias``,
+   ``baseline_coeffs``, cuFFT's Toeplitz matvec against pocketfft and the
+   GTU each within 1e-5 of its scale, the TF32 switches and a fp32
+   product against fp64, the FFT lengths, the gap after each layer and
+   the CPU's own logits with the matvec in fp64;
+5c. zoo: the full-width gemma3-4b (34 layers: 5 blocks of 5 sliding-window
+   ``local`` layers and one global, then 4 tail layers; d=2560, 8 heads
+   over 4 kv heads of 256, window 1,024, vocab 262,144, bf16, random
+   weights from seed 0) scores 8 × 512 through ``make_forward`` and the
+   eval ``loss_fn`` (parameters against ``param_count()``, init seconds,
+   peak memory); serves 4 prompts of 1,088 tokens with 32 greedy new
+   tokens each at max_len 1,152 through the KV caches (the window binds in
+   every local layer); the decode path teacher-forced over the generated
+   sequences (its steps after the prompt timed) reproduces the generated
+   tokens and picks the forward's token wherever the forward's top-2
+   margin exceeds max(1e-3, twice the two paths' largest logit difference)
+   (bf16 rounds at other places in a one-row step and a full forward; the
+   count under the bare 1e-3 rule is printed beside it); then ``--mixer
+   fd`` and ``--mixer ski`` at full width and one period's depth (6
+   layers; the mixers drawn from seed 0, the other leaves the full
+   model's) score 8 × 512: 6 ``causal_spectrum`` + 6 ``fd_mul``, and 6
+   ``interp_reduce`` + 6 ``ski_fused_pass2``, and no other kernel, their
+   logits within 2e-2 of the scale of the same forward through the plain
+   versions on the card (or twice that forward's distance from its
+   fp32-activation run, where larger); then the same weights in fp32: one
+   served row teacher-forced through all 1,119 decode steps against the
+   fp32 forward, and 4 ragged requests (9, 30, 50 and 100 tokens) through
+   an Engine of 4 slots at max_len 512 against solo ``generate``, both
+   under the 1e-3 margin rule; asserted: no launch of any hand-written
+   kernel on the scoring, serving and engine paths; the smoke gemma3-4b
+   and its FD override card vs CPU (bf16 logits within 2e-2 of their
+   scale, or twice the CPU's bf16-vs-fp32-activation distance where
+   larger; in fp32 the step-0 gradients, three losses and a bitwise
+   checkpoint resume, as in phase 10); printed, not claimed, beside the
+   card's name and power limit: the scoring tokens/s, the decode steps'
+   new tokens/s, the fp32 engine's and the two overrides' scoring
+   tokens/s;
 6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
@@ -1983,28 +2023,37 @@ TNO_ARCH, TNO_TRAIN_STEPS = "tnn-lm-wt103", 10
 TNO_ENGINE_REQUESTS, TNO_ENGINE_SLOTS = (1, 5, 8, 13), 4
 
 
-def _decode_rate(model, cfg, seqs, p: int, max_len: int, device) -> float:
+def _decode_rate(model, cfg, seqs, p: int, max_len: int, device,
+                 keep: bool = False):
     """New tokens/s of the decode steps alone: ``seqs``' first p tokens
     teacher-forced untimed into a fresh cache (params-aware, so the
     cache ``REPRO_FD_STREAM`` selects), then its other steps timed, each
     with the argmax a greedy ``generate`` takes; host clock, synchronised.
     (The serve phase's rate is the difference of two ``generate`` walls,
-    which reads noise where the decode steps are a small part of them.)"""
+    which reads noise where the decode steps are a small part of them.)
+    With ``keep``, returns (rate, the decode path's logits (b, n - p, V)
+    at positions p - 1 .. n - 2, each predicting the next token)."""
     from repro_torch.models import serving
     b, n = seqs.shape
+    kept = []
     with torch.inference_mode():
         cache = serving.init_cache(cfg, b, max_len, params=model)
         for t in range(p):
-            _, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
-                                           cache, t)
+            logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
+                                                cache, t)
+        if keep:
+            kept.append(logits[:, -1])
         _sync(device)
         t0 = time.perf_counter()
         for t in range(p, n - 1):
             logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
                                                 cache, t)
             torch.argmax(logits[:, -1], dim=-1)
+            if keep:
+                kept.append(logits[:, -1])
         _sync(device)
-    return b * (n - 1 - p) / (time.perf_counter() - t0)
+    rate = b * (n - 1 - p) / (time.perf_counter() - t0)
+    return (rate, torch.stack(kept, 1)) if keep else rate
 
 
 def _hist_generate(tag: str, model, cfg, prompt, gen_len: int, max_len: int,
@@ -2126,6 +2175,7 @@ def phase_tno(fd_cfg, fd_model, fd_seqs, fd_rate: float, engine: dict,
           f"loss)", flush=True)
     if not (err <= 1e-4 * scale and lerr <= 1e-4 * abs(want_loss)):
         raise AssertionError("card baseline scoring differs from the CPU's")
+    check_tno_stages(device)
 
     # (2) train
     report = {}
@@ -2206,6 +2256,504 @@ def phase_tno(fd_cfg, fd_model, fd_seqs, fd_rate: float, engine: dict,
           f"hist {frate:.1f}, FD streaming {stream_rate:.1f} (the serve "
           f"phase's FD decode rate: {fd_rate:.1f})", flush=True)
     print(f"[tno] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def _stage_err(what: str, got, want) -> float:
+    """Print one stage's card-vs-CPU max abs error beside its scale and
+    dtypes; returns the error over the scale."""
+    err = float((got.cpu().float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    print(f"[tno stages] {what}: max abs err {err:.3e}, scale {scale:.3e}, "
+          f"{err / scale:.3e} of it; dtype card {got.dtype}, CPU "
+          f"{want.dtype}", flush=True)
+    return err / scale
+
+
+@contextlib.contextmanager
+def _fft_lengths(log: list):
+    """Record the signal length of every ``torch.fft.rfft``/``irfft``
+    call inside the block as (name, device, n)."""
+    real = {"rfft": torch.fft.rfft, "irfft": torch.fft.irfft}
+
+    def wrap(name):
+        def call(x, n=None, dim=-1, norm=None):
+            log.append((name, x.device.type, n or x.shape[dim]))
+            return real[name](x, n=n, dim=dim, norm=norm)
+        return call
+    with mock.patch.object(torch.fft, "rfft", wrap("rfft")), \
+            mock.patch.object(torch.fft, "irfft", wrap("irfft")):
+        yield
+
+
+def check_tno_stages(device="cuda") -> None:
+    """ROADMAP Queue 3, item 9: the full-width baseline's card-vs-CPU gap,
+    stage by stage on layer 0 with the same weights (drawn on the CPU
+    from seed 0) and the same inputs (the CPU's) on both: ``decay_bias``
+    (λ^|t| in fp32), ``baseline_coeffs`` (the RPE MLP at the 2n - 1 lags
+    times the decay), ``toeplitz_matvec`` on the same coefficients and u
+    (cuFFT against pocketfft), and the whole GTU; each must be within
+    1e-5 of its scale. Then the gap of both models run layer by layer
+    from the same embedding, after each layer and at the logits, beside
+    the CPU's own fp32 sensitivity: its logits with the Toeplitz matvec
+    taken in fp64 instead. Prints the TF32 switches, a 512 x 512 fp32
+    product against fp64 on the card (TF32 would miss by about 1e-3) and
+    the FFT lengths each device ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import rpe, tno, toeplitz
+    from repro_torch.core.block import gtu_apply
+    from repro_torch.models.transformer import (_tno_cfg, embed_tokens,
+                                                forward, init_model,
+                                                layer_apply, unembed)
+    from repro_torch.nn.layers import ACTS, dense, rmsnorm
+    cfg = get_config(TNO_ARCH)
+    n = SCORE_SEQ
+    cpu = init_model(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    tokens = _ski_batch(cfg, 1, n, "cpu")["tokens"]
+    bcfg = _tno_cfg(cfg, "tno")
+    tcfg = bcfg.tno
+    a = torch.randn(512, 512, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(0))
+    b = torch.randn(512, 512, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(1))
+    prod = (a.float().to(device) @ b.float().to(device)).cpu().double()
+    mm_err = float((prod - a @ b).abs().max() / (a @ b).abs().max())
+    print(f"[tno stages] TF32: allow_tf32 matmul="
+          f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
+          f"{torch.backends.cudnn.allow_tf32}, float32 matmul precision "
+          f"{torch.get_float32_matmul_precision()!r}; a 512x512 fp32 "
+          f"product on the card is {mm_err:.3e} of its scale from fp64 "
+          "(TF32: about 1e-3)", flush=True)
+    rel, ffts = {}, []
+    lc, lg = cpu.layers[0].mixer, card.layers[0].mixer
+    with torch.no_grad(), _fft_lengths(ffts):
+        t = toeplitz.lags(n).float()
+        rel["decay_bias"] = _stage_err(
+            "decay_bias (lambda^|t|, 2n - 1 lags)",
+            rpe.decay_bias(t.to(device), tcfg.lam), rpe.decay_bias(t,
+                                                                   tcfg.lam))
+        coef = tno.baseline_coeffs(lc.tno, tcfg, n)
+        rel["baseline_coeffs"] = _stage_err(
+            "baseline_coeffs (RPE MLP x decay)",
+            tno.baseline_coeffs(lg.tno, tcfg, n), coef)
+        h = rmsnorm(cpu.layers[0].norm1.scale, embed_tokens(cpu, cfg, tokens),
+                    cfg.norm_eps)
+        u = ACTS[bcfg.act](dense(lc.wu.w, h)).transpose(1, 2)      # (1, d, n)
+        rel["toeplitz_matvec"] = _stage_err(
+            "toeplitz_matvec (the CPU's coefficients and u)",
+            toeplitz.toeplitz_matvec(coef.to(device)[None], u.to(device)),
+            toeplitz.toeplitz_matvec(coef[None], u))
+        rel["gtu"] = _stage_err("the GTU (u, v, the mixer, wo)",
+                                gtu_apply(lg, bcfg, h.to(device)),
+                                gtu_apply(lc, bcfg, h))
+        # layer by layer from the same embedding: the gap as it grows
+        xc = embed_tokens(cpu, cfg, tokens)
+        xg = xc.to(device)
+        growth = []
+        for i, (mixer, ffn) in enumerate(cfg.layers_spec):
+            xc = layer_apply(cpu.layers[i], cfg, mixer, ffn, xc)
+            xg = layer_apply(card.layers[i], cfg, mixer, ffn, xg)
+            growth.append(float((xg.cpu() - xc).abs().max()
+                                / xc.abs().max()))
+        lc_out = unembed(cpu, cfg, rmsnorm(cpu.norm_f.scale, xc,
+                                           cfg.norm_eps))
+        lg_out = unembed(card, cfg, rmsnorm(card.norm_f.scale, xg,
+                                            cfg.norm_eps))
+        logits_rel = float((lg_out.cpu() - lc_out).abs().max()
+                           / lc_out.abs().max())
+        peak_to_rms = float(xc.abs().max() / xc.square().mean().sqrt())
+    lengths = sorted({(name, dev, m) for name, dev, m in ffts})
+    print(f"[tno stages] FFT calls (name, device, length): {lengths}",
+          flush=True)
+
+    def matvec64(t_, x):
+        m = x.shape[-1]
+        fc = torch.fft.rfft(toeplitz._circulant_coeffs(t_, m).double(),
+                            dim=-1)
+        fx = torch.fft.rfft(x.double(), n=2 * m, dim=-1)
+        return torch.fft.irfft(fc * fx, n=2 * m, dim=-1)[..., :m].to(x.dtype)
+    with torch.no_grad():
+        with mock.patch.object(toeplitz, "toeplitz_matvec", matvec64):
+            exact = forward(cpu, cfg, tokens)
+        sens = float((exact - lc_out).abs().max() / lc_out.abs().max())
+    print(f"[tno stages] layer by layer from one embedding, card vs CPU over "
+          f"the residual's scale: {[f'{g:.3e}' for g in growth]}; logits "
+          f"{logits_rel:.3e} of their scale (the last residual's max is "
+          f"{peak_to_rms:.1f} x its rms, and the final norm scales by the "
+          f"rms); the CPU's own logits with the Toeplitz matvec in fp64 "
+          f"move {sens:.3e} of it", flush=True)
+    bad = {k: v for k, v in rel.items() if not v <= 1e-5}
+    if bad or mm_err > 1e-5:
+        raise AssertionError(f"baseline stages beyond 1e-5 of their scale: "
+                             f"{bad}; fp32 product {mm_err:.3e}")
+    del cpu, card
+
+
+# -------------------------------------------------------------- phase 5c
+ZOO_ARCH = "gemma3-4b"
+#: served prompts: 1,088 tokens and 32 new at max_len 1,152, so that the
+#: last ~96 positions of every local layer (window 1,024) see the window
+#: bind
+ZOO_PROMPTS, ZOO_PROMPT_LEN, ZOO_GEN, ZOO_MAX_LEN = 4, 1088, 32, 1152
+#: the engine's 4 ragged requests through S = 4 slots at max_len 512
+ZOO_ENGINE_PLENS, ZOO_ENGINE_GENS = (9, 30, 50, 100), (24, 16, 12, 8)
+ZOO_ENGINE_SLOTS, ZOO_ENGINE_MAX_LEN = 4, 512
+#: a mixer override's launches a scoring forward makes a layer, and the
+#: override path's name in ``main``'s paths
+ZOO_OVERRIDES = {"fd": {"causal_spectrum": 1, "fd_mul": 1},
+                 "ski": {"interp_reduce": 1, "ski_fused_pass2": 1}}
+#: the bf16 tier of a kernel path against its plain path on the card
+ZOO_BF16_TOL = 2e-2
+
+
+@contextlib.contextmanager
+def _plain_tno_ops():
+    """Inside the block the FD and SKI mixers call their plain versions on
+    the card too (``ref.fd_tno_ref``, ``ref.ski_fused_tno_ref``)."""
+    from repro_torch.kernels import ops, ref
+    with mock.patch.object(ops, "fd_tno", ref.fd_tno_ref), \
+            mock.patch.object(ops, "ski_fused_tno", ref.ski_fused_tno_ref):
+        yield
+
+
+def _zoo_score(tag: str, cfg, model, batch, device) -> tuple:
+    """One counted ``make_forward`` over the batch after a warm-up, then
+    SCORE_REPS timed ones; returns (logits, launches, tokens/s)."""
+    from repro_torch.launch.steps import make_forward
+    fwd = make_forward(cfg)
+    fwd(model, batch["tokens"])                        # warm-up
+    _sync(device)
+    _reset_kernel_counts()
+    logits = fwd(model, batch["tokens"])
+    _sync(device)
+    launches = _kernel_counts()
+    walls = []
+    for _ in range(SCORE_REPS):
+        t0 = time.perf_counter()
+        fwd(model, batch["tokens"])
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+    ms = statistics.median(walls) * 1e3
+    tok_s = batch["tokens"].numel() / ms * 1e3
+    b, s = batch["tokens"].shape
+    if not (logits.shape == (b, s, cfg.vocab_padded)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"{tag} logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    print(f"{tag} make_forward {b}x{s}: median {ms:.3f} ms of {SCORE_REPS} "
+          f"(min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), "
+          f"{tok_s:.0f} tokens/s; kernel launches {launches}", flush=True)
+    return logits, launches, tok_s
+
+
+def _override_model(base, base_model, mixer: str, device):
+    """gemma3-4b with ``mixer_override`` at full width and one period's
+    depth: every leaf outside the mixers is ``base_model``'s (its
+    embeddings, norms, FFNs of layers 0-5; copied on the card), the
+    paper's mixers drawn from seed 0 (drawing 1.9 B leaves again would
+    take about 20 s)."""
+    from repro_torch.models.transformer import Model
+    from repro_torch.nn.layers import reset_parameters
+    cfg = dataclasses.replace(base, mixer_override=mixer,
+                              n_layers=base.period)
+    model = Model(cfg, device=device)
+    gen = torch.Generator().manual_seed(0)
+    have = dict(base_model.named_parameters())
+    with torch.no_grad():
+        for layer in model.layers:
+            reset_parameters(layer.mixer, gen)
+        for name, p in model.named_parameters():
+            if ".mixer." not in name:
+                p.copy_(have[name])
+    return cfg, model
+
+
+def _zoo_override(mixer: str, base, base_model, batch, device) -> tuple:
+    """:func:`_override_model`: the scoring launches (ZOO_OVERRIDES a
+    layer, no other kernel) and its logits against the same forward
+    through the plain versions on the card, within ZOO_BF16_TOL of their
+    scale or, where larger, twice the plain path's own distance from its
+    fp32-activation forward (bf16 rounding of the residual stream; the
+    tier of tests/test_torch_zoo.py). Returns (launches, tokens/s)."""
+    from repro_torch.models.transformer import forward
+    t0 = time.perf_counter()
+    cfg, model = _override_model(base, base_model, mixer, device)
+    tag = f"[zoo {mixer}]"
+    print(f"{tag} {cfg.name} --mixer {mixer}: {cfg.n_layers} layers (one "
+          f"period), d={cfg.d_model}, {cfg.dtype} (mixer leaves fp32), "
+          f"{sum(p.numel() for p in model.parameters())} parameters (the "
+          f"mixers drawn from seed 0, the rest the full model's), built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    logits, launches, tok_s = _zoo_score(tag, cfg, model, batch, device)
+    want = {k: 0 for k in launches}
+    want.update({k: v * cfg.n_layers for k, v in ZOO_OVERRIDES[mixer].items()})
+    with torch.inference_mode(), _plain_tno_ops():
+        _reset_kernel_counts()
+        plain = forward(model, cfg, batch["tokens"]).float()
+        plain_counts = _kernel_counts()
+        act32 = forward(model, dataclasses.replace(cfg, dtype="float32"),
+                        batch["tokens"])
+    err = float((logits.float() - plain).abs().max())
+    scale = float(plain.abs().max())
+    noise = float((plain - act32).abs().max()) / scale
+    tol = max(ZOO_BF16_TOL, 2 * noise)
+    print(f"{tag} kernel path vs plain path on the card: logits max abs err "
+          f"{err:.4f} (scale {scale:.3f}; limit max({ZOO_BF16_TOL}, 2 x "
+          f"{noise:.4f}) = {tol:.4f} x scale, the second the plain path's "
+          f"bf16 against fp32 activations); plain path launches "
+          f"{plain_counts}", flush=True)
+    if launches != want or any(plain_counts.values()):
+        raise AssertionError(f"{tag} launched {launches}, not {want}; the "
+                             f"plain path {plain_counts}")
+    if not err <= tol * scale:
+        raise AssertionError(f"{tag} kernel path differs from the plain path")
+    del model
+    return launches, tok_s
+
+
+def _check_smoke_card_vs_cpu(small, device) -> None:
+    """The smoke model on the card and on the CPU, the same init: in bf16
+    the logits within ZOO_BF16_TOL of their scale, or within twice the
+    CPU's own bf16 logits' distance from its fp32 activations' on the same
+    weights where that is larger (the tier of tests/test_torch_zoo.py); in
+    fp32 (the same arch with fp32 dtypes) the step-0 gradients, three
+    losses and a bitwise checkpoint resume as in phase 10."""
+    from repro_torch.models.transformer import forward, init_model
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, small.vocab, (2, 64)))
+    act32 = dataclasses.replace(small, dtype="float32")
+    with torch.inference_mode():
+        cpu = init_model(small, torch.Generator().manual_seed(1),
+                         device="cpu")
+        want = forward(cpu, small, toks).float()
+        want32 = forward(cpu, act32, toks)
+        got = forward(init_model(small, torch.Generator().manual_seed(1),
+                                 device=device), small,
+                      toks.to(device)).float().cpu()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    noise = float((want - want32).abs().max()) / scale
+    tol = max(ZOO_BF16_TOL, 2 * noise)
+    print(f"[zoo check] smoke {small.name} ({small.dtype}) card vs CPU "
+          f"logits {tuple(want.shape)}: max abs err {err:.4f} (scale "
+          f"{scale:.3f}; limit max({ZOO_BF16_TOL}, 2 x {noise:.4f}) = "
+          f"{tol:.4f} x scale, the second the CPU's bf16 against fp32 "
+          "activations)", flush=True)
+    if not err <= tol * scale:
+        raise AssertionError("card smoke logits differ from the CPU's")
+    fp32 = dataclasses.replace(small, dtype="float32", param_dtype="float32")
+    check_train_card_vs_cpu(fp32, device)
+    check_checkpoint_resume(fp32, device)
+
+
+def _pick(cfg, logits):
+    """The token a greedy ``generate`` picks from logits (…, V_pad)."""
+    return torch.clamp(torch.argmax(logits, dim=-1), max=cfg.vocab - 1)
+
+
+def _check_decoded_bf16(tag: str, cfg, model, p: int, seqs, dec) -> float:
+    """The bf16 decode path's logits ``dec`` (b, n - p, V) at the generated
+    positions, teacher-forced over the generated ``seqs``, against the
+    forward over them. The decode path must reproduce its own tokens, and
+    pick the forward's token wherever the forward's top-2 margin exceeds
+    max(MARGIN, twice the two paths' largest logit difference): bf16
+    rounds at other places in the two paths (one row a product against
+    all of them), so a margin of one or two bf16 steps can flip. The
+    count under the bare MARGIN rule is printed beside it. Returns the
+    largest logit difference."""
+    from repro_torch.models.transformer import forward
+    with torch.inference_mode():
+        fwd = forward(model, cfg, seqs)[:, p - 1:-1].float()
+    dec = dec.float()
+    new = seqs[:, p:]
+    diff = float((dec - fwd).abs().max())
+    top2 = torch.topk(fwd, 2, dim=-1).values
+    gaps = top2[..., 0] - top2[..., 1]
+    off = _pick(cfg, fwd) != new
+    margin = max(MARGIN, 2 * diff)
+    wrong = off & (gaps > margin)
+    bare = off & (gaps > MARGIN)
+    same = torch.equal(_pick(cfg, dec), new)
+    worst = float(gaps[bare].max()) if bool(bare.any()) else 0.0
+    print(f"{tag} bf16 decode path vs the forward over generated "
+          f"{tuple(seqs.shape)}: largest logit difference {diff:.4f} (logit "
+          f"scale {float(fwd.abs().max()):.3f}); margin max({MARGIN}, 2 x "
+          f"{diff:.4f}) = {margin:.4f}: {int((gaps > margin).sum())} of "
+          f"{gaps.numel()} generated positions checked, {int(wrong.sum())} "
+          f"mismatches; under the bare {MARGIN} rule {int((gaps > MARGIN).sum())} "
+          f"checked, {int(bare.sum())} off (their largest top-2 margin "
+          f"{worst:.4f}); the teacher-forced decode reproduces the generated "
+          f"tokens: {same}", flush=True)
+    if int(wrong.sum()) or not same:
+        raise AssertionError(f"{tag} decoded tokens disagree with the "
+                             "forward")
+    return diff
+
+
+def _fp32_copy(cfg, model, device):
+    """The same weights in fp32 (parameters and activations)."""
+    from repro_torch.models.transformer import Model
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = Model(cfg32, device=device)
+    model32.load_state_dict({k: v.float()
+                             for k, v in model.state_dict().items()})
+    return cfg32, model32
+
+
+def _check_zoo_fp32(cfg32, model32, seqs) -> None:
+    """One served row teacher-forced through every decode step (past the
+    local layers' window) of the fp32 copy against its fp32 forward: the
+    two paths differ by sums in another order only, so every position
+    whose top-2 margin exceeds MARGIN must pick the forward's token."""
+    from repro_torch.models.transformer import forward
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        dec = _teacher_forced(model32, cfg32, seqs)
+        fwd = forward(model32, cfg32, seqs)[:, :-1].float()
+    diff = float((dec - fwd).abs().max())
+    top2 = torch.topk(fwd, 2, dim=-1).values
+    checked = (top2[..., 0] - top2[..., 1]) > MARGIN
+    wrong = (_pick(cfg32, dec) != _pick(cfg32, fwd)) & checked
+    print(f"[zoo fp32] the same weights in fp32, {tuple(seqs.shape)} "
+          f"teacher-forced through {seqs.shape[1] - 1} decode steps against "
+          f"the fp32 forward: largest logit difference {diff:.3e} (logit "
+          f"scale {float(fwd.abs().max()):.3f}); {int(checked.sum())} of "
+          f"{checked.numel()} positions checked (top-2 margin > {MARGIN}), "
+          f"{int(wrong.sum())} mismatches; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if int(wrong.sum()) or not int(checked.sum()):
+        raise AssertionError("the fp32 decode path disagrees with the fp32 "
+                             "forward, or no position was checked")
+
+
+def phase_zoo(smi: str, device="cuda") -> dict:
+    """The attention decoder gemma3-4b at full width, bf16, from seed 0:
+    (1) score 8 × 512 through ``make_forward`` and the eval ``loss_fn``;
+    (2) serve ZOO_PROMPTS × (ZOO_PROMPT_LEN + ZOO_GEN) greedily at
+    ZOO_MAX_LEN through the KV caches; the decode path, teacher-forced
+    over the generated sequences (its steps alone timed), against the
+    forward over them (:func:`_check_decoded_bf16`); (3) ``--mixer fd``
+    and ``--mixer ski`` at one period's depth: their kernels launched
+    and held to the plain versions; (4) the same weights in fp32: one
+    served row through every decode step against the fp32 forward, and
+    ZOO_ENGINE_PLENS through an Engine of ZOO_ENGINE_SLOTS slots held to
+    solo ``generate``, both under the margin rule; 0 hand-kernel launches
+    in (1), (2) and (4); (5) the smoke model and its FD override card vs
+    CPU. Prints the rates, recorded and not claimed, beside the card.
+    Returns the launch counts by path."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.transformer import init_model, loss_fn
+    from repro_torch.serving_engine import Engine
+    t_phase = time.perf_counter()
+    cfg = get_config(ZOO_ARCH)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[zoo] {cfg.name}: {cfg.n_layers} layers ({cfg.n_scan_blocks} "
+          f"blocks of period {cfg.period} + {cfg.n_tail_layers} tail), "
+          f"d={cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"x {cfg.head_dim}, window {cfg.window}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}; {n_params} parameters (param_count() "
+          f"{cfg.param_count()['total']}, which leaves out the norm scales); "
+          f"init {t_init:.2f} s", flush=True)
+    launches = {}
+
+    # (1) score
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    _, launches["zoo_score"], score_tok_s = _zoo_score(
+        "[zoo score]", cfg, model, batch, device)
+    with torch.no_grad():
+        loss = float(loss_fn(model, cfg, batch)[0])
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"[zoo score] eval loss {loss:.6f} (ln V = "
+          f"{math.log(cfg.vocab):.6f}); max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"zoo eval loss {loss}")
+
+    # (2) serve
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (ZOO_PROMPTS, ZOO_PROMPT_LEN))).to(device)
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :8], 2, max_len=ZOO_MAX_LEN)
+        _sync(device)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, ZOO_GEN, max_len=ZOO_MAX_LEN)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        launches["zoo_serve"] = _kernel_counts()
+    if seqs.shape != (ZOO_PROMPTS, ZOO_PROMPT_LEN + ZOO_GEN) or not \
+            torch.equal(seqs[:, :ZOO_PROMPT_LEN], prompt):
+        raise AssertionError(f"zoo generate returned {tuple(seqs.shape)}")
+    steps = ZOO_PROMPT_LEN + ZOO_GEN - 1
+    print(f"[zoo serve] generate {ZOO_PROMPTS} x ({ZOO_PROMPT_LEN} + "
+          f"{ZOO_GEN}) at max_len {ZOO_MAX_LEN} through the KV caches (the "
+          f"prompt token by token): {t_gen:.3f} s, {steps} decode steps "
+          f"({steps / t_gen:.1f} steps/s); kernel launches "
+          f"{launches['zoo_serve']}", flush=True)
+    decode_rate, dec = _decode_rate(model, cfg, seqs, ZOO_PROMPT_LEN,
+                                    ZOO_MAX_LEN, device, keep=True)
+    _check_decoded_bf16("[zoo serve]", cfg, model, ZOO_PROMPT_LEN, seqs, dec)
+    del dec
+
+    # (3) the paper's mixers in the zoo arch
+    rates = {}
+    for mixer in ZOO_OVERRIDES:
+        launches[f"zoo_{mixer}"], rates[mixer] = _zoo_override(
+            mixer, cfg, model, batch, device)
+
+    # (4) the same weights in fp32: decode against the forward, and the
+    # engine against solo decode, under the margin rule
+    cfg32, model32 = _fp32_copy(cfg, model, device)
+    del model
+    _check_zoo_fp32(cfg32, model32, seqs[:1])
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, (p,)) for p in ZOO_ENGINE_PLENS]
+    gens = list(ZOO_ENGINE_GENS)
+    _reset_kernel_counts()
+    eng = Engine(cfg32, model32, slots=ZOO_ENGINE_SLOTS,
+                 max_len=ZOO_ENGINE_MAX_LEN)
+    run = engine_run(eng, prompts, gens)
+    launches["zoo_engine"] = _kernel_counts()
+    _engine_report(f"zoo fp32 ({len(prompts)} requests, prompts "
+                   f"{list(ZOO_ENGINE_PLENS)}, S={ZOO_ENGINE_SLOTS}, buckets "
+                   f"{eng.buckets})", run)
+    if not all(run["ok"].values()):
+        raise AssertionError(f"zoo engine: ok {run['ok']}")
+    with torch.inference_mode():
+        solo = [generate(model32, cfg32, torch.from_numpy(pr)[None].to(
+            device), g, max_len=ZOO_ENGINE_MAX_LEN)[0]
+            for pr, g in zip(prompts, gens)]
+    limits = _margin_limits(model32, cfg32, solo, prompts)
+    checked, skipped = _held("zoo engine vs solo", run["tokens"],
+                             [s[len(pr):].tolist()
+                              for s, pr in zip(solo, prompts)], limits)
+    print(f"[zoo engine] fp32 engine vs solo decode at max_len "
+          f"{ZOO_ENGINE_MAX_LEN}: {checked} new tokens checked, {skipped} "
+          f"skipped (after a top-2 margin <= {MARGIN}), 0 mismatches",
+          flush=True)
+    engine_rate = run["new"] / run["t_gen"]
+    for path in ("zoo_score", "zoo_serve", "zoo_engine"):
+        _expect_no_launches(path, launches[path])
+    del model32, eng
+
+    # (5) card vs CPU at smoke size
+    small = reduce_for_smoke(cfg)
+    _check_smoke_card_vs_cpu(small, device)
+    _check_smoke_card_vs_cpu(dataclasses.replace(
+        small, mixer_override="fd", name=small.name + "-fd"), device)
+    print(f"[zoo] rates ({smi}; host clock, recorded, not claimed): scoring "
+          f"{score_tok_s:.0f} tokens/s; decode alone {decode_rate:.1f} new "
+          f"tok/s ({ZOO_PROMPTS} rows at positions {ZOO_PROMPT_LEN}-"
+          f"{ZOO_MAX_LEN - 2}); fp32 engine {engine_rate:.1f} new tok/s over "
+          f"its generate steps; --mixer fd scoring {rates['fd']:.0f} tokens/s, "
+          f"--mixer ski {rates['ski']:.0f} tokens/s (6 layers)", flush=True)
+    print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
 
@@ -3415,6 +3963,7 @@ def main() -> int:
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
     tno_launches = phase_tno(cfg, model, seqs, decode_tps, engine, smi)
+    zoo_launches = phase_zoo(smi)
     score_launches = phase_ski_score("cuda")
     ski_train_launches = phase_train(get_config("ski-tnn-lm-wt103"), "cuda",
                                      TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
@@ -3451,6 +4000,9 @@ def main() -> int:
              **{path: (counts, ()) for path, counts in tno_launches.items()
                 if path != "fd_hist"},
              "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),
+             **{path: (counts, tuple(ZOO_OVERRIDES.get(
+                 path.removeprefix("zoo_"), ())))
+                for path, counts in zoo_launches.items()},
              **{path: (counts, ("ssd_scan", "short_conv_bf16"))
                 for path, counts in mamba_launches.items()}}
     for path, (counts, names) in paths.items():

@@ -16,8 +16,8 @@ Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
 ``checkpoint/manifest.py`` stores trees in this layout, so checkpoints
 pass between the two packages: :func:`train_state_to_jax` before a save,
 :func:`load_train_state` after a restore. :func:`cache_from_jax` carries a
-JAX serving cache (FD stream, hist-replay and Mamba leaves) the same way
-into the port's list of per-layer caches, and
+JAX serving cache (attention KV, FD stream, hist-replay and Mamba leaves)
+the same way into the port's list of per-layer caches, and
 :func:`decode_state_from_jax` a JAX ``DecodeState`` (the serving engine's
 slots) into the port's; the engine's snapshots store
 :func:`decode_state_to_jax`'s layout, so a snapshot written by either
@@ -132,12 +132,15 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda") -> Model:
     return model
 
 
-#: the cache leaves the port's serving has: FD overlap-save stream
-#: (kernels/fd_stream.py), hist replay (models/serving.py) and Mamba
+#: the cache leaves the port's serving has: attention KV
+#: (models/attention.decode_cache_init), FD overlap-save stream
+#: (kernels/fd_stream.py; its leaf ``tail`` is not the layer prefix
+#: ``tail<i>``), hist replay (models/serving.py) and Mamba
 #: (models/mamba.mamba_cache_init)
-_CACHE_LEAVES = frozenset({"ring", "tail", "uspec_re", "uspec_im", "khead",
-                           "khs_re", "khs_im", "kseg_re", "kseg_im", "cap",
-                           "hist", "kcoef", "conv", "state"})
+_CACHE_LEAVES = frozenset({"k", "v", "ring", "tail", "uspec_re",
+                           "uspec_im", "khead", "khs_re", "khs_im",
+                           "kseg_re", "kseg_im", "cap", "hist", "kcoef",
+                           "conv", "state"})
 
 
 def cache_from_jax(tree, cfg: ArchConfig, device="cuda",
@@ -150,8 +153,8 @@ def cache_from_jax(tree, cfg: ArchConfig, device="cuda",
     max_len) lends its shared leaves (``state.SHARED_LEAVES``: the kernel
     constants, the hist replay's taps and the capacity marker) themselves
     in place of copies of the JAX ones, each checked for the JAX leaf's
-    shape. Raises on a leaf the port's caches do not have (attention
-    ``k``/``v``) or a layer left without one."""
+    shape. Raises on a leaf the port's caches do not have or a layer left
+    without one."""
     layers = [{} for _ in range(cfg.n_layers)]
     for name, arr in _port_leaves(tree, cfg).items():
         head, i_s, leaf = name.split(".")

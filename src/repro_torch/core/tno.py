@@ -5,9 +5,10 @@ The baseline ``tno`` is the paper's floor: an MLP RPE evaluated at all
 2n-1 relative positions, times the decay bias λ^|t|, applied per channel
 with the FFT Toeplitz matvec (``core/toeplitz.py``: cuFFT on the card, no
 hand kernel; its backward is autograd through ``torch.fft``, as JAX's is
-``jax.grad`` through ``jnp.fft``). ``fd`` (causal) and ``ski`` (fused dense
-Gram, or the unfused pipeline with ``fused=False``) are the paper's
-accelerated variants behind the same interface.
+``jax.grad`` through ``jnp.fft``). ``fd`` (causal, or with ``causal=False``
+the bidirectional complex response) and ``ski`` (fused dense Gram, or the
+unfused pipeline with ``fused=False``) are the paper's accelerated
+variants behind the same interface.
 """
 from __future__ import annotations
 
@@ -41,12 +42,8 @@ class TNOConfig:
     fused: bool = True          # SKI: fused two-pass (False: unfused)
 
     def fd_cfg(self) -> fd.FDConfig:
-        if not self.causal:
-            raise NotImplementedError("bidirectional FD-TNO is not ported: "
-                                      "the port's fd mixer is causal "
-                                      "(ROADMAP Queue 1, Step 8)")
-        return fd.FDConfig(self.d, self.rpe_hidden, self.rpe_layers,
-                           self.rpe_act)
+        return fd.FDConfig(self.d, self.causal, self.rpe_hidden,
+                           self.rpe_layers, self.rpe_act)
 
     def ski_cfg(self) -> ski.SKIConfig:
         return ski.SKIConfig(self.d, self.rank, self.filter_size, self.lam,
@@ -102,8 +99,10 @@ def tno_plan(params, cfg: TNOConfig, n: int) -> dict:
     if cfg.variant == "ski":
         return ski.ski_plan(params, cfg.ski_cfg(), n, causal=cfg.causal)
     if cfg.variant == "fd":
-        return {"khat_real": fd.kernel_spectrum_real(params, cfg.fd_cfg(),
-                                                     n)}
+        fcfg = cfg.fd_cfg()
+        if fcfg.causal:
+            return {"khat_real": fd.kernel_spectrum_real(params, fcfg, n)}
+        return {"khat": fd.kernel_spectrum(params, fcfg, n)}
     return {"coef": baseline_coeffs(params, cfg, n)}
 
 
@@ -116,9 +115,10 @@ def tno_apply(params, cfg: TNOConfig, x: torch.Tensor,
         return ski.ski_tno_apply(params, cfg.ski_cfg(), x, causal=cfg.causal,
                                  plan=plan)
     if cfg.variant == "fd":
+        plan = plan or {}
         return fd.fd_tno_apply(params, cfg.fd_cfg(), x,
-                               khat_real=plan.get("khat_real") if plan
-                               else None)
+                               khat=plan.get("khat"),
+                               khat_real=plan.get("khat_real"))
     coef = plan["coef"] if plan else baseline_coeffs(params, cfg, x.shape[1])
     yt = toeplitz.toeplitz_matvec(coef[None], x.transpose(1, 2))  # (b, d, n)
     return yt.transpose(1, 2).to(x.dtype)

@@ -1,11 +1,17 @@
 """Serving launcher: chunked prefill + greedy or sampled decode loop,
 counterpart of ``repro/launch/serve.py``.
 
-``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` (or
-``--arch tnn-lm-wt103``, the baseline, or ``--arch mamba2-2.7b``) serves a
-randomly initialised full-width model on the card; ``--smoke --device
-cpu`` runs the CPU smoke size with the plain kernels. The baseline decodes
-through the hist-replay cache, as FD does under ``REPRO_FD_STREAM=0``.
+``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` serves a
+randomly initialised full-width model on the card; so do ``--arch
+tnn-lm-wt103`` (the baseline), ``mamba2-2.7b`` and the attention decoders
+``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``
+(``qwen2-72b`` holds 144 GB in bf16, more than one card: serve it with
+``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
+plain kernels. The baseline decodes through the hist-replay cache, as FD
+does under ``REPRO_FD_STREAM=0``; attention layers through their KV cache.
+``--mixer fd|tno`` puts a paper mixer in place of an attention arch's
+attention and local mixers (``--mixer ski`` builds, but SKI has no decode,
+as in JAX); the JAX launcher has no such flag, its trainer has.
 ``--engine`` serves ``--batch`` requests through the continuous-batching
 engine's supervised scheduler
 (``repro_torch.serving_engine``: ``--slots`` decode slots, ``--chaos
@@ -18,6 +24,7 @@ not ported.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -45,9 +52,9 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
 
     Prefill: an all-FD model with streaming caches takes the prompt in
     whole C-token blocks through the overlap-save machinery
-    (``serving.decode_chunk``); the remainder, and the whole prompt of a
-    hist-replay or Mamba model, is teacher-forced token by token, as in the
-    JAX package. ``None`` auto-detects; False forces
+    (``serving.decode_chunk``); the remainder, and the whole prompt of an
+    attention, hist-replay or Mamba model, is teacher-forced token by
+    token, as in the JAX package. ``None`` auto-detects; False forces
     token-by-token. ``max_len`` sizes the decode cache (default exactly
     p + gen_len); the FD kernel is realised on the rfft grid of that
     length and the baseline's RPE at t / max_len, so token parity with
@@ -127,6 +134,9 @@ def main(argv=None):
                          "likely tokens (0 = full distribution; requires "
                          "--temperature > 0)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mixer", default="",
+                    choices=["", "tno", "ski", "fd"],
+                    help="override the token mixer with a paper variant")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--engine", action="store_true",
@@ -189,6 +199,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduce_for_smoke(cfg)
+    if args.mixer:
+        cfg = dataclasses.replace(cfg, mixer_override=args.mixer)
     device = torch.device(args.device)
     params = init_model(cfg, torch.Generator().manual_seed(args.seed),
                         device=device)

@@ -47,7 +47,9 @@ def make_forward(cfg: ArchConfig):
     """Returns ``fwd(model, tokens) -> logits``: tokens (b, s) → logits
     (b, s, V_pad) under ``torch.inference_mode()``, for prompt scoring and
     evaluation (the SKI model has no decode path; a Mamba model runs the
-    ``short_conv`` and ``ssd_scan`` kernels once per layer on the card)."""
+    ``short_conv`` and ``ssd_scan`` kernels once per layer on the card; an
+    attention decoder runs cuBLAS and plain torch attention, and with
+    ``mixer_override`` the paper mixer's kernels)."""
 
     def fwd(model: Model, tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():

@@ -6,7 +6,12 @@ pipeline + the fault-tolerant ``runtime/trainer.Trainer`` on one device:
 ``cuda`` by default, where every FD-TNO and SKI-TNO forward and backward
 runs the hand-written kernels (``fd-tnn-lm-wt103``, ``ski-tnn-lm-wt103``)
 and the baseline ``tnn-lm-wt103`` runs cuFFT and cuBLAS (no hand kernel,
-as XLA ran it); ``--device cpu`` runs the plain versions.
+as XLA ran it); ``--device cpu`` runs the plain versions. The attention
+decoders ``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and
+``qwen2-72b`` train in bf16 with plain torch attention and cuBLAS;
+``--mixer fd|ski|tno`` puts the paper's mixer in place of their attention
+and local mixers (on the TNN archs it changes nothing, as in JAX).
+Mamba training is not ported (ROADMAP Queue 1, Step 10).
 Multi-device meshes (``--production-mesh``) and the metrics / trace files
 come with later slices (ROADMAP Queue 1 items 10 and 12).
 """

@@ -105,3 +105,42 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+    def param_count(self) -> dict:
+        """Analytic parameter counts, as the JAX package counts them: the
+        matrices of every layer and the two embeddings (norms, biases and
+        the TNO mixers' RPEs are left out)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_padded
+        per_layer_total = 0
+        per_layer_active = 0
+        for mixer, ffn in self.layers_spec:
+            p = 0
+            if mixer in ("attention", "local"):
+                p += d * (self.n_heads + 2 * self.n_kv_heads) * self.head_dim
+                p += self.n_heads * self.head_dim * d
+            elif mixer == "mamba":
+                di, g, s = self.d_inner, self.ssm_groups, self.ssm_state
+                h = self.ssm_heads
+                p += d * (2 * di + 2 * g * s + h)      # in_proj
+                p += self.conv_width * (di + 2 * g * s)  # conv
+                p += di * d                             # out_proj
+            elif mixer in ("tno", "ski", "fd"):
+                p += 3 * d * d                          # GTU u/v/o
+            a = p
+            if ffn == "dense":
+                p += 3 * d * f
+                a = p
+            elif ffn == "moe":
+                p += d * self.n_experts                 # router
+                p += self.n_experts * 3 * d * f
+                a += d * self.n_experts + self.top_k * 3 * d * f
+            else:
+                a = p
+            per_layer_total += p
+            per_layer_active += a
+        emb = 2 * v * d
+        return {
+            "total": per_layer_total + emb,
+            "active": per_layer_active + emb,
+            "embedding": emb,
+        }

@@ -1,9 +1,16 @@
 """Serving: prefill, chunked prefill and single-token decode with per-layer
-caches — counterpart of ``repro/models/serving.py`` for the TNN LMs (the
-baseline ``tno`` and ``fd`` mixers) and Mamba-2.
+caches — counterpart of ``repro/models/serving.py`` for the decoder LMs the
+port runs: attention decoders (``attention`` and ``local`` layers), the TNN
+LMs (the baseline ``tno`` and ``fd`` mixers, also as ``mixer_override`` of
+an attention arch) and Mamba-2. SKI has no decode, as in JAX.
 
 The cache is a list with one cache per layer:
 
+* an ``attention`` or ``local`` layer gets the KV cache ``{"k", "v"}``,
+  each (b, max_len, kvh, hd) in the cache dtype; a step writes the row's
+  rotated k and v at its position and attends over the positions up to it
+  (for ``local``, the last ``window`` of them). Its prompt goes token by
+  token, as JAX's ``generate`` feeds every cache but the FD stream;
 * an ``fd`` layer given the parameters gets the overlap-save streaming
   cache (``kernels/fd_stream.py``), built from the layer's causal kernel,
   realised once per (layer, ``max_len``) through the FD spectrum (on the
@@ -31,6 +38,7 @@ import torch
 from repro_torch.core import fd as fd_mod
 from repro_torch.core import tno as tno_mod
 from repro_torch.kernels import backend, fd_stream
+from repro_torch.models.attention import attn_decode, decode_cache_init
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_cache_init, mamba_decode
 from repro_torch.models.transformer import (Model, _tno_cfg, embed_tokens,
@@ -61,6 +69,10 @@ def is_hist_cache(cache) -> bool:
     return isinstance(cache, dict) and "hist" in cache
 
 
+def is_kv_cache(cache) -> bool:
+    return isinstance(cache, dict) and "k" in cache
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                params: Model | None = None, dtype=None) -> list:
     """One cache per layer (see the module docstring), on the parameters'
@@ -72,13 +84,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         raise NotImplementedError("decode for mixer ski (ski: Appendix "
                                   "B); score prompts with "
                                   "launch.steps.make_forward")
-    if mixers - {"tno", "fd", "mamba"}:
+    if mixers - {"attention", "local", "tno", "fd", "mamba"}:
         raise NotImplementedError(f"decode for mixers {sorted(mixers)}: "
-                                  "only tno, fd and mamba are ported")
+                                  "only attention, local, tno, fd and mamba "
+                                  "are ported")
     device = None if params is None else params.embed.device
     dtype = dtype or getattr(torch, cfg.dtype)
     cache = []
     for i, (mixer, _) in enumerate(cfg.layers_spec):
+        if mixer in ("attention", "local"):
+            cache.append(decode_cache_init(cfg, batch, max_len, dtype,
+                                           device))
+            continue
         if mixer == "mamba":
             cache.append(mamba_cache_init(cfg, batch, dtype, device))
             continue
@@ -98,12 +115,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 def cache_capacity(cache) -> int | None:
     """Slot capacity (max positions a slot can hold) of a model cache:
-    the min over its streaming layers' ``cap`` markers and its hist
+    the min over its streaming layers' ``cap`` markers and its hist and KV
     layers' lengths, None when no layer is length-bounded (an all-mamba
     model). The serving engine gates admission on it."""
     caps = [fd_stream.stream_capacity(lc) for lc in cache
             if fd_stream.is_stream_cache(lc)]
     caps += [lc["hist"].shape[-2] for lc in cache if is_hist_cache(lc)]
+    caps += [lc["k"].shape[-3] for lc in cache if is_kv_cache(lc)]
     return min(caps) if caps else None
 
 
@@ -133,10 +151,13 @@ def _hist_replay(params, cfg: ArchConfig, mixer: str, u, cache,
 def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
     """GTU decode: x (b, 1, d) at ``cur_len`` (an int, or
     ``fd_stream.Positions`` for a hist cache) through the overlap-save
-    step or the hist replay."""
+    step or the hist replay. u and v are fp32 (JAX's ``x @ w`` promotes a
+    bf16 x against the fp32 leaves); the mixer output is cast to x's dtype
+    before the gate, as in JAX."""
     act = ACTS[_tno_cfg(cfg, mixer).act]
-    u = act(dense(params.wu.w, x))                     # (b, 1, d)
-    v = act(dense(params.wv.w, x))
+    xf = x.float()
+    u = act(dense(params.wu.w, xf))                    # (b, 1, d)
+    v = act(dense(params.wv.w, xf))
     if fd_stream.is_stream_cache(cache):
         y, cache = fd_stream.stream_step(cache, u[:, 0, :], cur_len)
     else:
@@ -150,7 +171,11 @@ def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
 def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
                   cur_len):
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
-    if mixer == "mamba":
+    if mixer in ("attention", "local"):
+        y, cache = attn_decode(params.mixer, cfg, h, cache, cur_len.dev,
+                               mask_kind="local" if mixer == "local"
+                               else "causal", window=cfg.window)
+    elif mixer == "mamba":
         y, cache = mamba_decode(params.mixer, cfg, h, cache)
     else:
         y, cache = _tno_decode(params.mixer, cfg, mixer, h, cache, cur_len)
@@ -165,11 +190,11 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
     """One new token: tokens (b, 1) at position ``cur_len``: an int (every
     row at the same position) or per-row host positions (a list, numpy
     array or CPU tensor of b ints, or ``fd_stream.Positions``; the
-    continuous-batching engine). TNN layers take them, moved to the card
-    once for all layers; Mamba layers ignore them, as in JAX. Returns
-    (logits (b, 1, V_pad), new cache)."""
+    continuous-batching engine). Attention and TNN layers take them, moved
+    to the card once for all layers; Mamba layers ignore them, as in JAX.
+    Returns (logits (b, 1, V_pad), new cache)."""
     if any(fd_stream.is_stream_cache(lc) or is_hist_cache(lc)
-           for lc in cache):
+           or is_kv_cache(lc) for lc in cache):
         cur_len = fd_stream.positions(cur_len, tokens.shape[0],
                                       tokens.device)
     x = embed_tokens(params, cfg, tokens)
@@ -206,7 +231,7 @@ def _layer_chunk(params, cfg: ArchConfig, x, cache, cur_len: int):
     """One fd+dense layer over a full C-token chunk at positions
     [cur_len, cur_len+C), cur_len ≡ 0 mod C."""
     act = ACTS[_tno_cfg(cfg, "fd").act]
-    h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
+    h = rmsnorm(params.norm1.scale, x, cfg.norm_eps).float()
     mp = params.mixer
     u = act(dense(mp.wu.w, h))                         # (b, C, d)
     v = act(dense(mp.wv.w, h))

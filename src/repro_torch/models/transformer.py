@@ -1,16 +1,23 @@
 """Decoder LM assembly, counterpart of ``repro/models/transformer.py``
-restricted to ``kind="decoder"`` with TNN layers and a dense FFN (the
-baseline ``tno``, ``ski`` and ``fd`` mixers) or Mamba-2 layers without an
-FFN (``("mamba", "none")``, mamba2-2.7b).
+for ``kind="decoder"``: attention layers (``attention`` and the
+sliding-window ``local``, ``models/attention.py``) and TNN layers (the
+baseline ``tno``, ``ski`` and ``fd`` mixers), each with a dense FFN, and
+Mamba-2 layers without one (``("mamba", "none")``). ``mixer_override``
+puts the paper's TNO variants in place of an arch's attention and local
+mixers. MoE FFNs (ROADMAP Queue 1, Step 9b) and the encoder-decoder and
+prefix-VLM kinds (Step 9c) are not ported.
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
 one card. Parameter names follow the JAX tree, with the scanned
-``blocks/sub0`` stack unrolled into ``layers.<i>``, and each parameter has
-the dtype JAX gives its leaf: ``param_dtype`` for the embeddings, the
-matrices and Mamba's conv taps, fp32 for the norm scales, the TNN mixer's
-leaves and Mamba's ``a_log``, ``dt_bias``, ``d_skip`` and ``norm_scale``.
-The loss keeps the JAX package's sequence chunking of the logits
+``blocks/sub<k>`` stack and the ``tail<i>`` layers unrolled into
+``layers.<i>``, and each parameter has the dtype JAX gives its leaf:
+``param_dtype`` for the embeddings, the matrices (attention's and its QKV
+biases included) and Mamba's conv taps, fp32 for the norm scales, the TNN
+mixer's leaves and Mamba's ``a_log``, ``dt_bias``, ``d_skip`` and
+``norm_scale``. A TNN mixer in a bf16 model computes in fp32, as JAX's
+``x @ w`` promotes bf16 activations against its fp32 leaves, and casts
+back. The loss keeps the JAX package's sequence chunking of the logits
 (``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
 """
 from __future__ import annotations
@@ -21,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.block import TNNBlockConfig, gtu_apply, gtu_init
 from repro_torch.core.tno import TNOConfig
+from repro_torch.models.attention import Attention, attn_apply
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import Mamba, mamba_apply
 from repro_torch.nn.layers import (ACTS, RMSNorm, lecun_normal_,
@@ -30,14 +38,19 @@ from repro_torch.nn.layers import (ACTS, RMSNorm, lecun_normal_,
 def _check_supported(cfg: ArchConfig) -> None:
     if cfg.kind != "decoder":
         raise NotImplementedError(f"kind={cfg.kind!r}: the port runs "
-                                  "decoder LMs only (ROADMAP Queue 1)")
+                                  "decoder LMs only (encoder-decoder and "
+                                  "prefix-VLM: ROADMAP Queue 1, Step 9c)")
     for mixer, ffn in cfg.layers_spec:
-        if (mixer, ffn) != ("mamba", "none") and (
-                ffn != "dense" or mixer not in ("tno", "ski", "fd")):
+        if ffn == "moe":
             raise NotImplementedError(
-                f"layer ({mixer}, {ffn}): the port runs TNN layers with a "
-                "dense FFN and Mamba layers without one only (other mixers: "
-                "ROADMAP Queue 1, model zoo)")
+                f"layer ({mixer}, moe): MoE FFNs are not ported (ROADMAP "
+                "Queue 1, Step 9b)")
+        if (mixer, ffn) != ("mamba", "none") and (
+                ffn != "dense" or mixer not in ("attention", "local", "tno",
+                                                "ski", "fd")):
+            raise NotImplementedError(
+                f"layer ({mixer}, {ffn}): the port runs attention and TNN "
+                "layers with a dense FFN and Mamba layers without one")
 
 
 # ------------------------------------------------------------------ pieces
@@ -62,9 +75,9 @@ def ffn_apply(params: FFN, cfg: ArchConfig, x):
     return h @ params.w_down.to(x.dtype)
 
 
-def _tno_cfg(cfg: ArchConfig, variant: str) -> TNNBlockConfig:
-    # decoder only: every TNO mixer is causal (JAX: mask_kind == "causal")
-    tno = TNOConfig(d=cfg.d_model, variant=variant, causal=True,
+def _tno_cfg(cfg: ArchConfig, variant: str,
+             causal: bool = True) -> TNNBlockConfig:
+    tno = TNOConfig(d=cfg.d_model, variant=variant, causal=causal,
                     lam=cfg.tno_lam, rpe_hidden=cfg.tno_rpe_hidden,
                     rpe_layers=cfg.tno_rpe_layers, rpe_act=cfg.tno_rpe_act,
                     rank=cfg.tno_rank, filter_size=cfg.tno_filter)
@@ -78,7 +91,9 @@ class Layer(nn.Module):
     def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
-        if mixer == "mamba":
+        if mixer in ("attention", "local"):
+            self.mixer = Attention(cfg, device=device)
+        elif mixer == "mamba":
             self.mixer = Mamba(cfg, device=device)
         else:
             self.mixer = gtu_init(_tno_cfg(cfg, mixer), device=device)
@@ -88,16 +103,24 @@ class Layer(nn.Module):
                            dtype=getattr(torch, cfg.param_dtype))
 
 
-def mixer_apply(params, cfg: ArchConfig, mixer: str, x):
+def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
+                mask_kind: str = "causal"):
+    if mixer in ("attention", "local"):
+        mk = "local" if mixer == "local" else mask_kind
+        return attn_apply(params, cfg, x, mask_kind=mk)
     if mixer == "mamba":
         return mamba_apply(params, cfg, x)
-    # GTU internals run fp32 (FFTs); keep the residual dtype stable
-    return gtu_apply(params, _tno_cfg(cfg, mixer), x).to(x.dtype)
+    causal = mask_kind in ("causal", "local")
+    # the GTU's leaves are fp32: JAX's x @ w promotes a bf16 x to fp32, so
+    # the mixer computes in fp32; keep the residual dtype stable
+    return gtu_apply(params, _tno_cfg(cfg, mixer, causal),
+                     x.float()).to(x.dtype)
 
 
-def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x):
+def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,
+                mask_kind: str = "causal"):
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
-    x = x + mixer_apply(params.mixer, cfg, mixer, h)
+    x = x + mixer_apply(params.mixer, cfg, mixer, h, mask_kind=mask_kind)
     if ffn == "dense":
         h = rmsnorm(params.norm2.scale, x, cfg.norm_eps)
         x = x + ffn_apply(params.ffn, cfg, h)
@@ -154,10 +177,11 @@ def unembed(params: Model, cfg: ArchConfig, x):
 
 
 def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens (b, s) -> hidden (b, s, d) after the final norm."""
+    """tokens (b, s) -> hidden (b, s, d) after the final norm. Every layer
+    of a decoder takes the causal mask, as in JAX's ``backbone``."""
     x = embed_tokens(params, cfg, tokens)
     for (mixer, ffn), layer in zip(cfg.layers_spec, params.layers):
-        x = layer_apply(layer, cfg, mixer, ffn, x)
+        x = layer_apply(layer, cfg, mixer, ffn, x, mask_kind="causal")
     return rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
 
 

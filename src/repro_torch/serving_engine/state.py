@@ -36,11 +36,13 @@ import torch
 
 from repro_torch.models import serving
 
-#: per-slot leaves (batch on dim 0): FD stream ring/tail (b, C, d) and
-#: block spectra (b, NB, F, d); the hist-replay history (b, max_len, d);
-#: Mamba conv window (b, w-1, conv_dim) and SSD state (b, h, p, s)
+#: per-slot leaves (batch on dim 0): attention KV k/v (b, max_len, kvh,
+#: hd); FD stream ring/tail (b, C, d) and block spectra (b, NB, F, d); the
+#: hist-replay history (b, max_len, d); Mamba conv window (b, w-1,
+#: conv_dim) and SSD state (b, h, p, s)
 PER_SLOT_LEAVES = frozenset(
-    {"ring", "tail", "uspec_re", "uspec_im", "hist", "conv", "state"})
+    {"k", "v", "ring", "tail", "uspec_re", "uspec_im", "hist", "conv",
+     "state"})
 
 #: parameter-derived leaves shared by every slot: the FD stream's kernel
 #: constants, the hist replay's causal taps ``kcoef`` and the capacity

@@ -459,17 +459,19 @@ def test_cache_from_jax_carries_stream_caches(fd, scan):
 
 
 def test_cache_from_jax_refuses_unknown_leaves(fd):
-    """A leaf the port's caches do not have (attention ``k``) is refused;
-    the JAX params-less hist cache, once refused, and the stream cache
-    come over layer for layer."""
+    """A leaf the port's caches do not have is refused (attention ``k``
+    was, until the attention caches were ported; tests/test_torch_zoo.py
+    carries them); the JAX params-less hist cache, once refused, and the
+    stream cache come over layer for layer."""
     jcfg, cfg, jparams, _ = fd
     from repro.models import serving as jserving
     cache = jax.tree.map(np.asarray, jserving.init_cache(jcfg, 2, 8))
-    kv = {"blocks": {"sub0": dict(cache["blocks"]["sub0"],
-                                  k=np.zeros((cfg.n_layers, 2, 8, 2, 4),
-                                             np.float32))}}
-    with pytest.raises(ValueError, match=r"'layers\.0\.k' has no port"):
-        bridge.cache_from_jax(kv, cfg, "cpu")
+    odd = {"blocks": {"sub0": dict(cache["blocks"]["sub0"],
+                                   mystery=np.zeros((cfg.n_layers, 2, 8),
+                                                    np.float32))}}
+    with pytest.raises(ValueError,
+                       match=r"'layers\.0\.mystery' has no port"):
+        bridge.cache_from_jax(odd, cfg, "cpu")
     hist = bridge.cache_from_jax(cache, cfg, "cpu")
     assert [set(lc) for lc in hist] == [{"hist"}] * cfg.n_layers
     stream = jax.tree.map(np.asarray, jserving.init_cache(jcfg, 2, 8,

@@ -111,15 +111,26 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
-    """Mixers outside the port (attention) still raise; the baseline TNO
-    and SKI models build, the baseline's mixer holding the RPE MLP alone
-    (their forwards are held against JAX in test_torch_tno_baseline.py and
+    """MoE FFNs (ROADMAP Queue 1, Step 9b) and the encoder-decoder kind
+    (Step 9c) still raise; attention layers build (their forwards are held
+    against JAX in test_torch_zoo.py), and so do the baseline TNO and SKI
+    models, the baseline's mixer holding the RPE MLP alone (their forwards
+    are held against JAX in test_torch_tno_baseline.py and
     test_torch_ski.py)."""
     import dataclasses
-    attn = dataclasses.replace(reduce_for_smoke(get_config("tnn-lm-wt103")),
-                               pattern=(("attention", "dense"),))
-    with pytest.raises(NotImplementedError, match="attention"):
-        Model(attn, device="meta")
+    base = reduce_for_smoke(get_config("tnn-lm-wt103"))
+    moe = dataclasses.replace(base, pattern=(("attention", "moe"),),
+                              n_heads=4, n_kv_heads=2, head_dim=32,
+                              n_experts=4, top_k=2)
+    with pytest.raises(NotImplementedError, match="Step 9b"):
+        Model(moe, device="meta")
+    with pytest.raises(NotImplementedError, match="Step 9c"):
+        Model(dataclasses.replace(base, kind="encdec"), device="meta")
+    attn = dataclasses.replace(base, pattern=(("attention", "dense"),),
+                               n_heads=4, n_kv_heads=2, head_dim=32)
+    model = Model(attn, device="meta")
+    assert all(type(layer.mixer).__name__ == "Attention"
+               for layer in model.layers)
     for arch, kind in (("tnn-lm-wt103", "BaselineParams"),
                        ("ski-tnn-lm-wt103", "SKIParams")):
         model = Model(reduce_for_smoke(get_config(arch)), device="meta")

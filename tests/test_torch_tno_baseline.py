@@ -176,9 +176,14 @@ def test_tno_apply_grads_match_jax():
 
 
 def test_fd_bidirectional_still_refused():
-    """Bidirectional FD is ROADMAP Step 8; the baseline takes causal=False."""
-    with pytest.raises(NotImplementedError, match="Step 8"):
-        tno.tno_init(tno.TNOConfig(d=8, variant="fd", causal=False))
+    """Bidirectional FD (ROADMAP Step 8) builds since it was ported: its
+    RPE is 2d wide and its plan is the complex spectrum (held against JAX
+    in test_torch_fd_bidir.py). An unknown variant is still refused."""
+    cfg = tno.TNOConfig(d=8, variant="fd", causal=False, rpe_hidden=16)
+    params = tno.tno_init(cfg)
+    assert params.rpe.layers[-1].w.shape == (16, 16)
+    plan = tno.tno_plan(params, cfg, 5)
+    assert set(plan) == {"khat"} and plan["khat"].shape == (8, 6)
     with pytest.raises(ValueError, match="mystery"):
         tno.tno_init(tno.TNOConfig(d=8, variant="mystery"))
 
