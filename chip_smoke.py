@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, continuous-batching engine and its
 supervised scheduler, training, the baseline TNN's scoring, training and
-hist-replay serving, the attention decoder gemma3-4b's scoring and
-serving (with the paper's mixers dropped in), SKI scoring, SKI training,
-unfused SKI, large-rank SKI and Mamba-2 serving paths on one NVIDIA card
-and check them.
+hist-replay serving, the attention decoder gemma3-4b's and the MoE
+decoder granite-moe-3b-a800m's scoring and serving (with the paper's
+mixers dropped in), SKI scoring, SKI training, unfused SKI, large-rank
+SKI and Mamba-2 serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -173,6 +173,33 @@ card or outside a checkout of this repository. Phases:
    card's name and power limit: the scoring tokens/s, the decode steps'
    new tokens/s, the fp32 engine's and the two overrides' scoring
    tokens/s;
+5d. moe: the full-width granite-moe-3b-a800m (32 (attention, moe)
+   layers, d=1,536, 24 heads over 8 kv heads of 64, 40 experts top-8 of
+   d_ff 512, vocab 49,155, bf16, random weights from seed 0; parameters
+   against ``param_count()`` plus the norm scales, init seconds) scores 8
+   × 512 through ``make_forward`` and the eval ``loss_fn`` at the
+   config's capacity factor 1.25 (the dropped assignments counted, the
+   loss beside its aux term, peak memory, two forwards the same bits);
+   the capacity path at cf = E / k = 5 (nothing drops) against the
+   dropless ragged path on that batch, within 2e-2 of the scale or twice
+   the ragged path's distance from its fp32-activation run, with the
+   (layer, token) pairs routed to other experts counted and the ragged
+   forward twice the same bits; the three forwards timed (CUDA events)
+   and one scoring forward and a short ``generate`` traced; serves 4
+   prompts of 224 tokens with 32 greedy new tokens at max_len 256 (4 rows
+   a step: no assignment drops); the decode path teacher-forced over the
+   generated sequences (its steps after the prompt timed) reproduces
+   them and picks the ragged forward's token under phase zoo's bf16 rule,
+   with the positions whose top-8 expert sets differ between the two
+   counted; ``--mixer fd`` at 6 layers, its FFNs MoE: 6
+   ``causal_spectrum`` + 6 ``fd_mul``, held to the plain versions as in
+   phase zoo; the same weights in fp32: one served row through its 255
+   decode steps against the fp32 ragged forward and phase zoo's 4
+   engine requests over 4 slots against solo ``generate``, both under
+   the 1e-3 margin rule; asserted: no hand-kernel launch on the scoring,
+   serving and engine paths; the smoke granite, grok-1 and granite
+   ``--mixer fd`` card vs CPU as in phase zoo; printed, not claimed,
+   beside the card: the scoring, decode, engine and override rates;
 6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
@@ -2353,8 +2380,8 @@ def check_tno_stages(device="cuda") -> None:
         xg = xc.to(device)
         growth = []
         for i, (mixer, ffn) in enumerate(cfg.layers_spec):
-            xc = layer_apply(cpu.layers[i], cfg, mixer, ffn, xc)
-            xg = layer_apply(card.layers[i], cfg, mixer, ffn, xg)
+            xc = layer_apply(cpu.layers[i], cfg, mixer, ffn, xc)[0]
+            xg = layer_apply(card.layers[i], cfg, mixer, ffn, xg)[0]
             growth.append(float((xg.cpu() - xc).abs().max()
                                 / xc.abs().max()))
         lc_out = unembed(cpu, cfg, rmsnorm(cpu.norm_f.scale, xc,
@@ -2404,6 +2431,8 @@ ZOO_ENGINE_SLOTS, ZOO_ENGINE_MAX_LEN = 4, 512
 #: override path's name in ``main``'s paths
 ZOO_OVERRIDES = {"fd": {"causal_spectrum": 1, "fd_mul": 1},
                  "ski": {"interp_reduce": 1, "ski_fused_pass2": 1}}
+#: the depth a mixer override scores at (gemma3-4b's one period)
+OVERRIDE_LAYERS = 6
 #: the bf16 tier of a kernel path against its plain path on the card
 ZOO_BF16_TOL = 2e-2
 
@@ -2449,15 +2478,15 @@ def _zoo_score(tag: str, cfg, model, batch, device) -> tuple:
 
 
 def _override_model(base, base_model, mixer: str, device):
-    """gemma3-4b with ``mixer_override`` at full width and one period's
-    depth: every leaf outside the mixers is ``base_model``'s (its
-    embeddings, norms, FFNs of layers 0-5; copied on the card), the
-    paper's mixers drawn from seed 0 (drawing 1.9 B leaves again would
-    take about 20 s)."""
+    """The full-width arch with ``mixer_override`` at OVERRIDE_LAYERS
+    layers (gemma3-4b's one period): every leaf outside the mixers is
+    ``base_model``'s (its embeddings, norms, FFNs of layers 0-5; copied on
+    the card), the paper's mixers drawn from seed 0 (drawing gemma3's 1.9 B
+    leaves again would take about 20 s)."""
     from repro_torch.models.transformer import Model
     from repro_torch.nn.layers import reset_parameters
     cfg = dataclasses.replace(base, mixer_override=mixer,
-                              n_layers=base.period)
+                              n_layers=OVERRIDE_LAYERS)
     model = Model(cfg, device=device)
     gen = torch.Generator().manual_seed(0)
     have = dict(base_model.named_parameters())
@@ -2470,7 +2499,8 @@ def _override_model(base, base_model, mixer: str, device):
     return cfg, model
 
 
-def _zoo_override(mixer: str, base, base_model, batch, device) -> tuple:
+def _zoo_override(mixer: str, base, base_model, batch, device,
+                  tag: str = "") -> tuple:
     """:func:`_override_model`: the scoring launches (ZOO_OVERRIDES a
     layer, no other kernel) and its logits against the same forward
     through the plain versions on the card, within ZOO_BF16_TOL of their
@@ -2480,9 +2510,9 @@ def _zoo_override(mixer: str, base, base_model, batch, device) -> tuple:
     from repro_torch.models.transformer import forward
     t0 = time.perf_counter()
     cfg, model = _override_model(base, base_model, mixer, device)
-    tag = f"[zoo {mixer}]"
-    print(f"{tag} {cfg.name} --mixer {mixer}: {cfg.n_layers} layers (one "
-          f"period), d={cfg.d_model}, {cfg.dtype} (mixer leaves fp32), "
+    tag = tag or f"[zoo {mixer}]"
+    print(f"{tag} {cfg.name} --mixer {mixer}: {cfg.n_layers} layers, "
+          f"d={cfg.d_model}, {cfg.dtype} (mixer leaves fp32), "
           f"{sum(p.numel() for p in model.parameters())} parameters (the "
           f"mixers drawn from seed 0, the rest the full model's), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -2601,21 +2631,23 @@ def _fp32_copy(cfg, model, device):
     return cfg32, model32
 
 
-def _check_zoo_fp32(cfg32, model32, seqs) -> None:
+def _check_zoo_fp32(cfg32, model32, seqs, tag: str = "[zoo fp32]",
+                    ref_cfg=None) -> None:
     """One served row teacher-forced through every decode step (past the
-    local layers' window) of the fp32 copy against its fp32 forward: the
-    two paths differ by sums in another order only, so every position
-    whose top-2 margin exceeds MARGIN must pick the forward's token."""
+    local layers' window) of the fp32 copy against its fp32 forward (under
+    ``ref_cfg``, default ``cfg32``: an MoE arch's dropless one): the two
+    paths differ by sums in another order only, so every position whose
+    top-2 margin exceeds MARGIN must pick the forward's token."""
     from repro_torch.models.transformer import forward
     t0 = time.perf_counter()
     with torch.inference_mode():
         dec = _teacher_forced(model32, cfg32, seqs)
-        fwd = forward(model32, cfg32, seqs)[:, :-1].float()
+        fwd = forward(model32, ref_cfg or cfg32, seqs)[:, :-1].float()
     diff = float((dec - fwd).abs().max())
     top2 = torch.topk(fwd, 2, dim=-1).values
     checked = (top2[..., 0] - top2[..., 1]) > MARGIN
     wrong = (_pick(cfg32, dec) != _pick(cfg32, fwd)) & checked
-    print(f"[zoo fp32] the same weights in fp32, {tuple(seqs.shape)} "
+    print(f"{tag} the same weights in fp32, {tuple(seqs.shape)} "
           f"teacher-forced through {seqs.shape[1] - 1} decode steps against "
           f"the fp32 forward: largest logit difference {diff:.3e} (logit "
           f"scale {float(fwd.abs().max()):.3f}); {int(checked.sum())} of "
@@ -2625,6 +2657,42 @@ def _check_zoo_fp32(cfg32, model32, seqs) -> None:
     if int(wrong.sum()) or not int(checked.sum()):
         raise AssertionError("the fp32 decode path disagrees with the fp32 "
                              "forward, or no position was checked")
+
+
+def _zoo_engine(name: str, cfg32, model32, device, ref_cfg=None) -> tuple:
+    """ZOO_ENGINE_PLENS through an Engine of ZOO_ENGINE_SLOTS slots of the
+    fp32 model, each request held to solo ``generate`` under the margin
+    rule (the margins from the forward under ``ref_cfg``, default
+    ``cfg32``). Returns (the engine run's launches, new tok/s over its
+    generate steps)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.serving_engine import Engine
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg32.vocab, (p,)) for p in ZOO_ENGINE_PLENS]
+    gens = list(ZOO_ENGINE_GENS)
+    _reset_kernel_counts()
+    eng = Engine(cfg32, model32, slots=ZOO_ENGINE_SLOTS,
+                 max_len=ZOO_ENGINE_MAX_LEN)
+    run = engine_run(eng, prompts, gens)
+    launches = _kernel_counts()
+    _engine_report(f"{name} fp32 ({len(prompts)} requests, prompts "
+                   f"{list(ZOO_ENGINE_PLENS)}, S={ZOO_ENGINE_SLOTS}, buckets "
+                   f"{eng.buckets})", run)
+    if not all(run["ok"].values()):
+        raise AssertionError(f"{name} engine: ok {run['ok']}")
+    with torch.inference_mode():
+        solo = [generate(model32, cfg32, torch.from_numpy(pr)[None].to(
+            device), g, max_len=ZOO_ENGINE_MAX_LEN)[0]
+            for pr, g in zip(prompts, gens)]
+    limits = _margin_limits(model32, ref_cfg or cfg32, solo, prompts)
+    checked, skipped = _held(f"{name} engine vs solo", run["tokens"],
+                             [s[len(pr):].tolist()
+                              for s, pr in zip(solo, prompts)], limits)
+    print(f"[{name} engine] fp32 engine vs solo decode at max_len "
+          f"{ZOO_ENGINE_MAX_LEN}: {checked} new tokens checked, {skipped} "
+          f"skipped (after a top-2 margin <= {MARGIN}), 0 mismatches",
+          flush=True)
+    return launches, run["new"] / run["t_gen"]
 
 
 def phase_zoo(smi: str, device="cuda") -> dict:
@@ -2645,7 +2713,6 @@ def phase_zoo(smi: str, device="cuda") -> dict:
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import init_model, loss_fn
-    from repro_torch.serving_engine import Engine
     t_phase = time.perf_counter()
     cfg = get_config(ZOO_ARCH)
     torch.cuda.reset_peak_memory_stats(device)
@@ -2712,35 +2779,11 @@ def phase_zoo(smi: str, device="cuda") -> dict:
     cfg32, model32 = _fp32_copy(cfg, model, device)
     del model
     _check_zoo_fp32(cfg32, model32, seqs[:1])
-    rng = np.random.default_rng(2)
-    prompts = [rng.integers(0, cfg.vocab, (p,)) for p in ZOO_ENGINE_PLENS]
-    gens = list(ZOO_ENGINE_GENS)
-    _reset_kernel_counts()
-    eng = Engine(cfg32, model32, slots=ZOO_ENGINE_SLOTS,
-                 max_len=ZOO_ENGINE_MAX_LEN)
-    run = engine_run(eng, prompts, gens)
-    launches["zoo_engine"] = _kernel_counts()
-    _engine_report(f"zoo fp32 ({len(prompts)} requests, prompts "
-                   f"{list(ZOO_ENGINE_PLENS)}, S={ZOO_ENGINE_SLOTS}, buckets "
-                   f"{eng.buckets})", run)
-    if not all(run["ok"].values()):
-        raise AssertionError(f"zoo engine: ok {run['ok']}")
-    with torch.inference_mode():
-        solo = [generate(model32, cfg32, torch.from_numpy(pr)[None].to(
-            device), g, max_len=ZOO_ENGINE_MAX_LEN)[0]
-            for pr, g in zip(prompts, gens)]
-    limits = _margin_limits(model32, cfg32, solo, prompts)
-    checked, skipped = _held("zoo engine vs solo", run["tokens"],
-                             [s[len(pr):].tolist()
-                              for s, pr in zip(solo, prompts)], limits)
-    print(f"[zoo engine] fp32 engine vs solo decode at max_len "
-          f"{ZOO_ENGINE_MAX_LEN}: {checked} new tokens checked, {skipped} "
-          f"skipped (after a top-2 margin <= {MARGIN}), 0 mismatches",
-          flush=True)
-    engine_rate = run["new"] / run["t_gen"]
+    launches["zoo_engine"], engine_rate = _zoo_engine("zoo", cfg32, model32,
+                                                      device)
     for path in ("zoo_score", "zoo_serve", "zoo_engine"):
         _expect_no_launches(path, launches[path])
-    del model32, eng
+    del model32
 
     # (5) card vs CPU at smoke size
     small = reduce_for_smoke(cfg)
@@ -2754,6 +2797,244 @@ def phase_zoo(smi: str, device="cuda") -> dict:
           f"its generate steps; --mixer fd scoring {rates['fd']:.0f} tokens/s, "
           f"--mixer ski {rates['ski']:.0f} tokens/s (6 layers)", flush=True)
     print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+# ------------------------------------------------------------------- MoE
+MOE_ARCH = "granite-moe-3b-a800m"
+#: served prompts: 4 rows (a step of at most 4 tokens never drops an
+#: assignment, whatever the capacity factor) of 224 tokens and 32 new at
+#: max_len 256
+MOE_PROMPTS, MOE_PROMPT_LEN, MOE_GEN, MOE_MAX_LEN = 4, 224, 32, 256
+
+
+@contextlib.contextmanager
+def _routing():
+    """Inside the block every MoE routing appends its expert ids (T, k), a
+    device tensor (no sync), to the yielded list."""
+    from repro_torch.models import moe
+    calls, route = [], moe.route
+
+    def recording(x2d, router, k):
+        w, ids, aux = route(x2d, router, k)
+        calls.append(ids)
+        return w, ids, aux
+    with mock.patch.object(moe, "route", recording):
+        yield calls
+
+
+def _n_dropped(ids, cap: int, e: int) -> int:
+    """Assignments of ids (T, k) past their expert's ``cap`` slots in the
+    flat (token, k) order: those the capacity path drops."""
+    from repro_torch.models import moe
+    return int((moe.slot_positions(ids.reshape(-1), e) >= cap).sum())
+
+
+def _set_flips(a, b) -> torch.Tensor:
+    """Where two routings (…, k) chose other expert sets."""
+    return (a.sort(-1).values != b.sort(-1).values).any(-1)
+
+
+def _routing_flips(dec_calls, fwd_calls, n_layers: int, b: int,
+                   n: int) -> tuple:
+    """Routing of the decode steps (one call a layer a step, b rows each,
+    steps at positions 0, 1, …) against the forward's over the same (b, n)
+    tokens (one call a layer): (positions where some layer chose another
+    top-k set, (layer, position) pairs that did, positions compared)."""
+    dec = torch.stack(dec_calls)                     # (steps·L, b, k)
+    steps = dec.shape[0] // n_layers
+    dec = dec.view(steps, n_layers, b, -1).permute(2, 0, 1, 3)
+    fwd = torch.stack([c.view(b, n, -1)[:, :steps] for c in fwd_calls], 2)
+    flips = _set_flips(dec, fwd)                     # (b, steps, L)
+    return int(flips.any(-1).sum()), int(flips.sum()), b * steps
+
+
+def phase_moe(smi: str, device="cuda") -> dict:
+    """The MoE decoder granite-moe-3b-a800m at full width, bf16, from seed
+    0: (1) score 8 × 512 through ``make_forward`` and the eval ``loss_fn``
+    at the config's capacity factor (the assignments it drops counted, two
+    forwards the same bits); (2) the capacity path at cf = E / k (cap ≥ T,
+    nothing drops) against the dropless ragged path on the same batch,
+    within ZOO_BF16_TOL of the scale or twice the ragged path's distance
+    from its fp32-activation run, and the ragged forward twice the same
+    bits; (3) serve MOE_PROMPTS × (MOE_PROMPT_LEN + MOE_GEN) greedily at
+    MOE_MAX_LEN (4 rows: dropless); the decode path, teacher-forced over
+    the generated sequences (its steps alone timed), against the ragged
+    forward (:func:`_check_decoded_bf16`), with the positions whose top-k
+    expert sets differ between the two counted; (4) ``--mixer fd`` at
+    OVERRIDE_LAYERS layers, its FFNs MoE; (5) the same weights in fp32: one
+    served row through every decode step against the fp32 ragged forward,
+    and the Engine of :func:`_zoo_engine` (4 slots: dropless) against solo
+    decode, under the margin rule; 0 hand-kernel launches in (1), (3) and
+    (5); (6) the smoke granite, grok-1 and granite ``--mixer fd`` card vs
+    CPU. Prints the rates, recorded and not claimed, beside the card.
+    Returns the launch counts by path."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import forward, init_model, loss_fn
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    e, k, cf = cfg.n_experts, cfg.top_k, cfg.moe_capacity_factor
+    ragged = dataclasses.replace(cfg, moe_impl="ragged")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator().manual_seed(0), device=device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_norms = sum(p.numel() for name, p in model.named_parameters()
+                  if name.endswith(".scale"))
+    pc = cfg.param_count()
+    print(f"[moe] {cfg.name}: {cfg.n_layers} (attention, moe) layers, "
+          f"d={cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv heads "
+          f"x {cfg.head_dim}, {e} experts top-{k} of d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab} (padded {cfg.vocab_padded}), {cfg.dtype}, "
+          f"moe_impl {cfg.moe_impl} at cf {cf}; {n_params} parameters "
+          f"(param_count() {pc['total']} + {n_norms} norm scales; active "
+          f"{pc['active']}); init {t_init:.2f} s", flush=True)
+    if n_params != pc["total"] + n_norms:
+        raise AssertionError("moe parameter count")
+    launches = {}
+
+    # (1) score at the config's capacity factor
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    t = SCORE_BATCH * SCORE_SEQ
+    logits, launches["moe_score"], score_tok_s = _zoo_score(
+        "[moe score]", cfg, model, batch, device)
+    with torch.inference_mode(), _routing() as score_ids:
+        again = forward(model, cfg, batch["tokens"])
+        loss, metrics = loss_fn(model, cfg, batch)
+    cap = moe.capacity(t, k, cf, e)
+    dropped = sum(_n_dropped(ids, cap, e) for ids in score_ids[:cfg.n_layers])
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"[moe score] cap {cap} slots an expert for {t} tokens x top-{k}: "
+          f"{dropped} of {t * k * cfg.n_layers} assignments dropped "
+          f"({dropped / (t * k * cfg.n_layers):.4%}); two forwards the same "
+          f"bits: {torch.equal(again, logits)}; eval loss {float(loss):.6f} "
+          f"= nll {float(metrics['nll']):.6f} + 0.01 x aux "
+          f"{float(metrics['aux']):.6f} (ln V = {math.log(cfg.vocab):.6f}, "
+          f"aux 1.0 a layer when balanced); max_memory_allocated {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    if not (torch.equal(again, logits) and math.isfinite(float(loss))):
+        raise AssertionError("moe scoring: two forwards differ or the loss "
+                             "is not finite")
+    del again, logits
+
+    # (2) capacity at cf = E / k (nothing drops) against ragged
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=e / k)
+    torch.cuda.reset_peak_memory_stats(device)
+    with torch.inference_mode():
+        with _routing() as cap_ids:
+            got = forward(model, nodrop, batch["tokens"]).float()
+        cap_peak = torch.cuda.max_memory_allocated(device)
+        with _routing() as rag_ids:
+            want = _repeat_equal("moe", "ragged forward", lambda: forward(
+                model, ragged, batch["tokens"])).float()
+        act32 = forward(model, dataclasses.replace(ragged, dtype="float32"),
+                        batch["tokens"])
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    noise = float((want - act32).abs().max()) / scale
+    tol = max(ZOO_BF16_TOL, 2 * noise)
+    pairs = sum(int(_set_flips(a, b).sum())
+                for a, b in zip(cap_ids, rag_ids[:cfg.n_layers]))
+    print(f"[moe cap-vs-ragged] capacity path at cf {e / k} (cap "
+          f"{moe.capacity(t, k, e / k, e)} >= {t}) vs the ragged path, "
+          f"8 x 512 on the card: logits max abs err {err:.4f} (scale "
+          f"{scale:.3f}; limit max({ZOO_BF16_TOL}, 2 x {noise:.4f}) = "
+          f"{tol:.4f} x scale, the second the ragged path's bf16 against "
+          f"fp32 activations); {pairs} of {t * cfg.n_layers} (layer, token) "
+          f"pairs routed to another top-{k} set; the ragged forward twice "
+          f"the same bits; peak {cap_peak / 2**30:.3f} GiB at cf {e / k}",
+          flush=True)
+    if not err <= tol * scale:
+        raise AssertionError("moe capacity path differs from the ragged")
+    del got, want, act32
+    with torch.inference_mode():
+        runs = {f"capacity cf {cf}": cfg, f"capacity cf {e / k}": nodrop,
+                "ragged": ragged}
+        ms = {name: time_ms(lambda c=c: forward(model, c, batch["tokens"]),
+                            reps=5) for name, c in runs.items()}
+        _profile_forward(make_forward(cfg), model, batch["tokens"], device,
+                         reps=1, tag="[moe score]")
+    print("[moe cap-vs-ragged] a forward over 8 x 512, CUDA events, median "
+          "of 5: " + "; ".join(f"{name} {t:.3f} ms" for name, t in ms.items()),
+          flush=True)
+
+    # (3) serve (4 rows: no step drops)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (MOE_PROMPTS, MOE_PROMPT_LEN))).to(device)
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :8], 2, max_len=MOE_MAX_LEN)
+        _sync(device)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, MOE_GEN, max_len=MOE_MAX_LEN)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        launches["moe_serve"] = _kernel_counts()
+    if seqs.shape != (MOE_PROMPTS, MOE_PROMPT_LEN + MOE_GEN) or not \
+            torch.equal(seqs[:, :MOE_PROMPT_LEN], prompt):
+        raise AssertionError(f"moe generate returned {tuple(seqs.shape)}")
+    steps = MOE_PROMPT_LEN + MOE_GEN - 1
+    print(f"[moe serve] generate {MOE_PROMPTS} x ({MOE_PROMPT_LEN} + "
+          f"{MOE_GEN}) at max_len {MOE_MAX_LEN} (capacity path, cap "
+          f"{moe.capacity(MOE_PROMPTS, k, cf, e)} >= {MOE_PROMPTS} rows a "
+          f"step: nothing drops): {t_gen:.3f} s, {steps} decode steps "
+          f"({steps / t_gen:.1f} steps/s); kernel launches "
+          f"{launches['moe_serve']}", flush=True)
+    with torch.inference_mode():
+        _profile_forward(lambda m, p: generate(m, cfg, p, 2,
+                                               max_len=MOE_MAX_LEN),
+                         model, prompt[:, :8], device, reps=1,
+                         tag="[moe serve]",
+                         unit="generate of 4 x (8 + 2) (9 decode steps)")
+    with _routing() as dec_ids:
+        decode_rate, dec = _decode_rate(model, cfg, seqs, MOE_PROMPT_LEN,
+                                        MOE_MAX_LEN, device, keep=True)
+    with _routing() as fwd_ids:
+        _check_decoded_bf16("[moe serve]", ragged, model, MOE_PROMPT_LEN,
+                            seqs, dec)
+    flips, pairs, n_pos = _routing_flips(dec_ids, fwd_ids, cfg.n_layers,
+                                         MOE_PROMPTS, seqs.shape[1])
+    print(f"[moe serve] routing flips, decode (capacity, {MOE_PROMPTS} rows "
+          f"a step) vs the ragged forward: {flips} of {n_pos} positions "
+          f"with some layer on another top-{k} set ({pairs} of "
+          f"{n_pos * cfg.n_layers} (layer, position) pairs)", flush=True)
+    del dec, dec_ids, fwd_ids
+
+    # (4) the paper's FD mixer in the MoE arch
+    launches["moe_fd"], fd_rate = _zoo_override("fd", cfg, model, batch,
+                                                device, tag="[moe fd]")
+
+    # (5) the same weights in fp32
+    cfg32, model32 = _fp32_copy(cfg, model, device)
+    ragged32 = dataclasses.replace(cfg32, moe_impl="ragged")
+    del model
+    _check_zoo_fp32(cfg32, model32, seqs[:1], tag="[moe fp32]",
+                    ref_cfg=ragged32)
+    launches["moe_engine"], engine_rate = _zoo_engine(
+        "moe", cfg32, model32, device, ref_cfg=ragged32)
+    for path in ("moe_score", "moe_serve", "moe_engine"):
+        _expect_no_launches(path, launches[path])
+    del model32
+
+    # (6) card vs CPU at smoke size
+    small = reduce_for_smoke(cfg)
+    _check_smoke_card_vs_cpu(small, device)
+    _check_smoke_card_vs_cpu(reduce_for_smoke(get_config("grok-1-314b")),
+                             device)
+    _check_smoke_card_vs_cpu(dataclasses.replace(
+        small, mixer_override="fd", name=small.name + "-fd"), device)
+    print(f"[moe] rates ({smi}; host clock, recorded, not claimed): scoring "
+          f"{score_tok_s:.0f} tokens/s; decode alone {decode_rate:.1f} new "
+          f"tok/s ({MOE_PROMPTS} rows at positions {MOE_PROMPT_LEN}-"
+          f"{MOE_MAX_LEN - 2}); fp32 engine {engine_rate:.1f} new tok/s over "
+          f"its generate steps; --mixer fd scoring {fd_rate:.0f} tokens/s "
+          f"({OVERRIDE_LAYERS} layers)", flush=True)
+    print(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
 
@@ -2806,12 +3087,13 @@ def _standalone_wrappers_refuse_grad(device) -> None:
 
 
 def _profile_forward(fwd, model, tokens, device, reps: int = 3,
-                     tag: str = "[score]", kernels_of=()) -> dict:
+                     tag: str = "[score]", kernels_of=(),
+                     unit: str = "forwards") -> dict:
     """Where a scoring forward's time goes: ``torch.profiler`` over
     ``reps`` forwards (traced, so the wall is inflated), the device-busy
-    share of the wall and the kernels with the most device time. Returns
-    the device ms a forward of the kernels whose names hold each of
-    ``kernels_of``."""
+    share of the wall, the kernel launches and the kernels with the most
+    device time. Returns the device ms a forward of the kernels whose
+    names hold each of ``kernels_of``."""
     from torch.profiler import ProfilerActivity, profile
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2825,9 +3107,11 @@ def _profile_forward(fwd, model, tokens, device, reps: int = 3,
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3   # ms
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"{tag} traced: {reps} forwards, wall {wall * 1e3:.3f} ms, "
+    print(f"{tag} traced: {reps} {unit}, wall {wall * 1e3:.3f} ms, "
           f"device busy {busy:.3f} ms, idle share "
-          f"{1 - busy / (wall * 1e3):.3f}; top kernels by device time: "
+          f"{1 - busy / (wall * 1e3):.3f}, "
+          f"{sum(e.count for e in kernels)} kernel launches; top kernels by "
+          "device time: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
                       f"ms x{e.count}" for e in top), flush=True)
     return {name: sum(e.self_device_time_total for e in kernels
@@ -3964,6 +4248,7 @@ def main() -> int:
                                  TRAIN_BATCH)
     tno_launches = phase_tno(cfg, model, seqs, decode_tps, engine, smi)
     zoo_launches = phase_zoo(smi)
+    moe_launches = phase_moe(smi)
     score_launches = phase_ski_score("cuda")
     ski_train_launches = phase_train(get_config("ski-tnn-lm-wt103"), "cuda",
                                      TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
@@ -4001,8 +4286,8 @@ def main() -> int:
                 if path != "fd_hist"},
              "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),
              **{path: (counts, tuple(ZOO_OVERRIDES.get(
-                 path.removeprefix("zoo_"), ())))
-                for path, counts in zoo_launches.items()},
+                 path.split("_", 1)[1], ())))
+                for path, counts in {**zoo_launches, **moe_launches}.items()},
              **{path: (counts, ("ssd_scan", "short_conv_bf16"))
                 for path, counts in mamba_launches.items()}}
     for path, (counts, names) in paths.items():

@@ -1,8 +1,9 @@
 """Config registry + smoke-reduction helper (copy of
 ``repro/configs/base.py``). The port registers the TNN LM configs,
-``mamba2-2.7b`` and the dense attention decoders ``gemma3-4b``,
-``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``; the MoE archs
-(granite, grok, jamba), the encoder-decoder whisper and the prefix-VLM
+``mamba2-2.7b``, the dense attention decoders ``gemma3-4b``,
+``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``, and the MoE
+decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``; the jamba hybrid
+(ROADMAP Step 9b′), the encoder-decoder whisper and the prefix-VLM
 paligemma are not ported yet."""
 from __future__ import annotations
 
@@ -36,7 +37,8 @@ def list_archs():
 def _load_all():
     import importlib
     for mod in ("phi3_medium_14b", "qwen2_72b", "gemma3_4b", "stablelm_3b",
-                "mamba2_2p7b", "tnn_lm"):
+                "granite_moe_3b_a800m", "grok_1_314b", "mamba2_2p7b",
+                "tnn_lm"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

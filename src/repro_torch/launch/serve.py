@@ -3,10 +3,11 @@ counterpart of ``repro/launch/serve.py``.
 
 ``python -m repro_torch.launch.serve --arch fd-tnn-lm-wt103`` serves a
 randomly initialised full-width model on the card; so do ``--arch
-tnn-lm-wt103`` (the baseline), ``mamba2-2.7b`` and the attention decoders
-``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``
-(``qwen2-72b`` holds 144 GB in bf16, more than one card: serve it with
-``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
+tnn-lm-wt103`` (the baseline), ``mamba2-2.7b``, the attention decoders
+``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``,
+and the MoE decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``
+(``qwen2-72b`` holds 144 GB in bf16 and ``grok-1-314b`` 632 GB, more
+than one card: serve them with ``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
 plain kernels. The baseline decodes through the hist-replay cache, as FD
 does under ``REPRO_FD_STREAM=0``; attention layers through their KV cache.
 ``--mixer fd|tno`` puts a paper mixer in place of an attention arch's

@@ -26,6 +26,9 @@ The cache is a list with one cache per layer:
 * a ``mamba`` layer's is O(1) in the length: the conv window and the fp32
   SSD state (``models/mamba.mamba_cache_init``).
 
+An MoE FFN keeps no cache: a step routes its b rows through
+``models/moe.moe_apply`` as one batch of b tokens.
+
 ``decode_step`` takes one int position (every row in lockstep) or per-row
 host positions (the continuous-batching engine, ``repro_torch.
 serving_engine``): the scalar case is the per-row case broadcast, so
@@ -41,6 +44,7 @@ from repro_torch.kernels import backend, fd_stream
 from repro_torch.models.attention import attn_decode, decode_cache_init
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_cache_init, mamba_decode
+from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (Model, _tno_cfg, embed_tokens,
                                             ffn_apply, forward, unembed)
 from repro_torch.nn.layers import ACTS, dense, rmsnorm
@@ -183,6 +187,13 @@ def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
     if ffn == "dense":
         x = x + ffn_apply(params.ffn, cfg,
                           rmsnorm(params.norm2.scale, x, cfg.norm_eps))
+    elif ffn == "moe":
+        # the aux loss is discarded, as in JAX; capacity counts the step's
+        # rows (parked engine slots included), so a step of at most 4 rows
+        # never drops
+        y, _ = moe_apply(params.ffn, cfg,
+                         rmsnorm(params.norm2.scale, x, cfg.norm_eps))
+        x = x + y
     return x, cache
 
 

@@ -1,10 +1,11 @@
 """Decoder LM assembly, counterpart of ``repro/models/transformer.py``
 for ``kind="decoder"``: attention layers (``attention`` and the
 sliding-window ``local``, ``models/attention.py``) and TNN layers (the
-baseline ``tno``, ``ski`` and ``fd`` mixers), each with a dense FFN, and
-Mamba-2 layers without one (``("mamba", "none")``). ``mixer_override``
-puts the paper's TNO variants in place of an arch's attention and local
-mixers. MoE FFNs (ROADMAP Queue 1, Step 9b) and the encoder-decoder and
+baseline ``tno``, ``ski`` and ``fd`` mixers), each with a dense or an MoE
+FFN (``models/moe.py``), and Mamba-2 layers without one (``("mamba",
+"none")``). ``mixer_override`` puts the paper's TNO variants in place of
+an arch's attention and local mixers. Mamba layers with an FFN (the
+jamba hybrid, ROADMAP Queue 1, Step 9b′) and the encoder-decoder and
 prefix-VLM kinds (Step 9c) are not ported.
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
@@ -13,12 +14,13 @@ one card. Parameter names follow the JAX tree, with the scanned
 ``blocks/sub<k>`` stack and the ``tail<i>`` layers unrolled into
 ``layers.<i>``, and each parameter has the dtype JAX gives its leaf:
 ``param_dtype`` for the embeddings, the matrices (attention's and its QKV
-biases included) and Mamba's conv taps, fp32 for the norm scales, the TNN
-mixer's leaves and Mamba's ``a_log``, ``dt_bias``, ``d_skip`` and
-``norm_scale``. A TNN mixer in a bf16 model computes in fp32, as JAX's
+biases and the experts' included) and Mamba's conv taps, fp32 for the norm
+scales, the MoE router, the TNN mixer's leaves and Mamba's ``a_log``,
+``dt_bias``, ``d_skip`` and ``norm_scale``. A TNN mixer in a bf16 model computes in fp32, as JAX's
 ``x @ w`` promotes bf16 activations against its fp32 leaves, and casts
 back. The loss keeps the JAX package's sequence chunking of the logits
-(``torch.utils.checkpoint`` in place of ``jax.checkpoint``).
+(``torch.utils.checkpoint`` in place of ``jax.checkpoint``) and adds the
+MoE layers' load-balancing aux loss, summed over layers, at weight 0.01.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.tno import TNOConfig
 from repro_torch.models.attention import Attention, attn_apply
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import Mamba, mamba_apply
+from repro_torch.models.moe import MoE, moe_apply
 from repro_torch.nn.layers import (ACTS, RMSNorm, lecun_normal_,
                                    reset_parameters, rmsnorm)
 
@@ -41,16 +44,17 @@ def _check_supported(cfg: ArchConfig) -> None:
                                   "decoder LMs only (encoder-decoder and "
                                   "prefix-VLM: ROADMAP Queue 1, Step 9c)")
     for mixer, ffn in cfg.layers_spec:
-        if ffn == "moe":
+        if mixer == "mamba" and ffn != "none":
             raise NotImplementedError(
-                f"layer ({mixer}, moe): MoE FFNs are not ported (ROADMAP "
-                "Queue 1, Step 9b)")
+                f"layer (mamba, {ffn}): Mamba layers with an FFN (the jamba "
+                "hybrid) are not ported (ROADMAP Queue 1, Step 9b′)")
         if (mixer, ffn) != ("mamba", "none") and (
-                ffn != "dense" or mixer not in ("attention", "local", "tno",
-                                                "ski", "fd")):
+                ffn not in ("dense", "moe")
+                or mixer not in ("attention", "local", "tno", "ski", "fd")):
             raise NotImplementedError(
                 f"layer ({mixer}, {ffn}): the port runs attention and TNN "
-                "layers with a dense FFN and Mamba layers without one")
+                "layers with a dense or MoE FFN and Mamba layers without "
+                "one")
 
 
 # ------------------------------------------------------------------ pieces
@@ -85,8 +89,9 @@ def _tno_cfg(cfg: ArchConfig, variant: str,
 
 
 class Layer(nn.Module):
-    """JAX leaves {norm1, mixer, norm2, ffn}; {norm1, mixer} for a layer
-    without an FFN (``ffn == "none"``, Mamba)."""
+    """JAX leaves {norm1, mixer, norm2, ffn} (``ffn`` an :class:`FFN` or,
+    for ``ffn == "moe"``, a :class:`~repro_torch.models.moe.MoE`);
+    {norm1, mixer} for a layer without an FFN (``ffn == "none"``, Mamba)."""
 
     def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None):
         super().__init__()
@@ -101,6 +106,9 @@ class Layer(nn.Module):
             self.norm2 = RMSNorm(cfg.d_model, device=device)
             self.ffn = FFN(cfg.d_model, cfg.d_ff, device=device,
                            dtype=getattr(torch, cfg.param_dtype))
+        elif ffn == "moe":
+            self.norm2 = RMSNorm(cfg.d_model, device=device)
+            self.ffn = MoE(cfg, device=device)
 
 
 def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
@@ -119,12 +127,19 @@ def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
 
 def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,
                 mask_kind: str = "causal"):
+    """x (b, s, d) -> (x, aux): aux is the MoE layer's load-balancing
+    loss, 0 for other layers."""
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
     x = x + mixer_apply(params.mixer, cfg, mixer, h, mask_kind=mask_kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "dense":
         h = rmsnorm(params.norm2.scale, x, cfg.norm_eps)
         x = x + ffn_apply(params.ffn, cfg, h)
-    return x
+    elif ffn == "moe":
+        y, aux = moe_apply(params.ffn, cfg,
+                           rmsnorm(params.norm2.scale, x, cfg.norm_eps))
+        x = x + y
+    return x, aux
 
 
 # -------------------------------------------------------------- the model
@@ -177,18 +192,21 @@ def unembed(params: Model, cfg: ArchConfig, x):
 
 
 def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens (b, s) -> hidden (b, s, d) after the final norm. Every layer
-    of a decoder takes the causal mask, as in JAX's ``backbone``."""
+    """tokens (b, s) -> (hidden (b, s, d) after the final norm, the MoE
+    aux loss summed over layers). Every layer of a decoder takes the
+    causal mask, as in JAX's ``backbone``."""
     x = embed_tokens(params, cfg, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (mixer, ffn), layer in zip(cfg.layers_spec, params.layers):
-        x = layer_apply(layer, cfg, mixer, ffn, x, mask_kind="causal")
-    return rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
+        x, a = layer_apply(layer, cfg, mixer, ffn, x, mask_kind="causal")
+        aux = aux + a
+    return rmsnorm(params.norm_f.scale, x, cfg.norm_eps), aux
 
 
 def forward(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
     """tokens (b, s) -> logits (b, s, V_pad). (The JAX function also
-    returns the MoE aux loss, which is 0 for dense FFNs.)"""
-    return unembed(params, cfg, backbone(params, cfg, tokens))
+    returns the MoE aux loss; :func:`backbone` gives it.)"""
+    return unembed(params, cfg, backbone(params, cfg, tokens)[0])
 
 
 def _ce_terms(cfg: ArchConfig, logits, labels):
@@ -209,8 +227,8 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     exactly when the JAX package chunks them (``loss_chunk`` set, s > c and
     s % c == 0): each chunk reduces to a scalar and is recomputed in the
     backward, so at most (b, loss_chunk, V) logits are live. The aux term
-    (MoE load balance) is 0 for dense FFNs."""
-    x = backbone(params, cfg, batch["tokens"])
+    (the MoE layers' load balance, summed) is 0 without MoE FFNs."""
+    x, aux = backbone(params, cfg, batch["tokens"])
     labels = batch["labels"]
     b, s, _ = x.shape
 
@@ -227,5 +245,4 @@ def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
     else:
         total = chunk_nll(x, labels)
     nll = total / (b * s)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

@@ -111,19 +111,25 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
-    """MoE FFNs (ROADMAP Queue 1, Step 9b) and the encoder-decoder kind
-    (Step 9c) still raise; attention layers build (their forwards are held
-    against JAX in test_torch_zoo.py), and so do the baseline TNO and SKI
-    models, the baseline's mixer holding the RPE MLP alone (their forwards
-    are held against JAX in test_torch_tno_baseline.py and
-    test_torch_ski.py)."""
+    """Mamba layers with an FFN (the jamba hybrid, ROADMAP Queue 1, Step
+    9b′) and the encoder-decoder kind (Step 9c) still raise; attention
+    layers build, with a dense or an MoE FFN (their forwards are held
+    against JAX in test_torch_zoo.py and test_torch_moe.py), and so do the
+    baseline TNO and SKI models, the baseline's mixer holding the RPE MLP
+    alone (their forwards are held against JAX in
+    test_torch_tno_baseline.py and test_torch_ski.py)."""
     import dataclasses
     base = reduce_for_smoke(get_config("tnn-lm-wt103"))
     moe = dataclasses.replace(base, pattern=(("attention", "moe"),),
                               n_heads=4, n_kv_heads=2, head_dim=32,
                               n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="Step 9b"):
-        Model(moe, device="meta")
+    assert all(type(layer.ffn).__name__ == "MoE"
+               for layer in Model(moe, device="meta").layers)
+    for ffn in ("moe", "dense"):
+        hybrid = dataclasses.replace(moe, pattern=(("mamba", ffn),),
+                                     ssm_state=16)
+        with pytest.raises(NotImplementedError, match="Step 9b′"):
+            Model(hybrid, device="meta")
     with pytest.raises(NotImplementedError, match="Step 9c"):
         Model(dataclasses.replace(base, kind="encdec"), device="meta")
     attn = dataclasses.replace(base, pattern=(("attention", "dense"),),

@@ -1,9 +1,13 @@
 """Port parity for the attention decoders of the model zoo (``gemma3-4b``,
-``stablelm-3b``, ``phi3-medium-14b``, ``qwen2-72b``) and the paper's mixers
+``stablelm-3b``, ``phi3-medium-14b``, ``qwen2-72b``, and with MoE FFNs
+``granite-moe-3b-a800m`` and ``grok-1-314b``) and the paper's mixers
 dropped into them by ``mixer_override``, against the JAX package, on smoke
 configs with the JAX parameters carried over by ``bridge.params_from_jax``
 and the same seeded numpy inputs. Mirrors tests/test_models.py (:35, :57,
 :191, :202) for these archs. REPRO_FD_STREAM_C=4 is set for both packages.
+Decode against the forward takes the MoE archs at capacity factor 8.0, as
+JAX's test does: the forward's batch of tokens would drop assignments that
+a decode step of 2 rows keeps.
 
 Tolerances, each with its reason:
 * fp32 (each arch with ``dtype`` and ``param_dtype`` float32): logits,
@@ -22,6 +26,12 @@ Tolerances, each with its reason:
   them within 1e-5;
 * greedy decode, the Engine and snapshots: token-exact against JAX at the
   same max_len (fp32, where no top-2 near-tie flips between packages);
+* MoE archs in bf16: the router's bf16 logits can route a near-tied token
+  to another expert in JAX's forward (its scanned layers compiled, the
+  bf16 chains fused in fp32) than in the same layers run op by op, as the
+  port runs them. The port is held at the bf16 tier to JAX's layers run
+  op by op, and to JAX's forward within the larger of that tier and twice
+  the distance between JAX's two evaluations;
 * cache leaves through the bridge: exact (bytes move).
 """
 import dataclasses
@@ -43,10 +53,12 @@ from repro.data import pipeline as jpipeline  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.launch.steps import StepBuilder  # noqa: E402
 from repro.models import serving as jserving  # noqa: E402
+from repro.models import transformer as jtransformer  # noqa: E402
 from repro.models.context import Ctx  # noqa: E402
 from repro.models.transformer import forward as jforward  # noqa: E402
 from repro.models.transformer import init_model as jinit_model  # noqa: E402
 from repro.models.transformer import loss_fn as jloss_fn  # noqa: E402
+from repro.nn.layers import rmsnorm as jrmsnorm  # noqa: E402
 from repro.nn.params import unbox  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro_torch import bridge  # noqa: E402
@@ -56,11 +68,13 @@ from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.models import serving  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    forward, init_model, loss_fn)
+    Model, forward, init_model, loss_fn)
 from repro_torch.optim import adamw  # noqa: E402
 
 torch.set_num_threads(1)
-ARCHS = ("gemma3-4b", "stablelm-3b", "phi3-medium-14b", "qwen2-72b")
+MOE_ARCHS = ("granite-moe-3b-a800m", "grok-1-314b")
+ARCHS = ("gemma3-4b", "stablelm-3b", "phi3-medium-14b", "qwen2-72b",
+         *MOE_ARCHS)
 FP32 = {"dtype": "float32", "param_dtype": "float32"}
 TOL = 1e-5
 
@@ -107,6 +121,23 @@ def _torch_batch(batch):
             for k, v in batch.items()}
 
 
+def _jax_op_by_op(tree, jcfg, batch):
+    """JAX's forward logits with its layers called one by one, outside
+    the layer scan (so each op runs alone, as in the port)."""
+    ctx, per = Ctx(), jcfg.period
+    n_scan = jcfg.n_scan_blocks * per
+    x = jtransformer.embed_tokens(tree, jcfg, ctx,
+                                  jnp.asarray(batch["tokens"]))
+    for i, (mixer, ffn) in enumerate(jcfg.layers_spec):
+        p = (jax.tree.map(lambda a: a[i // per],
+                          tree["blocks"][f"sub{i % per}"])
+             if i < n_scan else tree[f"tail{i - n_scan}"])
+        x, _ = jtransformer.layer_apply(p, jcfg, ctx, mixer, ffn, x,
+                                        mask_kind="causal")
+    x = jrmsnorm(tree["norm_f"], x, jcfg.norm_eps)
+    return jtransformer.unembed(tree, jcfg, ctx, x)
+
+
 def _hold_logits(arch, fp32, mixer="", s=24, **kw):
     """The port's logits and eval loss against JAX's on one batch, at the
     tier of the module docstring."""
@@ -125,8 +156,13 @@ def _hold_logits(arch, fp32, mixer="", s=24, **kw):
         f32, _ = jforward(tree, dataclasses.replace(jcfg, dtype="float32"),
                           Ctx(), batch)
         tol = max(2e-2, 2 * _rel(want, f32))
-    assert _rel(got, want) <= tol
-    assert abs(loss.item() - float(jl)) <= tol * abs(float(jl))
+    jtol = tol
+    if not fp32 and arch in MOE_ARCHS:
+        by_op = _jax_op_by_op(tree, jcfg, batch)
+        assert _rel(got, by_op) <= tol
+        jtol = max(tol, 2 * _rel(want, by_op))
+    assert _rel(got, want) <= jtol
+    assert abs(loss.item() - float(jl)) <= jtol * abs(float(jl))
     return cfg, model
 
 
@@ -170,6 +206,24 @@ def test_gemma3_full_width_param_count():
     assert cfg.param_count()["total"] == 4_550_819_840
     spec = cfg.layers_spec
     assert [m for m, _ in spec[:6]] == ["local"] * 5 + ["attention"]
+
+
+def test_granite_full_width_param_count():
+    """granite-moe-3b-a800m at full width: 32 (attention, moe) layers of 40
+    experts, top-8, 3,374,972,928 parameters by the analytic count,
+    959,053,824 active; the port's own leaves add the 65 norm scales."""
+    cfg = get_config("granite-moe-3b-a800m")
+    assert (cfg.n_scan_blocks, cfg.n_tail_layers) == (32, 0)
+    assert set(cfg.layers_spec) == {("attention", "moe")}
+    assert cfg.param_count() == {"total": 3_374_972_928,
+                                 "active": 959_053_824,
+                                 "embedding": 151_781_376}
+    model = Model(cfg, device="meta")
+    assert sum(p.numel() for p in model.parameters()) == \
+        3_374_972_928 + 65 * 1536
+    assert model.layers[0].ffn.router.dtype == torch.float32
+    assert model.layers[0].ffn.w_gate.shape == (40, 1536, 512)
+    assert model.layers[0].ffn.w_gate.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -250,10 +304,11 @@ def _toks(b, s, vocab, seed=1):
 
 
 @pytest.mark.parametrize("p,gen,max_len", [(5, 9, 16), (11, 6, 20)])
-@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-72b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen2-72b", *MOE_ARCHS])
 def test_generate_is_token_exact_vs_jax(arch, p, gen, max_len):
     """Greedy decode through the KV caches; the smoke window (8) binds in
-    gemma3's local layers before the end."""
+    gemma3's local layers before the end. The MoE archs at their own
+    capacity factor: a step of 3 rows never drops."""
     jcfg, cfg, tree, model = _setup(arch, True)
     prompt = _toks(3, p, cfg.vocab, seed=p)
     want = jserve.generate(StepBuilder(jcfg), tree,
@@ -271,7 +326,8 @@ def test_decode_logits_match_forward(arch):
     """Mirrors tests/test_models.py::test_decode_matches_forward: decode
     token by token over 14 positions reproduces the forward, position by
     position (fp32); the caches are KV caches in the activation dtype."""
-    _, cfg, _, model = _setup(arch, True)
+    kw = {"moe_capacity_factor": 8.0} if arch in MOE_ARCHS else {}
+    _, cfg, _, model = _setup(arch, True, **kw)
     toks = torch.from_numpy(_toks(2, 14, cfg.vocab))
     with torch.no_grad():
         want = forward(model, cfg, toks)
@@ -384,12 +440,14 @@ def test_cache_from_jax_carries_tail_layer_caches(mixer):
 @pytest.mark.parametrize("arch,mixer", [("phi3-medium-14b", "fd"),
                                         ("gemma3-4b", "ski"),
                                         ("gemma3-4b", "fd"),
-                                        ("qwen2-72b", "tno")])
+                                        ("qwen2-72b", "tno"),
+                                        ("granite-moe-3b-a800m", "fd")])
 def test_mixer_override_matches_jax(arch, mixer, fp32):
     """Mirrors tests/test_models.py::test_mixer_override_tnoizes_attention_
     arch: every attention and local layer takes the paper's mixer (its
     leaves fp32 in a bf16 model, computing in fp32 as JAX's promotion
-    does, and cast back), and the logits and loss are JAX's."""
+    does, and cast back), and the logits and loss are JAX's; granite's
+    layers become (fd, moe)."""
     cfg, model = _hold_logits(arch, fp32, mixer)
     assert all(m == mixer for m, _ in cfg.layers_spec)
     assert all(p.dtype == torch.float32
