@@ -4,7 +4,8 @@ supervised scheduler, training, the baseline TNN's scoring, training and
 hist-replay serving, the attention decoder gemma3-4b's and the MoE
 decoder granite-moe-3b-a800m's scoring and serving (with the paper's
 mixers dropped in), SKI scoring, SKI training, unfused SKI, large-rank
-SKI and Mamba-2 serving paths on one NVIDIA card and check them.
+SKI, Mamba-2 serving and the jamba hybrid's scoring and serving paths on
+one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -265,6 +266,33 @@ card or outside a checkout of this repository. Phases:
    margin is small enough that positions are checked (at least one must
    be); the smoke mamba model card vs CPU (logits 1e-4 × max in fp32,
    2e-2 × max in bf16; fp32 greedy generate token-exact);
+11b. jamba: ``ssd_scan`` at the hybrid's Mamba shape x (8, 512, 256, 64),
+   B and C (8, 512, 8, 128) (8 groups of 32 heads), chunk 128, also at n
+   = 100 and 1, bf16 and fp32 as in phase 11, and the bf16 ``short_conv``
+   at (8, 512, 18,432), m = 4, each timed beside its bound; the
+   full-width jamba-1.5-large-398b cut to its first 5 layers ((mamba,
+   dense), (mamba, moe) twice, (attention, dense); d=8,192, 16 experts
+   top-2 of d_ff 24,576, 256 Mamba heads of 64, vocab 65,536, bf16;
+   24,050,696,192 parameters by ``param_count()`` plus the vectors it
+   leaves out, drawn on the card from seed 0; init seconds, host RSS,
+   peak memory) scores 8 × 512 through ``make_forward`` and the eval
+   ``loss_fn`` at cf 1.25 (4 ``ssd_scan`` + 4 bf16 ``short_conv`` a
+   forward and no other kernel, two forwards the same bits, the dropped
+   assignments of each MoE layer, CUDA events beside the host clock, one
+   forward traced); ``prefill``s and greedily serves 4 × (224 + 32) at
+   max_len 256 (4 rows: nothing drops), the decode steps timed by CUDA
+   events and the host clock and 8 traced (launches, busy, idle) beside
+   the step's weight-read bound, and the decode path held to the ragged
+   forward under phase zoo's bf16 rule; 4 ragged requests through a
+   ``Scheduler`` over an Engine of 4 slots whose cache mixes KV, conv and
+   fp32 state leaves, held to solo ``generate`` up to their first
+   difference, which must fall on a top-2 margin within that rule, then
+   preempted, snapshotted and restored into a new Engine with the same
+   tokens exactly; ``--mixer fd`` on the cut (the attention layer FD): 1
+   ``causal_spectrum`` + 1 ``fd_mul`` + 4 + 4, held to the plain versions
+   as in phase zoo; the smoke hybrid (16 layers) card vs CPU (fp32 1e-4 ×
+   max, bf16 as phase zoo's smoke check, fp32 ``generate`` and Engine
+   token-exact, training refused by ``ssd_scan``);
 12. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
@@ -275,6 +303,7 @@ import dataclasses
 import json
 import math
 import os
+import resource
 import statistics
 import subprocess
 import sys
@@ -2050,16 +2079,18 @@ TNO_ARCH, TNO_TRAIN_STEPS = "tnn-lm-wt103", 10
 TNO_ENGINE_REQUESTS, TNO_ENGINE_SLOTS = (1, 5, 8, 13), 4
 
 
-def _decode_rate(model, cfg, seqs, p: int, max_len: int, device,
-                 keep: bool = False):
-    """New tokens/s of the decode steps alone: ``seqs``' first p tokens
-    teacher-forced untimed into a fresh cache (params-aware, so the
-    cache ``REPRO_FD_STREAM`` selects), then its other steps timed, each
-    with the argmax a greedy ``generate`` takes; host clock, synchronised.
-    (The serve phase's rate is the difference of two ``generate`` walls,
-    which reads noise where the decode steps are a small part of them.)
-    With ``keep``, returns (rate, the decode path's logits (b, n - p, V)
-    at positions p - 1 .. n - 2, each predicting the next token)."""
+def _decode_timed(model, cfg, seqs, p: int, max_len: int, device,
+                  keep: bool = True):
+    """The decode steps alone: ``seqs``' first p tokens teacher-forced
+    untimed into a fresh cache (params-aware, so the cache
+    ``REPRO_FD_STREAM`` selects), then its other steps timed, each with
+    the argmax a greedy ``generate`` takes, on the host clock
+    (synchronised) and between one CUDA event pair. Returns (host ms a
+    step, event ms a step, and with ``keep`` the decode path's logits (b,
+    n - p, V) at positions p - 1 .. n - 2, each predicting the next
+    token, else None). (The serve phase's rate is the difference of two
+    ``generate`` walls, which reads noise where the decode steps are a
+    small part of them.)"""
     from repro_torch.models import serving
     b, n = seqs.shape
     kept = []
@@ -2071,16 +2102,22 @@ def _decode_rate(model, cfg, seqs, p: int, max_len: int, device,
         if keep:
             kept.append(logits[:, -1])
         _sync(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
+        start.record()
         for t in range(p, n - 1):
             logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
                                                 cache, t)
             torch.argmax(logits[:, -1], dim=-1)
             if keep:
                 kept.append(logits[:, -1])
-        _sync(device)
-    rate = b * (n - 1 - p) / (time.perf_counter() - t0)
-    return (rate, torch.stack(kept, 1)) if keep else rate
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    steps = n - 1 - p
+    return (wall * 1e3 / steps, start.elapsed_time(end) / steps,
+            torch.stack(kept, 1) if keep else None)
 
 
 def _hist_generate(tag: str, model, cfg, prompt, gen_len: int, max_len: int,
@@ -2088,7 +2125,7 @@ def _hist_generate(tag: str, model, cfg, prompt, gen_len: int, max_len: int,
     """One greedy ``generate`` of gen_len tokens at max_len through the
     hist-replay cache (the prompt teacher-forced token by token), after a
     short warm-up. Returns (sequences, new tokens/s of the decode steps
-    (:func:`_decode_rate` over the sequences), the kernel launches and
+    (:func:`_decode_timed` over the sequences), the kernel launches and
     ``PLAN_EVALS`` of the ``generate`` call)."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import serving
@@ -2106,7 +2143,9 @@ def _hist_generate(tag: str, model, cfg, prompt, gen_len: int, max_len: int,
     if seqs.shape != (b, p + gen_len) or not torch.equal(seqs[:, :p],
                                                          prompt):
         raise AssertionError(f"{tag} generate returned {tuple(seqs.shape)}")
-    rate = _decode_rate(model, cfg, seqs, p, max_len, device)
+    host_ms, _, _ = _decode_timed(model, cfg, seqs, p, max_len, device,
+                                  keep=False)
+    rate = b / host_ms * 1e3
     steps = p + gen_len - 1
     print(f"{tag} {cfg.name} hist-replay generate {b} x ({p} + {gen_len}) "
           f"at max_len {max_len}: {t_gen:.3f} s, {steps} decode steps "
@@ -2275,8 +2314,9 @@ def phase_tno(fd_cfg, fd_model, fd_seqs, fd_rate: float, engine: dict,
     print(f"[tno fd-hist] hist-replay vs streaming tokens: {checked} checked, "
           f"{skipped} skipped (after a top-2 margin <= {MARGIN}), 0 "
           "mismatches", flush=True)
-    stream_rate = _decode_rate(fd_model, fd_cfg, fd_seqs, PROMPT_LEN,
-                               max_len, device)
+    stream_ms, _, _ = _decode_timed(fd_model, fd_cfg, fd_seqs, PROMPT_LEN,
+                                    max_len, device, keep=False)
+    stream_rate = fd_seqs.shape[0] / stream_ms * 1e3
     print(f"[tno] rates ({smi}; host clock, recorded, not claimed): scoring "
           f"{score_tok_s:.0f} tokens/s; training {report['tok_s']:.0f} "
           f"tokens/s; decode alone, new tok/s: baseline hist {rate:.1f}, FD "
@@ -2447,9 +2487,10 @@ def _plain_tno_ops():
         yield
 
 
-def _zoo_score(tag: str, cfg, model, batch, device) -> tuple:
+def _zoo_score(tag: str, cfg, model, batch, device,
+               reps: int = SCORE_REPS) -> tuple:
     """One counted ``make_forward`` over the batch after a warm-up, then
-    SCORE_REPS timed ones; returns (logits, launches, tokens/s)."""
+    ``reps`` timed ones; returns (logits, launches, tokens/s)."""
     from repro_torch.launch.steps import make_forward
     fwd = make_forward(cfg)
     fwd(model, batch["tokens"])                        # warm-up
@@ -2459,7 +2500,7 @@ def _zoo_score(tag: str, cfg, model, batch, device) -> tuple:
     _sync(device)
     launches = _kernel_counts()
     walls = []
-    for _ in range(SCORE_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fwd(model, batch["tokens"])
         _sync(device)
@@ -2471,55 +2512,69 @@ def _zoo_score(tag: str, cfg, model, batch, device) -> tuple:
             and bool(torch.isfinite(logits).all())):
         raise AssertionError(f"{tag} logits {tuple(logits.shape)} not "
                              "finite or of the wrong shape")
-    print(f"{tag} make_forward {b}x{s}: median {ms:.3f} ms of {SCORE_REPS} "
+    print(f"{tag} make_forward {b}x{s}: median {ms:.3f} ms of {reps} "
           f"(min {min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}), "
           f"{tok_s:.0f} tokens/s; kernel launches {launches}", flush=True)
     return logits, launches, tok_s
 
 
-def _override_model(base, base_model, mixer: str, device):
-    """The full-width arch with ``mixer_override`` at OVERRIDE_LAYERS
-    layers (gemma3-4b's one period): every leaf outside the mixers is
-    ``base_model``'s (its embeddings, norms, FFNs of layers 0-5; copied on
-    the card), the paper's mixers drawn from seed 0 (drawing gemma3's 1.9 B
-    leaves again would take about 20 s)."""
+def _override_model(base, base_model, mixer: str, device,
+                    n_layers=OVERRIDE_LAYERS):
+    """The full-width arch with ``mixer_override`` at ``n_layers`` layers
+    (default OVERRIDE_LAYERS, gemma3-4b's one period; None keeps the
+    base's): the layers the override turns into the paper's mixer draw it
+    from seed 0 on the CPU, in layer order; every other leaf is
+    ``base_model``'s own tensor, shared, not copied (drawing gemma3's 1.9 B
+    leaves again would take about 20 s, and the jamba cut holds 48 GB of
+    an 80 GB card). A hybrid's Mamba layers keep their mixer, as in JAX."""
     from repro_torch.models.transformer import Model
     from repro_torch.nn.layers import reset_parameters
     cfg = dataclasses.replace(base, mixer_override=mixer,
-                              n_layers=OVERRIDE_LAYERS)
-    model = Model(cfg, device=device)
+                              n_layers=n_layers or base.n_layers)
+    model = Model(cfg, device="meta")
     gen = torch.Generator().manual_seed(0)
-    have = dict(base_model.named_parameters())
-    with torch.no_grad():
-        for layer in model.layers:
+    fresh = {}
+    for i, (m, _) in enumerate(cfg.layers_spec):
+        if m == mixer:
+            layer = model.layers[i]
+            layer.mixer.to_empty(device=device)
             reset_parameters(layer.mixer, gen)
-        for name, p in model.named_parameters():
-            if ".mixer." not in name:
-                p.copy_(have[name])
+            fresh.update({f"layers.{i}.mixer.{k}": v for k, v
+                          in layer.mixer.state_dict(keep_vars=True).items()})
+    have = base_model.state_dict(keep_vars=True)
+    model.load_state_dict({k: fresh[k] if k in fresh else have[k]
+                           for k in model.state_dict()}, assign=True)
     return cfg, model
 
 
 def _zoo_override(mixer: str, base, base_model, batch, device,
-                  tag: str = "") -> tuple:
-    """:func:`_override_model`: the scoring launches (ZOO_OVERRIDES a
-    layer, no other kernel) and its logits against the same forward
-    through the plain versions on the card, within ZOO_BF16_TOL of their
-    scale or, where larger, twice the plain path's own distance from its
-    fp32-activation forward (bf16 rounding of the residual stream; the
-    tier of tests/test_torch_zoo.py). Returns (launches, tokens/s)."""
+                  tag: str = "", n_layers=OVERRIDE_LAYERS,
+                  plain=_plain_tno_ops, also=None,
+                  reps: int = SCORE_REPS) -> tuple:
+    """:func:`_override_model` at ``n_layers``: the scoring launches
+    (ZOO_OVERRIDES a layer of the paper's mixer, ``also`` (launches of the
+    other layers' kernels a forward), no other kernel) and its logits
+    against the same forward through the plain versions on the card (the
+    ``plain`` context), within ZOO_BF16_TOL of their scale or, where
+    larger, twice the plain path's own distance from its fp32-activation
+    forward (bf16 rounding of the residual stream; the tier of
+    tests/test_torch_zoo.py). Returns (launches, tokens/s)."""
     from repro_torch.models.transformer import forward
     t0 = time.perf_counter()
-    cfg, model = _override_model(base, base_model, mixer, device)
+    cfg, model = _override_model(base, base_model, mixer, device, n_layers)
     tag = tag or f"[zoo {mixer}]"
     print(f"{tag} {cfg.name} --mixer {mixer}: {cfg.n_layers} layers, "
           f"d={cfg.d_model}, {cfg.dtype} (mixer leaves fp32), "
           f"{sum(p.numel() for p in model.parameters())} parameters (the "
           f"mixers drawn from seed 0, the rest the full model's), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    logits, launches, tok_s = _zoo_score(tag, cfg, model, batch, device)
+    logits, launches, tok_s = _zoo_score(tag, cfg, model, batch, device,
+                                         reps)
+    n_mixer = sum(m == mixer for m, _ in cfg.layers_spec)
     want = {k: 0 for k in launches}
-    want.update({k: v * cfg.n_layers for k, v in ZOO_OVERRIDES[mixer].items()})
-    with torch.inference_mode(), _plain_tno_ops():
+    want.update({k: v * n_mixer for k, v in ZOO_OVERRIDES[mixer].items()})
+    want.update(also or {})
+    with torch.inference_mode(), plain():
         _reset_kernel_counts()
         plain = forward(model, cfg, batch["tokens"]).float()
         plain_counts = _kernel_counts()
@@ -2763,8 +2818,9 @@ def phase_zoo(smi: str, device="cuda") -> dict:
           f"prompt token by token): {t_gen:.3f} s, {steps} decode steps "
           f"({steps / t_gen:.1f} steps/s); kernel launches "
           f"{launches['zoo_serve']}", flush=True)
-    decode_rate, dec = _decode_rate(model, cfg, seqs, ZOO_PROMPT_LEN,
-                                    ZOO_MAX_LEN, device, keep=True)
+    host_ms, _, dec = _decode_timed(model, cfg, seqs, ZOO_PROMPT_LEN,
+                                    ZOO_MAX_LEN, device)
+    decode_rate = seqs.shape[0] / host_ms * 1e3
     _check_decoded_bf16("[zoo serve]", cfg, model, ZOO_PROMPT_LEN, seqs, dec)
     del dec
 
@@ -2992,8 +3048,9 @@ def phase_moe(smi: str, device="cuda") -> dict:
                          tag="[moe serve]",
                          unit="generate of 4 x (8 + 2) (9 decode steps)")
     with _routing() as dec_ids:
-        decode_rate, dec = _decode_rate(model, cfg, seqs, MOE_PROMPT_LEN,
-                                        MOE_MAX_LEN, device, keep=True)
+        host_ms, _, dec = _decode_timed(model, cfg, seqs, MOE_PROMPT_LEN,
+                                        MOE_MAX_LEN, device)
+        decode_rate = seqs.shape[0] / host_ms * 1e3
     with _routing() as fwd_ids:
         _check_decoded_bf16("[moe serve]", ragged, model, MOE_PROMPT_LEN,
                             seqs, dec)
@@ -3093,7 +3150,8 @@ def _profile_forward(fwd, model, tokens, device, reps: int = 3,
     ``reps`` forwards (traced, so the wall is inflated), the device-busy
     share of the wall, the kernel launches and the kernels with the most
     device time. Returns the device ms a forward of the kernels whose
-    names hold each of ``kernels_of``."""
+    names hold each of ``kernels_of``, and under "busy_ms", "wall_ms" and
+    "launches" those of the traced run."""
     from torch.profiler import ProfilerActivity, profile
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -3114,9 +3172,11 @@ def _profile_forward(fwd, model, tokens, device, reps: int = 3,
           "device time: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
                       f"ms x{e.count}" for e in top), flush=True)
-    return {name: sum(e.self_device_time_total for e in kernels
-                      if name in e.key) / 1e3 / reps
-            for name in kernels_of}
+    out = {name: sum(e.self_device_time_total for e in kernels
+                     if name in e.key) / 1e3 / reps
+           for name in kernels_of}
+    return dict(out, busy_ms=busy, wall_ms=wall * 1e3,
+                launches=sum(e.count for e in kernels))
 
 
 def phase_ski_score(device, cfg=None, pass2: str = "ski_fused_pass2",
@@ -3769,7 +3829,8 @@ def _ssd_cost(bt, n, h, p, g, s, q, elem):
             min(fp32_operand + cb, 5 * p * s * n * bt * h))
 
 
-def check_ssd_scan(peaks, device="cuda", g=None, reps=10) -> dict:
+def check_ssd_scan(peaks, device="cuda", g=None, reps=10,
+                   shapes=SSD_SHAPES, tag="[mamba kernel]") -> dict:
     """ssd_scan against ``ssd_chunked.ssd_scan_chunked`` on the same inputs
     at SSD_SHAPES, fp32 within 1e-5 × max|plain| (fp32 sums in another
     order) and bf16 within BF16_TOL × max|plain| (TF32 products, then one
@@ -3780,12 +3841,14 @@ def check_ssd_scan(peaks, device="cuda", g=None, reps=10) -> dict:
     cores' peaks (C Bᵀ in bf16, the other products in TF32) and the fp32
     one against the CUDA cores' fp32 peak. Returns the path shape's
     entries, ``ssd_scan`` (bf16) and ``ssd_scan_f32``. Inputs come from
-    ``g`` (a generator seeded 3 when None)."""
+    ``g`` (a generator seeded 3 when None); ``shapes`` (label, bt, n, h,
+    p, g, s, chunk), the one labelled "path" timed; lines begin with
+    ``tag``."""
     from repro_torch.kernels import ref, ssd_chunked, ssd_scan
     if g is None:
         g = torch.Generator(device=device).manual_seed(3)
     out = {}
-    for label, bt, n, h, p, gr, s, q in SSD_SHAPES:
+    for label, bt, n, h, p, gr, s, q in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             args = _ssd_inputs(bt, n, h, p, gr, s, dtype, g, device)
             tol = BF16_TOL if dtype == torch.bfloat16 else 1e-5
@@ -3827,7 +3890,7 @@ def check_ssd_scan(peaks, device="cuda", g=None, reps=10) -> dict:
                 report += "; vs float64 ssd_scan_ref " + _grads_close(
                     f"ssd_scan {label} vs float64", [got.double()], [f64],
                     ["y"], 1e-5)
-            print(f"[mamba kernel] ssd_scan {label} x ({bt}, {n}, {h}, {p}) "
+            print(f"{tag} ssd_scan {label} x ({bt}, {n}, {h}, {p}) "
                   f"{dtype}, g={gr}, s={s}, chunk={q}: {report}", flush=True)
     return out
 
@@ -3998,7 +4061,8 @@ def phase_mamba_serve(cfg, model, device="cuda"):
     the fp32 decode picks the fp32 forward's token at every teacher-forced
     position whose top-2 margin exceeds twice their largest logit
     difference, and at least one position is checked. Returns the launch
-    counts."""
+    counts of the prefill (a forward) and of ``generate`` (none: decode
+    runs no hand kernel)."""
     from repro_torch.launch.serve import generate
     from repro_torch.models import serving
     from repro_torch.models.transformer import Model
@@ -4017,12 +4081,14 @@ def phase_mamba_serve(cfg, model, device="cuda"):
         _expect_mamba_launches("mamba prefill", launches, cfg.n_layers)
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError("mamba prefill logits not finite")
+        _reset_mamba_counts()
         t0 = time.perf_counter()
         seqs = generate(model, cfg, prompt, MAMBA_GEN, max_len=max_len)
         _sync(device)
         t_gen = time.perf_counter() - t0
-        if _mamba_counts() != launches:
-            raise AssertionError(f"mamba decode launched {_mamba_counts()}")
+        gen_launches = _mamba_counts()
+        if any(gen_launches.values()):
+            raise AssertionError(f"mamba decode launched {gen_launches}")
         if seqs.shape != (MAMBA_PROMPTS, max_len) or not torch.equal(
                 seqs[:, :MAMBA_PROMPT_LEN], prompt):
             raise AssertionError(f"generate returned {tuple(seqs.shape)}")
@@ -4116,7 +4182,7 @@ def phase_mamba_serve(cfg, model, device="cuda"):
         raise AssertionError("the fp32 decode path disagrees with the fp32 "
                              "kernel-path forward, or no position was "
                              "checked")
-    return launches
+    return launches, gen_launches
 
 
 def _plain_mamba_kernels():
@@ -4217,13 +4283,496 @@ def phase_mamba(peaks, device="cuda") -> tuple[dict, dict]:
     t0 = time.perf_counter()
     kernels = phase_mamba_kernels(peaks, device)
     cfg, model, score_launches = phase_mamba_score(device)
-    serve_launches = phase_mamba_serve(cfg, model, device)
+    prefill_launches, serve_launches = phase_mamba_serve(cfg, model, device)
     del model
     torch.cuda.empty_cache()
     check_mamba_card_vs_cpu(device)
     print(f"[mamba] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return kernels, {"mamba_score": score_launches,
+                     "mamba_prefill": prefill_launches,
                      "mamba_serve": serve_launches}
+
+
+# ------------------------------------------------------------------ jamba
+JAMBA_ARCH = "jamba-1.5-large-398b"
+#: the full-width cut: layers 0-4 of the 8-layer period, (mamba, dense),
+#: (mamba, moe) twice, (attention, dense): 24,050,696,192 parameters
+#: (48.1 GB in bf16), every layer kind of the arch
+JAMBA_LAYERS = 5
+#: served prompts: 4 rows (a step of at most 4 tokens drops nothing) of
+#: 224 tokens and 32 new at max_len 256
+JAMBA_PROMPTS, JAMBA_PROMPT_LEN, JAMBA_GEN, JAMBA_MAX_LEN = 4, 224, 32, 256
+#: the Engine's 4 ragged requests over 4 slots (one packed wave in the 64
+#: bucket), and the decode step after which the preempted run snapshots
+JAMBA_ENGINE_PLENS, JAMBA_ENGINE_GENS = (9, 21, 40, 60), (24, 16, 12, 8)
+JAMBA_PREEMPT_STEPS = 8
+#: ssd_scan at the cut's Mamba shape (256 heads of 64 in 8 groups, state
+#: 128, chunk 128), ragged and short, against its plain version
+JAMBA_SSD_SHAPES = (("path", 8, 512, 256, 64, 8, 128, 128),
+                    ("n<q n=100", 2, 100, 256, 64, 8, 128, 128),
+                    ("n=1", 2, 1, 256, 64, 8, 128, 128))
+#: the bf16 short conv at the cut's conv shape: d_inner + 2 g s channels
+JAMBA_CONV = (8, 512, 16384 + 2 * 8 * 128)
+JAMBA_REPS = 5
+
+
+def _jamba_counts(counts: dict) -> dict:
+    """Kernel counts of a jamba path with the short conv under its bf16
+    entry's name (every short conv of the path is bf16), so that the
+    kernels' JSON line adds them to ``short_conv_bf16``."""
+    counts = dict(counts)
+    counts["short_conv_bf16"] = counts.pop("short_conv")
+    return counts
+
+
+def _jamba_kernels(peaks, device) -> dict:
+    """``ssd_scan`` at JAMBA_SSD_SHAPES (bf16 and fp32, as
+    :func:`check_ssd_scan`) and the bf16 ``short_conv`` at JAMBA_CONV,
+    m = 4, each against its plain version and timed beside its bound.
+    Returns the bf16 entries at the path shapes, by kernel name."""
+    g = torch.Generator(device=device).manual_seed(5)
+    ssd = check_ssd_scan(peaks, device, g, shapes=JAMBA_SSD_SHAPES,
+                         tag="[jamba kernel]")
+    b, n, c = JAMBA_CONV
+    x = torch.randn(b, n, c, device=device, generator=g).bfloat16()
+    f = (0.3 * torch.randn(c, 4, device=device, generator=g)).bfloat16()
+    conv = _short_conv_entry("jamba", x, f, 0, peaks, tol=BF16_TOL,
+                             name="short_conv_bf16")
+    return {"ssd_scan": ssd["ssd_scan"], "short_conv_bf16": conv}
+
+
+@contextlib.contextmanager
+def _plain_hybrid_ops():
+    """The TNO mixers' and the Mamba layers' plain versions on the card
+    (:func:`_plain_tno_ops` and :func:`_plain_mamba_kernels` together)."""
+    with _plain_tno_ops(), _plain_mamba_kernels():
+        yield
+
+
+def _new_token_gaps(model, cfg, solo, prompts) -> list:
+    """For each request, the top-2 margin of the forward over its solo
+    sequence at each of its new tokens."""
+    from repro_torch.models.transformer import forward
+    out = []
+    with torch.inference_mode():
+        for seq, pr in zip(solo, prompts):
+            logits = forward(model, cfg, seq[None])[0, len(pr) - 1:-1].float()
+            top2 = torch.topk(logits, 2, dim=-1).values
+            out.append((top2[:, 0] - top2[:, 1]).tolist())
+    return out
+
+
+def _held_to_flip(what: str, got: dict, want: list, gaps: list,
+                  margin: float) -> tuple[int, int]:
+    """Each request's tokens against ``want`` up to their first
+    difference, which must fall where ``gaps`` (the forward's top-2
+    margin over the wanted sequence at each new token) is at most
+    ``margin``: two decode paths each within margin / 2 of the forward
+    pick its token wherever its margin is larger, and once a near-tie
+    flips the two sequences part. Returns (tokens the same up to the
+    first difference, requests that parted)."""
+    checked = parted = 0
+    for i, w in enumerate(want):
+        g = got[i]
+        n = min(len(g), len(w))
+        k = next((j for j in range(n) if g[j] != w[j]), n)
+        if k < n:
+            if gaps[i][k] > margin:
+                raise AssertionError(
+                    f"{what}: request {i} differs at new token {k}, where "
+                    f"the forward's top-2 margin is {gaps[i][k]:.4f} > "
+                    f"{margin:.4f}: {g[:k + 1]} != {w[:k + 1]}")
+            parted += 1
+        checked += k
+    return checked, parted
+
+
+def _jamba_engine(cfg, model, ragged, device, diff: float) -> tuple:
+    """JAMBA_ENGINE_PLENS over a ``Scheduler`` on an Engine of 4 slots at
+    JAMBA_MAX_LEN (the cache mixes KV, conv and fp32 state leaves), each
+    request held to solo ``generate`` by :func:`_held_to_flip` at the
+    serve check's bf16 margin max(MARGIN, 2 × ``diff``), ``diff`` its
+    largest logit difference; then the same traffic preempted after
+    JAMBA_PREEMPT_STEPS decode steps, snapshotted and restored into a new
+    Engine and Scheduler, whose tokens equal the uninterrupted run's
+    exactly. Returns (the launches of the uninterrupted run, its new tok/s
+    over ``run()``, the snapshot's bytes)."""
+    from repro_torch.launch.serve import generate
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serving_engine import Engine, Scheduler
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab, (p,)) for p in JAMBA_ENGINE_PLENS]
+    gens = list(JAMBA_ENGINE_GENS)
+    geometry = {"slots": len(prompts), "max_len": JAMBA_MAX_LEN}
+    _reset_kernel_counts()
+    eng = Engine(cfg, model, **geometry)
+    leaves = {k: v.dtype for lc in eng.init_state().cache
+              for k, v in lc.items()}
+    if eng.capacity != JAMBA_MAX_LEN:
+        raise AssertionError(f"jamba Engine capacity {eng.capacity}")
+    sched = Scheduler(eng)
+    for r in _sched_requests(prompts, gens):
+        sched.submit(r)
+    _sync(device)
+    t0 = time.perf_counter()
+    results, _ = sched.run()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    launches = _jamba_counts(_kernel_counts())
+    clean = _by_index(results)
+    if any(o.status != "ok" for o in sched.outcomes.values()):
+        raise AssertionError(f"jamba engine outcomes {sched.outcomes}")
+    with torch.inference_mode():
+        solo = [generate(model, cfg, torch.from_numpy(pr)[None].to(device),
+                         g, max_len=JAMBA_MAX_LEN)[0]
+                for pr, g in zip(prompts, gens)]
+    margin = max(MARGIN, 2 * diff)
+    checked, parted = _held_to_flip(
+        "jamba engine vs solo", clean,
+        [s[len(pr):].tolist() for s, pr in zip(solo, prompts)],
+        _new_token_gaps(model, ragged, solo, prompts), margin)
+    new = sum(len(t) - 1 for t in clean.values())
+    print(f"[jamba engine] {len(prompts)} requests (prompts "
+          f"{list(JAMBA_ENGINE_PLENS)}, new {gens}) over S={eng.slots} at "
+          f"max_len {eng.max_len} (capacity {eng.capacity}, the KV layer's), "
+          f"cache leaves {leaves}: {sched.steps} decode steps, "
+          f"{sched.prefills} prefills ({sched.packed_prefills} packed), "
+          f"{wall:.3f} s of run() ({new / wall:.1f} new tok/s); launches "
+          f"{launches}; vs solo generate: {checked} of {new + len(clean)} "
+          f"new tokens the same up to the first difference, {parted} "
+          f"requests parted, each at a top-2 margin <= max({MARGIN}, 2 x "
+          f"{diff:.4f}) = {margin:.4f}", flush=True)
+    with tempfile.TemporaryDirectory() as snap_dir:
+        reg = obs_metrics.Registry()
+        pre = Scheduler(eng, snapshot_dir=snap_dir, metrics=reg)
+
+        def stop_at(uid, tok):
+            if pre.steps >= JAMBA_PREEMPT_STEPS:
+                pre.preempt()
+
+        for r in _sched_requests(prompts, gens, on_token=stop_at):
+            pre.submit(r)
+        pre.run()
+        if not pre.preempted:
+            raise AssertionError("the preempted jamba run was not preempted")
+        snap_bytes = int(reg.get("repro_snapshot_bytes").get())
+        partial = sum(len(t) for t in pre.results.values())
+        resumed = Scheduler(Engine(cfg, model, **geometry),
+                            snapshot_dir=snap_dir)
+        if not resumed.try_restore():
+            raise AssertionError("no jamba snapshot to restore")
+        resumed.run()
+    if _by_index(resumed.results) != clean or any(
+            o.status != "ok" for o in resumed.outcomes.values()):
+        raise AssertionError("the restored jamba run's tokens differ from "
+                             "the uninterrupted run's")
+    print(f"[jamba engine] preempted at decode step {pre.steps} with "
+          f"{partial} tokens served, snapshot {snap_bytes} bytes (KV, conv "
+          f"and fp32 state rows of {eng.slots} slots); restored into a new "
+          f"Engine and Scheduler: its tokens equal the uninterrupted run's "
+          f"exactly", flush=True)
+    return launches, new / wall, snap_bytes
+
+
+def check_jamba_card_vs_cpu(device="cuda") -> None:
+    """The smoke jamba (16 layers: two blocks of the 8-layer period, d 128,
+    4 experts top-2, state 16 in 2 groups) from seed 1, card vs CPU:
+    logits on 2 × 37 tokens within 1e-4 × max in fp32 (sums in another
+    order over 16 layers) and in bf16 within ZOO_BF16_TOL × max, or twice
+    the CPU's own bf16-vs-fp32-activation distance where larger (bf16
+    noise over 16 layers reaches about 5e-2 of the scale), and at least
+    half that distance from the CPU's fp32-activation logits (bf16
+    rounding of the card's own; fp32 activations on the card would differ
+    from them only by sums in another order), one
+    ``ssd_scan`` and one ``short_conv`` launched a Mamba layer and no
+    other kernel; fp32 greedy ``generate``
+    token-exact; the fp32 Engine (4 requests over 2 slots, max_len 32)
+    token-exact against solo decode on the card; training the hybrid on
+    the card meets ``ssd_scan``'s forward-only refusal (Step 10)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import forward, init_model
+    from repro_torch.serving_engine import Engine
+    toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512,
+                                                              (2, 37)))
+    for dtype in ("float32", "bfloat16"):
+        small = reduce_for_smoke(get_config(JAMBA_ARCH), dtype=dtype,
+                                 param_dtype=dtype)
+        n_mamba = sum(m == "mamba" for m, _ in small.layers_spec)
+        cpu = init_model(small, torch.Generator().manual_seed(1), "cpu")
+        card = init_model(small, torch.Generator().manual_seed(1), device)
+        with torch.inference_mode():
+            want = forward(cpu, small, toks)
+            tol, noise = 1e-4, ""
+            _reset_kernel_counts()
+            got = forward(card, small, toks.to(device)).cpu()
+            launches = _kernel_counts()
+            if dtype == "bfloat16":
+                act32 = forward(cpu, dataclasses.replace(
+                    small, dtype="float32"), toks)
+                scale = float(want.float().abs().max())
+                rel = float((want.float() - act32).abs().max()) / scale
+                own = float((got.float() - act32).abs().max()) / scale
+                tol = max(ZOO_BF16_TOL, 2 * rel)
+                noise = (f" (limit max({ZOO_BF16_TOL}, 2 x {rel:.4f}), the "
+                         "second the CPU's bf16 against fp32 activations); "
+                         f"the card's bf16 logits {own:.4f} x scale from the "
+                         f"CPU's fp32-activation logits (at least "
+                         f"{rel / 2:.4f})")
+                if not own >= rel / 2:
+                    raise AssertionError("smoke jamba bf16 on the card sits "
+                                         "at the fp32-activation logits")
+        report = _grads_close(f"smoke jamba {dtype} card vs CPU",
+                              [got.double()], [want.double()], ["logits"],
+                              tol)
+        want_launches = {k: 0 for k in launches}
+        want_launches.update(ssd_scan=n_mamba, short_conv=n_mamba)
+        if launches != want_launches:
+            raise AssertionError(f"smoke jamba launched {launches}")
+        tokens = ""
+        if dtype == "float32":
+            with torch.inference_mode():
+                a = generate(cpu, small, toks[:, :9], 7)
+                b = generate(card, small, toks[:, :9].to(device), 7).cpu()
+            if not torch.equal(a, b):
+                raise AssertionError("smoke jamba greedy generate differs "
+                                     "card vs CPU")
+            rng = np.random.default_rng(3)
+            prompts = [rng.integers(0, 512, (p,)) for p in (3, 11, 6, 2)]
+            gens = [8, 5, 9, 12]
+            run = engine_run(Engine(small, card, slots=2, max_len=32),
+                             prompts, gens)
+            with torch.inference_mode():
+                solo = [generate(card, small, torch.from_numpy(pr)[None].to(
+                    device), g, max_len=32)[0, len(pr):].tolist()
+                    for pr, g in zip(prompts, gens)]
+            if [run["tokens"][i] for i in range(4)] != solo:
+                raise AssertionError("smoke jamba fp32 Engine differs from "
+                                     "solo decode on the card")
+            batch = {"tokens": toks.to(device), "labels": toks.to(device)}
+            try:
+                loss_and_grads(card, small, batch)
+            except NotImplementedError as e:
+                if "Step 10" not in str(e):
+                    raise
+            else:
+                raise AssertionError("training the hybrid on the card ran")
+            tokens = ("; greedy generate 2 x (9 + 7) token-exact; the "
+                      "Engine (4 requests, 2 slots) token-exact against "
+                      "solo decode on the card; training refused (ssd_scan "
+                      "is forward-only, Step 10)")
+        print(f"[jamba check] smoke {small.name} {dtype} ({small.n_layers} "
+              f"layers) logits {tuple(want.shape)} card vs CPU: {report}"
+              f"{noise}; launches {launches}{tokens}", flush=True)
+
+
+def phase_jamba(smi: str, peaks, device="cuda") -> tuple:
+    """The jamba hybrid at full width, cut to JAMBA_LAYERS layers, bf16,
+    from seed 0 drawn on the card (drawn on the host, as the other phases
+    draw, the cut took 203 s and 23.2 GiB of host memory, ``PERF.md``
+    §6): (1) ``ssd_scan`` and the bf16 ``short_conv``
+    at its shapes against their plain versions; (2) init seconds, the
+    parameters against ``param_count()``, peak memory; (3) score 8 × 512
+    through ``make_forward`` and the eval ``loss_fn`` at the config's
+    capacity factor: 4 ``ssd_scan`` + 4 ``short_conv`` launches a forward
+    and no other kernel, two forwards the same bits, the assignments
+    dropped per MoE layer, CUDA events beside the host clock, one forward
+    traced; (4) ``prefill`` of the JAMBA_PROMPTS × JAMBA_PROMPT_LEN
+    prompts (one forward: 4 + 4 launches, its own path), then greedy
+    ``generate`` of JAMBA_GEN tokens each at JAMBA_MAX_LEN (the prompt
+    token by token, as in JAX; no hand kernel; 4 rows: nothing drops);
+    the decode path teacher-forced over the generated sequences
+    (its steps timed by CUDA events and the host clock, 8 steps traced)
+    against the ragged forward (:func:`_check_decoded_bf16`), beside the
+    step's weight-read bound; (5) the mixed-cache Engine
+    (:func:`_jamba_engine`); (6) ``--mixer fd`` at the same layers: 1
+    ``causal_spectrum`` + 1 ``fd_mul`` + 4 + 4 a forward, held to the
+    plain versions as phase zoo holds its overrides; (7) the smoke hybrid
+    card vs CPU (:func:`check_jamba_card_vs_cpu`). Returns (the kernel
+    entries at the cut's shapes, the launches by path)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.models import moe, serving
+    from repro_torch.models.transformer import forward, init_model, loss_fn
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(device)
+    entries = _jamba_kernels(peaks, device)                  # (1)
+
+    # (2) init
+    cfg = dataclasses.replace(get_config(JAMBA_ARCH), n_layers=JAMBA_LAYERS)
+    e, k, cf = cfg.n_experts, cfg.top_k, cfg.moe_capacity_factor
+    ragged = dataclasses.replace(cfg, moe_impl="ragged")
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_model(cfg, gen, device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    pc = cfg.param_count()
+    n_extra = n_params - pc["total"]
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    print(f"[jamba] {cfg.name} cut to {cfg.n_layers} layers "
+          f"{list(cfg.layers_spec)}, d={cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv heads x {cfg.head_dim}, {e} experts top-{k} "
+          f"of d_ff {cfg.d_ff}, Mamba d_inner {cfg.d_inner} in "
+          f"{cfg.ssm_heads} heads x {cfg.ssm_head_dim}, {cfg.ssm_groups} "
+          f"groups, state {cfg.ssm_state}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"moe_impl {cfg.moe_impl} at cf {cf}; {n_params} parameters "
+          f"(param_count() {pc['total']}, active {pc['active']}, + {n_extra} "
+          f"norm scales and Mamba's per-head and gate-norm vectors); "
+          f"init_model {t_init:.2f} s drawing on {gen.device}; "
+          f"max_memory_allocated {init_peak} bytes ({init_peak / 2**30:.3f} "
+          f"GiB; {held} bytes held by earlier phases); host max RSS so far "
+          f"{rss / 2**30:.3f} GiB", flush=True)
+    if pc["total"] != 24_050_696_192 or n_extra != sum(
+            p.numel() for name, p in model.named_parameters()
+            if name.endswith((".scale", "norm_scale", "a_log", "dt_bias",
+                              "d_skip"))):
+        raise AssertionError("jamba parameter count")
+    launches = {}
+    n_mamba = sum(m == "mamba" for m, _ in cfg.layers_spec)
+    per_fwd = {"ssd_scan": n_mamba, "short_conv_bf16": n_mamba}
+
+    # (3) score
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    t = SCORE_BATCH * SCORE_SEQ
+    logits, counts, score_tok_s = _zoo_score("[jamba score]", cfg, model,
+                                             batch, device, JAMBA_REPS)
+    launches["jamba_score"] = _jamba_counts(counts)
+    want = {k: 0 for k in launches["jamba_score"]}
+    want.update(per_fwd)
+    if launches["jamba_score"] != want:
+        raise AssertionError(f"jamba scoring launched "
+                             f"{launches['jamba_score']}, not {want}")
+    with torch.inference_mode(), _routing() as score_ids:
+        again = forward(model, cfg, batch["tokens"])
+        loss, metrics = loss_fn(model, cfg, batch)
+    n_moe = sum(f == "moe" for _, f in cfg.layers_spec)
+    cap = moe.capacity(t, k, cf, e)
+    dropped = [_n_dropped(ids, cap, e) for ids in score_ids[:n_moe]]
+    peak = torch.cuda.max_memory_allocated(device)
+    with torch.inference_mode():
+        ev_ms = time_ms(lambda: forward(model, cfg, batch["tokens"]),
+                        reps=JAMBA_REPS)
+    print(f"[jamba score] cap {cap} slots an expert for {t} tokens x "
+          f"top-{k}: dropped per MoE layer "
+          f"{[f'{d} of {t * k} ({d / (t * k):.4%})' for d in dropped]}; two "
+          f"forwards the same bits: {torch.equal(again, logits)}; eval loss "
+          f"{float(loss):.6f} = nll {float(metrics['nll']):.6f} + 0.01 x aux "
+          f"{float(metrics['aux']):.6f} (ln V = {math.log(cfg.vocab):.6f}, "
+          f"aux 1.0 a layer when balanced); a forward by CUDA events, median "
+          f"of {JAMBA_REPS}: {ev_ms:.3f} ms; max_memory_allocated {peak} "
+          f"bytes ({peak / 2**30:.3f} GiB)", flush=True)
+    if not (torch.equal(again, logits) and math.isfinite(float(loss))):
+        raise AssertionError("jamba scoring: two forwards differ or the "
+                             "loss is not finite")
+    del again, logits
+    with torch.inference_mode():
+        dev_ms = _profile_forward(make_forward(cfg), model, batch["tokens"],
+                                  device, reps=1, tag="[jamba score]",
+                                  kernels_of=("ssd_scan_bf16_kernel",
+                                              "short_conv_kernel"))
+    print(f"[jamba score] device ms a forward: ssd_scan "
+          f"{dev_ms['ssd_scan_bf16_kernel']:.3f} ({per_fwd['ssd_scan']} "
+          f"launches), short_conv {dev_ms['short_conv_kernel']:.3f}",
+          flush=True)
+
+    # (4) serve (4 rows: no step drops)
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (JAMBA_PROMPTS, JAMBA_PROMPT_LEN))).to(device)
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :8], 2, max_len=JAMBA_MAX_LEN)
+        _sync(device)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        pre_logits = serving.prefill(model, cfg, prompt)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        launches["jamba_prefill"] = _jamba_counts(_kernel_counts())
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, JAMBA_GEN, max_len=JAMBA_MAX_LEN)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        launches["jamba_serve"] = _jamba_counts(_kernel_counts())
+    if launches["jamba_prefill"] != want or any(
+            launches["jamba_serve"].values()):
+        raise AssertionError(f"jamba prefill launched "
+                             f"{launches['jamba_prefill']} and generate "
+                             f"{launches['jamba_serve']}: the prefill is one "
+                             f"forward ({want}), decode runs no hand kernel")
+    if seqs.shape != (JAMBA_PROMPTS, JAMBA_MAX_LEN) or not torch.equal(
+            seqs[:, :JAMBA_PROMPT_LEN], prompt) or not bool(
+            torch.isfinite(pre_logits).all()):
+        raise AssertionError(f"jamba generate returned {tuple(seqs.shape)}")
+    del pre_logits
+    steps = JAMBA_MAX_LEN - 1
+    weights = sum(p.numel() * p.element_size()
+                  for name, p in model.named_parameters() if name != "embed")
+    bound = weights / peaks[0] * 1e3
+    host_ms, ev_step_ms, dec = _decode_timed(model, cfg, seqs,
+                                             JAMBA_PROMPT_LEN, JAMBA_MAX_LEN,
+                                             device)
+    with torch.inference_mode():
+        tr = _profile_forward(
+            lambda m, toks: _teacher_forced(m, cfg, toks), model,
+            seqs[:, :9], device, reps=1, tag="[jamba decode]",
+            unit="teacher-forced pass of 8 decode steps of 4 rows")
+    print(f"[jamba serve] prefill {JAMBA_PROMPTS}x{JAMBA_PROMPT_LEN}: "
+          f"{t_prefill * 1e3:.3f} ms; generate {JAMBA_PROMPTS} x "
+          f"({JAMBA_PROMPT_LEN} + {JAMBA_GEN}) at max_len {JAMBA_MAX_LEN} "
+          f"(the prompt token by token; capacity path, cap "
+          f"{moe.capacity(JAMBA_PROMPTS, k, cf, e)} >= {JAMBA_PROMPTS} rows "
+          f"a step: nothing drops): {t_gen:.3f} s, {steps} decode steps "
+          f"({t_gen / steps * 1e3:.3f} ms a step); launches of prefill "
+          f"{launches['jamba_prefill']}, of generate "
+          f"{launches['jamba_serve']}", flush=True)
+    print(f"[jamba serve] a decode step of {JAMBA_PROMPTS} rows alone "
+          f"({JAMBA_GEN - 1} steps after the prompt, {smi}): {host_ms:.3f} "
+          f"ms host clock, {ev_step_ms:.3f} ms CUDA events; traced: "
+          f"{tr['launches'] / 8:.1f} kernel launches and "
+          f"{tr['busy_ms'] / 8:.3f} ms device busy a step (idle share "
+          f"{1 - tr['busy_ms'] / tr['wall_ms']:.3f}); weight-read bound "
+          f"{weights} bytes / {peaks[0] / 1e12} TB/s = {bound:.3f} ms a step",
+          flush=True)
+    diff = _check_decoded_bf16("[jamba serve]", ragged, model,
+                               JAMBA_PROMPT_LEN, seqs, dec)
+    del dec
+
+    # (5) the Engine with mixed caches
+    launches["jamba_engine"], engine_rate, snap_bytes = _jamba_engine(
+        cfg, model, ragged, device, diff)
+    engine_want = {k: 0 for k in launches["jamba_engine"]}
+    if launches["jamba_engine"] != engine_want:
+        raise AssertionError(f"the jamba engine launched "
+                             f"{launches['jamba_engine']}")
+
+    # (6) the paper's FD mixer in place of the attention layer
+    counts, fd_rate = _zoo_override(
+        "fd", cfg, model, batch, device, tag="[jamba fd]",
+        n_layers=None, plain=_plain_hybrid_ops,
+        also={"ssd_scan": per_fwd["ssd_scan"],
+              "short_conv": per_fwd["short_conv_bf16"]}, reps=JAMBA_REPS)
+    launches["jamba_fd"] = _jamba_counts(counts)
+    del model, batch, seqs
+    torch.cuda.empty_cache()
+
+    # (7) card vs CPU at smoke size
+    check_jamba_card_vs_cpu(device)
+    print(f"[jamba] rates ({smi}; host clock, recorded, not claimed): "
+          f"scoring {score_tok_s:.0f} tokens/s; decode alone "
+          f"{JAMBA_PROMPTS / host_ms * 1e3:.1f} new tok/s; engine "
+          f"{engine_rate:.1f} new tok/s over run(); --mixer fd scoring "
+          f"{fd_rate:.0f} tokens/s; snapshot {snap_bytes} bytes", flush=True)
+    print(f"[jamba] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries, launches
 
 
 def main() -> int:
@@ -4263,6 +4812,12 @@ def main() -> int:
     del model
     mamba_kernels, mamba_launches = phase_mamba(peaks)
     kernels.update(mamba_kernels)
+    jamba_kernels, jamba_launches = phase_jamba(smi, peaks)
+    for name, e in jamba_kernels.items():
+        kernels[name]["at_jamba"] = {
+            key: e[key] for key in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms", "bound_by", "max_abs_err",
+                                    "scale")}
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
              "engine": (engine["launches"], ("hilbert_window",)),
@@ -4288,8 +4843,13 @@ def main() -> int:
              **{path: (counts, tuple(ZOO_OVERRIDES.get(
                  path.split("_", 1)[1], ())))
                 for path, counts in {**zoo_launches, **moe_launches}.items()},
-             **{path: (counts, ("ssd_scan", "short_conv_bf16"))
-                for path, counts in mamba_launches.items()}}
+             **{path: (counts, () if path.endswith(("_serve", "_engine"))
+                       else ("ssd_scan", "short_conv_bf16"))
+                for path, counts in {**mamba_launches,
+                                     **jamba_launches}.items()
+                if path != "jamba_fd"},
+             "jamba_fd": (jamba_launches["jamba_fd"], (
+                 *ZOO_OVERRIDES["fd"], "ssd_scan", "short_conv_bf16"))}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

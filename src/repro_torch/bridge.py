@@ -16,7 +16,8 @@ Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
 ``checkpoint/manifest.py`` stores trees in this layout, so checkpoints
 pass between the two packages: :func:`train_state_to_jax` before a save,
 :func:`load_train_state` after a restore. :func:`cache_from_jax` carries a
-JAX serving cache (attention KV, FD stream, hist-replay and Mamba leaves)
+JAX serving cache (attention KV, FD stream, hist-replay and Mamba leaves,
+mixed layer by layer in a hybrid such as jamba, each in its own dtype)
 the same way into the port's list of per-layer caches, and
 :func:`decode_state_from_jax` a JAX ``DecodeState`` (the serving engine's
 slots) into the port's; the engine's snapshots store

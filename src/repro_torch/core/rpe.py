@@ -17,7 +17,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.nn.layers import MLP, mlp_apply, mlp_init
+from repro_torch.nn.layers import MLP, draw_buffer, mlp_apply, mlp_init
 
 
 # ----------------------------------------------------------------- MLP RPE
@@ -58,7 +58,7 @@ class InterpRPE(nn.Module):
                                              device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        v = torch.empty(self.vals.shape, dtype=torch.float32)
+        v = draw_buffer(self.vals.shape, generator)
         nn.init.normal_(v, 0.0, 0.02, generator=generator)
         with torch.no_grad():
             self.vals.copy_(v)

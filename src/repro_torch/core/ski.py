@@ -44,6 +44,7 @@ from repro_torch.core import toeplitz
 from repro_torch.core.rpe import (InterpRPE, InterpRPEConfig,
                                   interp_rpe_apply)
 from repro_torch.kernels import backend, ops, ref
+from repro_torch.nn.layers import draw_buffer
 
 @dataclasses.dataclass(frozen=True)
 class SKIConfig:
@@ -102,7 +103,7 @@ class SKIParams(nn.Module):
                                              device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        v = torch.empty(self.filt.shape, dtype=torch.float32)
+        v = draw_buffer(self.filt.shape, generator)
         nn.init.normal_(v, 0.0, 0.02, generator=generator)
         with torch.no_grad():
             self.filt.copy_(v)

@@ -69,7 +69,8 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64) -> torch.Tensor:
             "ssd_scan: the CUDA kernel is forward-only, as ssd_scan_pallas "
             "is; Mamba training (autograd through ssd_scan_chunked, as the "
             "JAX package does) is not ported yet (ROADMAP Queue 1, item "
-            "16); call it under torch.no_grad() or torch.inference_mode()")
+            "16, Step 10); call it under torch.no_grad() or "
+            "torch.inference_mode()")
     if x.dtype not in _ENTRIES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B, C of dtypes {x.dtype}, {b.dtype}, "
                         f"{c.dtype}; the kernel takes all fp32 or all bf16")

@@ -5,14 +5,17 @@ counterpart of ``repro/launch/serve.py``.
 randomly initialised full-width model on the card; so do ``--arch
 tnn-lm-wt103`` (the baseline), ``mamba2-2.7b``, the attention decoders
 ``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``,
-and the MoE decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``
-(``qwen2-72b`` holds 144 GB in bf16 and ``grok-1-314b`` 632 GB, more
-than one card: serve them with ``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
+the MoE decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``, and the
+hybrid ``jamba-1.5-large-398b`` (Mamba layers with dense and MoE FFNs,
+Mamba and KV caches in one model) (``qwen2-72b`` holds 144 GB in bf16,
+``grok-1-314b`` 632 GB and ``jamba-1.5-large-398b`` 797 GB, more than
+one card: serve them with ``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
 plain kernels. The baseline decodes through the hist-replay cache, as FD
 does under ``REPRO_FD_STREAM=0``; attention layers through their KV cache.
 ``--mixer fd|tno`` puts a paper mixer in place of an attention arch's
-attention and local mixers (``--mixer ski`` builds, but SKI has no decode,
-as in JAX); the JAX launcher has no such flag, its trainer has.
+attention and local mixers, never a Mamba layer (jamba keeps its Mamba
+layers; ``--mixer ski`` builds, but SKI has no decode, as in JAX); the
+JAX launcher has no such flag, its trainer has.
 ``--engine`` serves ``--batch`` requests through the continuous-batching
 engine's supervised scheduler
 (``repro_torch.serving_engine``: ``--slots`` decode slots, ``--chaos

@@ -17,7 +17,7 @@ from torch import nn
 from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunked import ssd_decode_step
 from repro_torch.models.config import ArchConfig
-from repro_torch.nn.layers import lecun_normal_
+from repro_torch.nn.layers import draw_buffer, lecun_normal_
 
 
 def _dims(cfg: ArchConfig):
@@ -54,7 +54,7 @@ class Mamba(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun, normal × 0.3, zeros, zeros, ones, ones, lecun."""
         lecun_normal_(self.in_proj, generator)
-        v = torch.empty(self.conv_w.shape, dtype=torch.float32)
+        v = draw_buffer(self.conv_w.shape, generator)
         nn.init.normal_(v, 0.0, 1.0, generator=generator)
         with torch.no_grad():
             self.conv_w.copy_(0.3 * v)

@@ -2,7 +2,9 @@
 caches — counterpart of ``repro/models/serving.py`` for the decoder LMs the
 port runs: attention decoders (``attention`` and ``local`` layers), the TNN
 LMs (the baseline ``tno`` and ``fd`` mixers, also as ``mixer_override`` of
-an attention arch) and Mamba-2. SKI has no decode, as in JAX.
+an attention arch), Mamba-2 and the jamba hybrid, whose Mamba and
+attention layers keep their own caches side by side (bf16 KV and conv
+leaves beside fp32 SSD state). SKI has no decode, as in JAX.
 
 The cache is a list with one cache per layer:
 
@@ -27,7 +29,9 @@ The cache is a list with one cache per layer:
   SSD state (``models/mamba.mamba_cache_init``).
 
 An MoE FFN keeps no cache: a step routes its b rows through
-``models/moe.moe_apply`` as one batch of b tokens.
+``models/moe.moe_apply`` as one batch of b tokens. A Mamba layer with an
+FFN (jamba) runs the Mamba step, then its dense or MoE FFN; its prompt
+goes token by token, as JAX feeds it (no chunked prefill).
 
 ``decode_step`` takes one int position (every row in lockstep) or per-row
 host positions (the continuous-batching engine, ``repro_torch.
@@ -120,8 +124,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
 def cache_capacity(cache) -> int | None:
     """Slot capacity (max positions a slot can hold) of a model cache:
     the min over its streaming layers' ``cap`` markers and its hist and KV
-    layers' lengths, None when no layer is length-bounded (an all-mamba
-    model). The serving engine gates admission on it."""
+    layers' lengths (a hybrid's attention layers bound it), None when no
+    layer is length-bounded (an all-mamba model). The serving engine
+    gates admission on it."""
     caps = [fd_stream.stream_capacity(lc) for lc in cache
             if fd_stream.is_stream_cache(lc)]
     caps += [lc["hist"].shape[-2] for lc in cache if is_hist_cache(lc)]

@@ -2,11 +2,12 @@
 for ``kind="decoder"``: attention layers (``attention`` and the
 sliding-window ``local``, ``models/attention.py``) and TNN layers (the
 baseline ``tno``, ``ski`` and ``fd`` mixers), each with a dense or an MoE
-FFN (``models/moe.py``), and Mamba-2 layers without one (``("mamba",
-"none")``). ``mixer_override`` puts the paper's TNO variants in place of
-an arch's attention and local mixers. Mamba layers with an FFN (the
-jamba hybrid, ROADMAP Queue 1, Step 9b′) and the encoder-decoder and
-prefix-VLM kinds (Step 9c) are not ported.
+FFN (``models/moe.py``), and Mamba-2 layers with none (``("mamba",
+"none")``, mamba2) or with a dense or MoE one (the jamba hybrid, whose
+period mixes all three kinds with attention). ``mixer_override`` puts the
+paper's TNO variants in place of an arch's attention and local mixers
+(never its Mamba layers, as in JAX). The encoder-decoder and prefix-VLM
+kinds (ROADMAP Queue 1, Step 9c) are not ported.
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
@@ -34,8 +35,8 @@ from repro_torch.models.attention import Attention, attn_apply
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import Mamba, mamba_apply
 from repro_torch.models.moe import MoE, moe_apply
-from repro_torch.nn.layers import (ACTS, RMSNorm, lecun_normal_,
-                                   reset_parameters, rmsnorm)
+from repro_torch.nn.layers import (ACTS, RMSNorm, draw_buffer,
+                                   lecun_normal_, reset_parameters, rmsnorm)
 
 
 def _check_supported(cfg: ArchConfig) -> None:
@@ -44,17 +45,14 @@ def _check_supported(cfg: ArchConfig) -> None:
                                   "decoder LMs only (encoder-decoder and "
                                   "prefix-VLM: ROADMAP Queue 1, Step 9c)")
     for mixer, ffn in cfg.layers_spec:
-        if mixer == "mamba" and ffn != "none":
-            raise NotImplementedError(
-                f"layer (mamba, {ffn}): Mamba layers with an FFN (the jamba "
-                "hybrid) are not ported (ROADMAP Queue 1, Step 9b′)")
-        if (mixer, ffn) != ("mamba", "none") and (
-                ffn not in ("dense", "moe")
+        if mixer == "mamba" and ffn in ("none", "dense", "moe"):
+            continue
+        if (ffn not in ("dense", "moe")
                 or mixer not in ("attention", "local", "tno", "ski", "fd")):
             raise NotImplementedError(
                 f"layer ({mixer}, {ffn}): the port runs attention and TNN "
-                "layers with a dense or MoE FFN and Mamba layers without "
-                "one")
+                "layers with a dense or MoE FFN and Mamba layers with "
+                "either or none")
 
 
 # ------------------------------------------------------------------ pieces
@@ -162,7 +160,7 @@ class Model(nn.Module):
         self.norm_f = RMSNorm(d, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        v = torch.empty(self.embed.shape, dtype=torch.float32)
+        v = draw_buffer(self.embed.shape, generator)
         nn.init.normal_(v, 0.0, 0.02, generator=generator)
         with torch.no_grad():
             self.embed.copy_(v)
@@ -171,12 +169,14 @@ class Model(nn.Module):
 
 def init_model(cfg: ArchConfig, generator: torch.Generator,
                device="cuda") -> Model:
-    """Random parameters drawn on the CPU from ``generator`` (so a seed
-    gives the same model on every device), leaf by leaf into a model
-    allocated on ``device`` in its own dtypes: a whole fp32 copy of the
-    model never exists on the host. The values differ from JAX's
-    ``init_model`` for the same seed: use ``bridge.params_from_jax`` to
-    run JAX's parameters."""
+    """Random parameters drawn from ``generator`` on its device, leaf by
+    leaf into a model allocated on ``device`` in its own dtypes: a whole
+    fp32 copy of the model never exists. A CPU generator (every caller's
+    but the full-width jamba cut's) draws on the host, so a seed gives the
+    same model on every device; a CUDA generator draws on its card, with
+    no host copy of a leaf (one (16, 8192, 24576) expert leaf is 12.9 GB
+    in fp32). The values differ from JAX's ``init_model`` for the same
+    seed: use ``bridge.params_from_jax`` to run JAX's parameters."""
     model = Model(cfg, device=device)
     reset_parameters(model, generator)
     return model

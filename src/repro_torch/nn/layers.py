@@ -26,16 +26,26 @@ ACTS = {
 }
 
 
+def draw_buffer(shape, generator: torch.Generator) -> torch.Tensor:
+    """An empty fp32 tensor for a draw from ``generator``, on the
+    generator's device: a CPU generator draws on the host whatever the
+    parameter's device (so a seed gives the same model on every device),
+    a CUDA generator on its card (no host copy of the leaf; other values
+    than the CPU's for the same seed)."""
+    return torch.empty(shape, dtype=torch.float32, device=generator.device)
+
+
 def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
                   scale: float = 1.0) -> torch.Tensor:
     """scale/sqrt(fan_in) · N(0, 1) truncated to [-2, 2], fan_in the
     product of all but the last dim (``repro/nn/params.boxed``, "lecun").
-    Drawn on the CPU from ``generator`` and copied into ``w``."""
+    Drawn from ``generator`` (:func:`draw_buffer`) and copied into
+    ``w``."""
     fan_in = math.prod(w.shape[:-1]) if w.dim() >= 2 else w.shape[0]
-    v = torch.empty(w.shape, dtype=torch.float32)
+    v = draw_buffer(w.shape, generator)
     nn.init.trunc_normal_(v, 0.0, 1.0, -2.0, 2.0, generator=generator)
     with torch.no_grad():
-        w.copy_(v * (scale / math.sqrt(max(fan_in, 1))))
+        w.copy_(v.mul_(scale / math.sqrt(max(fan_in, 1))))
     return w
 
 

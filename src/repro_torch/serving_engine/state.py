@@ -26,7 +26,9 @@ same for any request under the same params and max_len, realised once and
 held read-only by every state and template). An unclassified leaf raises:
 treating a new per-slot leaf as shared would leak a recycled slot's
 previous occupant. Every update is functional: it returns new tensors and
-writes in place only into tensors it has just made.
+writes in place only into tensors it has just made, leaf by leaf in each
+leaf's own dtype (a hybrid's cache holds bf16 KV and conv rows beside
+fp32 SSD state).
 """
 from __future__ import annotations
 

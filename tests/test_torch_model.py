@@ -111,10 +111,11 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
-    """Mamba layers with an FFN (the jamba hybrid, ROADMAP Queue 1, Step
-    9b′) and the encoder-decoder kind (Step 9c) still raise; attention
-    layers build, with a dense or an MoE FFN (their forwards are held
-    against JAX in test_torch_zoo.py and test_torch_moe.py), and so do the
+    """The encoder-decoder kind (ROADMAP Queue 1, Step 9c) still raises;
+    Mamba layers with a dense or an MoE FFN build (the jamba hybrid, whose
+    forward, decode and engine are held against JAX in
+    test_torch_jamba.py), as do attention layers with either FFN (held
+    against JAX in test_torch_zoo.py and test_torch_moe.py), and the
     baseline TNO and SKI models, the baseline's mixer holding the RPE MLP
     alone (their forwards are held against JAX in
     test_torch_tno_baseline.py and test_torch_ski.py)."""
@@ -125,11 +126,16 @@ def test_unported_mixers_raise():
                               n_experts=4, top_k=2)
     assert all(type(layer.ffn).__name__ == "MoE"
                for layer in Model(moe, device="meta").layers)
-    for ffn in ("moe", "dense"):
+    for ffn, kind in (("moe", "MoE"), ("dense", "FFN")):
         hybrid = dataclasses.replace(moe, pattern=(("mamba", ffn),),
                                      ssm_state=16)
-        with pytest.raises(NotImplementedError, match="Step 9b′"):
-            Model(hybrid, device="meta")
+        assert all((type(layer.mixer).__name__, type(layer.ffn).__name__)
+                   == ("Mamba", kind)
+                   for layer in Model(hybrid, device="meta").layers)
+    jamba = Model(reduce_for_smoke(get_config("jamba-1.5-large-398b")),
+                  device="meta")
+    assert [type(layer.mixer).__name__ for layer in jamba.layers[:8]] == \
+        ["Mamba"] * 4 + ["Attention"] + ["Mamba"] * 3
     with pytest.raises(NotImplementedError, match="Step 9c"):
         Model(dataclasses.replace(base, kind="encdec"), device="meta")
     attn = dataclasses.replace(base, pattern=(("attention", "dense"),),
