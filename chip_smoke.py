@@ -3,7 +3,9 @@
 supervised scheduler, training, the baseline TNN's scoring, training and
 hist-replay serving, the attention decoder gemma3-4b's and the MoE
 decoder granite-moe-3b-a800m's scoring and serving (with the paper's
-mixers dropped in), SKI scoring, SKI training, unfused SKI, large-rank
+mixers dropped in), the encoder-decoder whisper-medium's scoring and
+serving with cross-attention, the prefix-VLM paligemma-3b's scoring under
+the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI training, unfused SKI, large-rank
 SKI, Mamba-2 serving and the jamba hybrid's scoring and serving paths on
 one NVIDIA card and check them.
 
@@ -201,6 +203,39 @@ card or outside a checkout of this repository. Phases:
    serving and engine paths; the smoke granite, grok-1 and granite
    ``--mixer fd`` card vs CPU as in phase zoo; printed, not claimed,
    beside the card: the scoring, decode, engine and override rates;
+5e. encdec: ``hilbert_window`` and ``fd_mul`` at whisper ``--mixer fd``'s
+   shape (d = 1,024, n = 448, the window route); the full-width
+   whisper-medium (24 encoder + 24 decoder layers, d = 1,024, 16 heads of
+   64, vocab 51,865, bf16, 1,012,525,056 parameters against
+   ``param_count()``'s 509,083,648, which leaves out the encoder and the
+   cross-attention; drawn on the card from seed 0) scores 8 rows of 1,500
+   stub frames and 448 tokens through ``make_forward`` and the eval
+   ``loss_fn`` (peak memory); ``serving.encode``s 4 rows of frames once
+   and serves 4 × (16 + 64) greedily with ``enc_out`` (every step's cross
+   sublayers recompute k and v from the 1,500 frames), the decode steps
+   timed and 8 traced, the decode path held to the forward under phase
+   zoo's bf16 rule; ``--mixer fd`` with 2 decoder layers: 2
+   ``hilbert_window`` + 2 ``fd_mul`` a forward, held to the plain
+   versions, and served (2 ``hilbert_window`` a ``generate``) under the
+   same rule; the Engine refuses the arch; the same weights in fp32: one
+   row through its 79 decode steps against the fp32 forward under the
+   1e-3 margin rule; no hand-kernel launch on the scoring, serving and
+   fp32 paths; the smoke whisper and its FD override card vs CPU (bf16
+   logits as phase zoo's smoke check, fp32 loss and every gradient 1e-4);
+5f. prefix_vlm: ``interp_reduce``, ``short_conv`` and ``ski_fused_pass2``
+   bidirectional (left = m // 2) at paligemma ``--mixer ski``'s shape x
+   (8, 512, 2,048), r = 64, m = 32; the full-width paligemma-3b (18
+   layers, d = 2,048, MQA: 8 heads over 1 kv head of 256, d_ff 16,384,
+   vocab 257,216, bf16, drawn on the card from seed 0) scores 8 rows of
+   256 stub patches + 256 tokens under the prefix mask (the loss over the
+   text); serves the text alone, 4 × (32 + 32), as JAX's decode does, the
+   steps timed and 8 traced, held to the forward with the prefix cut to 0
+   under phase zoo's bf16 rule; ``--mixer ski`` and ``--mixer tno`` at 2
+   layers, which the prefix mask runs bidirectionally: 2
+   ``interp_reduce`` + 2 ``ski_fused_pass2`` and none, each held to the
+   plain versions; ``--mixer fd`` refused; no hand-kernel launch on the
+   scoring and serving paths; the smoke paligemma and its SKI override
+   card vs CPU as in phase 5e;
 6. score: the full-width ski-tnn-lm-wt103 (random weights from seed 0)
    scores 8 × 512 tokens through ``launch.steps.make_forward`` and the
    evaluation ``loss_fn`` under ``torch.no_grad()``: 6 ``interp_reduce``
@@ -2080,7 +2115,7 @@ TNO_ENGINE_REQUESTS, TNO_ENGINE_SLOTS = (1, 5, 8, 13), 4
 
 
 def _decode_timed(model, cfg, seqs, p: int, max_len: int, device,
-                  keep: bool = True):
+                  keep: bool = True, enc_out=None):
     """The decode steps alone: ``seqs``' first p tokens teacher-forced
     untimed into a fresh cache (params-aware, so the cache
     ``REPRO_FD_STREAM`` selects), then its other steps timed, each with
@@ -2090,7 +2125,7 @@ def _decode_timed(model, cfg, seqs, p: int, max_len: int, device,
     n - p, V) at positions p - 1 .. n - 2, each predicting the next
     token, else None). (The serve phase's rate is the difference of two
     ``generate`` walls, which reads noise where the decode steps are a
-    small part of them.)"""
+    small part of them. An encdec model's steps take ``enc_out``.)"""
     from repro_torch.models import serving
     b, n = seqs.shape
     kept = []
@@ -2098,7 +2133,7 @@ def _decode_timed(model, cfg, seqs, p: int, max_len: int, device,
         cache = serving.init_cache(cfg, b, max_len, params=model)
         for t in range(p):
             logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
-                                                cache, t)
+                                                cache, t, enc_out)
         if keep:
             kept.append(logits[:, -1])
         _sync(device)
@@ -2108,7 +2143,7 @@ def _decode_timed(model, cfg, seqs, p: int, max_len: int, device,
         start.record()
         for t in range(p, n - 1):
             logits, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1],
-                                                cache, t)
+                                                cache, t, enc_out)
             torch.argmax(logits[:, -1], dim=-1)
             if keep:
                 kept.append(logits[:, -1])
@@ -2488,21 +2523,24 @@ def _plain_tno_ops():
 
 
 def _zoo_score(tag: str, cfg, model, batch, device,
-               reps: int = SCORE_REPS) -> tuple:
+               reps: int = SCORE_REPS, inputs=None) -> tuple:
     """One counted ``make_forward`` over the batch after a warm-up, then
-    ``reps`` timed ones; returns (logits, launches, tokens/s)."""
+    ``reps`` timed ones; ``inputs`` are the forward's other inputs (an
+    encdec's ``enc_embed``, a prefix_vlm's ``patches``). Returns (logits,
+    launches, text tokens/s)."""
     from repro_torch.launch.steps import make_forward
     fwd = make_forward(cfg)
-    fwd(model, batch["tokens"])                        # warm-up
+    inputs = inputs or {}
+    fwd(model, batch["tokens"], **inputs)              # warm-up
     _sync(device)
     _reset_kernel_counts()
-    logits = fwd(model, batch["tokens"])
+    logits = fwd(model, batch["tokens"], **inputs)
     _sync(device)
     launches = _kernel_counts()
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        fwd(model, batch["tokens"])
+        fwd(model, batch["tokens"], **inputs)
         _sync(device)
         walls.append(time.perf_counter() - t0)
     ms = statistics.median(walls) * 1e3
@@ -2550,10 +2588,13 @@ def _override_model(base, base_model, mixer: str, device,
 def _zoo_override(mixer: str, base, base_model, batch, device,
                   tag: str = "", n_layers=OVERRIDE_LAYERS,
                   plain=_plain_tno_ops, also=None,
-                  reps: int = SCORE_REPS) -> tuple:
+                  reps: int = SCORE_REPS, inputs=None,
+                  per_layer=None) -> tuple:
     """:func:`_override_model` at ``n_layers``: the scoring launches
-    (ZOO_OVERRIDES a layer of the paper's mixer, ``also`` (launches of the
-    other layers' kernels a forward), no other kernel) and its logits
+    (``per_layer``, default ZOO_OVERRIDES[mixer], a layer of the paper's
+    mixer, ``also`` (launches of the other layers' kernels a forward), no
+    other kernel; ``inputs`` the forward's other inputs, as
+    :func:`_zoo_score` takes them) and its logits
     against the same forward through the plain versions on the card (the
     ``plain`` context), within ZOO_BF16_TOL of their scale or, where
     larger, twice the plain path's own distance from its fp32-activation
@@ -2568,18 +2609,20 @@ def _zoo_override(mixer: str, base, base_model, batch, device,
           f"{sum(p.numel() for p in model.parameters())} parameters (the "
           f"mixers drawn from seed 0, the rest the full model's), built in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    inputs = inputs or {}
     logits, launches, tok_s = _zoo_score(tag, cfg, model, batch, device,
-                                         reps)
+                                         reps, inputs)
     n_mixer = sum(m == mixer for m, _ in cfg.layers_spec)
     want = {k: 0 for k in launches}
-    want.update({k: v * n_mixer for k, v in ZOO_OVERRIDES[mixer].items()})
+    per_layer = ZOO_OVERRIDES[mixer] if per_layer is None else per_layer
+    want.update({k: v * n_mixer for k, v in per_layer.items()})
     want.update(also or {})
     with torch.inference_mode(), plain():
         _reset_kernel_counts()
-        plain = forward(model, cfg, batch["tokens"]).float()
+        plain = forward(model, cfg, batch["tokens"], **inputs).float()
         plain_counts = _kernel_counts()
         act32 = forward(model, dataclasses.replace(cfg, dtype="float32"),
-                        batch["tokens"])
+                        batch["tokens"], **inputs)
     err = float((logits.float() - plain).abs().max())
     scale = float(plain.abs().max())
     noise = float((plain - act32).abs().max()) / scale
@@ -2598,29 +2641,38 @@ def _zoo_override(mixer: str, base, base_model, batch, device,
     return launches, tok_s
 
 
-def _check_smoke_card_vs_cpu(small, device) -> None:
+def _check_smoke_card_vs_cpu(small, device, inputs_of=None,
+                             tag: str = "[zoo check]") -> None:
     """The smoke model on the card and on the CPU, the same init: in bf16
     the logits within ZOO_BF16_TOL of their scale, or within twice the
     CPU's own bf16 logits' distance from its fp32 activations' on the same
     weights where that is larger (the tier of tests/test_torch_zoo.py); in
     fp32 (the same arch with fp32 dtypes) the step-0 gradients, three
-    losses and a bitwise checkpoint resume as in phase 10."""
+    losses and a bitwise checkpoint resume as in phase 10. ``inputs_of``
+    (device -> the forward's other inputs: an encdec's frames, a
+    prefix_vlm's patches, which the trainer's pipeline does not make)
+    holds the fp32 model by its eval loss (1e-4 relative) and every
+    gradient (1e-4 × its leaf's max|g|) instead."""
+    from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.transformer import forward, init_model
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, small.vocab, (2, 64)))
     act32 = dataclasses.replace(small, dtype="float32")
+
+    def inputs(dev):
+        return {} if inputs_of is None else inputs_of(dev)
     with torch.inference_mode():
         cpu = init_model(small, torch.Generator().manual_seed(1),
                          device="cpu")
-        want = forward(cpu, small, toks).float()
-        want32 = forward(cpu, act32, toks)
+        want = forward(cpu, small, toks, **inputs("cpu")).float()
+        want32 = forward(cpu, act32, toks, **inputs("cpu"))
         got = forward(init_model(small, torch.Generator().manual_seed(1),
                                  device=device), small,
-                      toks.to(device)).float().cpu()
+                      toks.to(device), **inputs(device)).float().cpu()
     err, scale = float((got - want).abs().max()), float(want.abs().max())
     noise = float((want - want32).abs().max()) / scale
     tol = max(ZOO_BF16_TOL, 2 * noise)
-    print(f"[zoo check] smoke {small.name} ({small.dtype}) card vs CPU "
+    print(f"{tag} smoke {small.name} ({small.dtype}) card vs CPU "
           f"logits {tuple(want.shape)}: max abs err {err:.4f} (scale "
           f"{scale:.3f}; limit max({ZOO_BF16_TOL}, 2 x {noise:.4f}) = "
           f"{tol:.4f} x scale, the second the CPU's bf16 against fp32 "
@@ -2628,8 +2680,28 @@ def _check_smoke_card_vs_cpu(small, device) -> None:
     if not err <= tol * scale:
         raise AssertionError("card smoke logits differ from the CPU's")
     fp32 = dataclasses.replace(small, dtype="float32", param_dtype="float32")
-    check_train_card_vs_cpu(fp32, device)
-    check_checkpoint_resume(fp32, device)
+    if inputs_of is None:
+        check_train_card_vs_cpu(fp32, device)
+        check_checkpoint_resume(fp32, device)
+        return
+    runs = {}
+    for dev in ("cpu", device):
+        model = init_model(fp32, torch.Generator().manual_seed(2),
+                           device=dev)
+        batch = {"tokens": toks.to(dev), "labels": toks.roll(-1, 1).to(dev),
+                 **{k: v.float() for k, v in inputs(dev).items()}}
+        loss, _, grads = loss_and_grads(model, fp32, batch)
+        runs[dev] = float(loss), {k: v.cpu() for k, v in grads.items()}
+    (l_cpu, g_cpu), (l_dev, g_dev) = runs["cpu"], runs[device]
+    worst = max(float((g_dev[k] - g_cpu[k]).abs().max())
+                / max(float(g_cpu[k].abs().max()), 1e-30) for k in g_cpu)
+    lerr = abs(l_dev - l_cpu) / abs(l_cpu)
+    print(f"{tag} smoke {fp32.name} fp32 card vs CPU: loss {l_dev:.6f} vs "
+          f"{l_cpu:.6f} (rel err {lerr:.3e}, limit 1e-4), gradients worst "
+          f"leaf {worst:.3e} x max|g| (limit 1e-4)", flush=True)
+    if not (lerr <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"{tag} the card's fp32 smoke model differs "
+                             "from the CPU's")
 
 
 def _pick(cfg, logits):
@@ -2637,7 +2709,8 @@ def _pick(cfg, logits):
     return torch.clamp(torch.argmax(logits, dim=-1), max=cfg.vocab - 1)
 
 
-def _check_decoded_bf16(tag: str, cfg, model, p: int, seqs, dec) -> float:
+def _check_decoded_bf16(tag: str, cfg, model, p: int, seqs, dec,
+                        inputs=None) -> float:
     """The bf16 decode path's logits ``dec`` (b, n - p, V) at the generated
     positions, teacher-forced over the generated ``seqs``, against the
     forward over them. The decode path must reproduce its own tokens, and
@@ -2645,11 +2718,13 @@ def _check_decoded_bf16(tag: str, cfg, model, p: int, seqs, dec) -> float:
     max(MARGIN, twice the two paths' largest logit difference): bf16
     rounds at other places in the two paths (one row a product against
     all of them), so a margin of one or two bf16 steps can flip. The
-    count under the bare MARGIN rule is printed beside it. Returns the
-    largest logit difference."""
+    count under the bare MARGIN rule is printed beside it. ``inputs`` are
+    the forward's other inputs (:func:`_zoo_score`). Returns the largest
+    logit difference."""
     from repro_torch.models.transformer import forward
     with torch.inference_mode():
-        fwd = forward(model, cfg, seqs)[:, p - 1:-1].float()
+        fwd = forward(model, cfg, seqs, **(inputs or {}))
+        fwd = fwd[:, p - 1:-1].float()
     dec = dec.float()
     new = seqs[:, p:]
     diff = float((dec - fwd).abs().max())
@@ -2687,17 +2762,22 @@ def _fp32_copy(cfg, model, device):
 
 
 def _check_zoo_fp32(cfg32, model32, seqs, tag: str = "[zoo fp32]",
-                    ref_cfg=None) -> None:
+                    ref_cfg=None, inputs=None) -> None:
     """One served row teacher-forced through every decode step (past the
     local layers' window) of the fp32 copy against its fp32 forward (under
-    ``ref_cfg``, default ``cfg32``: an MoE arch's dropless one): the two
-    paths differ by sums in another order only, so every position whose
-    top-2 margin exceeds MARGIN must pick the forward's token."""
+    ``ref_cfg``, default ``cfg32``: an MoE arch's dropless one; ``inputs``
+    the forward's other inputs, an encdec's ``enc_embed`` also encoded
+    for the decode): the two paths differ by sums in another order only,
+    so every position whose top-2 margin exceeds MARGIN must pick the
+    forward's token."""
     from repro_torch.models.transformer import forward
     t0 = time.perf_counter()
+    inputs = inputs or {}
     with torch.inference_mode():
-        dec = _teacher_forced(model32, cfg32, seqs)
-        fwd = forward(model32, ref_cfg or cfg32, seqs)[:, :-1].float()
+        dec = _teacher_forced(model32, cfg32, seqs,
+                              _enc_out(model32, cfg32, inputs))
+        fwd = forward(model32, ref_cfg or cfg32, seqs,
+                      **inputs)[:, :-1].float()
     diff = float((dec - fwd).abs().max())
     top2 = torch.topk(fwd, 2, dim=-1).values
     checked = (top2[..., 0] - top2[..., 1]) > MARGIN
@@ -3094,6 +3174,448 @@ def phase_moe(smi: str, device="cuda") -> dict:
     print(f"[moe] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
+
+
+# ---------------------------------------- encoder-decoder and prefix-VLM
+ENCDEC_ARCH = "whisper-medium"
+#: stub encoder frames (Whisper's 30-s window) and text tokens (Whisper's
+#: text context) a scored row
+ENCDEC_FRAMES, ENCDEC_SEQ = 1500, 448
+#: served rows: 16 prompt and 64 new tokens each, every step attending
+#: over ENCDEC_FRAMES encoded frames
+ENCDEC_PROMPTS, ENCDEC_PROMPT_LEN, ENCDEC_GEN = 4, 16, 64
+#: the decoder's depth under ``--mixer fd`` (the encoder keeps its 24)
+ENCDEC_FD_LAYERS = 2
+#: whisper-medium's parameters (the port's leaves) and ``param_count()``
+#: (the decoder's matrices and the embeddings, as JAX counts them)
+ENCDEC_PARAMS = (1_012_525_056, 509_083_648)
+VLM_ARCH = "paligemma-3b"
+#: text tokens a scored row (after paligemma's 256 stub patches)
+VLM_SEQ = 256
+#: served rows: the text alone, 32 prompt and 32 new tokens each
+VLM_PROMPTS, VLM_PROMPT_LEN, VLM_GEN = 4, 32, 32
+#: the depth ``--mixer ski`` and ``--mixer tno`` score at
+VLM_OVERRIDE_LAYERS = 2
+#: paligemma-3b's ``param_count()`` (every matrix; the port adds the norm
+#: scales)
+VLM_PARAM_COUNT = 3_035_627_520
+
+
+def _expect_launches(what: str, got: dict, want: dict) -> None:
+    """``want`` launches of its kernels on a path, and none of another."""
+    want = {**{k: 0 for k in got}, **want}
+    if got != want:
+        raise AssertionError(f"{what} launched {got}, not {want}")
+
+
+def _enc_out(model, cfg, inputs: dict):
+    """An encdec model's ``serving.encode`` of ``inputs["enc_embed"]``;
+    None for other inputs."""
+    from repro_torch.models import serving
+    if "enc_embed" not in inputs:
+        return None
+    return serving.encode(model, cfg, inputs["enc_embed"])
+
+
+def _stub(b: int, s: int, d: int, seed: int, device, dtype):
+    """(b, s, d) standard normals from a numpy seed: the stub frames or
+    patches a frontend would make."""
+    a = np.random.default_rng(seed).standard_normal((b, s, d),
+                                                    dtype=np.float32)
+    return torch.from_numpy(a).to(device=device, dtype=dtype)
+
+
+def _draw_on_card(cfg, device):
+    """``init_model`` from seed 0 drawn by a CUDA generator (no host copy
+    of a leaf), timed; returns (model, init seconds, peak bytes)."""
+    from repro_torch.models.transformer import init_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    model = init_model(cfg, gen, device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    return model, t_init, peak
+
+
+def _score_kind(tag: str, cfg, model, batch, inputs, device) -> tuple:
+    """:func:`_zoo_score` with the kind's inputs, then the eval
+    ``loss_fn`` over the text; prints the loss and the peak memory.
+    Returns (launches, text tokens/s)."""
+    from repro_torch.models.transformer import loss_fn
+    _, launches, tok_s = _zoo_score(tag, cfg, model, batch, device,
+                                    inputs=inputs)
+    with torch.no_grad():
+        loss = float(loss_fn(model, cfg, {**batch, **inputs})[0])
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"{tag} eval loss over the text {loss:.6f} (ln V = "
+          f"{math.log(cfg.vocab):.6f}); max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    if not math.isfinite(loss):
+        raise AssertionError(f"{tag} eval loss {loss}")
+    return launches, tok_s
+
+
+def _serve_kind(tag: str, cfg, model, prompt, gen: int, device,
+                enc_out=None) -> tuple:
+    """A warm-up, then one counted greedy ``generate`` of ``gen`` tokens
+    at max_len p + gen (``enc_out`` to every step); returns (sequences,
+    launches, seconds)."""
+    from repro_torch.launch.serve import generate
+    b, p = prompt.shape
+    with torch.inference_mode():
+        generate(model, cfg, prompt[:, :4], 2, max_len=p + gen,
+                 enc_out=enc_out)
+        _sync(device)
+        _reset_kernel_counts()
+        t0 = time.perf_counter()
+        seqs = generate(model, cfg, prompt, gen, max_len=p + gen,
+                        enc_out=enc_out)
+        _sync(device)
+        t_gen = time.perf_counter() - t0
+        launches = _kernel_counts()
+    if seqs.shape != (b, p + gen) or not torch.equal(seqs[:, :p], prompt):
+        raise AssertionError(f"{tag} generate returned {tuple(seqs.shape)}")
+    print(f"{tag} generate {b} x ({p} + {gen}) at max_len {p + gen} (the "
+          f"prompt token by token): {t_gen:.3f} s, {p + gen - 1} decode "
+          f"steps ({(p + gen - 1) / t_gen:.1f} steps/s); kernel launches "
+          f"{launches}", flush=True)
+    return seqs, launches, t_gen
+
+
+def _trace_decode(tag: str, model, cfg, seqs, device, enc_out=None) -> dict:
+    """``torch.profiler`` over 8 decode steps of the served rows
+    teacher-forced (:func:`_profile_forward`'s numbers)."""
+    with torch.inference_mode():
+        return _profile_forward(
+            lambda m, toks: _teacher_forced(m, cfg, toks, enc_out), model,
+            seqs[:, :9], device, reps=1, tag=tag,
+            unit=f"teacher-forced pass of 8 decode steps of {len(seqs)} rows")
+
+
+def _fd_row1(n: int) -> str:
+    """The kernel of row 1 (``fd_fused.py:80``) that the causal FD
+    spectrum at length n launches: the fused ``causal_spectrum`` or the
+    window route's ``hilbert_window``."""
+    from repro_torch.kernels import backend
+    return ("causal_spectrum" if backend.causal_spectrum_route(n) == "fused"
+            else "hilbert_window")
+
+
+def _encdec_kernels(peaks, device) -> dict:
+    """``hilbert_window`` and ``fd_mul`` at whisper ``--mixer fd``'s
+    scoring shape (d = 1,024, n = 448: the window route), each against
+    its plain version, timed beside its bound and library call."""
+    from repro_torch.kernels import fd_fused, ref
+    g = torch.Generator(device=device).manual_seed(6)
+    d, n, b = 1024, ENCDEC_SEQ, SCORE_BATCH
+    kt = torch.randn(d, 2 * n, device=device, generator=g)
+    w = ref.hilbert_window_ref(torch.ones(1, 2 * n, device=device), n)[0]
+    out = {"hilbert_window": _kernel_entry(
+        "hilbert_window", "src/repro/kernels/fd_fused.py:80",
+        fd_fused.hilbert_window(kt, n), ref.hilbert_window_ref(kt, n),
+        lambda: fd_fused.hilbert_window(kt, n),
+        lambda: ref.hilbert_window_ref(kt, n), lambda: kt * w,
+        nbytes=4 * d * (n + 1) + 4 * kt.numel(), nops=d * (n + 1),
+        peaks=peaks)}
+    x = torch.randn(b, d, n + 1, dtype=torch.complex64, device=device,
+                    generator=g)
+    k = torch.randn(d, n + 1, dtype=torch.complex64, device=device,
+                    generator=g)
+    out["fd_mul"] = _kernel_entry(
+        "fd_mul", "src/repro/kernels/fd_fused.py:162",
+        torch.view_as_real(fd_fused.fd_mul(x, k)),
+        torch.view_as_real(ref.fd_mul_ref(x, k)),
+        lambda: fd_fused.fd_mul(x, k), lambda: ref.fd_mul_ref(x, k),
+        lambda: torch.mul(x, k), nbytes=8 * (2 * x.numel() + k.numel()),
+        nops=6 * x.numel(), peaks=peaks)
+    for name, e in out.items():
+        print(f"[encdec kernel] {name} at whisper --mixer fd's shape (d="
+              f"{d}, n={n}, b={b}): {e}", flush=True)
+    return out
+
+
+def phase_encdec(smi: str, peaks, device="cuda") -> tuple:
+    """The encoder-decoder whisper-medium at full width (24 encoder + 24
+    decoder layers, d = 1,024, 16 heads of 64, vocab 51,865, bf16, drawn
+    on the card from seed 0; the audio frontend a stub: frames from a
+    numpy seed): (1) score SCORE_BATCH rows of ENCDEC_FRAMES frames and
+    ENCDEC_SEQ tokens through ``make_forward`` and the eval ``loss_fn``;
+    (2) ``serving.encode`` ENCDEC_PROMPTS rows of frames once, then serve
+    ENCDEC_PROMPTS × (ENCDEC_PROMPT_LEN + ENCDEC_GEN) greedily through
+    ``generate`` with ``enc_out``: each step's cross sublayers recompute k
+    and v from all 1,500 frames, as JAX's; the decode path teacher-forced
+    over the generated rows (its steps after the prompt timed) against
+    the forward under phase zoo's bf16 rule; (3) ``--mixer fd`` with the
+    decoder cut to ENCDEC_FD_LAYERS layers: scored (one row-1 kernel and
+    one ``fd_mul`` a layer at n = 448, held to the plain versions as phase
+    zoo holds its overrides) and served (the stream caches' kernels
+    realised once a layer), its decode held to its forward under the same
+    rule; (4) the same weights in fp32: one served row through every
+    decode step against the fp32 forward under the 1e-3 margin rule; (5)
+    the ``Engine`` refuses the arch, as JAX's; (6) the smoke whisper and
+    its FD override card vs CPU. Asserted: 0 hand-kernel launches in (1),
+    (2) and (4). Returns (the kernel entries at the FD shape, the launches
+    by path)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import serving
+    from repro_torch.serving_engine import Engine
+    t_phase = time.perf_counter()
+    entries = _encdec_kernels(peaks, device)
+    cfg = get_config(ENCDEC_ARCH)
+    dt = getattr(torch, cfg.dtype)
+    model, t_init, init_peak = _draw_on_card(cfg, device)
+    parts = {part: sum(p.numel() for k, p in model.named_parameters()
+                       if k.startswith(part))
+             for part in ("enc_", "layers.", "embed", "unembed")}
+    n_params = sum(p.numel() for p in model.parameters())
+    pc = cfg.param_count()["total"]
+    print(f"[encdec] {cfg.name}: {cfg.enc_layers} encoder + {cfg.n_layers} "
+          f"decoder layers, d={cfg.d_model}, {cfg.n_heads} heads x "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded "
+          f"{cfg.vocab_padded}), {cfg.dtype}; {n_params} parameters: encoder "
+          f"{parts['enc_']}, decoder layers with cross-attention "
+          f"{parts['layers.']}, embeddings {parts['embed'] + parts['unembed']}"
+          f"; param_count() {pc}, which, as JAX's, counts the decoder's "
+          f"self-attention and FFN matrices and the embeddings and leaves "
+          f"out the encoder, the cross-attention and the norm scales; "
+          f"init_model {t_init:.2f} s drawing on the card; "
+          f"max_memory_allocated {init_peak} bytes", flush=True)
+    if (n_params, pc) != ENCDEC_PARAMS:
+        raise AssertionError("whisper-medium parameter count")
+    launches = {}
+
+    # (1) score
+    batch = _ski_batch(cfg, SCORE_BATCH, ENCDEC_SEQ, device)
+    frames = _stub(SCORE_BATCH, ENCDEC_FRAMES, cfg.d_model, 0, device, dt)
+    inputs = {"enc_embed": frames}
+    launches["encdec_score"], score_tok_s = _score_kind(
+        "[encdec score]", cfg, model, batch, inputs, device)
+
+    # (2) serve through encode + generate with enc_out
+    p, gen = ENCDEC_PROMPT_LEN, ENCDEC_GEN
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (ENCDEC_PROMPTS, p))).to(device)
+    serve_in = {"enc_embed": frames[:ENCDEC_PROMPTS]}
+    with torch.inference_mode():
+        serving.encode(model, cfg, serve_in["enc_embed"])       # warm-up
+        _sync(device)
+        t0 = time.perf_counter()
+        enc_out = serving.encode(model, cfg, serve_in["enc_embed"])
+        _sync(device)
+        t_enc = time.perf_counter() - t0
+    seqs, launches["encdec_serve"], t_gen = _serve_kind(
+        "[encdec serve]", cfg, model, prompt, gen, device, enc_out)
+    host_ms, ev_ms, dec = _decode_timed(model, cfg, seqs, p, p + gen,
+                                        device, enc_out=enc_out)
+    cross_flop = (2 * 2 * ENCDEC_PROMPTS * ENCDEC_FRAMES * cfg.d_model
+                  * cfg.n_heads * cfg.head_dim * cfg.n_layers)
+    tr = _trace_decode("[encdec decode]", model, cfg, seqs, device, enc_out)
+    print(f"[encdec serve] encode {ENCDEC_PROMPTS} x {ENCDEC_FRAMES} frames "
+          f"once: {t_enc * 1e3:.3f} ms; a decode step of {ENCDEC_PROMPTS} "
+          f"rows alone ({gen - 1} steps after the prompt, {smi}): "
+          f"{host_ms:.3f} ms host clock, {ev_ms:.3f} ms CUDA events; "
+          f"traced: {tr['launches'] / 8:.1f} kernel launches and "
+          f"{tr['busy_ms'] / 8:.3f} ms device busy a step (idle share "
+          f"{1 - tr['busy_ms'] / tr['wall_ms']:.3f}); the cross k/v "
+          f"projections recomputed every step are {cross_flop} FLOP "
+          f"({cross_flop / peaks[3] * 1e3:.3f} ms at the bf16 peak)",
+          flush=True)
+    _check_decoded_bf16("[encdec serve]", cfg, model, p, seqs, dec,
+                        serve_in)
+    del dec
+
+    # (3) --mixer fd at ENCDEC_FD_LAYERS decoder layers
+    row1 = _fd_row1(ENCDEC_SEQ)
+    launches["encdec_fd"], fd_rate = _zoo_override(
+        "fd", cfg, model, batch, device, tag="[encdec fd]",
+        n_layers=ENCDEC_FD_LAYERS, inputs=inputs,
+        per_layer={row1: 1, "fd_mul": 1})
+    fd_cfg, fd_model = _override_model(cfg, model, "fd", device,
+                                       ENCDEC_FD_LAYERS)
+    fd_seqs, launches["encdec_fd_serve"], _ = _serve_kind(
+        "[encdec fd serve]", fd_cfg, fd_model, prompt, gen, device, enc_out)
+    # init_cache realises each FD layer's kernel once (core/hilbert's
+    # causal_spectrum: the window); the steps run cuFFT and cuBLAS
+    _expect_launches("[encdec fd serve] generate",
+                     launches["encdec_fd_serve"],
+                     {"hilbert_window": ENCDEC_FD_LAYERS})
+    _, _, fd_dec = _decode_timed(fd_model, fd_cfg, fd_seqs, p, p + gen,
+                                 device, enc_out=enc_out)
+    _check_decoded_bf16("[encdec fd serve]", fd_cfg, fd_model, p, fd_seqs,
+                        fd_dec, serve_in)
+    del fd_model, fd_dec
+
+    # (5) the serving engine refuses the arch, as JAX's does
+    try:
+        Engine(cfg, model, slots=2, max_len=64)
+    except NotImplementedError as e:
+        print(f"[encdec] the Engine refuses {cfg.name}: {e}", flush=True)
+    else:
+        raise AssertionError("the Engine accepted an encdec arch")
+
+    # (4) the same weights in fp32
+    cfg32, model32 = _fp32_copy(cfg, model, device)
+    del model, enc_out
+    _reset_kernel_counts()
+    _check_zoo_fp32(cfg32, model32, seqs[:1], tag="[encdec fp32]",
+                    inputs={"enc_embed": frames[:1].float()})
+    launches["encdec_fp32"] = _kernel_counts()
+    for path in ("encdec_score", "encdec_serve", "encdec_fp32"):
+        _expect_no_launches(path, launches[path])
+    del model32, frames, batch
+    torch.cuda.empty_cache()
+
+    # (6) card vs CPU at smoke size
+    small = reduce_for_smoke(cfg)
+
+    def frames_of(dev):
+        return {"enc_embed": _stub(2, 40, small.d_model, 3, dev,
+                                   getattr(torch, small.dtype))}
+    for mixer in ("", "fd"):
+        _check_smoke_card_vs_cpu(dataclasses.replace(
+            small, mixer_override=mixer,
+            name=small.name + (f"-{mixer}" if mixer else "")), device,
+            frames_of, "[encdec check]")
+    print(f"[encdec] rates ({smi}; host clock, recorded, not claimed): "
+          f"scoring {score_tok_s:.0f} text tokens/s ({ENCDEC_FRAMES} frames "
+          f"a row); generate {t_gen:.3f} s; decode alone "
+          f"{ENCDEC_PROMPTS / host_ms * 1e3:.1f} new tok/s; --mixer fd "
+          f"scoring {fd_rate:.0f} text tokens/s ({ENCDEC_FD_LAYERS} decoder "
+          f"layers)", flush=True)
+    print(f"[encdec] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries, launches
+
+
+def _vlm_kernels(peaks, device) -> dict:
+    """The bidirectional SKI kernels at paligemma ``--mixer ski``'s
+    shape: x (8, 512, 2,048) (256 patches + 256 tokens), r = 64, m = 32,
+    left = m // 2: ``interp_reduce``, ``ski_fused_pass2`` and
+    ``short_conv`` (which the fused route's pass 2 subsumes; held here at
+    the path's offset), each against its plain version, timed beside its
+    bound."""
+    from repro_torch.core import ski
+    g = torch.Generator(device=device).manual_seed(7)
+    b, n, d, r, m = SCORE_BATCH, 2 * VLM_SEQ, 2048, 64, 32
+    x = torch.randn(b, n, d, device=device, generator=g)
+    z = torch.randn(b, r, d, device=device, generator=g)
+    a = torch.randn(d, r, r, device=device, generator=g)
+    f = torch.randn(d, m, device=device, generator=g)
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    label = "paligemma bidirectional"
+    out = {"interp_reduce": _interp_entries(label, x, z, lo, w_lo,
+                                            peaks)["interp_reduce"]}
+    out["short_conv"] = _short_conv_entry(label, x, f, m // 2, peaks)
+    out["ski_fused_pass2"] = _pass2_entry(label, x, z, a, f, m // 2, peaks)
+    return out
+
+
+def phase_prefix_vlm(smi: str, peaks, device="cuda") -> tuple:
+    """The prefix-VLM paligemma-3b at full width (18 layers, d = 2,048, MQA:
+    8 heads over 1 kv head of 256, d_ff 16,384, vocab 257,216, bf16, drawn
+    on the card from seed 0; the SigLIP frontend a stub: 256 patches from
+    a numpy seed): (1) score SCORE_BATCH rows of 256 patches + VLM_SEQ
+    tokens under the prefix mask through ``make_forward`` and the eval
+    ``loss_fn`` (over the text alone); (2) serve the text alone,
+    VLM_PROMPTS × (VLM_PROMPT_LEN + VLM_GEN), as JAX's decode does (it
+    never sees the patches), held to the text-only forward with the prefix
+    cut to 0 under phase zoo's bf16 rule; (3) ``--mixer ski`` and
+    ``--mixer tno`` at VLM_OVERRIDE_LAYERS layers under the prefix mask,
+    which runs them bidirectionally (the SKI kernels' bidirectional route,
+    d = 2,048, n = 512, r = 64: 1 ``interp_reduce`` + 1 ``ski_fused_pass2``
+    a layer; tno: none), held to the plain versions as phase zoo holds its
+    overrides, and ``--mixer fd`` refused; (4) the smoke paligemma, plain
+    and with SKI, card vs CPU. Asserted: 0 hand-kernel launches in (1)
+    and (2). Returns (the kernel entries at the SKI shape, the launches by
+    path)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    t_phase = time.perf_counter()
+    entries = _vlm_kernels(peaks, device)
+    cfg = get_config(VLM_ARCH)
+    dt = getattr(torch, cfg.dtype)
+    model, t_init, init_peak = _draw_on_card(cfg, device)
+    n_params = sum(p.numel() for p in model.parameters())
+    pc = cfg.param_count()["total"]
+    print(f"[vlm] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"{cfg.n_heads} heads / {cfg.n_kv_heads} kv head x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab} (padded {cfg.vocab_padded}), "
+          f"{cfg.n_prefix} stub patches, {cfg.dtype}; {n_params} parameters "
+          f"(param_count() {pc} + {n_params - pc} norm scales); init_model "
+          f"{t_init:.2f} s drawing on the card; max_memory_allocated "
+          f"{init_peak} bytes", flush=True)
+    if pc != VLM_PARAM_COUNT or n_params != pc + (2 * cfg.n_layers
+                                                  + 1) * cfg.d_model:
+        raise AssertionError("paligemma-3b parameter count")
+    launches = {}
+
+    # (1) score under the prefix mask
+    batch = _ski_batch(cfg, SCORE_BATCH, VLM_SEQ, device)
+    inputs = {"patches": _stub(SCORE_BATCH, cfg.n_prefix, cfg.d_model, 0,
+                               device, dt)}
+    launches["vlm_score"], score_tok_s = _score_kind(
+        "[vlm score]", cfg, model, batch, inputs, device)
+
+    # (2) serve the text alone
+    p, gen = VLM_PROMPT_LEN, VLM_GEN
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (VLM_PROMPTS, p))).to(device)
+    seqs, launches["vlm_serve"], t_gen = _serve_kind(
+        "[vlm serve]", cfg, model, prompt, gen, device)
+    host_ms, ev_ms, dec = _decode_timed(model, cfg, seqs, p, p + gen, device)
+    tr = _trace_decode("[vlm decode]", model, cfg, seqs, device)
+    print(f"[vlm serve] a decode step of {VLM_PROMPTS} rows alone (MQA at "
+          f"head_dim {cfg.head_dim}; {gen - 1} steps after the prompt, "
+          f"{smi}): {host_ms:.3f} ms host clock, {ev_ms:.3f} ms CUDA events; "
+          f"traced: {tr['launches'] / 8:.1f} kernel launches and "
+          f"{tr['busy_ms'] / 8:.3f} ms device busy a step (idle share "
+          f"{1 - tr['busy_ms'] / tr['wall_ms']:.3f})", flush=True)
+    text = dataclasses.replace(cfg, n_prefix=0)
+    _check_decoded_bf16("[vlm serve] (forward with the prefix cut to 0)",
+                        text, model, p, seqs, dec,
+                        {"patches": inputs["patches"][:VLM_PROMPTS, :0]})
+    del dec
+    for path in ("vlm_score", "vlm_serve"):
+        _expect_no_launches(path, launches[path])
+
+    # (3) the paper's mixers, bidirectional under the prefix mask
+    rates = {}
+    for mixer, per_layer in (("ski", ZOO_OVERRIDES["ski"]), ("tno", {})):
+        launches[f"vlm_{mixer}"], rates[mixer] = _zoo_override(
+            mixer, cfg, model, batch, device, tag=f"[vlm {mixer}]",
+            n_layers=VLM_OVERRIDE_LAYERS, inputs=inputs, per_layer=per_layer)
+    try:
+        _override_model(cfg, model, "fd", device, VLM_OVERRIDE_LAYERS)
+    except NotImplementedError as e:
+        print(f"[vlm fd] refused: {e}", flush=True)
+    else:
+        raise AssertionError("paligemma --mixer fd was not refused")
+    del model, batch, inputs
+    torch.cuda.empty_cache()
+
+    # (4) card vs CPU at smoke size
+    small = reduce_for_smoke(cfg)
+
+    def patches_of(dev):
+        return {"patches": _stub(2, small.n_prefix, small.d_model, 3, dev,
+                                 getattr(torch, small.dtype))}
+    for mixer in ("", "ski"):
+        _check_smoke_card_vs_cpu(dataclasses.replace(
+            small, mixer_override=mixer,
+            name=small.name + (f"-{mixer}" if mixer else "")), device,
+            patches_of, "[vlm check]")
+    print(f"[vlm] rates ({smi}; host clock, recorded, not claimed): scoring "
+          f"{score_tok_s:.0f} text tokens/s ({cfg.n_prefix} patches a row); "
+          f"generate {t_gen:.3f} s; decode alone "
+          f"{VLM_PROMPTS / host_ms * 1e3:.1f} new tok/s; --mixer ski "
+          f"{rates['ski']:.0f}, --mixer tno {rates['tno']:.0f} text tokens/s "
+          f"({VLM_OVERRIDE_LAYERS} layers)", flush=True)
+    print(f"[vlm] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return entries, launches
 
 
 # ------------------------------------------------------------ SKI scoring
@@ -4225,15 +4747,17 @@ def check_kernel_vs_plain_bf16(kernel, plain, fp32) -> dict:
     return got
 
 
-def _teacher_forced(model, cfg, seqs):
+def _teacher_forced(model, cfg, seqs, enc_out=None):
     """The decode path's logits (fp32) over ``seqs`` fed token by token:
-    (b, n - 1, V), position t predicting token t + 1."""
+    (b, n - 1, V), position t predicting token t + 1 (an encdec model's
+    steps take ``enc_out``)."""
     from repro_torch.models import serving
     b, n = seqs.shape
     cache = serving.init_cache(cfg, b, n, params=model)
     dec = []
     for t in range(n - 1):
-        lg, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1], cache, t)
+        lg, cache = serving.decode_step(model, cfg, seqs[:, t:t + 1], cache, t,
+                                        enc_out)
         dec.append(lg[:, 0].float())
     return torch.stack(dec, 1)
 
@@ -4798,6 +5322,8 @@ def main() -> int:
     tno_launches = phase_tno(cfg, model, seqs, decode_tps, engine, smi)
     zoo_launches = phase_zoo(smi)
     moe_launches = phase_moe(smi)
+    encdec_kernels, encdec_launches = phase_encdec(smi, peaks)
+    vlm_kernels, vlm_launches = phase_prefix_vlm(smi, peaks)
     score_launches = phase_ski_score("cuda")
     ski_train_launches = phase_train(get_config("ski-tnn-lm-wt103"), "cuda",
                                      TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH,
@@ -4813,11 +5339,14 @@ def main() -> int:
     mamba_kernels, mamba_launches = phase_mamba(peaks)
     kernels.update(mamba_kernels)
     jamba_kernels, jamba_launches = phase_jamba(smi, peaks)
-    for name, e in jamba_kernels.items():
-        kernels[name]["at_jamba"] = {
-            key: e[key] for key in ("ms", "plain_ms", "library_ms",
-                                    "bound_ms", "bound_by", "max_abs_err",
-                                    "scale")}
+    for at, extra in (("at_jamba", jamba_kernels),
+                      ("at_encdec", encdec_kernels),
+                      ("at_prefix_vlm", vlm_kernels)):
+        for name, e in extra.items():
+            kernels[name][at] = {
+                key: e[key] for key in ("ms", "plain_ms", "library_ms",
+                                        "bound_ms", "bound_by",
+                                        "max_abs_err", "scale")}
     # each path must have gone through each of its kernels
     paths = {"serve": (serve_launches, ("hilbert_window", "fd_mul")),
              "engine": (engine["launches"], ("hilbert_window",)),
@@ -4849,7 +5378,13 @@ def main() -> int:
                                      **jamba_launches}.items()
                 if path != "jamba_fd"},
              "jamba_fd": (jamba_launches["jamba_fd"], (
-                 *ZOO_OVERRIDES["fd"], "ssd_scan", "short_conv_bf16"))}
+                 *ZOO_OVERRIDES["fd"], "ssd_scan", "short_conv_bf16")),
+             **{path: (counts, {
+                 "encdec_fd": (_fd_row1(ENCDEC_SEQ), "fd_mul"),
+                 "encdec_fd_serve": ("hilbert_window",),
+                 "vlm_ski": tuple(ZOO_OVERRIDES["ski"])}.get(path, ()))
+                for path, counts in {**encdec_launches,
+                                     **vlm_launches}.items()}}
     for path, (counts, names) in paths.items():
         for name in names:
             if not counts[name] > 0:

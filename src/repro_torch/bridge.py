@@ -8,7 +8,9 @@ so this module needs neither JAX nor the JAX package. Weights keep their
 (d_in, d_out) layout (the port computes ``x @ w`` as JAX does). The
 scanned stack ``blocks/sub<k>`` (leading axis ``n_scan_blocks``) is split
 into ``layers.<block * period + k>`` and ``tail<i>`` becomes
-``layers.<n_scan_blocks * period + i>``; the way back stacks them again.
+``layers.<n_scan_blocks * period + i>``; an encdec model's encoder stack
+``enc_blocks`` (leading axis ``enc_layers``) becomes ``enc_layers.<i>``.
+The way back stacks them again.
 Every leaf keeps its own dtype both ways: a bf16 model's fp32 leaves
 (norm scales, Mamba's ``a_log``, ``dt_bias``, ``d_skip``,
 ``norm_scale``) stay fp32, as the port's ``Model`` makes them.
@@ -65,6 +67,13 @@ def _port_leaves(tree, cfg: ArchConfig) -> dict:
             for blk in range(cfg.n_scan_blocks):
                 out[f"layers.{blk * cfg.period + k}.{rest}"] = (
                     arr[blk] if arr.ndim else arr)
+        elif head == "enc_blocks":
+            if arr.ndim and arr.shape[0] != cfg.enc_layers:
+                raise ValueError(f"JAX leaf {name}: leading axis "
+                                 f"{arr.shape[0]} != enc_layers "
+                                 f"{cfg.enc_layers}")
+            for i in range(cfg.enc_layers):
+                out[f"enc_layers.{i}.{rest}"] = arr[i] if arr.ndim else arr
         elif head.startswith("tail"):
             i = int(head.removeprefix("tail"))
             out[f"layers.{cfg.n_scan_blocks * cfg.period + i}.{rest}"] = arr
@@ -233,14 +242,23 @@ def decode_state_to_jax(state: st.DecodeState,
 # ---------------------------------------------------------- the way back
 def _jax_tree(flat: dict, cfg: ArchConfig) -> dict:
     """Port-named tensors (one per parameter) → the nested JAX layout:
-    layers stacked into ``blocks/sub<k>`` (0-d leaves kept 0-d, see
-    :func:`_port_leaves`), the rest as they are; a numeric path segment is
-    a list index (the RPE MLP's ``layers``)."""
+    layers stacked into ``blocks/sub<k>`` and the encoder's into
+    ``enc_blocks`` (0-d leaves kept 0-d, see :func:`_port_leaves`), the
+    rest as they are; a numeric path segment is a list index (the RPE
+    MLP's ``layers``)."""
     per = cfg.period
     n_scan = cfg.n_scan_blocks * per
     paths = {}
     for name, t in flat.items():
         head, _, rest = name.partition(".")
+        if head == "enc_layers":
+            i_s, _, rest = rest.partition(".")
+            if i_s == "0":             # the first layer gathers the stack
+                stack = [flat[f"enc_layers.{i}.{rest}"]
+                         for i in range(cfg.enc_layers)]
+                paths[f"enc_blocks.{rest}"] = (torch.stack(stack)
+                                               if t.dim() else t)
+            continue
         if head != "layers":
             paths[name] = t
             continue

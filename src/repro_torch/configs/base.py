@@ -2,10 +2,10 @@
 ``repro/configs/base.py``). The port registers the TNN LM configs,
 ``mamba2-2.7b``, the dense attention decoders ``gemma3-4b``,
 ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``, and the MoE
-decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``, and the
-Mamba + attention + MoE hybrid ``jamba-1.5-large-398b``; the
-encoder-decoder whisper and the prefix-VLM paligemma are not ported yet
-(ROADMAP Step 9c)."""
+decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``, the
+Mamba + attention + MoE hybrid ``jamba-1.5-large-398b``, the
+encoder-decoder ``whisper-medium`` and the prefix-VLM ``paligemma-3b``:
+every arch of the JAX registry."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,7 +39,8 @@ def _load_all():
     import importlib
     for mod in ("phi3_medium_14b", "qwen2_72b", "gemma3_4b", "stablelm_3b",
                 "granite_moe_3b_a800m", "grok_1_314b", "mamba2_2p7b",
-                "jamba_1_5_large_398b", "tnn_lm"):
+                "jamba_1_5_large_398b", "whisper_medium", "paligemma_3b",
+                "tnn_lm"):
         importlib.import_module(f"repro_torch.configs.{mod}")
 
 

@@ -7,7 +7,11 @@ tnn-lm-wt103`` (the baseline), ``mamba2-2.7b``, the attention decoders
 ``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and ``qwen2-72b``,
 the MoE decoders ``granite-moe-3b-a800m`` and ``grok-1-314b``, and the
 hybrid ``jamba-1.5-large-398b`` (Mamba layers with dense and MoE FFNs,
-Mamba and KV caches in one model) (``qwen2-72b`` holds 144 GB in bf16,
+Mamba and KV caches in one model), the encoder-decoder ``whisper-medium``
+(stub encoder frames drawn from ``--seed``, encoded once, and every
+decode step's cross-attention over them) and the prefix-VLM
+``paligemma-3b`` (the text alone, as JAX's decode sees it)
+(``qwen2-72b`` holds 144 GB in bf16,
 ``grok-1-314b`` 632 GB and ``jamba-1.5-large-398b`` 797 GB, more than
 one card: serve them with ``--smoke``). ``--smoke --device cpu`` runs the CPU smoke size with the
 plain kernels. The baseline decodes through the hist-replay cache, as FD
@@ -44,9 +48,13 @@ from repro_torch.obs import tracing as obs_tracing
 def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
              temperature: float = 0.0, seed: int = 0,
              chunked_prefill: bool | None = None,
-             max_len: int | None = None) -> torch.Tensor:
+             max_len: int | None = None, enc_out=None) -> torch.Tensor:
     """prompt: (b, p) int64 on the parameters' device. Greedy (temperature
     0) or sampled decode of gen_len tokens; returns (b, p + gen_len).
+    ``enc_out`` (an encdec model's ``serving.encode`` output, b rows) goes
+    to every decode step. (JAX's ``generate`` passes none, so its encdec
+    decode runs the cross sublayer as self-attention; the port's
+    ``decode_step`` refuses an encdec step without it.)
 
     Sampling draws through ``models/sampling.sample`` (top_k 0): row i's
     stream is keyed by ``seed + i`` and its k-th new token is draw k, so
@@ -116,11 +124,24 @@ def generate(params, cfg, prompt: torch.Tensor, gen_len: int, *,
         else:
             tok = pick(logits)
             out.append(tok)
-        logits, cache = serving.decode_step(params, cfg, tok, cache, pos)
+        logits, cache = serving.decode_step(params, cfg, tok, cache, pos,
+                                            enc_out)
         pos += 1
     if gen_len > 0:
         out.append(pick(logits))
     return torch.cat(out, dim=1)
+
+
+def enc_frames(cfg, batch: int, seed: int, max_len: int,
+               device) -> torch.Tensor:
+    """Stub source frames of an encdec model (its audio frontend is a stub,
+    as in JAX): (batch, min(max_len, 4096), d) standard normals drawn from
+    ``seed`` with numpy, in ``cfg.dtype``. The length is JAX's rule for
+    the decode's ``enc_out`` (``StepBuilder.input_specs``)."""
+    frames = np.random.default_rng(seed).standard_normal(
+        (batch, min(max_len, 4096), cfg.d_model), dtype=np.float32)
+    return torch.from_numpy(frames).to(device=device,
+                                       dtype=getattr(torch, cfg.dtype))
 
 
 def main(argv=None):
@@ -215,8 +236,15 @@ def main(argv=None):
     prompt = torch.from_numpy(prompt_np).to(device)
     with torch.inference_mode():
         t0 = time.perf_counter()
+        enc_out = None
+        if cfg.kind == "encdec":
+            enc_out = serving.encode(params, cfg,
+                                     enc_frames(cfg, args.batch, args.seed,
+                                                args.prompt_len
+                                                + args.gen_len, device))
         toks = generate(params, cfg, prompt, args.gen_len,
-                        temperature=args.temperature, seed=args.seed)
+                        temperature=args.temperature, seed=args.seed,
+                        enc_out=enc_out)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         dt = time.perf_counter() - t0

@@ -44,15 +44,16 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
 
 
 def make_forward(cfg: ArchConfig):
-    """Returns ``fwd(model, tokens) -> logits``: tokens (b, s) → logits
-    (b, s, V_pad) under ``torch.inference_mode()``, for prompt scoring and
-    evaluation (the SKI model has no decode path; a Mamba model runs the
+    """Returns ``fwd(model, tokens, **inputs) -> logits``: tokens (b, s) →
+    logits (b, s, V_pad) under ``torch.inference_mode()`` (``inputs``: an
+    encdec's ``enc_embed``, a prefix_vlm's ``patches``), for prompt
+    scoring and evaluation (the SKI model has no decode path; a Mamba model runs the
     ``short_conv`` and ``ssd_scan`` kernels once per layer on the card; an
     attention decoder runs cuBLAS and plain torch attention, and with
     ``mixer_override`` the paper mixer's kernels)."""
 
-    def fwd(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    def fwd(model: Model, tokens: torch.Tensor, **inputs) -> torch.Tensor:
         with torch.inference_mode():
-            return forward(model, cfg, tokens)
+            return forward(model, cfg, tokens, **inputs)
 
     return fwd

@@ -11,8 +11,9 @@ heads in the forward and groups q by kv head in decode, as JAX does. A
 fused attention (``scaled_dot_product_attention``) would round
 differently. No TPU kernel lives here: attention was plain jnp in JAX.
 
-Cross-attention (``kv_src``) serves the encoder-decoder archs, which the
-port does not run yet (ROADMAP Queue 1, Step 9c).
+Cross-attention (``kv_src``, the encoder-decoder archs' decoder layers)
+takes q from x and k, v from the source, rotates neither, and attends over
+every source position (the ``full`` mask), as JAX's ``attn_apply`` does.
 """
 from __future__ import annotations
 
@@ -164,20 +165,22 @@ def _project(params: Attention, x, name: str):
 def attn_apply(params: Attention, cfg: ArchConfig, x: torch.Tensor, *,
                mask_kind: str = "causal", prefix: int = 0, kv_src=None,
                positions=None) -> torch.Tensor:
-    """Self-attention sublayer on x (b, s, d) -> (b, s, d)."""
-    if kv_src is not None:
-        raise NotImplementedError("cross-attention (kv_src) serves the "
-                                  "encoder-decoder archs, which the port does "
-                                  "not run yet (ROADMAP Queue 1, Step 9c)")
+    """Attention sublayer on x (b, s, d) -> (b, s, d): self-attention, or
+    with ``kv_src`` (b, s_src, d) cross-attention, k and v projected from
+    the source and no RoPE on either side (JAX rotates only when kv_src is
+    None)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    src = x if kv_src is None else kv_src.to(x.dtype)
+    sk = src.shape[1]
     q = _project(params, x, "q").reshape(b, s, h, hd)
-    k = _project(params, x, "k").reshape(b, s, kvh, hd)
-    v = _project(params, x, "v").reshape(b, s, kvh, hd)
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, torch.arange(s, device=x.device), cfg.rope_theta)
+    k = _project(params, src, "k").reshape(b, sk, kvh, hd)
+    v = _project(params, src, "v").reshape(b, sk, kvh, hd)
+    if kv_src is None:                      # self-attention: rotate both
+        if positions is None:
+            positions = torch.arange(s, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, torch.arange(s, device=x.device), cfg.rope_theta)
     o = attention(q, k, v, mask_kind=mask_kind, window=cfg.window,
                   prefix=prefix, chunk=cfg.attn_chunk)
     return o.reshape(b, s, h * hd) @ params.wo.to(x.dtype)

@@ -1,10 +1,19 @@
 """Serving: prefill, chunked prefill and single-token decode with per-layer
-caches — counterpart of ``repro/models/serving.py`` for the decoder LMs the
+caches — counterpart of ``repro/models/serving.py`` for the models the
 port runs: attention decoders (``attention`` and ``local`` layers), the TNN
 LMs (the baseline ``tno`` and ``fd`` mixers, also as ``mixer_override`` of
 an attention arch), Mamba-2 and the jamba hybrid, whose Mamba and
 attention layers keep their own caches side by side (bf16 KV and conv
-leaves beside fp32 SSD state). SKI has no decode, as in JAX.
+leaves beside fp32 SSD state), the encoder-decoder whisper and the
+prefix-VLM paligemma. SKI has no decode, as in JAX.
+
+An encdec model's prompt is encoded once (:func:`encode`), and every
+decode step takes the encoder's output ``enc_out``: each decoder layer's
+cross sublayer projects its k and v from all of ``enc_out`` again at every
+step, as JAX's does (no cross cache; the caches are the decoder's own). A
+prefix_vlm decodes the text alone: JAX's ``decode_step`` never sees the
+patches, so neither does the port's (its decode matches the forward with
+the prefix cut to 0, not the prefixed forward).
 
 The cache is a list with one cache per layer:
 
@@ -45,12 +54,14 @@ import torch
 from repro_torch.core import fd as fd_mod
 from repro_torch.core import tno as tno_mod
 from repro_torch.kernels import backend, fd_stream
-from repro_torch.models.attention import attn_decode, decode_cache_init
+from repro_torch.models.attention import (attn_apply, attn_decode,
+                                          decode_cache_init)
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.mamba import mamba_cache_init, mamba_decode
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import (Model, _tno_cfg, embed_tokens,
-                                            ffn_apply, forward, unembed)
+                                            ffn_apply, forward, run_encoder,
+                                            unembed)
 from repro_torch.nn.layers import ACTS, dense, rmsnorm
 
 #: realisations of a layer's decode kernel (the FD spectrum or the
@@ -178,7 +189,7 @@ def _tno_decode(params, cfg: ArchConfig, mixer: str, x, cache, cur_len):
 
 # ------------------------------------------------------------- layer step
 def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
-                  cur_len):
+                  cur_len, enc_out=None):
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
     if mixer in ("attention", "local"):
         y, cache = attn_decode(params.mixer, cfg, h, cache, cur_len.dev,
@@ -189,6 +200,10 @@ def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
     else:
         y, cache = _tno_decode(params.mixer, cfg, mixer, h, cache, cur_len)
     x = x + y
+    if hasattr(params, "cross"):
+        h = rmsnorm(params.norm_x.scale, x, cfg.norm_eps)
+        x = x + attn_apply(params.cross, cfg, h, mask_kind="full",
+                           kv_src=enc_out)
     if ffn == "dense":
         x = x + ffn_apply(params.ffn, cfg,
                           rmsnorm(params.norm2.scale, x, cfg.norm_eps))
@@ -202,13 +217,21 @@ def _layer_decode(params, cfg: ArchConfig, mixer: str, ffn: str, x, cache,
     return x, cache
 
 
-def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
+def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len,
+                enc_out=None):
     """One new token: tokens (b, 1) at position ``cur_len``: an int (every
     row at the same position) or per-row host positions (a list, numpy
     array or CPU tensor of b ints, or ``fd_stream.Positions``; the
     continuous-batching engine). Attention and TNN layers take them, moved
     to the card once for all layers; Mamba layers ignore them, as in JAX.
-    Returns (logits (b, 1, V_pad), new cache)."""
+    An encdec model needs ``enc_out`` (b, s_enc, d), :func:`encode`'s
+    output, which every layer's cross sublayer attends over (JAX's
+    ``kv_src=None`` would quietly turn it into self-attention over the new
+    token; the port raises instead). Returns (logits (b, 1, V_pad), new
+    cache)."""
+    if cfg.kind == "encdec" and enc_out is None:
+        raise ValueError(f"{cfg.name}: an encdec decode_step needs enc_out "
+                         "(serving.encode of the source frames)")
     if any(fd_stream.is_stream_cache(lc) or is_hist_cache(lc)
            or is_kv_cache(lc) for lc in cache):
         cur_len = fd_stream.positions(cur_len, tokens.shape[0],
@@ -217,7 +240,8 @@ def decode_step(params: Model, cfg: ArchConfig, tokens, cache, cur_len):
     new_cache = []
     for (mixer, ffn), layer, lc in zip(cfg.layers_spec, params.layers,
                                        cache):
-        x, lc = _layer_decode(layer, cfg, mixer, ffn, x, lc, cur_len)
+        x, lc = _layer_decode(layer, cfg, mixer, ffn, x, lc, cur_len,
+                              enc_out)
         new_cache.append(lc)
     x = rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
     return unembed(params, cfg, x), new_cache
@@ -272,9 +296,18 @@ def decode_chunk(params: Model, cfg: ArchConfig, tokens, cache,
     return unembed(params, cfg, x), new_cache
 
 
-def prefill(params: Model, cfg: ArchConfig, tokens):
+def prefill(params: Model, cfg: ArchConfig, tokens, *, enc_embed=None,
+            patches=None):
     """Score a prompt with the full-sequence forward (on the card the
     FD-TNO op runs ``hilbert_window`` and ``fd_mul`` once per layer, a
-    Mamba layer ``short_conv`` and ``ssd_scan``). Returns logits (b, s,
-    V_pad)."""
-    return forward(params, cfg, tokens)
+    Mamba layer ``short_conv`` and ``ssd_scan``); ``enc_embed`` and
+    ``patches`` as ``transformer.forward`` takes them. Returns logits (b,
+    s, V_pad)."""
+    return forward(params, cfg, tokens, enc_embed=enc_embed, patches=patches)
+
+
+def encode(params: Model, cfg: ArchConfig, enc_embed):
+    """An encdec model's encoder over the source frames ``enc_embed`` (b,
+    s_enc, d) -> ``enc_out`` (b, s_enc, d) in ``cfg.dtype``, which every
+    :func:`decode_step` of the request takes."""
+    return run_encoder(params, cfg, enc_embed)

@@ -1,19 +1,31 @@
-"""Decoder LM assembly, counterpart of ``repro/models/transformer.py``
-for ``kind="decoder"``: attention layers (``attention`` and the
+"""Model assembly, counterpart of ``repro/models/transformer.py``: decoder
+LMs (``kind="decoder"``) of attention layers (``attention`` and the
 sliding-window ``local``, ``models/attention.py``) and TNN layers (the
 baseline ``tno``, ``ski`` and ``fd`` mixers), each with a dense or an MoE
 FFN (``models/moe.py``), and Mamba-2 layers with none (``("mamba",
 "none")``, mamba2) or with a dense or MoE one (the jamba hybrid, whose
 period mixes all three kinds with attention). ``mixer_override`` puts the
 paper's TNO variants in place of an arch's attention and local mixers
-(never its Mamba layers, as in JAX). The encoder-decoder and prefix-VLM
-kinds (ROADMAP Queue 1, Step 9c) are not ported.
+(never its Mamba layers, as in JAX).
+
+Two more kinds wrap the decoder. ``encdec`` (whisper) runs an encoder of
+``enc_layers`` bidirectional attention + dense layers over the caller's
+frame embeddings ``enc_embed`` (the audio frontend is a stub, as in JAX;
+always attention, whatever ``mixer_override`` says), and every decoder
+layer adds a cross-attention sublayer over the encoder's output between
+its mixer and its FFN. ``prefix_vlm`` (paligemma) puts the caller's patch
+embeddings ``patches`` in front of the embedded tokens and runs every
+layer under the ``prefix`` mask: attention sees the whole prefix from
+every position, and a TNO mixer runs bidirectionally over the whole
+sequence, text included (JAX builds it with ``causal = mask_kind in
+("causal", "local")``). The prefix is stripped after the final norm.
 
 Layers run as a Python loop, eagerly: the JAX package's layer scan,
 sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
 one card. Parameter names follow the JAX tree, with the scanned
 ``blocks/sub<k>`` stack and the ``tail<i>`` layers unrolled into
-``layers.<i>``, and each parameter has the dtype JAX gives its leaf:
+``layers.<i>`` and the encoder's stack ``enc_blocks`` into
+``enc_layers.<i>``, and each parameter has the dtype JAX gives its leaf:
 ``param_dtype`` for the embeddings, the matrices (attention's and its QKV
 biases and the experts' included) and Mamba's conv taps, fp32 for the norm
 scales, the MoE router, the TNN mixer's leaves and Mamba's ``a_log``,
@@ -40,10 +52,22 @@ from repro_torch.nn.layers import (ACTS, RMSNorm, draw_buffer,
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.kind != "decoder":
-        raise NotImplementedError(f"kind={cfg.kind!r}: the port runs "
-                                  "decoder LMs only (encoder-decoder and "
-                                  "prefix-VLM: ROADMAP Queue 1, Step 9c)")
+    if cfg.kind not in ("decoder", "encdec", "prefix_vlm"):
+        raise NotImplementedError(f"kind={cfg.kind!r}: the port runs the "
+                                  "decoder, encdec and prefix_vlm kinds")
+    if cfg.kind == "encdec" and cfg.enc_layers < 1:
+        # JAX's init_model draws the encoder's stack from
+        # jax.random.split(key, enc_layers)[0], which 0 layers lack
+        raise ValueError(f"kind='encdec' needs enc_layers >= 1, got "
+                         f"{cfg.enc_layers}")
+    if cfg.kind == "prefix_vlm" and any(m == "fd"
+                                        for m, _ in cfg.layers_spec):
+        # JAX builds the FD layers causal and applies them bidirectionally
+        # under the prefix mask: its forward fails on the spectrum's shape
+        raise NotImplementedError(
+            "prefix_vlm with an fd mixer: the prefix mask runs the mixer "
+            "bidirectionally over layers built causal, which JAX's forward "
+            "cannot run either (its FD spectrum's shapes do not broadcast)")
     for mixer, ffn in cfg.layers_spec:
         if mixer == "mamba" and ffn in ("none", "dense", "moe"):
             continue
@@ -89,9 +113,12 @@ def _tno_cfg(cfg: ArchConfig, variant: str,
 class Layer(nn.Module):
     """JAX leaves {norm1, mixer, norm2, ffn} (``ffn`` an :class:`FFN` or,
     for ``ffn == "moe"``, a :class:`~repro_torch.models.moe.MoE`);
-    {norm1, mixer} for a layer without an FFN (``ffn == "none"``, Mamba)."""
+    {norm1, mixer} for a layer without an FFN (``ffn == "none"``, Mamba);
+    with ``cross`` (an encdec decoder layer) also {norm_x, cross}, the
+    cross-attention's norm and :class:`Attention`."""
 
-    def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None):
+    def __init__(self, cfg: ArchConfig, mixer: str, ffn: str, device=None,
+                 cross: bool = False):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         if mixer in ("attention", "local"):
@@ -100,6 +127,9 @@ class Layer(nn.Module):
             self.mixer = Mamba(cfg, device=device)
         else:
             self.mixer = gtu_init(_tno_cfg(cfg, mixer), device=device)
+        if cross:
+            self.norm_x = RMSNorm(cfg.d_model, device=device)
+            self.cross = Attention(cfg, device=device)
         if ffn == "dense":
             self.norm2 = RMSNorm(cfg.d_model, device=device)
             self.ffn = FFN(cfg.d_model, cfg.d_ff, device=device,
@@ -110,10 +140,10 @@ class Layer(nn.Module):
 
 
 def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
-                mask_kind: str = "causal"):
+                mask_kind: str = "causal", prefix: int = 0):
     if mixer in ("attention", "local"):
         mk = "local" if mixer == "local" else mask_kind
-        return attn_apply(params, cfg, x, mask_kind=mk)
+        return attn_apply(params, cfg, x, mask_kind=mk, prefix=prefix)
     if mixer == "mamba":
         return mamba_apply(params, cfg, x)
     causal = mask_kind in ("causal", "local")
@@ -124,12 +154,18 @@ def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
 
 
 def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,
-                mask_kind: str = "causal"):
+                mask_kind: str = "causal", prefix: int = 0, enc_out=None):
     """x (b, s, d) -> (x, aux): aux is the MoE layer's load-balancing
-    loss, 0 for other layers."""
+    loss, 0 for other layers. A layer with a cross sublayer attends over
+    ``enc_out`` (b, s_enc, d) after its mixer."""
     h = rmsnorm(params.norm1.scale, x, cfg.norm_eps)
-    x = x + mixer_apply(params.mixer, cfg, mixer, h, mask_kind=mask_kind)
+    x = x + mixer_apply(params.mixer, cfg, mixer, h, mask_kind=mask_kind,
+                        prefix=prefix)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if hasattr(params, "cross"):
+        h = rmsnorm(params.norm_x.scale, x, cfg.norm_eps)
+        x = x + attn_apply(params.cross, cfg, h, mask_kind="full",
+                           kv_src=enc_out)
     if ffn == "dense":
         h = rmsnorm(params.norm2.scale, x, cfg.norm_eps)
         x = x + ffn_apply(params.ffn, cfg, h)
@@ -143,7 +179,10 @@ def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,
 # -------------------------------------------------------------- the model
 class Model(nn.Module):
     """JAX leaves {embed (V_pad, d), unembed (d, V_pad), blocks/tail…,
-    norm_f}; every layer is ``layers.<i>``."""
+    norm_f}; every layer is ``layers.<i>``. An encdec model adds the
+    encoder, JAX's {enc_blocks, enc_norm_f}: ``enc_layers.<i>``
+    (attention + dense layers) and ``enc_norm_f``, and a cross sublayer
+    in every decoder layer."""
 
     def __init__(self, cfg: ArchConfig, device=None):
         super().__init__()
@@ -151,13 +190,19 @@ class Model(nn.Module):
         self.cfg = cfg          # read by bridge/checkpoint for the JAX layout
         d, v = cfg.d_model, cfg.vocab_padded
         pdt = getattr(torch, cfg.param_dtype)
+        cross = cfg.kind == "encdec"
         self.embed = nn.Parameter(torch.empty(v, d, dtype=pdt, device=device))
         self.unembed = nn.Parameter(torch.empty(d, v, dtype=pdt,
                                                 device=device))
         self.layers = nn.ModuleList(
-            Layer(cfg, mixer, ffn, device=device)
+            Layer(cfg, mixer, ffn, device=device, cross=cross)
             for mixer, ffn in cfg.layers_spec)
         self.norm_f = RMSNorm(d, device=device)
+        if cross:
+            self.enc_layers = nn.ModuleList(
+                Layer(cfg, "attention", "dense", device=device)
+                for _ in range(cfg.enc_layers))
+            self.enc_norm_f = RMSNorm(d, device=device)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         v = draw_buffer(self.embed.shape, generator)
@@ -191,22 +236,59 @@ def unembed(params: Model, cfg: ArchConfig, x):
     return x @ params.unembed.to(x.dtype)
 
 
-def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
+def _needs(cfg: ArchConfig, name: str, value) -> None:
+    if value is None:
+        raise ValueError(f"kind={cfg.kind!r} ({cfg.name}) needs {name}")
+
+
+def run_encoder(params: Model, cfg: ArchConfig, enc_embed: torch.Tensor):
+    """enc_embed (b, s_enc, d) -> the encoder's output (b, s_enc, d) in
+    ``cfg.dtype``: every encoder layer is attention + dense under the
+    ``full`` mask (RoPE on both sides, as any self-attention), whatever
+    ``mixer_override`` says, then ``enc_norm_f`` (JAX's ``_run_encoder``)."""
+    x = enc_embed.to(getattr(torch, cfg.dtype))
+    for layer in params.enc_layers:
+        x, _ = layer_apply(layer, cfg, "attention", "dense", x,
+                           mask_kind="full")
+    return rmsnorm(params.enc_norm_f.scale, x, cfg.norm_eps)
+
+
+def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor, *,
+             enc_embed=None, patches=None):
     """tokens (b, s) -> (hidden (b, s, d) after the final norm, the MoE
-    aux loss summed over layers). Every layer of a decoder takes the
-    causal mask, as in JAX's ``backbone``."""
+    aux loss summed over layers). A decoder's layers take the causal mask,
+    as in JAX's ``backbone``; an encdec's (``enc_embed`` (b, s_enc, d)
+    required) attend over the encoded frames too; a prefix_vlm's
+    (``patches`` (b, n_prefix, d) required) run under the prefix mask
+    over [patches, tokens], and the prefix is stripped after the norm."""
+    mask_kind, prefix, enc_out = "causal", 0, None
     x = embed_tokens(params, cfg, tokens)
+    if cfg.kind == "prefix_vlm":
+        _needs(cfg, "patches", patches)
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+        mask_kind, prefix = "prefix", cfg.n_prefix
+    elif cfg.kind == "encdec":
+        _needs(cfg, "enc_embed", enc_embed)
+        enc_out = run_encoder(params, cfg, enc_embed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for (mixer, ffn), layer in zip(cfg.layers_spec, params.layers):
-        x, a = layer_apply(layer, cfg, mixer, ffn, x, mask_kind="causal")
+        x, a = layer_apply(layer, cfg, mixer, ffn, x, mask_kind=mask_kind,
+                           prefix=prefix, enc_out=enc_out)
         aux = aux + a
-    return rmsnorm(params.norm_f.scale, x, cfg.norm_eps), aux
+    x = rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
+    if cfg.kind == "prefix_vlm":
+        x = x[:, cfg.n_prefix:]
+    return x, aux
 
 
-def forward(params: Model, cfg: ArchConfig, tokens: torch.Tensor):
-    """tokens (b, s) -> logits (b, s, V_pad). (The JAX function also
-    returns the MoE aux loss; :func:`backbone` gives it.)"""
-    return unembed(params, cfg, backbone(params, cfg, tokens)[0])
+def forward(params: Model, cfg: ArchConfig, tokens: torch.Tensor, *,
+            enc_embed=None, patches=None):
+    """tokens (b, s) -> logits (b, s, V_pad); ``enc_embed`` (encdec) and
+    ``patches`` (prefix_vlm) as :func:`backbone` takes them. (The JAX
+    function also returns the MoE aux loss; :func:`backbone` gives it.)"""
+    return unembed(params, cfg, backbone(params, cfg, tokens,
+                                         enc_embed=enc_embed,
+                                         patches=patches)[0])
 
 
 def _ce_terms(cfg: ArchConfig, logits, labels):
@@ -223,12 +305,16 @@ def _ce_terms(cfg: ArchConfig, logits, labels):
 def loss_fn(params: Model, cfg: ArchConfig, batch: dict, *,
             aux_weight: float = 0.01):
     """Mean next-token cross-entropy over batch["tokens"] / batch["labels"]
-    (b, s) -> (loss, {"nll", "aux"}). The logits are sequence-chunked
+    (b, s) -> (loss, {"nll", "aux"}); batch["enc_embed"] (encdec) and
+    batch["patches"] (prefix_vlm, the loss over the text alone) are read
+    as JAX reads them. The logits are sequence-chunked
     exactly when the JAX package chunks them (``loss_chunk`` set, s > c and
     s % c == 0): each chunk reduces to a scalar and is recomputed in the
     backward, so at most (b, loss_chunk, V) logits are live. The aux term
     (the MoE layers' load balance, summed) is 0 without MoE FFNs."""
-    x, aux = backbone(params, cfg, batch["tokens"])
+    x, aux = backbone(params, cfg, batch["tokens"],
+                      enc_embed=batch.get("enc_embed"),
+                      patches=batch.get("patches"))
     labels = batch["labels"]
     b, s, _ = x.shape
 

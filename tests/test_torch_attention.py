@@ -223,10 +223,20 @@ def test_attn_apply_grads_match_jax():
 
 
 def test_cross_attention_refused():
-    _, _, cfg, params = _layer("qwen2-72b")
-    x = torch.zeros(1, 4, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="Step 9c"):
-        attn.attn_apply(params, cfg, x, kv_src=x)
+    """Cross-attention, once refused, runs (the encoder-decoder kind): q
+    from x, k and v from a source of another length, no RoPE, the full
+    mask, against JAX's ``attn_apply`` with ``kv_src`` (fp32, 1e-5; GQA
+    here, whisper's MHA in test_torch_encdec.py)."""
+    jcfg, jp, cfg, params = _layer("qwen2-72b")
+    xa, _ = _x(2, 40, cfg.d_model)
+    src, _ = _x(2, 9, cfg.d_model, seed=11)
+    want = jattn.attn_apply(jp, jcfg, Ctx(), jnp.asarray(xa),
+                            mask_kind="full", kv_src=jnp.asarray(src))
+    with torch.no_grad():
+        got = attn.attn_apply(params, cfg, torch.from_numpy(xa),
+                              mask_kind="full", kv_src=torch.from_numpy(src))
+    assert got.shape == (2, 40, cfg.d_model)
+    assert _rel(got, want) <= 1e-5
 
 
 # -------------------------------------------------------------- decode path

@@ -111,8 +111,10 @@ def test_bridge_refuses_missing_and_extra_leaves(setup):
 
 
 def test_unported_mixers_raise():
-    """The encoder-decoder kind (ROADMAP Queue 1, Step 9c) still raises;
-    Mamba layers with a dense or an MoE FFN build (the jamba hybrid, whose
+    """The encoder-decoder and prefix-VLM kinds build (whisper: an
+    encoder and a cross sublayer in every decoder layer; paligemma: plain
+    decoder layers; both held against JAX in test_torch_encdec.py and
+    test_torch_prefix_vlm.py); Mamba layers with a dense or an MoE FFN build (the jamba hybrid, whose
     forward, decode and engine are held against JAX in
     test_torch_jamba.py), as do attention layers with either FFN (held
     against JAX in test_torch_zoo.py and test_torch_moe.py), and the
@@ -136,8 +138,16 @@ def test_unported_mixers_raise():
                   device="meta")
     assert [type(layer.mixer).__name__ for layer in jamba.layers[:8]] == \
         ["Mamba"] * 4 + ["Attention"] + ["Mamba"] * 3
-    with pytest.raises(NotImplementedError, match="Step 9c"):
-        Model(dataclasses.replace(base, kind="encdec"), device="meta")
+    whisper = Model(reduce_for_smoke(get_config("whisper-medium")),
+                    device="meta")
+    assert len(whisper.enc_layers) == 2 and all(
+        type(layer.cross).__name__ == "Attention"
+        and not hasattr(enc, "cross")
+        for layer, enc in zip(whisper.layers, whisper.enc_layers))
+    paligemma = Model(reduce_for_smoke(get_config("paligemma-3b")),
+                      device="meta")
+    assert not hasattr(paligemma, "enc_layers") and not any(
+        hasattr(layer, "cross") for layer in paligemma.layers)
     attn = dataclasses.replace(base, pattern=(("attention", "dense"),),
                                n_heads=4, n_kv_heads=2, head_dim=32)
     model = Model(attn, device="meta")

@@ -168,7 +168,7 @@ def _hold_logits(arch, fp32, mixer="", s=24, **kw):
 
 # ----------------------------------------------------------------- configs
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", [*ARCHS, "whisper-medium", "paligemma-3b"])
 def test_configs_are_copies(arch, smoke):
     """The port's config copy matches the JAX registry field for field."""
     j, p = jget_config(arch), get_config(arch)
