@@ -6,8 +6,8 @@ decoder granite-moe-3b-a800m's scoring and serving (with the paper's
 mixers dropped in), the encoder-decoder whisper-medium's scoring and
 serving with cross-attention, the prefix-VLM paligemma-3b's scoring under
 the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI training, unfused SKI, large-rank
-SKI, Mamba-2 serving and the jamba hybrid's scoring and serving paths on
-one NVIDIA card and check them.
+SKI, Mamba-2 serving and training and the jamba hybrid's scoring and
+serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -284,10 +284,17 @@ card or outside a checkout of this repository. Phases:
    ``ref.ssd_scan_ref``) at the path shape x (8, 2048, 80, 64), B and C (8,
    2048, 1, 128), chunk 128, at n = 2000, 100 and 1, at g = 2 and 4 and at
    the smoke shape; both instances timed at the path shape (the bf16 one,
-   on the tensor cores, against the TF32 peak); the bf16 ``short_conv`` at
-   Mamba's conv shape (8, 2048, 5376), m = 4, and at the SKI path's shape
-   with its four offsets; the full-width mamba2-2.7b (64 layers, d=2560,
-   bf16, 2,831,730,176 parameters, random weights from seed 0) scores 8 ×
+   on the tensor cores, against the TF32 peak); the bf16 ``short_conv``
+   and the bf16 ``conv_tap_grad`` (1e-5 × max, bitwise against a second
+   call) at Mamba's conv shape (8, 2048, 5376), m = 4, and at the SKI
+   path's shape with its four offsets, each timed beside its bound, its
+   plain version and cuDNN; SSDScan's six cotangents at one full-width
+   layer's training shape x (4, 2048, 80, 64) in bf16 and fp32 against
+   autograd through the chunked scan; the raw ``ssd_scan`` wrapper
+   refuses an input that requires grad; the bf16 ShortConv backward
+   against autograd through its plain version; the full-width
+   mamba2-2.7b (64 layers, d=2560, bf16, 2,831,730,176 parameters,
+   random weights from seed 0) scores 8 ×
    2048 tokens through ``make_forward`` (64 ``ssd_scan`` + 64
    ``short_conv`` launches a forward, median of 5, peak memory, the
    kernels' device time by the profiler), ``prefill``s 8 prompts of 128
@@ -300,7 +307,15 @@ card or outside a checkout of this repository. Phases:
    from the fp32 one; and the same in fp32 on the same weights, where that
    margin is small enough that positions are checked (at least one must
    be); the smoke mamba model card vs CPU (logits 1e-4 × max in fp32,
-   2e-2 × max in bf16; fp32 greedy generate token-exact);
+   2e-2 × max in bf16; fp32 greedy generate token-exact; one training
+   step's loss and every gradient in both dtypes);
+11a. mamba_train: the full-width mamba2-2.7b (random weights from seed
+   0, drawn on the card, its config's per-layer remat) trains 2 + 4
+   AdamW steps of 4 × 2048 tokens through two ``Trainer.run`` calls:
+   tokens/s over the last 4 (host clock and CUDA events), every loss
+   finite, peak memory, and each step 2 ``ssd_scan``, 3 bf16
+   ``short_conv`` and 1 ``conv_tap_grad_bf16`` launches a layer and one
+   SSDScan backward, nothing else; one more step traced;
 11b. jamba: ``ssd_scan`` at the hybrid's Mamba shape x (8, 512, 256, 64),
    B and C (8, 512, 8, 128) (8 groups of 32 heads), chunk 128, also at n
    = 100 and 1, bf16 and fp32 as in phase 11, and the bf16 ``short_conv``
@@ -327,7 +342,8 @@ card or outside a checkout of this repository. Phases:
    ``causal_spectrum`` + 1 ``fd_mul`` + 4 + 4, held to the plain versions
    as in phase zoo; the smoke hybrid (16 layers) card vs CPU (fp32 1e-4 ×
    max, bf16 as phase zoo's smoke check, fp32 ``generate`` and Engine
-   token-exact, training refused by ``ssd_scan``);
+   token-exact, one training step's loss and every gradient in both
+   dtypes);
 12. a JSON line with each kernel's numbers, then the card's name and power
     limit, then ``{"ok": true, "device": ...}`` as the last line.
 """
@@ -1137,13 +1153,18 @@ def _gram_grad_entry(label, gz, z, peaks) -> dict:
     return e
 
 
-def _conv_tap_grad_entry(label, cot, x, m, left, peaks) -> dict:
-    """conv_tap_grad within 1e-5 × max|plain| (4,096 terms at the path
-    shape, in another order) and bitwise the same over two calls; g, x read
-    once, df written once; 2 flops a (j, k) pair in range. The library
-    yardstick: cuDNN's depthwise conv1d weight gradient (TF32 off) on
+def _conv_tap_grad_entry(label, cot, x, m, left, peaks,
+                         name="conv_tap_grad") -> dict:
+    """conv_tap_grad within 1e-5 × max|plain| (4,096 terms at the SKI path
+    shape, 16,384 at Mamba's conv, in another order; bf16 inputs are exact
+    and both sides sum in fp32, so the bf16 instance ``name`` =
+    "conv_tap_grad_bf16" takes the same limit) and bitwise the same over
+    two calls; g, x read once (in their dtype), df written once (fp32); 2
+    flops a (j, k) pair in range. The library yardstick: cuDNN's depthwise
+    conv1d weight gradient (TF32 off) in the inputs' dtype on
     channel-major copies of g and of x padded by the taps' reach, made
-    outside the timed call; it gives the taps in reverse order."""
+    outside the timed call; it gives the taps in reverse order (in bf16
+    rounded once to bf16, so held within BF16_TOL)."""
     from repro_torch.kernels import ref, ski_grad
     b, n, d = x.shape
     xp = torch.nn.functional.pad(x, (0, 0, m - 1 - left, left))
@@ -1153,20 +1174,21 @@ def _conv_tap_grad_entry(label, cot, x, m, left, peaks) -> dict:
     def library():
         return torch.nn.grad.conv1d_weight(xp, (d, 1, m), gt, groups=d)
     want = ref.conv_tap_grad_ref(cot, x, m, left)
-    lib_err = float((library()[:, 0].flip(-1) - want).abs().max())
-    if not lib_err <= 1e-5 * float(want.abs().max()):
+    lib_err = float((library()[:, 0].flip(-1).float() - want).abs().max())
+    lib_tol = 1e-5 if x.dtype == torch.float32 else BF16_TOL
+    if not lib_err <= lib_tol * float(want.abs().max()):
         raise AssertionError(f"conv1d_weight is not the tap gradient: "
                              f"{lib_err}")
     e = _kernel_entry(
-        "conv_tap_grad", "src/repro/kernels/ski_grad.py:71",
-        _repeat_equal("conv_tap_grad", label,
+        name, "src/repro/kernels/ski_grad.py:71",
+        _repeat_equal(name, label,
                       lambda: ski_grad.conv_tap_grad(cot, x, m, left)),
         want, lambda: ski_grad.conv_tap_grad(cot, x, m, left),
         lambda: ref.conv_tap_grad_ref(cot, x, m, left), library,
-        nbytes=4 * (2 * x.numel() + d * m),
+        nbytes=2 * x.element_size() * x.numel() + 4 * d * m,
         nops=2 * b * d * _tap_pairs(n, m, left), peaks=peaks, tol=1e-5,
         source=SKI_GRAD_SRC)
-    print(f"[kernel] conv_tap_grad {label} g, x ({b}, {n}, {d}), m={m}, "
+    print(f"[kernel] {name} {label} g, x ({b}, {n}, {d}) {x.dtype}, m={m}, "
           f"left={left}, two calls bitwise equal: {e} (conv1d_weight max "
           f"abs err {lib_err:.3e})", flush=True)
     return e
@@ -1214,7 +1236,8 @@ def phase_grad_kernels(peaks, device="cuda") -> dict:
 #: the launch count of every SKI kernel at 0, for the exact-count checks
 NO_SKI_LAUNCHES = {"interp_reduce": 0, "interp_expand": 0, "short_conv": 0,
                    "ski_fused_pass2": 0, "ski_windowed_pass2": 0,
-                   "ski_expand_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0}
+                   "ski_expand_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0,
+                   "conv_tap_grad_bf16": 0}
 #: SKIFusedTNO backward checks (label, r, d, causal), b = 8, n = 512, m = 32
 SKI_BACKWARD = (("causal", 64, 512, True), ("bidirectional", 64, 512, False),
                 ("causal r=181", 181, 512, True))
@@ -4418,15 +4441,20 @@ def check_ssd_scan(peaks, device="cuda", g=None, reps=10,
 
 
 def phase_mamba_kernels(peaks, device="cuda") -> dict:
-    """:func:`check_ssd_scan`; the bf16 short_conv at Mamba's conv shape
-    and at the SKI path's shape with its four offsets; the kernels'
-    refusals. Returns the entries at the path shapes (bf16, the model's
-    dtype)."""
+    """:func:`check_ssd_scan`; the bf16 short_conv and the bf16
+    conv_tap_grad at Mamba's conv shape and at the SKI path's shape with
+    its four offsets; SSDScan's gradients at one full-width layer's shape
+    (:func:`check_ssd_scan_grad`); the raw ssd_scan wrapper's refusal and
+    the bf16 ShortConv backward. Returns the entries at the path shapes
+    (bf16, the model's dtype)."""
     from repro_torch.kernels import ssd_scan
     g = torch.Generator(device=device).manual_seed(3)
     out = {"ssd_scan": check_ssd_scan(peaks, device, g)["ssd_scan"]}
     ssd_scan.reset_counters()
     out["short_conv_bf16"] = check_short_conv_bf16(peaks, g, device)["mamba"]
+    out["conv_tap_grad_bf16"] = check_conv_tap_grad_bf16(peaks, g,
+                                                         device)["mamba"]
+    check_ssd_scan_grad(g, device)
     _mamba_kernels_refuse(device)
     return out
 
@@ -4453,35 +4481,122 @@ def check_short_conv_bf16(peaks, g, device="cuda") -> dict:
             for label, x, f, left in short_conv_bf16_inputs(g, device)}
 
 
+def check_conv_tap_grad_bf16(peaks, g, device="cuda") -> dict:
+    """The bf16 conv_tap_grad (Mamba's conv backward) at Mamba's conv shape
+    (g, x (8, 2048, 5376), m = 4, left = 0), then at the SKI path's shape
+    (8, 512, 512), m = 32, at its four offsets, each as
+    :func:`_conv_tap_grad_entry`. Returns the entries, {label: entry}."""
+    shapes = [("mamba", MAMBA_BATCH, MAMBA_SEQ, 5376, 4, 0)] + [
+        (f"ski path left={left}", 8, 512, 512, 32, left)
+        for left in (0, 16, 31, 15)]
+    out = {}
+    for label, b, n, d, m, left in shapes:
+        cot, x = (torch.randn(b, n, d, device=device, generator=g).bfloat16()
+                  for _ in range(2))
+        out[label] = _conv_tap_grad_entry(label, cot, x, m, left, peaks,
+                                          name="conv_tap_grad_bf16")
+    return out
+
+
+def check_ssd_scan_grad(g, device="cuda") -> dict:
+    """SSDScan (``ops.ssd_scan``) at one full-width Mamba layer's shape in
+    training, x (MAMBA_TRAIN_BATCH, MAMBA_SEQ, 80, 64), B and C (.., 1,
+    128), chunk 128 (the config's), in bf16 and fp32: y is the kernel's
+    (one ``ssd_scan`` launch) within BF16_TOL / 1e-5 × max of the chunked
+    scan, and the six cotangents (one ``bwd_chunked``) against autograd
+    through ``ssd_chunked.ssd_scan_chunked`` on the same inputs: the same
+    ops, which sum in another order only where ``repeat_interleave``'s
+    backward adds with atomics, so the fp32 cotangents within 1e-5 ×
+    max|g| and the bf16 ones of x, B and C within BF16_TOL (one rounding
+    of each side's fp32 sum). Times a forward and backward of each by
+    CUDA events (median of 5). Returns {dtype name: (SSDScan ms, plain
+    ms)}."""
+    from repro_torch.kernels import ops, ssd_chunked, ssd_scan
+    bt, n, h, p, gr, s, q = MAMBA_TRAIN_BATCH, MAMBA_SEQ, 80, 64, 1, 128, 128
+    names = ("x", "dt", "a", "B", "C", "d_skip")
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        ins = [t.requires_grad_() for t in _ssd_inputs(bt, n, h, p, gr, s,
+                                                        dtype, g, device)]
+        gy = torch.randn(bt, n, h, p, device=device, generator=g).to(dtype)
+        ssd_scan.reset_counters()
+        y = ops.ssd_scan(*ins, chunk=q)
+        got = torch.autograd.grad(y, ins, gy)
+        counts = (dict(ssd_scan.counters), dict(ssd_scan.op_counters))
+        y_plain = ssd_chunked.ssd_scan_chunked(*ins, chunk=q)
+        want = torch.autograd.grad(y_plain, ins, gy)
+        if counts != ({"ssd_scan": 1}, {"fwd": 1, "bwd_chunked": 1}) or any(
+                a.dtype != t.dtype for a, t in zip(got, ins)):
+            raise AssertionError(f"SSDScan {dtype} ran {counts}, cotangents "
+                                 f"{[a.dtype for a in got]}")
+        tol_y = BF16_TOL if dtype == torch.bfloat16 else 1e-5
+        report = _grads_close(f"SSDScan {dtype} y", [y.detach().float()],
+                              [y_plain.detach().float()], ["y (kernel)"],
+                              tol_y)
+        for name, a, w, t in zip(names, got, want, ins):
+            tol = BF16_TOL if t.dtype == torch.bfloat16 else 1e-5
+            report += "; " + _grads_close(f"SSDScan {dtype}", [a.float()],
+                                          [w.float()], [f"d{name}"], tol)
+        del got, want, y, y_plain
+
+        def step(fn):
+            return lambda: torch.autograd.grad(fn(*ins, chunk=q), ins, gy)
+        out[str(dtype)] = (time_ms(step(ops.ssd_scan), reps=5),
+                           time_ms(step(ssd_chunked.ssd_scan_chunked),
+                                   reps=5))
+        print(f"[mamba kernel] SSDScan {dtype} x ({bt}, {n}, {h}, {p}), B/C "
+              f"({bt}, {n}, {gr}, {s}), chunk {q}: {report}; launches "
+              f"{counts}; forward + backward {out[str(dtype)][0]:.3f} ms "
+              f"(autograd through the chunked scan alone "
+              f"{out[str(dtype)][1]:.3f} ms; CUDA events, median of 5)",
+              flush=True)
+    return out
+
+
 def _mamba_kernels_refuse(device) -> None:
-    """On the card ssd_scan refuses an input that requires grad (the kernel
-    is forward-only, as the JAX one), and the ShortConv backward refuses
-    bf16 (conv_tap_grad takes fp32): nothing launches."""
-    from repro_torch.kernels import ops, ssd_scan
+    """On the card the raw ``ssd_scan`` wrapper refuses an input that
+    requires grad (the kernel is forward-only, as the JAX one; training
+    goes through ``ops.ssd_scan``, SSDScan), launching nothing; the bf16
+    ShortConv backward runs its kernels (the bf16 ``short_conv`` for dx,
+    ``conv_tap_grad_bf16`` for df) and its dx and df, bf16, lie within
+    BF16_TOL × max of autograd's through the plain version (both sum in
+    fp32 and round once)."""
+    from repro_torch.kernels import ops, ref, short_conv, ski_grad, ssd_scan
     g = torch.Generator(device=device).manual_seed(4)
     x, dt, a, b, c, d = _ssd_inputs(1, 8, 2, 8, 1, 8, torch.float32, g,
                                     device)
+    _reset_mamba_counts()
     try:
         ssd_scan.ssd_scan(x.requires_grad_(), dt, a, b, c, d, chunk=4)
-    except NotImplementedError:
-        pass
-    else:
-        raise AssertionError("ssd_scan accepted an input requiring grad")
-    xb = torch.randn(1, 8, 16, device=device).bfloat16().requires_grad_()
-    fb = torch.randn(16, 4, device=device).bfloat16()
-    y = ops.short_conv(xb, fb, causal=True)
-    try:
-        y.float().sum().backward()
-    except (TypeError, RuntimeError) as e:
-        if "the kernel takes torch.float32" not in str(e):
+    except NotImplementedError as e:
+        if "SSDScan" not in str(e):
             raise
     else:
-        raise AssertionError("the bf16 ShortConv backward ran")
+        raise AssertionError("ssd_scan accepted an input requiring grad")
     if ssd_scan.counters["ssd_scan"]:
         raise AssertionError("a refused ssd_scan call launched")
-    print("[mamba kernel] ssd_scan refuses an input that requires grad on "
-          "the card; the bf16 ShortConv backward raises (conv_tap_grad is "
-          "fp32 only)", flush=True)
+    xb = torch.randn(2, 300, 48, device=device,
+                     generator=g).bfloat16().requires_grad_()
+    fb = (0.3 * torch.randn(48, 4, device=device,
+                            generator=g)).bfloat16().requires_grad_()
+    cot = torch.randn(2, 300, 48, device=device, generator=g).bfloat16()
+    got = torch.autograd.grad(ops.short_conv(xb, fb, causal=True), (xb, fb),
+                              cot)
+    ran = (short_conv.counters["short_conv"],
+           ski_grad.counters["conv_tap_grad_bf16"],
+           dict(short_conv.op_counters))
+    want = torch.autograd.grad(ref.short_conv_left_ref(xb, fb, 0), (xb, fb),
+                               cot)
+    if ran != (2, 1, {"fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}) or any(
+            t.dtype != torch.bfloat16 for t in got):
+        raise AssertionError(f"the bf16 ShortConv backward ran {ran}")
+    report = _grads_close("bf16 ShortConv backward", [t.float() for t in got],
+                          [t.float() for t in want], ["dx", "df"], BF16_TOL)
+    print(f"[mamba kernel] ssd_scan refuses an input that requires grad on "
+          f"the card; the bf16 ShortConv backward x (2, 300, 48), m = 4 "
+          f"against autograd through ref.short_conv_left_ref: {report}; "
+          f"launches short_conv, conv_tap_grad_bf16, ShortConv {ran}",
+          flush=True)
 
 
 def _mamba_counts():
@@ -4489,6 +4604,7 @@ def _mamba_counts():
     counts = ops.ski_counters()
     return {"ssd_scan": ssd_scan.counters["ssd_scan"],
             "short_conv_bf16": counts.pop("short_conv"),
+            "conv_tap_grad_bf16": counts.pop("conv_tap_grad_bf16"),
             "other": sum(counts.values())}
 
 
@@ -4499,7 +4615,8 @@ def _reset_mamba_counts() -> None:
 
 
 def _expect_mamba_launches(what, counts, n_layers) -> None:
-    want = {"ssd_scan": n_layers, "short_conv_bf16": n_layers, "other": 0}
+    want = {"ssd_scan": n_layers, "short_conv_bf16": n_layers,
+            "conv_tap_grad_bf16": 0, "other": 0}
     if counts != want:
         raise AssertionError(f"{what} launched {counts}, want {want}")
 
@@ -4629,8 +4746,7 @@ def phase_mamba_serve(cfg, model, device="cuda"):
         _reset_mamba_counts()
         with _plain_mamba_kernels():
             fwd_plain = serving.prefill(model, cfg, seqs)[:, :-1].float()
-        if _mamba_counts() != {"ssd_scan": 0, "short_conv_bf16": 0,
-                               "other": 0}:
+        if any(_mamba_counts().values()):
             raise AssertionError("the plain mamba forward launched "
                                  f"{_mamba_counts()}")
         # the bf16 noise floor: the same weights in fp32, fp32 activations
@@ -4767,7 +4883,9 @@ def check_mamba_card_vs_cpu(device="cuda") -> None:
     seed 1: logits on 2 × 37 tokens (a ragged last chunk) card vs CPU in
     fp32 (1e-4 × max: fp32 sums in another order over two layers) and in
     bf16 (2e-2 × max, the bf16 tier: cuBLAS and the CPU round bf16
-    products differently); greedy generate token-exact in fp32."""
+    products differently); greedy generate token-exact in fp32; one
+    training step card vs CPU in both dtypes
+    (:func:`check_train_grads_card_vs_cpu`)."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch.serve import generate
     from repro_torch.models.transformer import forward, init_model
@@ -4799,6 +4917,149 @@ def check_mamba_card_vs_cpu(device="cuda") -> None:
         shape = tuple(want.shape)
         print(f"[mamba check] smoke {small.name} {dtype} logits {shape} "
               f"card vs CPU: {report}{tokens}", flush=True)
+        print(f"[mamba check] smoke {small.name} {dtype} training card vs "
+              f"CPU: {check_train_grads_card_vs_cpu(small, device)}",
+              flush=True)
+
+
+def _rel(got, want) -> float:
+    return (float((got.float() - want.float()).abs().max())
+            / max(float(want.float().abs().max()), 1e-30))
+
+
+@contextlib.contextmanager
+def _pinned_routing(ids: list, replay: bool):
+    """``moe.top_k`` inside the block: without ``replay`` each call's ids
+    are recorded (on the host) in ``ids``; with it each call returns the
+    next recorded ids, on the probabilities' device, with the
+    probabilities at them, and the yielded list counts the tokens whose
+    own top-k set would have differed. A bf16 router's near-tie can fall
+    otherwise on the card than on the CPU (phase moe), which moves a token to
+    another expert and that expert's gradient by far more than rounding;
+    pinned, two devices' gradients differ by rounding alone."""
+    from repro_torch.models import moe
+    top_k, it, moved = moe.top_k, iter(ids), [0]
+
+    def recording(probs, k):
+        vals, idx = top_k(probs, k)
+        ids.append(idx.cpu())
+        return vals, idx
+
+    def replaying(probs, k):
+        idx = next(it).to(probs.device)
+        own = top_k(probs, k)[1]
+        moved[0] += int((own.sort(-1).values != idx.sort(-1).values)
+                        .any(-1).sum())
+        return probs.gather(-1, idx), idx
+    with mock.patch.object(moe, "top_k", replaying if replay else recording):
+        yield moved
+
+
+def _rel_l2(got, want) -> float:
+    return (float(torch.linalg.vector_norm((got.float() - want.float())))
+            / max(float(torch.linalg.vector_norm(want.float())), 1e-30))
+
+
+def check_train_grads_card_vs_cpu(small, device="cuda",
+                                  per_leaf: bool = True) -> str:
+    """One training step of the smoke model ``small`` (a Mamba or hybrid
+    config, drawn from seed 1 on the host: the same weights on both
+    devices) on a 2 × 40 batch (a ragged last SSD chunk): the loss and
+    every gradient leaf, card vs CPU. fp32: the loss within 1e-4 relative
+    and each leaf within 1e-4 × its max|g| (sums in another order; the
+    card's SSD forward is the kernel's). bf16: the loss within
+    ZOO_BF16_TOL relative and each leaf within max(ZOO_BF16_TOL, 2 × the
+    CPU's own distance between its bf16 gradient and its gradient of the
+    same weights in fp32) × max|g|, phase zoo's rule: the card and the CPU
+    round to bf16 at other places, so their distance is of the size of
+    each one's bf16 noise; in bf16 the MoE layers' expert choices are
+    pinned to the CPU's on the card and in the fp32 copy
+    (:func:`_pinned_routing`), the tokens routed otherwise reported.
+    Without ``per_leaf`` (the 16-layer hybrid in bf16) the bf16 rule holds
+    the root mean square over the leaves of each leaf's relative L2
+    distance instead, against twice the CPU's own from fp32: per leaf,
+    the largest of 197 leaves' max-abs distances is a tail of bf16 noise
+    (on an H100: the card's ``a_log`` of layer 7 7.4% of its scale from
+    the CPU's, whose own distance from fp32 is 2.8%), and each leaf's
+    distances, the card's from fp32 among them, are printed. On the card
+    each Mamba layer launches
+    ``ssd_scan`` once, the short conv twice (forward, dx) and the
+    ``conv_tap_grad`` instance of the dtype once, and no other kernel of
+    the port; SSDScan's backward runs once a layer. Returns the report."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import init_model
+    n = sum(m == "mamba" for m, _ in small.layers_spec)
+    host = {k: torch.from_numpy(v).long() for k, v in batch_at(DataConfig(
+        vocab=small.vocab, seq_len=40, global_batch=2, seed=5), 0).items()}
+    cpu = init_model(small, torch.Generator().manual_seed(1), "cpu")
+    card = init_model(small, torch.Generator().manual_seed(1), device)
+    pin = small.dtype != "float32"
+    ids = []
+    with (_pinned_routing(ids, replay=False) if pin
+          else contextlib.nullcontext()):
+        l_cpu, _, g_cpu = loss_and_grads(cpu, small, host)
+    _reset_kernel_counts()
+    with (_pinned_routing(ids, replay=True) if pin
+          else contextlib.nullcontext([0])) as moved:
+        l_dev, _, g_dev = loss_and_grads(card, small, {
+            k: v.to(device) for k, v in host.items()})
+    _sync(device)
+    launches, ops_ran = _kernel_counts(), dict(ssd_scan.op_counters)
+    tap = ("conv_tap_grad" if small.dtype == "float32"
+           else "conv_tap_grad_bf16")
+    want = {k: 0 for k in launches}
+    want.update({"ssd_scan": n, "short_conv": 2 * n, tap: n})
+    if launches != want or ops_ran != {"fwd": n, "bwd_chunked": n}:
+        raise AssertionError(f"smoke {small.name} {small.dtype} training "
+                             f"launched {launches}, SSDScan {ops_ran}")
+    if small.dtype == "float32":
+        loss_tol, limits = 1e-4, {k: 1e-4 for k in g_cpu}
+        rule = "1e-4"
+    else:
+        cfg32, cpu32 = _fp32_copy(small, cpu, "cpu")
+        with _pinned_routing(ids, replay=True) as moved32:
+            _, _, g32 = loss_and_grads(cpu32, cfg32, host)
+        loss_tol = ZOO_BF16_TOL
+        limits = {k: max(ZOO_BF16_TOL, 2 * _rel(g_cpu[k], g32[k]))
+                  for k in g_cpu}
+        rule = (f"max({ZOO_BF16_TOL}, 2 x the CPU's bf16-vs-fp32 "
+                f"distance); {len(ids)} routings pinned to the CPU's, "
+                f"tokens the card's own top-k would move {moved[0]}, the "
+                f"fp32 copy's {moved32[0]}")
+    errs = {k: _rel(g_dev[k].cpu(), g_cpu[k]) for k in g_cpu}
+    worst = max(errs, key=lambda k: errs[k] / limits[k])
+    lerr = abs(float(l_dev) - float(l_cpu)) / abs(float(l_cpu))
+    report = (f"loss {float(l_dev):.6f} vs {float(l_cpu):.6f} (rel "
+              f"{lerr:.3e}, limit {loss_tol}); {len(errs)} gradient leaves, "
+              f"worst against its limit {worst} {errs[worst]:.3e} x max|g| "
+              f"(limit {limits[worst]:.3e}, {rule}); largest "
+              f"{max(errs.values()):.3e}; launches {launches}, SSDScan "
+              f"{ops_ran}")
+    held = all(errs[k] <= limits[k] for k in errs)
+    if not per_leaf:
+        rms = math.sqrt(statistics.mean(
+            _rel_l2(g_dev[k].cpu(), g_cpu[k]) ** 2 for k in g_cpu))
+        own = math.sqrt(statistics.mean(
+            _rel_l2(g_cpu[k], g32[k]) ** 2 for k in g_cpu))
+        limit = max(ZOO_BF16_TOL, 2 * own)
+        dev32 = {k: _rel(g_dev[k].cpu(), g32[k]) for k in g_cpu}
+        cpu32 = {k: _rel(g_cpu[k], g32[k]) for k in g_cpu}
+        report += (f"; held by the RMS over the leaves of each leaf's "
+                   f"relative L2 distance: card vs CPU {rms:.4e}, limit "
+                   f"max({ZOO_BF16_TOL}, 2 x the CPU's from fp32 "
+                   f"{own:.4e}) = {limit:.4e}; the 8 leaves farthest card "
+                   f"vs CPU, max-abs card vs CPU / card vs fp32 / CPU vs "
+                   f"fp32: "
+                   + ", ".join(f"{k} {errs[k]:.3e}/{dev32[k]:.3e}/"
+                               f"{cpu32[k]:.3e}" for k in sorted(
+                                   errs, key=lambda k: -errs[k])[:8]))
+        held = rms <= limit
+    if set(g_dev) != set(g_cpu) or not lerr <= loss_tol or not held:
+        raise AssertionError(f"smoke {small.name} {small.dtype} training "
+                             f"differs card vs CPU: {report}")
+    return report
 
 
 def phase_mamba(peaks, device="cuda") -> tuple[dict, dict]:
@@ -4815,6 +5076,152 @@ def phase_mamba(peaks, device="cuda") -> tuple[dict, dict]:
     return kernels, {"mamba_score": score_launches,
                      "mamba_prefill": prefill_launches,
                      "mamba_serve": serve_launches}
+
+
+#: phase mamba_train: global batch (rows of MAMBA_SEQ tokens), warm-up
+#: steps (the first Trainer.run) and all steps (the second resumes to it)
+MAMBA_TRAIN_BATCH, MAMBA_TRAIN_WARMUP, MAMBA_TRAIN_STEPS = 4, 2, 6
+#: launches a Mamba layer makes in one training step under remat="full":
+#: the forward and the backward's recompute each launch ``ssd_scan`` and
+#: the bf16 ``short_conv``, the backward the bf16 ``short_conv`` again (dx)
+#: and ``conv_tap_grad_bf16`` (the taps' cotangent); SSDScan's and
+#: ShortConv's forwards run twice, their backwards once
+MAMBA_TRAIN_LAUNCHES = {"ssd_scan": 2, "short_conv_bf16": 3,
+                        "conv_tap_grad_bf16": 1, "other": 0}
+MAMBA_TRAIN_OPS = {"SSDScan": {"fwd": 2, "bwd_chunked": 1},
+                   "ShortConv": {"fwd": 2, "bwd_kernel": 1, "bwd_ref": 0}}
+
+
+def phase_mamba_train(smi: str, device="cuda") -> dict:
+    """The full-width mamba2-2.7b (64 layers, d 2560, bf16, its config's
+    ``remat="full"``; random weights from seed 0, drawn on the card)
+    trains MAMBA_TRAIN_STEPS AdamW steps of MAMBA_TRAIN_BATCH × MAMBA_SEQ
+    tokens through two ``Trainer.run`` calls, as :func:`phase_train`: the
+    warm-up steps, then a resume to the end, whose wall (host clock to a
+    synchronise, and CUDA events) gives tokens/s. Every step must make
+    MAMBA_TRAIN_LAUNCHES launches a layer and MAMBA_TRAIN_OPS Function
+    runs, and every loss must be finite. Prints the losses, the peak
+    memory, and one more step traced (device busy and idle share, the
+    share of SSDScan's backward). Returns the launch counts of the
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import short_conv, ssd_scan
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = get_config(MAMBA)
+    t0 = time.perf_counter()
+    model = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                       device=device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != 2_831_730_176 or cfg.remat != "full":
+        raise AssertionError(f"{cfg.name}: {n_params} parameters, remat "
+                             f"{cfg.remat!r}")
+    ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=MAMBA_TRAIN_WARMUP,
+                           total_steps=MAMBA_TRAIN_STEPS)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step_fn = make_train_step(cfg, ocfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=MAMBA_SEQ,
+                      global_batch=MAMBA_TRAIN_BATCH, seed=0)
+
+    def trainer(total):
+        return Trainer(TrainerConfig(total_steps=total, log_every=0),
+                       step_fn, data, log=lambda line: print(line, flush=True))
+    warm, timed = trainer(MAMBA_TRAIN_WARMUP), trainer(MAMBA_TRAIN_STEPS)
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_mamba_counts()
+    t0 = time.perf_counter()
+    opt, _ = warm.run(model, opt)
+    _sync(device)
+    t1 = time.perf_counter()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    opt, end = timed.run(model, opt, MAMBA_TRAIN_WARMUP)
+    ev1.record()
+    _sync(device)
+    t2 = time.perf_counter()
+    launches = _mamba_counts()
+    ops_ran = {"SSDScan": dict(ssd_scan.op_counters),
+               "ShortConv": dict(short_conv.op_counters)}
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [float(m["loss"])
+              for m in warm.metrics_history + timed.metrics_history]
+    n_timed = end - MAMBA_TRAIN_WARMUP
+    tokens = n_timed * MAMBA_TRAIN_BATCH * MAMBA_SEQ
+    host_s, ev_s = t2 - t1, ev0.elapsed_time(ev1) / 1e3
+    per_step = {k: v / MAMBA_TRAIN_STEPS for k, v in launches.items()}
+    ops_per_step = {f: {k: v / MAMBA_TRAIN_STEPS for k, v in c.items()}
+                    for f, c in ops_ran.items()}
+    print(f"[mamba train] {cfg.name}: {cfg.n_layers} layers, d="
+          f"{cfg.d_model}, {n_params} parameters, {cfg.param_dtype}, remat "
+          f"{cfg.remat}; init_model {t_init:.3f} s drawing on the card; "
+          f"{end} AdamW steps of {MAMBA_TRAIN_BATCH} x {MAMBA_SEQ} tokens "
+          f"({smi}): steps 0-{MAMBA_TRAIN_WARMUP - 1} {t1 - t0:.3f} s "
+          f"(train_step ms {[round(t * 1e3, 3) for t in warm.step_seconds]})"
+          f"; steps {MAMBA_TRAIN_WARMUP}-{end - 1} {host_s:.3f} s host clock "
+          f"after a synchronise, {ev_s:.3f} s CUDA events: "
+          f"{tokens / host_s:.1f} tokens/s host, {tokens / ev_s:.1f} "
+          f"tokens/s events, {host_s / n_timed * 1e3:.3f} ms a step (train_"
+          f"step ms {[round(t * 1e3, 3) for t in timed.step_seconds]}); "
+          f"losses {losses}; max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    print(f"[mamba train] kernel launches per step {per_step}; Function "
+          f"runs per step {ops_per_step}", flush=True)
+    want = {k: v * cfg.n_layers for k, v in MAMBA_TRAIN_LAUNCHES.items()}
+    want_ops = {f: {k: v * cfg.n_layers for k, v in c.items()}
+                for f, c in MAMBA_TRAIN_OPS.items()}
+    if (end != MAMBA_TRAIN_STEPS or len(losses) != MAMBA_TRAIN_STEPS
+            or not all(math.isfinite(v) for v in losses)
+            or per_step != want or ops_per_step != want_ops):
+        raise AssertionError(f"mamba training: {end} steps, losses {losses}, "
+                             f"{per_step} launches and {ops_per_step} "
+                             f"Function runs a step, not {want} and "
+                             f"{want_ops}")
+    # one more step traced: where its device time goes
+    batch = {k: torch.from_numpy(v).to(device, torch.long)
+             for k, v in batch_at(data, end).items()}
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(model, opt, batch)
+        _sync(device)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    ssd_bwd = sum(e.device_time_total for e in events
+                  if e.device_type != torch.autograd.DeviceType.CUDA
+                  and e.key.endswith("SSDScanBackward")
+                  and "evaluate_function" in e.key) / 1e3
+
+    def dev_ms(name):
+        return sum(e.self_device_time_total for e in kern
+                   if name in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[mamba train] one step traced: wall {wall:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.3f}, "
+          f"{sum(e.count for e in kern)} kernel launches; SSDScan backward "
+          f"(autograd through the chunked scan) {ssd_bwd:.3f} ms device "
+          f"({ssd_bwd / busy:.3f} of busy); ssd_scan kernel "
+          f"{dev_ms('ssd_scan_bf16_kernel'):.3f} ms, short_conv "
+          f"{dev_ms('short_conv_kernel'):.3f} ms, conv_tap_grad "
+          f"{dev_ms('conv_tap_grad_kernel'):.3f} ms; top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                      f"ms x{e.count}" for e in top), flush=True)
+    del model, opt, step_fn, batch, prof
+    torch.cuda.empty_cache()
+    print(f"[mamba train] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
 
 
 # ------------------------------------------------------------------ jamba
@@ -5011,11 +5418,10 @@ def check_jamba_card_vs_cpu(device="cuda") -> None:
     ``ssd_scan`` and one ``short_conv`` launched a Mamba layer and no
     other kernel; fp32 greedy ``generate``
     token-exact; the fp32 Engine (4 requests over 2 slots, max_len 32)
-    token-exact against solo decode on the card; training the hybrid on
-    the card meets ``ssd_scan``'s forward-only refusal (Step 10)."""
+    token-exact against solo decode on the card; one training step card vs
+    CPU in both dtypes (:func:`check_train_grads_card_vs_cpu`)."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch.serve import generate
-    from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.transformer import forward, init_model
     from repro_torch.serving_engine import Engine
     toks = torch.from_numpy(np.random.default_rng(2).integers(0, 512,
@@ -5074,21 +5480,16 @@ def check_jamba_card_vs_cpu(device="cuda") -> None:
             if [run["tokens"][i] for i in range(4)] != solo:
                 raise AssertionError("smoke jamba fp32 Engine differs from "
                                      "solo decode on the card")
-            batch = {"tokens": toks.to(device), "labels": toks.to(device)}
-            try:
-                loss_and_grads(card, small, batch)
-            except NotImplementedError as e:
-                if "Step 10" not in str(e):
-                    raise
-            else:
-                raise AssertionError("training the hybrid on the card ran")
             tokens = ("; greedy generate 2 x (9 + 7) token-exact; the "
                       "Engine (4 requests, 2 slots) token-exact against "
-                      "solo decode on the card; training refused (ssd_scan "
-                      "is forward-only, Step 10)")
+                      "solo decode on the card")
         print(f"[jamba check] smoke {small.name} {dtype} ({small.n_layers} "
               f"layers) logits {tuple(want.shape)} card vs CPU: {report}"
               f"{noise}; launches {launches}{tokens}", flush=True)
+        report = check_train_grads_card_vs_cpu(
+            small, device, per_leaf=dtype == "float32")
+        print(f"[jamba check] smoke {small.name} {dtype} training card vs "
+              f"CPU: {report}", flush=True)
 
 
 def phase_jamba(smi: str, peaks, device="cuda") -> tuple:
@@ -5338,6 +5739,7 @@ def main() -> int:
     del model
     mamba_kernels, mamba_launches = phase_mamba(peaks)
     kernels.update(mamba_kernels)
+    mamba_train_launches = phase_mamba_train(smi)
     jamba_kernels, jamba_launches = phase_jamba(smi, peaks)
     for at, extra in (("at_jamba", jamba_kernels),
                       ("at_encdec", encdec_kernels),
@@ -5379,6 +5781,8 @@ def main() -> int:
                 if path != "jamba_fd"},
              "jamba_fd": (jamba_launches["jamba_fd"], (
                  *ZOO_OVERRIDES["fd"], "ssd_scan", "short_conv_bf16")),
+             "mamba_train": (mamba_train_launches, tuple(
+                 k for k, v in MAMBA_TRAIN_LAUNCHES.items() if v)),
              **{path: (counts, {
                  "encdec_fd": (_fd_row1(ENCDEC_SEQ), "fd_mul"),
                  "encdec_fd_serve": ("hilbert_window",),

@@ -1,7 +1,7 @@
 """Mamba2-2.7B [arXiv:2405.21060]: attention-free SSD, 64L, d_state=128.
-Copy of ``repro/configs/mamba2_2p7b.py``. The port serves and scores it
-(``launch/serve.py``, ``launch/steps.make_forward``); training it is not
-ported yet (ROADMAP Queue 1)."""
+Copy of ``repro/configs/mamba2_2p7b.py``. The port serves, scores and
+trains it (``launch/serve.py``, ``launch/steps.make_forward``,
+``launch/train.py``; training checkpoints every layer, ``remat="full"``)."""
 from repro_torch.configs.base import register
 from repro_torch.models.config import ArchConfig
 

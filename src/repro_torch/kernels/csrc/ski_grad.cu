@@ -1,8 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels of the fused SKI-TNO backward's
 // parameter cotangents (paper §3.2), bound to PyTorch through a plain C
 // interface (ctypes) by src/repro_torch/kernels/ski_grad.py. All tensors are
-// contiguous fp32, and every sum runs in fp32 in a fixed order (no atomics),
-// so both results are bitwise the same from run to run. The signal cotangent
+// contiguous fp32 (conv_tap_grad also takes bf16 inputs), and every sum runs
+// in fp32 in a fixed order (no atomics), so both results are bitwise the
+// same from run to run. The signal cotangent
 // needs no kernel of its own: it is the forward's pass 2 of csrc/ski.cu with
 // A transposed, the taps flipped and left mirrored (kernels/ski_vjp.py).
 //
@@ -48,6 +49,17 @@
 //   kernel added it with a store strided by m) took 0.0213-0.0218; it kept
 //   every tap in one pass, so at m = 400 it is faster (0.086 against
 //   0.093).
+//   conv_tap_grad_bf16 is the same body over bf16 g and x (the TPU kernel
+//   takes bf16 and casts each tile to fp32 in VMEM; the port's Mamba conv
+//   backward launches it): the rings keep g and x as bf16 (57,344 bytes of
+//   shared memory a block, half the fp32 rings), a 16-byte copy moves 8
+//   channels, and each quad is widened to fp32 exactly where a lane reads
+//   it, so the sums are the fp32 instance's in its order. Bound: 2 (2 b n
+//   d) + 4 d m bytes: at Mamba's conv (8, 2048, 5376), m = 4, 352,407,552
+//   bytes, 0.1052 ms at 3.35 TB/s; 2 b n d m = 0.70 GFLOP, 0.0105 ms at 67
+//   TFLOP/s: bound by bytes. A tap pass computes kTT = 32 taps whatever m
+//   is, so at m = 4 seven eighths of its FMAs (5.6 GFLOP in all, 0.084 ms
+//   at the fp32 peak) are thrown away: the first cut if it is slow.
 //
 // gram_grad  replaces src/repro/kernels/ski_grad.py _gram_grad_kernel /
 //   _gram_grad_call (gram_grad_pallas):
@@ -109,11 +121,12 @@ static_assert(kTQ * kTG == 32, "a warp's lanes: 8 quads x 4 tap groups");
 static_assert(kWRows % kHalf == 0, "a warp's rows in whole windows");
 static_assert(kXRing >= kStages * (kChunk + kHalo),
               "the x ring holds every chunk in flight with its halo");
-constexpr int kTapSmemFloats = kStages * kChunk * kTC + kXRing * kTC;
-static_assert(kWarps * kTT * kTC <= kXRing * kTC,
-              "the warps' sums fit in the x ring");
-static_assert(kTT * (kTC + 1) <= kStages * kChunk * kTC,
-              "the tile's sum fits in the g ring");
+// dynamic shared memory of a conv_tap_grad block: the g and x rings in the
+// element type (fp32 114,688 bytes, bf16 57,344)
+template <typename T>
+constexpr int tap_smem_bytes() {
+  return (kStages * kChunk * kTC + kXRing * kTC) * static_cast<int>(sizeof(T));
+}
 static_assert(kTT * kTC % kThreads == 0, "the tile's sums, whole per thread");
 constexpr int kMaxTickets = 1 << 16;  // tiles x tap passes of a launch
 
@@ -144,7 +157,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
 
 // 16-byte asynchronous copy global -> shared (both 16-byte aligned),
 // zero-filling when !valid.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int nbytes = valid ? 16 : 0;
@@ -161,22 +174,56 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
 }
 
-// Four consecutive channels c, c+1, c+2, c+3 of one row into shared memory:
-// one 16-byte copy (kVec: d % 4 == 0, 16-byte aligned), else four 4-byte
-// copies, each channel past d zero-filled; a row that is not `ok` is zero.
-template <bool kVec>
-__device__ __forceinline__ void copy_quad(float* dst, const float* base,
-                                          const float* row, long long c,
-                                          long long d, bool ok) {
+// bf16 values as their 16 bits: a bf16 is the high half of the fp32 of the
+// same value, so widening is a shift, exact (no cuda_bf16.h needed).
+using bf16_t = unsigned short;
+
+// Channels of one 16-byte copy: 4 fp32, 8 bf16.
+template <typename T>
+constexpr int kPer16 = 16 / static_cast<int>(sizeof(T));
+
+// One channel into shared memory, zero when !valid (src is then not read):
+// fp32 by a 4-byte cp.async; bf16 by a plain load and store (cp.async has
+// no 2-byte form; the slot written is free, and the next __syncthreads
+// publishes it as it publishes the copies).
+__device__ __forceinline__ void copy_one(float* dst, const float* src,
+                                         bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void copy_one(bf16_t* dst, const bf16_t* src,
+                                         bool valid) {
+  *dst = valid ? *src : static_cast<bf16_t>(0);
+}
+
+// kPer16<T> consecutive channels c, c+1, ... of one row into shared memory:
+// one 16-byte copy (kVec: d % kPer16<T> == 0, 16-byte aligned), else one
+// copy a channel, each channel past d zero-filled; a row that is not `ok`
+// is zero.
+template <bool kVec, typename T>
+__device__ __forceinline__ void copy_vec(T* dst, const T* base, const T* row,
+                                         long long c, long long d, bool ok) {
   if (kVec) {
     cp_async16(dst, ok && c < d ? row + c : base, ok && c < d);
   } else {
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
+    for (int u = 0; u < kPer16<T>; ++u) {
       const bool v = ok && c + u < d;
-      cp_async4(dst + u, v ? row + c + u : base, v);
+      copy_one(dst + u, v ? row + c + u : base, v);
     }
   }
+}
+
+// Four consecutive channels from shared memory, widened to fp32 (a bf16
+// quad is one 8-byte load).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const bf16_t* p) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(w.x << 16),
+                     __uint_as_float(w.x & 0xffff0000u),
+                     __uint_as_float(w.y << 16),
+                     __uint_as_float(w.y & 0xffff0000u));
 }
 
 // ---------------------------------------------------------- conv_tap_grad
@@ -228,49 +275,60 @@ __device__ __forceinline__ void tap_next(TapCursor& t, long long pieces,
 // + left + i) sits at ring row (xpos + i) mod kXRing: the pieces' windows
 // follow each other in the ring, so no chunk in flight overwrites another's
 // rows (at most kStages windows of kChunk + kHalo rows).
-template <bool kVec>
-__device__ __forceinline__ void tap_load(float* gring, float* xring,
+template <bool kVec, typename T>
+__device__ __forceinline__ void tap_load(T* gring, T* xring,
                                          const TapCursor& t,
-                                         const float* __restrict__ g,
-                                         const float* __restrict__ x,
+                                         const T* __restrict__ g,
+                                         const T* __restrict__ x,
                                          long long n, long long d,
                                          long long c0, int k0, int left) {
+  constexpr int kV = kPer16<T>;            // channels of a copy,
+  constexpr int kTV = kTC / kV;            // copies of a tile row
   const long long r0 = t.chunk * kChunk;   // the chunk's first row in the piece
-  float* gs = gring + (t.seq % kStages) * (kChunk * kTC);
-  const float* gb = g + t.bi * n * d;
-  const float* xb = x + t.bi * n * d;
-  for (int e = threadIdx.x; e < kChunk * kTQ; e += kThreads) {
-    const int row = e / kTQ, q = e % kTQ;
+  T* gs = gring + (t.seq % kStages) * (kChunk * kTC);
+  const T* gb = g + t.bi * n * d;
+  const T* xb = x + t.bi * n * d;
+  for (int e = threadIdx.x; e < kChunk * kTV; e += kThreads) {
+    const int row = e / kTV, q = e % kTV;
     const long long j = t.j0 + r0 + row;
-    copy_quad<kVec>(gs + row * kTC + 4 * q, g, gb + j * d, c0 + 4 * q, d,
-                    r0 + row < t.rows);
+    copy_vec<kVec>(gs + row * kTC + kV * q, g, gb + j * d, c0 + kV * q, d,
+                   r0 + row < t.rows);
   }
   const long long lo = t.chunk == 0 ? 0 : r0 + kHalo;
   const long long hi = r0 + kChunk + kHalo;
   const long long xi0 = t.j0 - k0 - kHalo + left;
-  for (int e = threadIdx.x; e < (hi - lo) * kTQ; e += kThreads) {
-    const long long w = lo + e / kTQ;
-    const int q = e % kTQ;
+  for (int e = threadIdx.x; e < (hi - lo) * kTV; e += kThreads) {
+    const long long w = lo + e / kTV;
+    const int q = e % kTV;
     const long long i = xi0 + w;
     const int slot = (int)((t.xpos + w) & (kXRing - 1));
-    copy_quad<kVec>(xring + slot * kTC + 4 * q, x, xb + i * d, c0 + 4 * q, d,
-                    i >= 0 && i < n);
+    copy_vec<kVec>(xring + slot * kTC + kV * q, x, xb + i * d, c0 + kV * q, d,
+                   i >= 0 && i < n);
   }
 }
 
 // Grid (kTapSplit, channel tiles, tap passes); dynamic shared memory
-// kTapSmemFloats floats; part: kTapSplit (tile, pass) sums of kTT x kTC.
-template <bool kVec>
+// tap_smem_bytes<T>(); part: kTapSplit (tile, pass) sums of kTT x kTC.
+// T is float or bf16_t: the rings hold g and x as they are stored, each
+// quad widened to fp32 where it is read, and every sum is fp32 in the same
+// order for both.
+template <bool kVec, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-    conv_tap_grad_kernel(const float* __restrict__ g,
-                         const float* __restrict__ x, float* __restrict__ part,
+    conv_tap_grad_kernel(const T* __restrict__ g,
+                         const T* __restrict__ x, float* __restrict__ part,
                          float* __restrict__ df, long long b, long long n,
                          long long d, int m, int left, long long spr,
                          long long len) {
-  extern __shared__ __align__(16) float smem[];
+  static_assert(kWarps * kTT * kTC * sizeof(float)
+                    <= kXRing * kTC * sizeof(T),
+                "the warps' sums fit in the x ring");
+  static_assert(kTT * (kTC + 1) * sizeof(float)
+                    <= kStages * kChunk * kTC * sizeof(T),
+                "the tile's sum fits in the g ring");
+  extern __shared__ __align__(16) unsigned char tap_smem[];
   __shared__ bool last;
-  float* gring = smem;                          // [kStages][kChunk][kTC]
-  float* xring = smem + kStages * kChunk * kTC;  // [kXRing][kTC]
+  T* gring = reinterpret_cast<T*>(tap_smem);    // [kStages][kChunk][kTC]
+  T* xring = gring + kStages * kChunk * kTC;     // [kXRing][kTC]
   const int rank = (int)blockIdx.x;
   const long long c0 = (long long)blockIdx.y * kTC;
   const int k0 = (int)blockIdx.z * kTT;
@@ -289,7 +347,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
     if (ld.piece < pieces) {
-      tap_load<kVec>(gring, xring, ld, g, x, n, d, c0, k0, left);
+      tap_load<kVec, T>(gring, xring, ld, g, x, n, d, c0, k0, left);
       tap_next(ld, pieces, spr, len, n);
     }
     cp_async_commit();
@@ -298,11 +356,11 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_wait<kStages - 2>();   // this chunk has landed
     __syncthreads();                // for every thread; slot seq - 1 is free
     if (ld.piece < pieces) {
-      tap_load<kVec>(gring, xring, ld, g, x, n, d, c0, k0, left);
+      tap_load<kVec, T>(gring, xring, ld, g, x, n, d, c0, k0, left);
       tap_next(ld, pieces, spr, len, n);
     }
     cp_async_commit();
-    const float* gs = gring + (cur.seq % kStages) * (kChunk * kTC) + 4 * cq;
+    const T* gs = gring + (cur.seq % kStages) * (kChunk * kTC) + 4 * cq;
     // row r0 + jj (jj = warp rows + h + q) with tap k0 + kTK tg + kk reads
     // window index r0 + jj - kTK tg - kk + kHalo: window element q + kTK-1-kk
     // from window base r0 + warp rows + h + kHalo - (kTK - 1) - kTK tg
@@ -314,12 +372,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int e = 0; e < kHalf + kTK - 1; ++e) {
         const int slot = (int)((wb0 + h + e) & (kXRing - 1));
-        xw[e] = *reinterpret_cast<const float4*>(xring + slot * kTC + 4 * cq);
+        xw[e] = load4(xring + slot * kTC + 4 * cq);
       }
 #pragma unroll
       for (int q = 0; q < kHalf; ++q) {
-        const float4 gv = *reinterpret_cast<const float4*>(
-            gs + (warp * kWRows + h + q) * kTC);
+        const float4 gv = load4(gs + (warp * kWRows + h + q) * kTC);
 #pragma unroll
         for (int kk = 0; kk < kTK; ++kk) {
           const float4 xv = xw[q + kTK - 1 - kk];
@@ -335,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   cp_async_wait<0>();
   __syncthreads();                  // every warp is done with the rings
   // the warps' sums, [warp][tap][channel], added in warp order
-  float* red = xring;
+  float* red = reinterpret_cast<float*>(xring);
 #pragma unroll
   for (int kk = 0; kk < kTK; ++kk)
     *reinterpret_cast<float4*>(
@@ -358,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   // the tile's last block: the kTapSplit blocks' sums in block order, then
   // df's rows (channel-major) through a padded tile in shared memory
   __threadfence();
-  float* out = gring;               // [tap][kTC + 1]
+  float* out = reinterpret_cast<float*>(gring);   // [tap][kTC + 1]
   float v[kTT * kTC / kThreads][kTapSplit];
 #pragma unroll
   for (int u = 0; u < kTT * kTC / kThreads; ++u)
@@ -428,7 +485,7 @@ __device__ __forceinline__ void gram_load(float* gs, float* zs,
     const int e = threadIdx.x + u * kGThreads;
     const int bb = e / kGS, row = e % kGS;
     const long long bi = s.bc * kGB + bb, si = s.st * kGS + row;
-    copy_quad<kVec>(gs + (bb * kGS + row) * kGC, gz, gz + (bi * r + si) * d,
+    copy_vec<kVec>(gs + (bb * kGS + row) * kGC, gz, gz + (bi * r + si) * d,
                     c, d, bi < b && si < r);
   }
 #pragma unroll
@@ -436,7 +493,7 @@ __device__ __forceinline__ void gram_load(float* gs, float* zs,
     const int e = threadIdx.x + u * kGThreads;
     const int bb = e / kGT, row = e % kGT;
     const long long bi = s.bc * kGB + bb, ti = s.tt * kGT + row;
-    copy_quad<kVec>(zs + (bb * kGT + swz(row)) * kGC, z,
+    copy_vec<kVec>(zs + (bb * kGT + swz(row)) * kGC, z,
                     z + (bi * r + ti) * d, c, d, bi < b && ti < r);
   }
 }
@@ -539,6 +596,44 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
+// Pieces a batch row is cut into for conv_tap_grad: one when b fills the
+// tile's kTapSplit blocks, else enough for each block to take one, but at
+// most ceil(n / kMinPiece).
+long long conv_tap_grad_pieces(long long b, long long n) {
+  const long long want = (kTapSplit + b - 1) / b;
+  const long long most = (n + kMinPiece - 1) / kMinPiece;
+  const long long p = want < most ? want : most;
+  return p < 1 ? 1 : p;
+}
+
+// One conv_tap_grad launch over g and x in T (float or bf16_t): the 16-byte
+// instance when d is a multiple of a copy's channels and both are aligned.
+template <typename T>
+int launch_conv_tap_grad(const T* g, const T* x, void* part, void* df,
+                         long long b, long long n, long long d, long long m,
+                         long long left, void* stream) {
+  const long long tiles = (d + kTC - 1) / kTC;
+  const long long passes = (m + kTT - 1) / kTT;
+  if (tiles > 65535 || passes > 65535 || tiles * passes > kMaxTickets)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long spr = conv_tap_grad_pieces(b, n);
+  const long long len = (n + spr - 1) / spr;
+  const bool vec = d % kPer16<T> == 0 && aligned16(g) && aligned16(x);
+  void (*kernel)(const T*, const T*, float*, float*, long long, long long,
+                 long long, int, int, long long, long long) =
+      vec ? conv_tap_grad_kernel<true, T> : conv_tap_grad_kernel<false, T>;
+  const int smem = tap_smem_bytes<T>();
+  // set on the current device at each launch: no per-process state
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(kTapSplit, (unsigned)tiles, (unsigned)passes);
+  kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
+      g, x, static_cast<float*>(part), static_cast<float*>(df), b, n, d,
+      (int)m, (int)left, spr, len);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -551,55 +646,38 @@ long long conv_tap_grad_workspace_floats(long long b, long long n,
   return (d + kTC - 1) / kTC * ((m + kTT - 1) / kTT) * kTapSplit * kTT * kTC;
 }
 
-// Pieces a batch row is cut into for conv_tap_grad: one when b fills the
-// tile's kTapSplit blocks, else enough for each block to take one, but at
-// most ceil(n / kMinPiece).
-static long long conv_tap_grad_pieces(long long b, long long n) {
-  const long long want = (kTapSplit + b - 1) / b;
-  const long long most = (n + kMinPiece - 1) / kMinPiece;
-  const long long p = want < most ? want : most;
-  return p < 1 ? 1 : p;
-}
-
-// g, x: (b, n, d); part: conv_tap_grad_workspace_floats(b, n, d, m) floats;
-// df: (d, m); contiguous fp32 on the device; 0 <= left < m. Returns
+// g, x: (b, n, d) in T; part: conv_tap_grad_workspace_floats(b, n, d, m)
+// floats; df: (d, m) fp32; contiguous on the device; 0 <= left < m. Returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue when the
 // grid would exceed its bounds or the tickets.
 int conv_tap_grad_f32(const void* g, const void* x, void* part, void* df,
                       long long b, long long n, long long d, long long m,
                       long long left, void* stream) {
-  const long long tiles = (d + kTC - 1) / kTC;
-  const long long passes = (m + kTT - 1) / kTT;
-  if (tiles > 65535 || passes > 65535 || tiles * passes > kMaxTickets)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long spr = conv_tap_grad_pieces(b, n);
-  const long long len = (n + spr - 1) / spr;
-  const bool vec = d % 4 == 0 && aligned16(g) && aligned16(x);
-  void (*kernel)(const float*, const float*, float*, float*, long long,
-                 long long, long long, int, int, long long, long long) =
-      vec ? conv_tap_grad_kernel<true> : conv_tap_grad_kernel<false>;
-  const int smem = kTapSmemFloats * (int)sizeof(float);
-  // set on the current device at each launch: no per-process state
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(kTapSplit, (unsigned)tiles, (unsigned)passes);
-  kernel<<<grid, kThreads, (size_t)smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<float*>(part), static_cast<float*>(df), b, n, d, (int)m,
-      (int)left, spr, len);
-  return static_cast<int>(cudaGetLastError());
+  return launch_conv_tap_grad(static_cast<const float*>(g),
+                              static_cast<const float*>(x), part, df, b, n, d,
+                              m, left, stream);
 }
 
-// Blocks of each kernel an SM holds (the 16-byte instances), -1 on error.
+// The same sums over bf16 g and x (each value widened to fp32 exactly where
+// it is read), df fp32: the instance of the JAX kernel's bf16 inputs.
+int conv_tap_grad_bf16(const void* g, const void* x, void* part, void* df,
+                       long long b, long long n, long long d, long long m,
+                       long long left, void* stream) {
+  return launch_conv_tap_grad(static_cast<const bf16_t*>(g),
+                              static_cast<const bf16_t*>(x), part, df, b, n,
+                              d, m, left, stream);
+}
+
+// Blocks of each kernel an SM holds (the 16-byte fp32 instances), -1 on
+// error.
 int conv_tap_grad_blocks_per_sm() {
   int blocks = 0;
-  const int smem = kTapSmemFloats * (int)sizeof(float);
-  if (cudaFuncSetAttribute(conv_tap_grad_kernel<true>,
+  const int smem = tap_smem_bytes<float>();
+  if (cudaFuncSetAttribute(conv_tap_grad_kernel<true, float>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, conv_tap_grad_kernel<true>, kThreads, smem) !=
+          &blocks, conv_tap_grad_kernel<true, float>, kThreads, smem) !=
           cudaSuccess)
     return -1;
   return blocks;

@@ -7,8 +7,9 @@ a CUDA tensor the hand-written kernels (see ``kernels/fd_fused.py``,
 and ``kernels/ssd_scan.py``). As the JAX entries go through their custom VJPs,
 the differentiable entries here go through autograd Functions whose
 backwards launch kernels (``fd_tno``, ``short_conv``, ``interp_reduce``,
-``interp_expand``, ``ski_fused_tno``, ``ski_fused_tno_coef``);
-``ski_fused_pass2`` and ``ssd_scan`` are forward-only on the card.
+``interp_expand``, ``ski_fused_tno``, ``ski_fused_tno_coef``) or, for
+``ssd_scan``, autograd through the chunked plain version;
+``ski_fused_pass2`` is forward-only on the card.
 """
 from __future__ import annotations
 
@@ -52,10 +53,13 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64):
     step sizes; a (h,) negative decay rates; b/c (bt, n, g, s) in/out
     projections (g groups, s state dim); d_skip (h,) skip; returns
     (bt, n, h, p) in x's dtype. Sequential oracle: ``ref.ssd_scan_ref``.
-    A CPU tensor runs ``ssd_chunked.ssd_scan_chunked``, a CUDA tensor the
-    kernel of ``csrc/ssd_scan.cu``; both take ``chunk``-long blocks and
-    every n. Forward-only on the card, as the JAX kernel."""
-    return ssd.ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
+    Differentiable in all six inputs through ``ssd_scan.SSDScan`` on both
+    devices: the forward is ``ssd_chunked.ssd_scan_chunked`` for CPU
+    tensors and the kernel of ``csrc/ssd_scan.cu`` for CUDA tensors (both
+    take ``chunk``-long blocks and every n); the backward is autograd
+    through ``ssd_scan_chunked`` recomputed on the saved inputs, the
+    gradient JAX takes (its Pallas kernel has no VJP)."""
+    return ssd.ssd_scan_op(x, dt, a, b, c, d_skip, chunk=chunk)
 
 
 def interp_reduce(x, idx_lo, w_lo, r: int):
@@ -122,8 +126,8 @@ def ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r: int, causal: bool,
 
 
 def reset_ski_counters() -> None:
-    """Zero the launch counts of the eight SKI kernels and the counts of the
-    SKI autograd Functions' forwards and backwards."""
+    """Zero the launch counts of the SKI kernels and the counts of the SKI
+    autograd Functions' forwards and backwards."""
     for mod in (interp_matvec, sc, ski_fused, ski_grad, ski_vjp):
         mod.reset_counters()
 
@@ -132,7 +136,9 @@ def ski_counters() -> dict:
     """Launch counts of the eight SKI kernels (``interp_reduce``,
     ``interp_expand``, ``short_conv``, ``ski_fused_pass2``,
     ``ski_windowed_pass2``, ``ski_expand_pass2``, ``gram_grad``,
-    ``conv_tap_grad``) since their last reset."""
+    ``conv_tap_grad``) and of ``conv_tap_grad``'s bf16 instance
+    (``conv_tap_grad_bf16``, Mamba's conv backward) since their last
+    reset."""
     return {**interp_matvec.counters, **sc.counters, **ski_fused.counters,
             **ski_grad.counters}
 

@@ -27,8 +27,9 @@ ran; ``REPRO_PALLAS_GRAD=0`` keeps the kernel forward and returns
 autograd's cotangents through ``ref.short_conv_left_ref`` instead.
 On the card x and the taps are both fp32 or both bf16 (Mamba's conv): the
 sum runs in fp32 and a bf16 y is rounded once, as in the plain version.
-The bf16 form serves inference: the kernel backward's ``conv_tap_grad``
-takes fp32 only and raises for bf16.
+The backward runs in the same dtype: dx is the same kernel's instance,
+and df the ``conv_tap_grad`` instance of that dtype (fp32 sums, cast to
+the taps' dtype, as JAX's ``_short_conv_core_bwd`` casts them).
 """
 from __future__ import annotations
 

@@ -8,10 +8,14 @@ kernels of ``csrc/ski_grad.cu``, counterpart of ``repro/kernels/ski_grad.py``:
   dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c] (replaces ``_gram_grad_kernel`` /
   ``_gram_grad_call``).
 
-Both sum in fp32 and return fp32, as in JAX. Each wrapper takes the plain
-version (``ref.conv_tap_grad_ref``, ``ref.gram_grad_ref``) for CPU tensors
-and launches its kernel for CUDA tensors, counting the launch in
-:data:`counters`; another device, dtype or layout raises. A kernel writes
+Both sum in fp32 and return fp32, as in JAX. :func:`conv_tap_grad` takes
+g and x both fp32 or both bf16 (one instance of the kernel body each, the
+bf16 one for Mamba's conv backward, as the TPU kernel takes bf16 tiles),
+:func:`gram_grad` fp32. Each wrapper takes the plain version
+(``ref.conv_tap_grad_ref``, ``ref.gram_grad_ref``) for CPU tensors and
+launches its kernel for CUDA tensors, counting the launch in
+:data:`counters` under the instance's name; another device, dtype or
+layout raises. A kernel writes
 a tensor that autograd cannot see, so on the card a wrapper called on its
 own refuses an input that requires grad while grad is enabled; the
 kernels' caller is the backward of ``ski_vjp.SKIFusedTNO``.
@@ -31,7 +35,11 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.interp_matvec import forward_only
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"gram_grad": 0, "conv_tap_grad": 0}
+counters = {"gram_grad": 0, "conv_tap_grad": 0, "conv_tap_grad_bf16": 0}
+
+#: conv_tap_grad's (entry point, launch counter) for each element type
+_TAP_ENTRIES = {torch.float32: ("conv_tap_grad_f32", "conv_tap_grad"),
+                torch.bfloat16: ("conv_tap_grad_bf16", "conv_tap_grad_bf16")}
 
 
 def reset_counters() -> None:
@@ -43,8 +51,13 @@ def reset_counters() -> None:
 def _lib() -> ctypes.CDLL:
     lib = backend.library("ski_grad")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.conv_tap_grad_f32.argtypes = [p, p, p, p, i64, i64, i64, i64, i64, p]
-    lib.conv_tap_grad_f32.restype = ctypes.c_int
+    # an earlier build, loaded by tools/ab_kernel.py, may have no bf16
+    # entry: a bf16 call then fails on the missing symbol
+    for name, _ in _TAP_ENTRIES.values():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, p, p, i64, i64, i64, i64,
+                                           i64, p]
+            getattr(lib, name).restype = ctypes.c_int
     lib.conv_tap_grad_workspace_floats.argtypes = [i64, i64, i64, i64]
     lib.conv_tap_grad_workspace_floats.restype = i64
     lib.gram_grad_f32.argtypes = [p, p, p, i64, i64, i64, p]
@@ -52,11 +65,17 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _require_pair(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
-    """Both CUDA fp32 contiguous, one non-empty (b, ·, d) shape, one device."""
+def _require_pair(what: str, a: torch.Tensor, b: torch.Tensor,
+                  dtypes=(torch.float32,)) -> None:
+    """Both CUDA contiguous of one dtype among ``dtypes``, one non-empty
+    (b, ·, d) shape, one device."""
     forward_only(what, a, b)
-    backend.require_cuda(a, what, torch.float32)
-    backend.require_cuda(b, what, torch.float32)
+    if a.dtype not in dtypes or b.dtype != a.dtype:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise TypeError(f"{what}: inputs {a.dtype} and {b.dtype}; the kernel "
+                        f"takes both of one dtype, {names}")
+    backend.require_cuda(a, what, a.dtype)
+    backend.require_cuda(b, what, a.dtype)
     if a.dim() != 3 or a.shape != b.shape or a.numel() == 0 \
             or a.device != b.device:
         raise ValueError(f"{what}: inputs {tuple(a.shape)} on {a.device} and "
@@ -67,17 +86,19 @@ def _require_pair(what: str, a: torch.Tensor, b: torch.Tensor) -> None:
 def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
                   left: int) -> torch.Tensor:
     """df[c, k] = Σ_{b,j} g[b,j,c] · x[b, j-k+left, c], x zero outside
-    [0, n): g, x (b, n, d) → (d, m) fp32. Every n >= 1 (n < m included)
-    and 0 <= left < m. On the card one launch: 8 blocks split the rows of
-    a channel tile, and the block that draws the tile's last ticket adds
-    their sums in block order: no floating-point atomics, bitwise
-    reproducible. CPU: :func:`ref.conv_tap_grad_ref`."""
+    [0, n): g, x (b, n, d), both fp32 or both bf16 → (d, m) fp32. Every
+    n >= 1 (n < m included) and 0 <= left < m. On the card one launch of
+    the dtype's instance (``conv_tap_grad`` or ``conv_tap_grad_bf16``): 8
+    blocks split the rows of a channel tile, and the block that draws the
+    tile's last ticket adds their sums in block order: no floating-point
+    atomics, bitwise reproducible. CPU: :func:`ref.conv_tap_grad_ref`."""
     if not 0 <= left < m:
         raise ValueError(f"conv_tap_grad: left={left} outside [0, m={m})")
     if g.device.type == "cpu" and x.device.type == "cpu":
         return ref.conv_tap_grad_ref(g, x, m, left)
-    _require_pair("conv_tap_grad", g, x)
+    _require_pair("conv_tap_grad", g, x, tuple(_TAP_ENTRIES))
     b, n, d = x.shape
+    entry, counter = _TAP_ENTRIES[x.dtype]
     lib = _lib()
     # the blocks' sums (an earlier build, loaded by tools/ab_kernel.py,
     # asks for its own size of partials through the same call)
@@ -85,11 +106,11 @@ def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
                        dtype=torch.float32, device=x.device)
     df = torch.empty((d, m), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = lib.conv_tap_grad_f32(g.data_ptr(), x.data_ptr(),
-                                   part.data_ptr(), df.data_ptr(), b, n, d, m,
-                                   left, backend.stream(x))
-    backend.check(lib, rc, f"conv_tap_grad (b={b}, n={n}, m={m})")
-    counters["conv_tap_grad"] += 1
+        rc = getattr(lib, entry)(
+            g.data_ptr(), x.data_ptr(), part.data_ptr(), df.data_ptr(), b, n,
+            d, m, left, backend.stream(x))
+    backend.check(lib, rc, f"conv_tap_grad {x.dtype} (b={b}, n={n}, m={m})")
+    counters[counter] += 1
     return df
 
 

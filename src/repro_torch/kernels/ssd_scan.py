@@ -14,10 +14,17 @@ inside the block and mask a ragged last chunk, so every n >= 1 runs in
 them.
 
 As ``ssd_scan_pallas`` in the JAX package, the kernel is forward-only: on
-the card the wrapper refuses an input that requires grad while grad is
-enabled. The JAX package trains Mamba by autodiff through
-``ssd_scan_chunked``; the port does not train it yet (ROADMAP Queue 1,
-item 16).
+the card :func:`ssd_scan` refuses an input that requires grad while grad
+is enabled. :class:`SSDScan` is the differentiable op (``ops.ssd_scan``):
+its forward is :func:`ssd_scan` (the kernel on the card, the chunked
+scan on the CPU) and saves the inputs only, the recompute policy of the
+JAX package's custom VJPs; its backward recomputes
+``ssd_scan_chunked`` on the saved inputs under autograd and returns
+autograd's cotangents of it. That is the gradient the JAX package takes:
+``ssd_scan_pallas`` has no VJP, and JAX trains Mamba by ``jax.grad``
+through ``ssd_scan_chunked``, XLA code outside any Pallas kernel, so
+there is no SSD backward kernel to port. The backward always takes this
+one route, on both devices, counted in :data:`op_counters`.
 """
 from __future__ import annotations
 
@@ -25,19 +32,26 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"ssd_scan": 0}
+#: differentiated :func:`ssd_scan_op` forwards (grad enabled and an input
+#: that requires grad) and :class:`SSDScan` backwards (autograd through
+#: ``ssd_scan_chunked``), on both devices
+op_counters = {"fwd": 0, "bwd_chunked": 0}
 
 #: the kernel's entry point for each element type of x, B, C and y
 _ENTRIES = {torch.float32: "ssd_scan_f32", torch.bfloat16: "ssd_scan_bf16"}
 
 
 def reset_counters() -> None:
-    counters["ssd_scan"] = 0
+    for d in (counters, op_counters):
+        for k in d:
+            d[k] = 0
 
 
 @functools.cache
@@ -67,10 +81,9 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64) -> torch.Tensor:
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise NotImplementedError(
             "ssd_scan: the CUDA kernel is forward-only, as ssd_scan_pallas "
-            "is; Mamba training (autograd through ssd_scan_chunked, as the "
-            "JAX package does) is not ported yet (ROADMAP Queue 1, item "
-            "16, Step 10); call it under torch.no_grad() or "
-            "torch.inference_mode()")
+            "is; differentiate through ops.ssd_scan (the SSDScan autograd "
+            "Function, whose backward runs autograd through "
+            "ssd_scan_chunked), or call it under torch.no_grad()")
     if x.dtype not in _ENTRIES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x, B, C of dtypes {x.dtype}, {b.dtype}, "
                         f"{c.dtype}; the kernel takes all fp32 or all bf16")
@@ -111,3 +124,38 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64) -> torch.Tensor:
                            f"s={s}, q={q})")
     counters["ssd_scan"] += 1
     return y
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan with the backward of the module docstring: forward
+    :func:`ssd_scan`, residuals the inputs only, backward autograd through
+    ``ssd_scan_chunked`` recomputed on them. dt, a and d_skip get fp32
+    cotangents, x, B and C cotangents in their own dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk):
+        ctx.save_for_backward(x, dt, a, b, c, d_skip)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, a, b, c, d_skip, chunk=chunk)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        op_counters["bwd_chunked"] += 1
+        need = ctx.needs_input_grad[:6]
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y = ssd_scan_chunked(*ins, chunk=ctx.chunk)
+            got = iter(torch.autograd.grad(
+                y, [t for t, n in zip(ins, need) if n], gy))
+        return (*(next(got) if n else None for n in need), None)
+
+
+def ssd_scan_op(x, dt, a, b, c, d_skip, *, chunk: int = 64) -> torch.Tensor:
+    """The SSD scan, differentiable in all six inputs through
+    :class:`SSDScan` on both devices."""
+    ts = (x, dt, a, b, c, d_skip)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        op_counters["fwd"] += 1
+    return SSDScan.apply(x, dt, a, b, c, d_skip, chunk)

@@ -24,9 +24,12 @@ def loss_and_grads(model: Model, cfg: ArchConfig, batch: dict):
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptConfig):
     """Returns ``train_step(model, opt_state, batch) -> (opt_state,
-    metrics)``: loss and gradients by autograd, then one AdamW step that
-    updates the model's parameters and the optimizer state in place (JAX's
-    step is functional and returns new trees instead).
+    metrics)``: loss and gradients by autograd (each layer checkpointed
+    when ``cfg.remat == "full"``; a Mamba layer's backward runs
+    ``ShortConv``'s kernels and ``SSDScan``'s autograd through the chunked
+    scan), then one AdamW step that updates the model's parameters and the
+    optimizer state in place (JAX's step is functional and returns new
+    trees instead).
 
     The update runs whatever the loss: checking it here would stall the
     card once a step. A caller that must not keep a non-finite step clones
@@ -47,8 +50,9 @@ def make_forward(cfg: ArchConfig):
     """Returns ``fwd(model, tokens, **inputs) -> logits``: tokens (b, s) →
     logits (b, s, V_pad) under ``torch.inference_mode()`` (``inputs``: an
     encdec's ``enc_embed``, a prefix_vlm's ``patches``), for prompt
-    scoring and evaluation (the SKI model has no decode path; a Mamba model runs the
-    ``short_conv`` and ``ssd_scan`` kernels once per layer on the card; an
+    scoring and evaluation (the SKI model has no decode path; a Mamba model
+    runs the ``short_conv`` and ``ssd_scan`` kernels once per layer on the
+    card, and no layer is checkpointed: ``remat`` acts under grad only; an
     attention decoder runs cuBLAS and plain torch attention, and with
     ``mixer_override`` the paper mixer's kernels)."""
 

@@ -11,7 +11,12 @@ decoders ``gemma3-4b``, ``stablelm-3b``, ``phi3-medium-14b`` and
 ``qwen2-72b`` train in bf16 with plain torch attention and cuBLAS;
 ``--mixer fd|ski|tno`` puts the paper's mixer in place of their attention
 and local mixers (on the TNN archs it changes nothing, as in JAX).
-Mamba training is not ported (ROADMAP Queue 1, Step 10).
+``mamba2-2.7b`` (and the jamba hybrid) train in bf16 through the Mamba
+kernels: a layer's forward launches the bf16 ``short_conv`` and
+``ssd_scan``, its backward the bf16 ``short_conv`` (dx) and
+``conv_tap_grad_bf16`` (the taps' cotangent) and runs autograd through
+the chunked SSD scan (``kernels/ssd_scan.SSDScan``), with every layer
+checkpointed under the config's ``remat="full"``.
 Multi-device meshes (``--production-mesh``) and the metrics / trace files
 come with later slices (ROADMAP Queue 1 items 10 and 12).
 """

@@ -5,8 +5,12 @@ in_proj -> [z | x | B | C | dt]; the short causal conv over (x, B, C)
 (``ops.short_conv``: the CUDA kernel in bf16 on the card), then the
 chunked SSD scan (``ops.ssd_scan``: the CUDA kernel on the card, the
 chunked plain version on the CPU), a gated RMSNorm and the output
-projection. Decode keeps (conv window, SSD state) as the cache and runs
-the recurrence in plain torch, as the JAX package does.
+projection. Both ops are differentiable on both devices (``ShortConv``:
+the bf16 ``short_conv`` and ``conv_tap_grad_bf16`` kernels in the
+backward; ``SSDScan``: autograd through the chunked scan), and every
+tensor a kernel reads is a contiguous copy, never a view of the split.
+Decode keeps (conv window, SSD state) as the cache and runs the
+recurrence in plain torch, as the JAX package does.
 """
 from __future__ import annotations
 

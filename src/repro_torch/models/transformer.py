@@ -20,11 +20,18 @@ every position, and a TNO mixer runs bidirectionally over the whole
 sequence, text included (JAX builds it with ``causal = mask_kind in
 ("causal", "local")``). The prefix is stripped after the final norm.
 
-Layers run as a Python loop, eagerly: the JAX package's layer scan,
-sharding constraints (``Ctx``/``shard``) and remat have no counterpart on
-one card. Parameter names follow the JAX tree, with the scanned
-``blocks/sub<k>`` stack and the ``tail<i>`` layers unrolled into
-``layers.<i>`` and the encoder's stack ``enc_blocks`` into
+Layers run as a Python loop, eagerly: the JAX package's layer scan and
+sharding constraints (``Ctx``/``shard``) have no counterpart on one card.
+``remat="full"`` (every bf16 zoo config) checkpoints each layer, decoder
+and encoder alike, as JAX's ``_maybe_remat`` does at layer granularity:
+under grad a layer runs in non-reentrant ``torch.utils.checkpoint``,
+keeps only its inputs and runs again in the backward, so the backward's
+working set is one layer's (at full width a Mamba layer at 4 × 2048 would
+otherwise keep 2-2.5 GB of activations, 64 layers far more than a card
+holds); ``"dots"`` (no config sets it) is refused. Parameter names
+follow the JAX tree, with the scanned ``blocks/sub<k>`` stack and the
+``tail<i>`` layers unrolled into ``layers.<i>`` and the encoder's stack
+``enc_blocks`` into
 ``enc_layers.<i>``, and each parameter has the dtype JAX gives its leaf:
 ``param_dtype`` for the embeddings, the matrices (attention's and its QKV
 biases and the experts' included) and Mamba's conv taps, fp32 for the norm
@@ -36,6 +43,8 @@ back. The loss keeps the JAX package's sequence chunking of the logits
 MoE layers' load-balancing aux loss, summed over layers, at weight 0.01.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -68,6 +77,11 @@ def _check_supported(cfg: ArchConfig) -> None:
             "prefix_vlm with an fd mixer: the prefix mask runs the mixer "
             "bidirectionally over layers built causal, which JAX's forward "
             "cannot run either (its FD spectrum's shapes do not broadcast)")
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: the port checkpoints whole layers "
+            "(\"full\") or nothing (\"none\"); JAX's \"dots\" policy "
+            "(keep the matmul outputs) has no counterpart")
     for mixer, ffn in cfg.layers_spec:
         if mixer == "mamba" and ffn in ("none", "dense", "moe"):
             continue
@@ -176,6 +190,17 @@ def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,
     return x, aux
 
 
+def _layer_fn(cfg: ArchConfig):
+    """:func:`layer_apply`, or with ``remat="full"`` and grad enabled
+    :func:`layer_apply` under non-reentrant ``torch.utils.checkpoint``
+    (JAX's ``jax.checkpoint`` with the ``nothing_saveable`` policy): the
+    layer's inputs are kept and the layer runs again in the backward, so
+    each autograd Function in it runs its forward twice a step."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, layer_apply, use_reentrant=False)
+    return layer_apply
+
+
 # -------------------------------------------------------------- the model
 class Model(nn.Module):
     """JAX leaves {embed (V_pad, d), unembed (d, V_pad), blocks/tail…,
@@ -247,9 +272,9 @@ def run_encoder(params: Model, cfg: ArchConfig, enc_embed: torch.Tensor):
     ``full`` mask (RoPE on both sides, as any self-attention), whatever
     ``mixer_override`` says, then ``enc_norm_f`` (JAX's ``_run_encoder``)."""
     x = enc_embed.to(getattr(torch, cfg.dtype))
+    apply = _layer_fn(cfg)
     for layer in params.enc_layers:
-        x, _ = layer_apply(layer, cfg, "attention", "dense", x,
-                           mask_kind="full")
+        x, _ = apply(layer, cfg, "attention", "dense", x, mask_kind="full")
     return rmsnorm(params.enc_norm_f.scale, x, cfg.norm_eps)
 
 
@@ -271,9 +296,10 @@ def backbone(params: Model, cfg: ArchConfig, tokens: torch.Tensor, *,
         _needs(cfg, "enc_embed", enc_embed)
         enc_out = run_encoder(params, cfg, enc_embed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    apply = _layer_fn(cfg)
     for (mixer, ffn), layer in zip(cfg.layers_spec, params.layers):
-        x, a = layer_apply(layer, cfg, mixer, ffn, x, mask_kind=mask_kind,
-                           prefix=prefix, enc_out=enc_out)
+        x, a = apply(layer, cfg, mixer, ffn, x, mask_kind=mask_kind,
+                     prefix=prefix, enc_out=enc_out)
         aux = aux + a
     x = rmsnorm(params.norm_f.scale, x, cfg.norm_eps)
     if cfg.kind == "prefix_vlm":

@@ -13,7 +13,8 @@ and of two terms), at a shape whose block needs more than 48 KB of
 dynamic shared memory where the kernel has any (``interp_expand`` has
 none). ``ssd_scan`` is held in bf16 within 1e-2 × max|plain|
 (``chip_smoke.BF16_TOL``: its products are TF32 and bf16, and y rounds to
-bf16 once on each side).
+bf16 once on each side); ``conv_tap_grad``'s bf16 instance within 1e-5
+(bf16 inputs, fp32 sums on both sides).
 """
 import pytest
 
@@ -140,6 +141,24 @@ def test_ssd_scan_runs_on_each_card():
             assert got.dtype == dtype
             _close(got.float(), want.float(), tol)
 
+
+
+def test_conv_tap_grad_bf16_runs_on_each_card():
+    """conv_tap_grad's bf16 instance (57,344 bytes of shared memory a
+    block) at Mamba's conv width (d 5376, m 4) and at the SKI path's shape
+    (m 32, left 16), on card 0, then on card 1, within 1e-5 × max|plain|:
+    the inputs are exact in bf16 and both sides sum in fp32."""
+    from repro_torch.kernels import ski_grad
+    for dev in _two_cards():
+        g = torch.Generator(device=dev).manual_seed(dev.index)
+        for (b, n, d), m, left in (((2, 2048, 5376), 4, 0),
+                                   ((8, 512, 512), 32, 16)):
+            cot = torch.randn(b, n, d, device=dev, generator=g).bfloat16()
+            x = torch.randn(b, n, d, device=dev, generator=g).bfloat16()
+            got = ski_grad.conv_tap_grad(cot, x, m, left)
+            torch.cuda.synchronize(dev)
+            assert got.dtype == torch.float32
+            _close(got, ref.conv_tap_grad_ref(cot, x, m, left), 1e-5)
 
 def test_causal_spectrum_runs_on_each_card():
     """causal_spectrum and causal_spectrum_adjoint at n = 4096 (98,320

@@ -54,9 +54,7 @@ from repro.models.transformer import loss_fn as jloss_fn  # noqa: E402
 from repro.nn.params import unbox  # noqa: E402
 from repro_torch import bridge  # noqa: E402
 from repro_torch.configs import get_config, reduce_for_smoke  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import serving  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     Model, backbone, forward, init_model, loss_fn)
@@ -538,19 +536,3 @@ def test_encoder_decoder_still_refused():
     with pytest.raises(ValueError, match="enc_layers >= 1"):
         Model(cfg, device="meta")
 
-
-def test_training_on_the_card_meets_the_ssd_scan_refusal():
-    """Training the hybrid off the CPU reaches ``ssd_scan`` with inputs
-    that require grad, which the forward-only kernel refuses, naming Step
-    10 (meta tensors stand for the card's; the short conv takes its plain
-    version, which runs on them)."""
-    cfg = reduce_for_smoke(get_config(ARCH))
-    model = Model(cfg, device="meta")
-    toks = torch.zeros(2, 16, dtype=torch.long, device="meta")
-
-    def short_conv(x, filt, causal, left=None):
-        return ref.short_conv_left_ref(x, filt, 0 if left is None else left)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ops, "short_conv", short_conv)
-        with pytest.raises(NotImplementedError, match="Step 10"):
-            loss_and_grads(model, cfg, {"tokens": toks, "labels": toks})

@@ -141,7 +141,8 @@ def test_grad_wrappers_refuse_off_the_cpu():
     # the CPU path counts no launch
     ski_grad.reset_counters()
     ski_grad.gram_grad(torch.ones(1, 2, 3), torch.ones(1, 2, 3))
-    assert ski_grad.counters == {"gram_grad": 0, "conv_tap_grad": 0}
+    assert ski_grad.counters == {"gram_grad": 0, "conv_tap_grad": 0,
+                                 "conv_tap_grad_bf16": 0}
 
 
 # --------------------------------------------------------------- SKIFusedTNO
