@@ -115,6 +115,25 @@ card or outside a checkout of this repository. Phases:
    tokens/s; the training launch counts are read from this phase (per
    layer a step: 2 ``causal_spectrum``, 1 ``causal_spectrum_adjoint``, 2
    ``fd_mul``, 1 ``fd_khat_grad``);
+5a. obs: ``launch.train.main`` trains the same model (seed 0) 6 steps of
+   8 × 512 with ``--metrics-file``, ``--trace-file`` and
+   ``REPRO_PROFILE_DIR`` set: the registry's ``repro_train_steps_total``
+   is 6 and ``repro_compiles_total`` exactly one ``train.train_step``, 12
+   ``train_step`` span events and a Chrome export; the profiler's trace
+   read by ``obs.devstats.aggregate_chrome`` (device time: the regions'
+   ``gpu_user_annotation`` ranges) and ``region_kernels`` (each kernel by
+   its launch's correlation id): every launch of ``causal_spectrum``,
+   ``causal_spectrum_adjoint``, ``fd_mul`` and ``fd_khat_grad`` lies under
+   the ``fd_tno`` region; printed (``[obs train]``), beside the card's name
+   and power limit: the region's ms a step, its share of the steps'
+   device ranges, its host ranges, its kernels' busy time, and its
+   achieved fraction of the roofline bound (the causal FD plan's
+   ``obs.cost`` cost times the region's forwards and backwards, against
+   ``obs.cost.peaks("gpu", float32)``), which must lie in (0, 1.05]; then
+   ``attribute_engine`` over the scheduler phase's greedy drain
+   (``[obs engine]``: its path, coverage and rows); run after phase moe,
+   the first that traces, since a profiler session leaves later launches
+   dearer on the host;
 5b. tno: the full-width baseline tnn-lm-wt103 (the ``tno`` mixer: the
    RPE MLP at every lag times the decay bias, an FFT Toeplitz matvec;
    66,031,744 parameters, as many as the FD model; random weights from
@@ -369,12 +388,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.obs.cost import GPU_PEAKS, gpu_peaks  # noqa: E402
+
 #: NVIDIA data-sheet peaks (bytes/s of device memory, dense FLOP/s: fp32
 #: outside the tensor cores, TF32 and bf16 on them, without sparsity), by
-#: the name nvidia-smi reports; "H100" alone is the SXM part.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 378e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 417.5e12, 835.5e12),
-         "H100": (3.35e12, 67e12, 495e12, 989e12)}
+#: the name nvidia-smi reports; "H100" alone is the SXM part. The table is
+#: ``obs/cost.py``'s, which ``obs.cost.peaks("gpu")`` reads too.
+PEAKS = GPU_PEAKS
 PROMPTS, PROMPT_LEN, GEN_LEN = 8, 448, 64
 MARGIN = 1e-3
 TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_WARMUP = 30, 512, 8, 5
@@ -394,10 +414,7 @@ BF16_TOL = 1e-2
 
 
 def _peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    raise RuntimeError(f"no published peaks for {name!r}")
+    return gpu_peaks(name)
 
 
 def _sync(device) -> None:
@@ -1830,7 +1847,8 @@ def phase_scheduler(cfg, model, device, engine: dict, smi: str,
     claimed, beside the card: the served new tok/s over ``run()``'s wall
     and over its decode steps, the engine phase's rate, steps, prefills,
     packed prefills, the TTFT and TPOT medians, snapshot bytes and write
-    ms. Returns the launch counts of (1)."""
+    ms. Returns the launch counts of (1) and its drain (the Engine, the
+    registry and the wall of ``run()``) for phase ``obs``."""
     from repro_torch.kernels import fd_fused
     from repro_torch.launch import serve
     from repro_torch.obs import metrics as obs_metrics
@@ -1996,7 +2014,7 @@ def phase_scheduler(cfg, model, device, engine: dict, smi: str,
     print(f"[scheduler] launch.serve --engine --batch {n_req} --slots "
           f"{eng.slots}: metrics JSON of {len(dump)} metrics, "
           f"{len(cli_spans)} closed request spans, all ok", flush=True)
-    return launches
+    return launches, {"engine": eng, "metrics": reg, "drain_s": wall}
 
 
 # --------------------------------------------------------------- phase 5
@@ -2127,6 +2145,198 @@ def phase_train(cfg, device, steps: int, seq: int, batch: int,
                              f"{want_ops}")
     if report is not None:
         report.update(tok_s=tok_s, losses=losses)
+    return launches
+
+
+# -------------------------------------------------------------- phase 5a
+OBS_STEPS = 6
+#: the FD kernels of a training step by their CUDA function names in
+#: csrc/fd_fused.cu (``causal_spectrum_adjoint`` runs
+#: ``spectrum_adjoint_kernel``)
+OBS_FD_KERNELS = {"causal_spectrum": "causal_spectrum_kernel",
+                  "causal_spectrum_adjoint": "spectrum_adjoint_kernel",
+                  "fd_mul": "fd_mul_", "fd_khat_grad": "fd_khat_grad_"}
+_DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _fd_region_cost(d: int, n: int, batch: int):
+    """(forward, backward) Cost of one ``fd_tno`` region at x (batch, n, d):
+    the forward is the causal FD plan's cost (``obs.cost.cost_of_plan`` on
+    the keys of ``core/tno.tno_plan``'s causal plan); the backward adds one
+    more length-2n transform (it takes rfft(g), rfft(x) and irfft(dx)
+    where the forward takes two), the ``fd_khat_grad`` reduction and the
+    spectrum's adjoint (a second completion)."""
+    from repro_torch.obs import cost as obs_cost
+    fwd = obs_cost.total(obs_cost.cost_of_plan({"khat_real": None}, n=n,
+                                               d=d, batch=batch))
+    bwd = (fwd + obs_cost.rfft_cost(2 * n, d, batch)
+           + obs_cost.fd_khat_grad_cost(n + 1, d, batch)
+           + obs_cost.hilbert_window_cost(n, d))
+    return fwd, bwd
+
+
+def _device_busy_s(events) -> float:
+    """Union of the card's kernel, copy and fill intervals (seconds)."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events
+                   if str(e.get("cat", "")).lower() in _DEVICE_WORK)
+    busy, cur_s, cur_e = 0.0, None, None
+    for a, b in spans:
+        if cur_e is None or a > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy * 1e-6
+
+
+def phase_obs(cfg, smi: str, drain: dict, device="cuda") -> dict:
+    """The kernel tier of ``obs`` on the card: ``launch.train.main`` on the
+    full-width model (fp32, 8 x 512, ``OBS_STEPS`` steps) with
+    ``--metrics-file``, ``--trace-file`` and ``REPRO_PROFILE_DIR`` set.
+    Asserts the registry's ``repro_train_steps_total`` and
+    ``repro_compiles_total`` (one first call of ``train.train_step``), the
+    span events and the Chrome export; reads the profiler's trace with
+    ``aggregate_chrome`` (device time) and ``region_kernels``: every launch
+    of the four FD kernels lies under the ``fd_tno`` region, whose achieved
+    fraction of its roofline bound (the plan's cost times the region's
+    forwards and backwards, against ``obs.cost.peaks("gpu", float32)``)
+    must lie in (0, 1.05]. Then ``attribute_engine`` over the scheduler
+    phase's greedy drain (``drain``). Returns the run's kernel launches."""
+    from repro_torch.kernels import fd_fused
+    from repro_torch.launch import train
+    from repro_torch.obs import cost as obs_cost
+    from repro_torch.obs import devstats
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    t_phase = time.perf_counter()
+    n_step = OBS_STEPS
+    with tempfile.TemporaryDirectory() as out:
+        prof_dir = os.path.join(out, "profile")
+        mfile = os.path.join(out, "train.json")
+        tfile = os.path.join(out, "train.jsonl")
+        _reset_kernel_counts()
+        try:
+            with mock.patch.dict(os.environ, {"REPRO_PROFILE_DIR": prof_dir}):
+                rc = train.main([
+                    "--arch", cfg.name, "--steps", str(n_step),
+                    "--seq-len", str(TRAIN_SEQ), "--global-batch",
+                    str(TRAIN_BATCH), "--device", device,
+                    "--metrics-file", mfile, "--trace-file", tfile])
+        finally:
+            obs_metrics.set_default_registry(None)
+            obs_tracing.set_default_tracer(None)
+        launches, op_counts = _fd_counts()
+        t_run = time.perf_counter() - t_phase
+        if rc != 0:
+            raise AssertionError(f"launch.train returned {rc}")
+        with open(mfile) as f:
+            dump = json.load(f)["metrics"]
+        events = obs_tracing.load_jsonl(tfile)
+        chrome = os.path.exists(tfile + ".chrome.json")
+        t0 = time.perf_counter()
+        trace = devstats.load_profile_traces(prof_dir)
+        regions = devstats.aggregate_chrome(trace)
+        by_region = devstats.region_kernels(trace)
+        t_read = time.perf_counter() - t0
+    steps = dump["repro_train_steps_total"]["series"][0]["value"]
+    compiles = [(x["labels"]["fn"], x["value"])
+                for x in dump["repro_compiles_total"]["series"]]
+    spans = [e for e in events if e["name"] == "train_step"]
+    if (steps != n_step or compiles != [("train.train_step", 1)]
+            or len(spans) != 2 * n_step
+            or {e["ph"] for e in spans} != {"B", "E"} or not chrome):
+        raise AssertionError(f"launch.train obs: steps {steps}, compiles "
+                             f"{compiles}, {len(spans)} span events, chrome "
+                             f"{chrome}")
+    want = {k: v * cfg.n_layers * n_step
+            for k, v in TRAIN_LAUNCHES["fd"].items()}
+    if launches != want or op_counts != {
+            "fwd": cfg.n_layers * n_step,
+            "bwd_kernel": cfg.n_layers * n_step, "bwd_ref": 0}:
+        raise AssertionError(f"launch.train launched {launches} and "
+                             f"{op_counts}, not {want}")
+    cats = {}
+    for e in trace:
+        c = str(e.get("cat", "")).lower()
+        cats[c] = cats.get(c, 0) + 1
+    annotated = sum(1 for e in trace
+                    if str(e.get("cat", "")).lower() == "gpu_user_annotation"
+                    and str(e.get("name", "")).startswith(
+                        devstats.KERNEL_SCOPE_PREFIX))
+    print(f"[obs train] profiler trace: {len(trace)} events, categories "
+          f"{dict(sorted(cats.items()))}; {annotated} device-side region "
+          f"ranges; read and aggregated in {t_read:.2f} s", flush=True)
+    # every launch of the four FD kernels lies under the fd_tno region
+    under = {k: sum(c for name, (c, _) in by_region.get("fd_tno", {}).items()
+                    if sym in name)
+             for k, sym in OBS_FD_KERNELS.items()}
+    if any(under[k] != launches[k] for k in OBS_FD_KERNELS):
+        raise AssertionError(f"FD kernel launches under the fd_tno region "
+                             f"{under}, launched {launches}")
+    busy_s = _device_busy_s(trace)
+    # the steps' own device ranges, and the regions' host ranges
+    step_s = sum(float(e.get("dur", 0)) * 1e-6 for e in trace
+                 if str(e.get("cat", "")).lower() == "gpu_user_annotation"
+                 and e.get("name") == "train_step")
+    host = devstats.aggregate_chrome(
+        [e for e in trace if str(e.get("cat", "")).lower()
+         == "user_annotation"])
+    if step_s <= 0 or busy_s <= 0:
+        raise AssertionError(f"the trace holds {busy_s} s of device work "
+                             f"and {step_s} s of train_step device ranges")
+    name = torch.cuda.get_device_name(0)
+    pk = obs_cost.peaks("gpu", dtype=torch.float32, name=name)
+    fwd, bwd = _fd_region_cost(cfg.d_model, TRAIN_SEQ, TRAIN_BATCH)
+    work = {"fd_tno": fwd.scale(op_counts["fwd"])
+            + bwd.scale(op_counts["bwd_kernel"])}
+    rows = []
+    for region, sec in sorted(regions.items()):
+        if region not in work:
+            raise AssertionError(f"region {region} on the FD training path")
+        frac = obs_cost.achieved_fraction(work[region], sec, pk)
+        bound = obs_cost.seconds(work[region], pk)
+        kern_s = sum(s for _, s in by_region.get(region, {}).values())
+        rows.append(f"{region} {sec / n_step * 1e3:.3f} ms a step of "
+                    f"device ranges ({sec / step_s:.4f} of the train_step "
+                    f"ranges' {step_s / n_step * 1e3:.3f} ms; host ranges "
+                    f"{host.get(region, 0.0) / n_step * 1e3:.3f} ms), its "
+                    f"kernels busy {kern_s / n_step * 1e3:.3f} ms "
+                    f"({kern_s / busy_s:.4f} of the card's busy "
+                    f"{busy_s / n_step * 1e3:.3f} ms), bound "
+                    f"{bound['bound_s'] / n_step * 1e3:.4f} ms a step "
+                    f"({bound['dominant']}), achieved fraction {frac:.4f}")
+        if not 0 < frac <= 1.05:
+            raise AssertionError(f"region {region}: achieved fraction "
+                                 f"{frac} outside (0, 1.05]")
+    if set(regions) != set(work):
+        raise AssertionError(f"kernel regions {sorted(regions)}")
+    top = sorted(((s, n, c) for n, (c, s) in
+                  by_region.get("fd_tno", {}).items()), reverse=True)[:8]
+    print(f"[obs train] {cfg.name} via launch.train.main, {n_step} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} ({smi}; peaks of {name}: "
+          f"{pk.flops / 1e12} TFLOP/s fp32, {pk.mem_bw / 1e12} TB/s): "
+          + "; ".join(rows), flush=True)
+    print(f"[obs train] under fd_tno, by device time over {n_step} steps: "
+          + "; ".join(f"{n[:60]} x{c} {t * 1e3:.3f} ms" for t, n, c in top)
+          + f"; launches {launches}; the phase took "
+          f"{time.perf_counter() - t_phase:.1f} s ({t_run:.1f} s the run)",
+          flush=True)
+
+    attr = devstats.attribute_engine(drain["engine"], drain["metrics"],
+                                     drain_s=drain["drain_s"])
+    print(f"[obs engine] attribute_engine over the scheduler phase's greedy "
+          f"drain ({drain['drain_s']:.3f} s, {smi}): path {attr['path']}, "
+          f"device_s {attr['device_s']:.3f}, coverage "
+          f"{attr['coverage']:.3f}; "
+          + "; ".join(f"{r['kernel']} {r['seconds'] * 1e3:.3f} ms "
+                      f"({r['frac']:.3f})" for r in attr["rows"]),
+          flush=True)
+    if not attr["rows"] or not 0 < attr["coverage"] <= 1.0:
+        raise AssertionError(f"attribute_engine: {attr}")
     return launches
 
 
@@ -5717,12 +5927,17 @@ def main() -> int:
     model, prompt_len, seqs, serve_launches, decode_tps = phase_serve(
         cfg, "cuda", PROMPTS, PROMPT_LEN, GEN_LEN)
     engine = phase_engine(cfg, model, "cuda")
-    scheduler_launches = phase_scheduler(cfg, model, "cuda", engine, smi)
+    scheduler_launches, drain = phase_scheduler(cfg, model, "cuda", engine,
+                                                smi)
     train_launches = phase_train(cfg, "cuda", TRAIN_STEPS, TRAIN_SEQ,
                                  TRAIN_BATCH)
     tno_launches = phase_tno(cfg, model, seqs, decode_tps, engine, smi)
     zoo_launches = phase_zoo(smi)
     moe_launches = phase_moe(smi)
+    # after the first phase that traces: a profiler session leaves every
+    # later launch's host cost higher (tools/profiler_launch_cost.py)
+    obs_launches = phase_obs(cfg, smi, drain)
+    del drain
     encdec_kernels, encdec_launches = phase_encdec(smi, peaks)
     vlm_kernels, vlm_launches = phase_prefix_vlm(smi, peaks)
     score_launches = phase_ski_score("cuda")
@@ -5755,6 +5970,7 @@ def main() -> int:
              "scheduler": (scheduler_launches, ("hilbert_window",)),
              "train": (train_launches, tuple(
                  k for k, v in TRAIN_LAUNCHES["fd"].items() if v)),
+             "obs_train": (obs_launches, tuple(OBS_FD_KERNELS)),
              "score": (score_launches, ("interp_reduce", "ski_fused_pass2")),
              "ski_train": (ski_train_launches,
                            tuple(TRAIN_LAUNCHES["ski"])),

@@ -60,6 +60,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import backend, ref
+from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches per wrapper (CUDA path only; the CPU path counts nothing)
 counters = {"hilbert_window": 0, "causal_spectrum": 0,
@@ -375,23 +376,26 @@ class FDTNO(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, khat_real = ctx.saved_tensors
-        if not backend.resolve_pallas_grad():
-            op_counters["bwd_ref"] += 1
-            return backend.ref_cotangents(ref.fd_tno_ref, (x, khat_real), g)
-        op_counters["bwd_kernel"] += 1
-        n = x.shape[1]
-        ghat = _spectrum(g, n)
-        # signal cotangent: the forward multiply with the spectrum
-        # conjugated (adjoint of causal conv = anticausal correlation)
-        dx = torch.fft.irfft(fd_mul(ghat, _causal_khat(khat_real, conj=True)),
-                             n=2 * n, dim=-1)
-        dx = dx[..., :n].transpose(1, 2).to(x.dtype)
-        # kernel cotangent: Σ_b ĝ ⊙ conj(x̂); its irfft is exactly the time
-        # cotangent of the causal kernel; then the self-adjoint window and
-        # the exact irfft adjoint pull it back to khat_real
-        dk = fd_khat_grad(ghat, _spectrum(x, n))              # (d, n+1)
-        return dx, _khat_real_cotangent(dk, khat_real, n)
+        with kernel_region("fd_tno"):
+            x, khat_real = ctx.saved_tensors
+            if not backend.resolve_pallas_grad():
+                op_counters["bwd_ref"] += 1
+                return backend.ref_cotangents(ref.fd_tno_ref,
+                                              (x, khat_real), g)
+            op_counters["bwd_kernel"] += 1
+            n = x.shape[1]
+            ghat = _spectrum(g, n)
+            # signal cotangent: the forward multiply with the spectrum
+            # conjugated (adjoint of causal conv = anticausal correlation)
+            dx = torch.fft.irfft(
+                fd_mul(ghat, _causal_khat(khat_real, conj=True)),
+                n=2 * n, dim=-1)
+            dx = dx[..., :n].transpose(1, 2).to(x.dtype)
+            # kernel cotangent: Σ_b ĝ ⊙ conj(x̂); its irfft is exactly the
+            # time cotangent of the causal kernel; then the self-adjoint
+            # window and the exact irfft adjoint pull it back to khat_real
+            dk = fd_khat_grad(ghat, _spectrum(x, n))              # (d, n+1)
+            return dx, _khat_real_cotangent(dk, khat_real, n)
 
 
 def fd_tno(x: torch.Tensor, khat_real: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import backend, ref
+from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"interp_reduce": 0, "interp_expand": 0}
@@ -153,18 +154,21 @@ class InterpReduce(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        idx_lo, w_lo = ctx.saved_tensors
-        r = ctx.r
-        if not backend.resolve_pallas_grad():
-            # the op is linear: autograd's cotangent is the same at any
-            # input, so a zero (b, n, d) input stands in for x
-            reduce_op_counters["bwd_ref"] += 1
-            (dx,) = backend.ref_cotangents(
-                lambda t: ref.interp_reduce_ref(t, idx_lo, w_lo, r),
-                (g.new_zeros((g.shape[0], idx_lo.shape[0], g.shape[2])),), g)
-            return dx, None, None, None
-        reduce_op_counters["bwd_kernel"] += 1
-        return interp_expand(g.contiguous(), idx_lo, w_lo), None, None, None
+        with kernel_region("interp_reduce"):
+            idx_lo, w_lo = ctx.saved_tensors
+            r = ctx.r
+            if not backend.resolve_pallas_grad():
+                # the op is linear: autograd's cotangent is the same at any
+                # input, so a zero (b, n, d) input stands in for x
+                reduce_op_counters["bwd_ref"] += 1
+                (dx,) = backend.ref_cotangents(
+                    lambda t: ref.interp_reduce_ref(t, idx_lo, w_lo, r),
+                    (g.new_zeros((g.shape[0], idx_lo.shape[0],
+                                  g.shape[2])),), g)
+                return dx, None, None, None
+            reduce_op_counters["bwd_kernel"] += 1
+            return (interp_expand(g.contiguous(), idx_lo, w_lo), None, None,
+                    None)
 
 
 class InterpExpand(torch.autograd.Function):
@@ -179,17 +183,18 @@ class InterpExpand(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        idx_lo, w_lo = ctx.saved_tensors
-        r = ctx.r
-        if not backend.resolve_pallas_grad():
-            # linear: a zero (b, r, d) input stands in for z
-            expand_op_counters["bwd_ref"] += 1
-            (dz,) = backend.ref_cotangents(
-                lambda t: ref.interp_expand_ref(t, idx_lo, w_lo),
-                (g.new_zeros((g.shape[0], r, g.shape[2])),), g)
-            return dz, None, None
-        expand_op_counters["bwd_kernel"] += 1
-        return interp_reduce(g.contiguous(), idx_lo, w_lo, r), None, None
+        with kernel_region("interp_expand"):
+            idx_lo, w_lo = ctx.saved_tensors
+            r = ctx.r
+            if not backend.resolve_pallas_grad():
+                # linear: a zero (b, r, d) input stands in for z
+                expand_op_counters["bwd_ref"] += 1
+                (dz,) = backend.ref_cotangents(
+                    lambda t: ref.interp_expand_ref(t, idx_lo, w_lo),
+                    (g.new_zeros((g.shape[0], r, g.shape[2])),), g)
+                return dz, None, None
+            expand_op_counters["bwd_kernel"] += 1
+            return interp_reduce(g.contiguous(), idx_lo, w_lo, r), None, None
 
 
 def interp_reduce_op(x: torch.Tensor, idx_lo: torch.Tensor,

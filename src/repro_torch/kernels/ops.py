@@ -10,12 +10,21 @@ backwards launch kernels (``fd_tno``, ``short_conv``, ``interp_reduce``,
 ``interp_expand``, ``ski_fused_tno``, ``ski_fused_tno_coef``) or, for
 ``ssd_scan``, autograd through the chunked plain version;
 ``ski_fused_pass2`` is forward-only on the card.
+
+Every entry runs under ``obs.devstats.kernel_region`` with the JAX
+package's region names (``short_conv``, ``interp_reduce``,
+``interp_expand``, ``ski_fused`` for pass 2 and the dense TNO,
+``ski_{variant}``, ``fd_tno``, ``ssd``), and each autograd Function's
+backward enters its entry's region again, so a profiled training step's
+kernel time is all attributed. The regions are ``record_function`` ranges
+while ``REPRO_PROFILE_DIR`` is set and no-ops otherwise.
 """
 from __future__ import annotations
 
 from repro_torch.kernels import (fd_fused, interp_matvec, short_conv as sc,
                                   ski_fused, ski_grad, ski_vjp,
                                   ssd_scan as ssd)
+from repro_torch.obs.devstats import kernel_region
 
 
 def fd_tno(x, khat_real):
@@ -29,7 +38,8 @@ def fd_tno(x, khat_real):
     ``csrc/fd_fused.cu`` around cuFFT, and the backward runs the multiply
     with the spectrum conjugated, the ``fd_khat_grad`` reduction and the
     window again; on the CPU the same op runs their plain versions."""
-    return fd_fused.fd_tno(x, khat_real)
+    with kernel_region("fd_tno"):
+        return fd_fused.fd_tno(x, khat_real)
 
 
 def short_conv(x, filt, causal: bool, left: int | None = None):
@@ -43,7 +53,8 @@ def short_conv(x, filt, causal: bool, left: int | None = None):
     ``conv_tap_grad`` for df."""
     if left is None:
         left = 0 if causal else filt.shape[-1] // 2
-    return sc.short_conv_op(x, filt, left)
+    with kernel_region("short_conv"):
+        return sc.short_conv_op(x, filt, left)
 
 
 def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64):
@@ -59,7 +70,8 @@ def ssd_scan(x, dt, a, b, c, d_skip, *, chunk: int = 64):
     take ``chunk``-long blocks and every n); the backward is autograd
     through ``ssd_scan_chunked`` recomputed on the saved inputs, the
     gradient JAX takes (its Pallas kernel has no VJP)."""
-    return ssd.ssd_scan_op(x, dt, a, b, c, d_skip, chunk=chunk)
+    with kernel_region("ssd"):
+        return ssd.ssd_scan_op(x, dt, a, b, c, d_skip, chunk=chunk)
 
 
 def interp_reduce(x, idx_lo, w_lo, r: int):
@@ -69,7 +81,8 @@ def interp_reduce(x, idx_lo, w_lo, r: int):
     returns (b, r, d). Differentiable in x through
     ``interp_matvec.InterpReduce``: the backward is one
     :func:`interp_expand` launch."""
-    return interp_matvec.interp_reduce_op(x, idx_lo, w_lo, r)
+    with kernel_region("interp_reduce"):
+        return interp_matvec.interp_reduce_op(x, idx_lo, w_lo, r)
 
 
 def interp_expand(z, idx_lo, w_lo):
@@ -78,7 +91,8 @@ def interp_expand(z, idx_lo, w_lo):
     read off idx_lo); returns (b, n, d). Differentiable in z through
     ``interp_matvec.InterpExpand``: the backward is one
     :func:`interp_reduce` launch."""
-    return interp_matvec.interp_expand_op(z, idx_lo, w_lo)
+    with kernel_region("interp_expand"):
+        return interp_matvec.interp_expand_op(z, idx_lo, w_lo)
 
 
 def ski_fused_pass2(x, z, a_dense, filt, causal: bool,
@@ -87,7 +101,9 @@ def ski_fused_pass2(x, z, a_dense, filt, causal: bool,
     write. x (b, n, d); z = Wᵀx (b, r, d); a_dense (d, r, r); filt (d, m);
     ``left`` overrides the causal-derived tap offset. Forward-only on the
     card: gradients go through :func:`ski_fused_tno`."""
-    return ski_fused.ski_fused_pass2(x, z, a_dense, filt, causal, left=left)
+    with kernel_region("ski_fused"):
+        return ski_fused.ski_fused_pass2(x, z, a_dense, filt, causal,
+                                         left=left)
 
 
 def ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r: int, causal: bool):
@@ -102,7 +118,8 @@ def ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r: int, causal: bool):
     ``gram_grad``, ``conv_tap_grad``); on the CPU the same structure runs
     the plain versions. ``REPRO_PALLAS_GRAD=0`` swaps in autograd's
     cotangents through ``ref.ski_fused_tno_ref``."""
-    return ski_vjp.ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r, causal)
+    with kernel_region("ski_fused"):
+        return ski_vjp.ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r, causal)
 
 
 def ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r: int, causal: bool,
@@ -121,8 +138,9 @@ def ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r: int, causal: bool,
     mirrored, and ``conv_tap_grad``, with ``gram_coef_grad_fft`` on
     ``torch.fft``. ``REPRO_PALLAS_GRAD=0`` swaps in autograd's cotangents
     through the plain version."""
-    return ski_vjp.ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r,
-                                      causal, variant)
+    with kernel_region(f"ski_{variant}"):
+        return ski_vjp.ski_fused_tno_coef(x, a_coef, filt, idx_lo, w_lo, r,
+                                          causal, variant)
 
 
 def reset_ski_counters() -> None:

@@ -42,6 +42,7 @@ from torch.autograd.function import once_differentiable
 from repro_torch.kernels import backend, ref
 from repro_torch.kernels.interp_matvec import forward_only
 from repro_torch.kernels.ski_grad import conv_tap_grad
+from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"short_conv": 0}
@@ -125,19 +126,20 @@ class ShortConv(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, filt = ctx.saved_tensors
-        left, m = ctx.left, filt.shape[-1]
-        if not backend.resolve_pallas_grad():
-            op_counters["bwd_ref"] += 1
-            dx, df = backend.ref_cotangents(ref.short_conv_left_ref,
-                                            (x, filt), g, left)
-            return dx, df, None
-        op_counters["bwd_kernel"] += 1
-        # the kernels read raw memory: contiguous copies, never lazy views
-        g = g.contiguous()
-        dx = short_conv(g, filt.flip(-1).contiguous(), m - 1 - left)
-        df = conv_tap_grad(g, x, m, left)
-        return dx.to(x.dtype), df.to(filt.dtype), None
+        with kernel_region("short_conv"):
+            x, filt = ctx.saved_tensors
+            left, m = ctx.left, filt.shape[-1]
+            if not backend.resolve_pallas_grad():
+                op_counters["bwd_ref"] += 1
+                dx, df = backend.ref_cotangents(ref.short_conv_left_ref,
+                                                (x, filt), g, left)
+                return dx, df, None
+            op_counters["bwd_kernel"] += 1
+            # the kernels read raw memory: contiguous copies, never lazy views
+            g = g.contiguous()
+            dx = short_conv(g, filt.flip(-1).contiguous(), m - 1 - left)
+            df = conv_tap_grad(g, x, m, left)
+            return dx.to(x.dtype), df.to(filt.dtype), None
 
 
 def short_conv_op(x: torch.Tensor, filt: torch.Tensor,

@@ -44,6 +44,7 @@ from repro_torch.kernels.ski_fused import (ski_expand_pass2, ski_fused_pass2,
                                            ski_windowed_pass2)
 from repro_torch.kernels.ski_grad import (conv_tap_grad, gram_coef_grad_fft,
                                           gram_grad)
+from repro_torch.obs.devstats import kernel_region
 
 #: differentiated :func:`ski_fused_tno` forwards (grad enabled and an input
 #: that requires grad) and :class:`SKIFusedTNO` backwards: the kernel
@@ -74,27 +75,28 @@ class SKIFusedTNO(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, a_dense, filt, idx_lo, w_lo = ctx.saved_tensors
-        r, causal = ctx.r, ctx.causal
-        if not backend.resolve_pallas_grad():
-            counters["bwd_ref"] += 1
-            dx, da, df = backend.ref_cotangents(
-                ref.ski_fused_tno_ref, (x, a_dense, filt), g, idx_lo, w_lo,
-                r, causal)
-            return dx, da, df, None, None, None, None
-        counters["bwd_kernel"] += 1
-        m = filt.shape[-1]
-        left = 0 if causal else m // 2
-        # the kernels read raw memory: contiguous copies, never lazy views
-        g = g.contiguous()
-        gz = interp_reduce(g, idx_lo, w_lo, r)
-        z = interp_reduce(x, idx_lo, w_lo, r)
-        dx = ski_fused_pass2(g, gz, a_dense, filt.flip(-1).contiguous(),
-                             causal, left=m - 1 - left, transpose_a=True)
-        da = gram_grad(gz, z)
-        df = conv_tap_grad(g, x, m, left)
-        return (dx.to(x.dtype), da.to(a_dense.dtype), df.to(filt.dtype),
-                None, None, None, None)
+        with kernel_region("ski_fused"):
+            x, a_dense, filt, idx_lo, w_lo = ctx.saved_tensors
+            r, causal = ctx.r, ctx.causal
+            if not backend.resolve_pallas_grad():
+                counters["bwd_ref"] += 1
+                dx, da, df = backend.ref_cotangents(
+                    ref.ski_fused_tno_ref, (x, a_dense, filt), g, idx_lo, w_lo,
+                    r, causal)
+                return dx, da, df, None, None, None, None
+            counters["bwd_kernel"] += 1
+            m = filt.shape[-1]
+            left = 0 if causal else m // 2
+            # the kernels read raw memory: contiguous copies, never lazy views
+            g = g.contiguous()
+            gz = interp_reduce(g, idx_lo, w_lo, r)
+            z = interp_reduce(x, idx_lo, w_lo, r)
+            dx = ski_fused_pass2(g, gz, a_dense, filt.flip(-1).contiguous(),
+                                 causal, left=m - 1 - left, transpose_a=True)
+            da = gram_grad(gz, z)
+            df = conv_tap_grad(g, x, m, left)
+            return (dx.to(x.dtype), da.to(a_dense.dtype), df.to(filt.dtype),
+                    None, None, None, None)
 
 
 def ski_fused_tno(x: torch.Tensor, a_dense: torch.Tensor,
@@ -141,28 +143,29 @@ class SKIFusedTNOCoef(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
-        x, a_coef, filt, idx_lo, w_lo = ctx.saved_tensors
-        r, causal = ctx.r, ctx.causal
-        if not backend.resolve_pallas_grad():
-            coef_counters["bwd_ref"] += 1
-            dx, dcoef, df = backend.ref_cotangents(
-                ref.ski_fused_tno_coef_ref, (x, a_coef, filt), g, idx_lo,
-                w_lo, r, causal)
-            return dx, dcoef, df, None, None, None, None, None
-        coef_counters["bwd_kernel"] += 1
-        m = filt.shape[-1]
-        left = 0 if causal else m // 2
-        g = g.contiguous()
-        gz = interp_reduce(g, idx_lo, w_lo, r)
-        z = interp_reduce(x, idx_lo, w_lo, r)
-        # Aᵀ of a Toeplitz matrix: the lag-reversed coefficients
-        dx = _coef_pass2(ctx.variant, g, gz, a_coef.flip(-1).contiguous(),
-                         filt.flip(-1).contiguous(), causal,
-                         left=m - 1 - left)
-        dcoef = gram_coef_grad_fft(gz, z)
-        df = conv_tap_grad(g, x, m, left)
-        return (dx.to(x.dtype), dcoef.to(a_coef.dtype), df.to(filt.dtype),
-                None, None, None, None, None)
+        with kernel_region(f"ski_{ctx.variant}"):
+            x, a_coef, filt, idx_lo, w_lo = ctx.saved_tensors
+            r, causal = ctx.r, ctx.causal
+            if not backend.resolve_pallas_grad():
+                coef_counters["bwd_ref"] += 1
+                dx, dcoef, df = backend.ref_cotangents(
+                    ref.ski_fused_tno_coef_ref, (x, a_coef, filt), g, idx_lo,
+                    w_lo, r, causal)
+                return dx, dcoef, df, None, None, None, None, None
+            coef_counters["bwd_kernel"] += 1
+            m = filt.shape[-1]
+            left = 0 if causal else m // 2
+            g = g.contiguous()
+            gz = interp_reduce(g, idx_lo, w_lo, r)
+            z = interp_reduce(x, idx_lo, w_lo, r)
+            # Aᵀ of a Toeplitz matrix: the lag-reversed coefficients
+            dx = _coef_pass2(ctx.variant, g, gz, a_coef.flip(-1).contiguous(),
+                             filt.flip(-1).contiguous(), causal,
+                             left=m - 1 - left)
+            dcoef = gram_coef_grad_fft(gz, z)
+            df = conv_tap_grad(g, x, m, left)
+            return (dx.to(x.dtype), dcoef.to(a_coef.dtype), df.to(filt.dtype),
+                    None, None, None, None, None)
 
 
 def ski_fused_tno_coef(x: torch.Tensor, a_coef: torch.Tensor,

@@ -36,6 +36,7 @@ from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.ssd_chunked import ssd_scan_chunked
+from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"ssd_scan": 0}
@@ -141,15 +142,16 @@ class SSDScan(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, gy):
-        op_counters["bwd_chunked"] += 1
-        need = ctx.needs_input_grad[:6]
-        ins = [t.detach().requires_grad_(n)
-               for t, n in zip(ctx.saved_tensors, need)]
-        with torch.enable_grad():
-            y = ssd_scan_chunked(*ins, chunk=ctx.chunk)
-            got = iter(torch.autograd.grad(
-                y, [t for t, n in zip(ins, need) if n], gy))
-        return (*(next(got) if n else None for n in need), None)
+        with kernel_region("ssd"):
+            op_counters["bwd_chunked"] += 1
+            need = ctx.needs_input_grad[:6]
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            with torch.enable_grad():
+                y = ssd_scan_chunked(*ins, chunk=ctx.chunk)
+                got = iter(torch.autograd.grad(
+                    y, [t for t, n in zip(ins, need) if n], gy))
+            return (*(next(got) if n else None for n in need), None)
 
 
 def ssd_scan_op(x, dt, a, b, c, d_skip, *, chunk: int = 64) -> torch.Tensor:

@@ -17,8 +17,15 @@ kernels: a layer's forward launches the bf16 ``short_conv`` and
 ``conv_tap_grad_bf16`` (the taps' cotangent) and runs autograd through
 the chunked SSD scan (``kernels/ssd_scan.SSDScan``), with every layer
 checkpointed under the config's ``remat="full"``.
-Multi-device meshes (``--production-mesh``) and the metrics / trace files
-come with later slices (ROADMAP Queue 1 items 10 and 12).
+``--metrics-file`` and ``--trace-file`` are JAX's: the obs registry,
+installed as the process default (the Trainer's ``repro_train_*``, the
+compile watchdog's ``repro_compiles_total{fn="train.train_step"}``),
+dumped on exit; ``train_step`` span events (the end after a
+``torch.cuda.synchronize`` on the card) streamed as JSONL with a Chrome
+export beside them. With ``REPRO_PROFILE_DIR`` set the run is one
+profiler session whose kernel regions ``obs.devstats.aggregate_chrome``
+reads. Multi-device meshes (``--production-mesh``) come with a later
+slice (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -57,8 +64,32 @@ def main(argv=None):
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--metrics-file", default=None, metavar="PATH",
+                    help="dump the obs metrics registry on exit "
+                         "(.json = JSON dump, anything else = Prometheus "
+                         "text exposition); also installs the registry as "
+                         "the process default so the compile watchdog's "
+                         "counters land in it (same contract as "
+                         "launch/serve.py)")
+    ap.add_argument("--trace-file", default=None, metavar="PATH",
+                    help="stream train_step span events to PATH as JSONL "
+                         "and write a Chrome trace_event export "
+                         "(PATH + '.chrome.json') on exit")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import tracing as obs_tracing
+    reg = None
+    if args.metrics_file is not None:
+        reg = obs_metrics.Registry()
+        # process default too: the compile watchdog and the Trainer's own
+        # counters report into the same dump (parity with launch/serve.py)
+        obs_metrics.set_default_registry(reg)
+    tracer = (obs_tracing.Tracer(args.trace_file)
+              if args.trace_file is not None else None)
+    if tracer is not None:
+        obs_tracing.set_default_tracer(tracer)
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -76,7 +107,30 @@ def main(argv=None):
                           kind=args.data, path=args.data_path)
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every)
-    trainer = Trainer(tcfg, make_train_step(cfg, opt_cfg), data_cfg)
+    # compile watchdog over the trainer's entry point: one first call is
+    # expected for the whole run (the batch/seq shapes are fixed); another
+    # signature mid-run shows up as
+    # repro_compiles_total{fn="train.train_step"} > 1 plus a warning
+    from repro_torch.obs import compilewatch as obs_compile
+    watch = obs_compile.CompileWatch(prefix="train.")
+    watch.expect("train_step", 1)
+    train_step = watch.wrap("train_step", make_train_step(cfg, opt_cfg))
+    if tracer is not None:
+        import itertools
+        inner_step, counter = train_step, itertools.count()
+
+        def train_step(model, opt, batch):
+            i = next(counter)
+            tracer.begin("train_step", step=i)
+            out = inner_step(model, opt, batch)
+            # sync before ending the span so the duration is device time,
+            # not enqueue time (the Trainer reads the loss right after)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            tracer.end("train_step", step=i)
+            return out
+
+    trainer = Trainer(tcfg, train_step, data_cfg)
 
     opt, start = trainer.try_restore(model, opt)
     t0 = time.time()
@@ -87,6 +141,21 @@ def main(argv=None):
     print(f"[train] {steps_done} steps in {dt:.1f}s "
           f"({steps_done / dt:.2f} it/s); final metrics: "
           f"{ {k: float(v) for k, v in final.items()} }")
+    if watch.count("train_step") > 1:
+        print(f"[train] WARNING: train_step retraced "
+              f"{watch.count('train_step')}x (expected 1 compile)")
+    if tracer is not None:
+        tracer.close()
+        chrome = args.trace_file + ".chrome.json"
+        obs_tracing.write_chrome(tracer.events, chrome)
+        print(f"[train] trace: {args.trace_file} (JSONL), "
+              f"{chrome} (Perfetto)")
+    if reg is not None:
+        if args.metrics_file.endswith(".json"):
+            reg.dump_json(args.metrics_file)
+        else:
+            reg.dump_prometheus(args.metrics_file)
+        print(f"[train] metrics: {args.metrics_file}")
     return 0
 
 

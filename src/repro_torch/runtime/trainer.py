@@ -22,10 +22,15 @@
   ``straggler_factor`` × the EMA are logged with their step index.
 * **Dispatch banner** — ``run()`` logs the device and, on CUDA, the path
   of the kernel library once at startup.
-
-The JAX trainer's metrics registry and profiler session come with the
-port's obs slice; ``metrics_history`` and ``step_seconds`` keep each
-step's metrics and wall time.
+* **Metrics** — JAX's seven families in the obs registry:
+  ``repro_train_steps_total``, ``repro_train_retries_total``,
+  ``repro_train_stragglers_total``, ``repro_train_checkpoints_total{mode}``,
+  the ``repro_train_step_seconds`` histogram and the ``repro_train_loss``
+  and ``repro_train_tokens_per_s`` gauges. ``run`` is one
+  ``obs.profiling.session("train")`` and each step an
+  ``annotation("train_step")`` (both no-ops unless ``REPRO_PROFILE_DIR``).
+  ``metrics_history`` and ``step_seconds`` keep each step's metrics and
+  wall time.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ import torch
 from repro_torch import bridge
 from repro_torch.checkpoint import manifest as ckpt
 from repro_torch.data.pipeline import DataConfig, batch_at
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import profiling as obs_prof
 
 
 @dataclasses.dataclass
@@ -88,19 +95,40 @@ class Trainer:
                  data_cfg: DataConfig, *,
                  put_batch: Optional[Callable] = None,
                  failure_hook: Optional[Callable[[int, int], None]] = None,
-                 log: Optional[Callable[[str], None]] = None):
+                 log: Optional[Callable[[str], None]] = None,
+                 metrics=None):
         """``train_step(model, opt_state, batch) -> (opt_state, metrics)``
         (``launch/steps.make_train_step``) may update the model and the
         optimizer state in place. ``put_batch(host_batch) -> batch`` places
         the pipeline's numpy batch (default: int64 tensors on the model's
         device). ``failure_hook(step, attempt)`` may raise to inject
-        failures. ``log`` defaults to the ``repro_torch.trainer`` logger."""
+        failures. ``log`` defaults to the ``repro_torch.trainer`` logger.
+        ``metrics`` is an obs registry (default: the process registry — a
+        no-op unless ``REPRO_METRICS``)."""
         self.cfg = cfg
         self.train_step = train_step
         self.data_cfg = data_cfg
         self.put_batch = put_batch
         self.failure_hook = failure_hook
         self.log = log or logging.getLogger("repro_torch.trainer").info
+        self.metrics = (metrics if metrics is not None
+                        else obs_metrics.default_registry())
+        m = self.metrics
+        self._m_steps = m.counter(
+            "repro_train_steps_total", "training steps completed")
+        self._m_retries = m.counter(
+            "repro_train_retries_total", "training step retries")
+        self._m_stragglers = m.counter(
+            "repro_train_stragglers_total", "steps flagged as stragglers")
+        self._m_ckpts = m.counter(
+            "repro_train_checkpoints_total",
+            "checkpoint saves issued", ("mode",))
+        self._m_step_s = m.histogram(
+            "repro_train_step_seconds", "train_step wall time")
+        self._m_loss = m.gauge(
+            "repro_train_loss", "last finite training loss")
+        self._m_tok_s = m.gauge(
+            "repro_train_tokens_per_s", "training throughput, last step")
         self.monitor = StragglerMonitor(cfg.straggler_factor, cfg.ema_alpha)
         self.ckpt = (ckpt.AsyncCheckpointer(cfg.ckpt_dir, cfg.keep_ckpts)
                      if cfg.ckpt_dir else None)
@@ -163,23 +191,29 @@ class Trainer:
         put = self.put_batch or _device_batch(device)
         self.log(self._banner(device))
         self._install_signals()
+        prof = obs_prof.session("train")   # no-op unless REPRO_PROFILE_DIR
+        prof.__enter__()
         try:
             step = start_step
             while step < self.cfg.total_steps and not self._preempted:
                 batch = put(batch_at(self.data_cfg, step))
                 opt, metrics = self._step_with_retry(step, model, opt, batch)
                 self.metrics_history.append(metrics)
+                self._m_steps.inc()
                 if self.cfg.log_every and step % self.cfg.log_every == 0:
                     ms = {k: float(v) for k, v in metrics.items()}
                     self.log(f"[trainer] step {step}: {ms}")
                 step += 1
                 if self.ckpt and step % self.cfg.ckpt_every == 0:
                     self._save(step, model, opt)
+                    self._m_ckpts.labels(mode="async").inc()
             if self.ckpt:
                 self._save(step, model, opt, sync=True)  # final / preemption
+                self._m_ckpts.labels(mode="sync").inc()
             return opt, step
         finally:
             self._restore_signals()
+            prof.__exit__(None, None, None)
 
     @staticmethod
     def _snapshot(model, opt):
@@ -206,18 +240,30 @@ class Trainer:
                 if self.failure_hook is not None:
                     self.failure_hook(step, attempt)
                 t0 = time.perf_counter()
-                new_opt, metrics = self.train_step(model, opt, batch)
+                with obs_prof.annotation("train_step"):
+                    new_opt, metrics = self.train_step(model, opt, batch)
                 loss = metrics.get("loss")
-                if loss is not None and not math.isfinite(float(loss)):
-                    raise FloatingPointError(f"non-finite loss at step {step}")
+                if loss is not None:
+                    loss = float(loss)
+                    if not math.isfinite(loss):
+                        raise FloatingPointError(
+                            f"non-finite loss at step {step}")
                 dt = time.perf_counter() - t0
                 self.step_seconds.append(dt)
+                self._m_step_s.observe(dt)
+                if loss is not None:
+                    self._m_loss.set(loss)
+                if isinstance(batch, dict) and "tokens" in batch and dt > 0:
+                    self._m_tok_s.set(float(batch["tokens"].numel()) / dt)
                 if self.monitor.observe(step, dt):
+                    self._m_stragglers.inc()
                     self.log(f"[trainer] straggler: step {step} took {dt:.3f}s "
                              f"(ema {self.monitor.ema:.3f}s)")
                 return new_opt, metrics
             except (FloatingPointError, RuntimeError, ValueError) as e:
                 last_err = e
+                if attempt < self.cfg.max_retries:
+                    self._m_retries.inc()
                 self.log(f"[trainer] step {step} attempt {attempt} failed: {e}")
         self._copy_back(backup, model, opt)
         raise RuntimeError(

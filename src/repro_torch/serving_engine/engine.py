@@ -33,7 +33,11 @@ call at each new argument shape, as a jit trace would, so the bucketing
 contract (one ``prefill_bucket`` shape per (batch, bucket, remainder
 length), not one per prompt length) stays testable. Under a live metrics
 registry (``metrics=``, or the ``REPRO_METRICS`` process default) the same
-counts feed ``repro_engine_traces_total{fn}``. Positions, admission
+counts feed ``repro_engine_traces_total{fn}``, and the ``compile_watch``
+(``obs/compilewatch.CompileWatch``, prefix ``"engine."``) records each
+first call into ``repro_compiles_total{fn}`` under JAX's retrace budgets
+(``generate`` 2, ``decode1`` 2, ``prefill_bucket`` 2 · buckets · slots).
+Positions, admission
 and the masks of a prefill are decided on the host: a prefill moves its
 tokens and masks to the card once, a ``generate`` step moves the slots'
 positions and liveness once and reads back its tokens and ``ok`` once. The
@@ -56,6 +60,7 @@ import torch
 from repro_torch.kernels import fd_stream
 from repro_torch.models import sampling, serving
 from repro_torch.models.config import ArchConfig
+from repro_torch.obs import compilewatch as obs_compile
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.serving_engine import state as st
 
@@ -141,6 +146,17 @@ class Engine:
                             ("fn",)),
                 "fn")
         self._shapes = {name: set() for name in self.trace_counts}
+        # the compile watchdog over the same first calls: they land in
+        # repro_compiles_total{fn="engine.*"}, and past JAX's budgets
+        # (decode1/generate batch over all S slots, packed prefill <= 2
+        # shapes per (batch, bucket)) it warns; insert/chunk1 run one shape
+        # per prompt length on the unbucketed path, counted, not budgeted
+        w = self.compile_watch = obs_compile.CompileWatch(
+            metrics=reg, prefix="engine.")
+        w.expect("generate", 2)
+        w.expect("decode1", 2)
+        w.expect("prefill_bucket",
+                 2 * max(len(self.buckets), 1) * max(self.slots, 1))
 
     # ------------------------------------------------------------ plumbing
     def _trace(self, name: str, shape) -> None:
@@ -148,6 +164,7 @@ class Engine:
         if shape not in self._shapes[name]:
             self._shapes[name].add(shape)
             self.trace_counts[name] += 1
+            self.compile_watch._mark(name)
 
     def _bucket_ladder(self, b0: int):
         """Geometric prompt-length buckets b0, 2·b0, … up to capacity. For
