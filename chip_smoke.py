@@ -6,7 +6,7 @@ decoder granite-moe-3b-a800m's scoring and serving (with the paper's
 mixers dropped in), the encoder-decoder whisper-medium's scoring and
 serving with cross-attention, the prefix-VLM paligemma-3b's scoring under
 the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI training, unfused SKI, large-rank
-SKI, Mamba-2 serving and training and the jamba hybrid's scoring and
+SKI, bf16 SKI scoring and training, Mamba-2 serving and training and the jamba hybrid's scoring and
 serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
@@ -168,9 +168,11 @@ card or outside a checkout of this repository. Phases:
    over 4 kv heads of 256, window 1,024, vocab 262,144, bf16, random
    weights from seed 0) scores 8 × 512 through ``make_forward`` and the
    eval ``loss_fn`` (parameters against ``param_count()``, init seconds,
-   peak memory); serves 4 prompts of 1,088 tokens with 32 greedy new
-   tokens each at max_len 1,152 through the KV caches (the window binds in
-   every local layer); the decode path teacher-forced over the generated
+   peak memory); at one period's depth (6 layers: 5 local and the
+   global one, every leaf the full model's own tensor) serves 4 prompts
+   of 1,088 tokens with 32 greedy new tokens each at max_len 1,152
+   through the KV caches (the window binds in every local layer); the
+   decode path teacher-forced over the generated
    sequences (its steps after the prompt timed) reproduces the generated
    tokens and picks the forward's token wherever the forward's top-2
    margin exceeds max(1e-3, twice the two paths' largest logit difference)
@@ -182,8 +184,9 @@ card or outside a checkout of this repository. Phases:
    ``interp_reduce`` + 6 ``ski_fused_pass2``, and no other kernel, their
    logits within 2e-2 of the scale of the same forward through the plain
    versions on the card (or twice that forward's distance from its
-   fp32-activation run, where larger); then the same weights in fp32: one
-   served row teacher-forced through all 1,119 decode steps against the
+   fp32-activation run, where larger); then the 6-layer cut's weights in
+   fp32: one served row teacher-forced through all 1,119 decode steps
+   against the
    fp32 forward, and 4 ragged requests (9, 30, 50 and 100 tokens) through
    an Engine of 4 slots at max_len 512 against solo ``generate``, both
    under the 1e-3 margin rule; asserted: no launch of any hand-written
@@ -291,6 +294,29 @@ card or outside a checkout of this repository. Phases:
    claimed, the forward and grad times at ``bench_ski_components.py``'s
    large-r shapes (r 64 to 8192, the dense op beside where it fits) and
    dense against windowed at r = 181 and 182, d = 512;
+9a. ski_bf16: the bf16 SKI path. ``interp_reduce_bf16`` at x (8, 512,
+   512) bf16, r = 64, ``ski_fused_pass2_bf16`` (left 0) and
+   ``ski_fused_pass2_at_bf16`` (Aᵀ, left 31) at x (8, 512, 512), z (8,
+   64, 512) bf16, A (512, 64, 64) fp32 and bf16 taps, and
+   ``gram_grad_bf16`` at (8, 64, 512) against their plain versions on the
+   same bf16 inputs on the card (1e-2 × max|plain| for the bf16 outputs,
+   1e-6 for dA, whose products of bf16 values are exact), both
+   orientations also at left 31 and 0, each also at every SKI_SHAPES
+   shape, and each timed (CUDA events, L2 evicted) beside its plain
+   version and a bf16 ``torch.einsum`` (none for pass 2); then the
+   full-width ski-tnn-lm-wt103 with dtype and param_dtype bf16 and its
+   parameters through ``nn.layers.cast_params`` (seed 0) scores 8 × 512
+   through ``make_forward`` (6 + 6 bf16 launches, no fp32 SKI launch;
+   tokens/s; the logits beside the same weights in fp32), takes
+   ``loss_and_grads`` at 8 × 512 (18 / 6 / 6 / 6 / 6 launches of
+   ``interp_reduce_bf16`` / ``ski_fused_pass2_bf16`` /
+   ``ski_fused_pass2_at_bf16`` / ``gram_grad_bf16`` /
+   ``conv_tap_grad_bf16``, none of the fp32 instances), holds its
+   gradients at 2 × 512 to the same model's on the CPU (each leaf's
+   relative L2 distance within max(2e-2, twice the CPU bf16 gradients'
+   own distance from the CPU fp32 ones)), and takes 5 ``make_train_step``
+   steps at 8 × 512 (a new batch each), every loss after the first below
+   it and all finite (tokens/s, peak memory);
 10. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
@@ -1251,9 +1277,12 @@ def phase_grad_kernels(peaks, device="cuda") -> dict:
 
 
 #: the launch count of every SKI kernel at 0, for the exact-count checks
-NO_SKI_LAUNCHES = {"interp_reduce": 0, "interp_expand": 0, "short_conv": 0,
-                   "ski_fused_pass2": 0, "ski_windowed_pass2": 0,
-                   "ski_expand_pass2": 0, "gram_grad": 0, "conv_tap_grad": 0,
+NO_SKI_LAUNCHES = {"interp_reduce": 0, "interp_reduce_bf16": 0,
+                   "interp_expand": 0, "short_conv": 0,
+                   "ski_fused_pass2": 0, "ski_fused_pass2_bf16": 0,
+                   "ski_fused_pass2_at_bf16": 0, "ski_windowed_pass2": 0,
+                   "ski_expand_pass2": 0, "gram_grad": 0,
+                   "gram_grad_bf16": 0, "conv_tap_grad": 0,
                    "conv_tap_grad_bf16": 0}
 #: SKIFusedTNO backward checks (label, r, d, causal), b = 8, n = 512, m = 32
 SKI_BACKWARD = (("causal", 64, 512, True), ("bidirectional", 64, 512, False),
@@ -2739,7 +2768,8 @@ ZOO_ENGINE_SLOTS, ZOO_ENGINE_MAX_LEN = 4, 512
 #: override path's name in ``main``'s paths
 ZOO_OVERRIDES = {"fd": {"causal_spectrum": 1, "fd_mul": 1},
                  "ski": {"interp_reduce": 1, "ski_fused_pass2": 1}}
-#: the depth a mixer override scores at (gemma3-4b's one period)
+#: the depth a mixer override scores at, and phase zoo's serve passes run
+#: at (gemma3-4b's one period: five local layers and the global one)
 OVERRIDE_LAYERS = 6
 #: the bf16 tier of a kernel path against its plain path on the card
 ZOO_BF16_TOL = 2e-2
@@ -2815,6 +2845,21 @@ def _override_model(base, base_model, mixer: str, device,
     have = base_model.state_dict(keep_vars=True)
     model.load_state_dict({k: fresh[k] if k in fresh else have[k]
                            for k in model.state_dict()}, assign=True)
+    return cfg, model
+
+
+def _cut_model(base, base_model, n_layers=OVERRIDE_LAYERS):
+    """The arch at its first ``n_layers`` layers (default one period of
+    gemma3-4b, both of its layer kinds), every leaf ``base_model``'s own
+    tensor, shared, not copied: the serve passes of phase zoo run on it,
+    so that their host-bound decode steps launch a sixth of the full
+    model's kernels."""
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(base, n_layers=n_layers)
+    model = Model(cfg, device="meta")
+    have = base_model.state_dict(keep_vars=True)
+    model.load_state_dict({k: have[k] for k in model.state_dict()},
+                          assign=True)
     return cfg, model
 
 
@@ -3066,12 +3111,14 @@ def _zoo_engine(name: str, cfg32, model32, device, ref_cfg=None) -> tuple:
 def phase_zoo(smi: str, device="cuda") -> dict:
     """The attention decoder gemma3-4b at full width, bf16, from seed 0:
     (1) score 8 × 512 through ``make_forward`` and the eval ``loss_fn``;
-    (2) serve ZOO_PROMPTS × (ZOO_PROMPT_LEN + ZOO_GEN) greedily at
-    ZOO_MAX_LEN through the KV caches; the decode path, teacher-forced
-    over the generated sequences (its steps alone timed), against the
-    forward over them (:func:`_check_decoded_bf16`); (3) ``--mixer fd``
+    (2) at one period's depth (:func:`_cut_model`, OVERRIDE_LAYERS layers
+    of the full model's tensors) serve ZOO_PROMPTS × (ZOO_PROMPT_LEN +
+    ZOO_GEN) greedily at ZOO_MAX_LEN through the KV caches; the decode
+    path, teacher-forced over the generated sequences (its steps alone
+    timed), against the forward over them (:func:`_check_decoded_bf16`);
+    (3) ``--mixer fd``
     and ``--mixer ski`` at one period's depth: their kernels launched
-    and held to the plain versions; (4) the same weights in fp32: one
+    and held to the plain versions; (4) the cut's weights in fp32: one
     served row through every decode step against the fp32 forward, and
     ZOO_ENGINE_PLENS through an Engine of ZOO_ENGINE_SLOTS slots held to
     solo ``generate``, both under the margin rule; 0 hand-kernel launches
@@ -3110,15 +3157,19 @@ def phase_zoo(smi: str, device="cuda") -> dict:
     if not math.isfinite(loss):
         raise AssertionError(f"zoo eval loss {loss}")
 
-    # (2) serve
+    # (2) serve, at one period's depth
+    cut_cfg, cut = _cut_model(cfg, model)
+    print(f"[zoo serve] the serve passes run on {cut_cfg.n_layers} layers "
+          f"({', '.join(m for m, _ in cut_cfg.layers_spec)}), the full "
+          "model's tensors", flush=True)
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (ZOO_PROMPTS, ZOO_PROMPT_LEN))).to(device)
     with torch.inference_mode():
-        generate(model, cfg, prompt[:, :8], 2, max_len=ZOO_MAX_LEN)
+        generate(cut, cut_cfg, prompt[:, :8], 2, max_len=ZOO_MAX_LEN)
         _sync(device)
         _reset_kernel_counts()
         t0 = time.perf_counter()
-        seqs = generate(model, cfg, prompt, ZOO_GEN, max_len=ZOO_MAX_LEN)
+        seqs = generate(cut, cut_cfg, prompt, ZOO_GEN, max_len=ZOO_MAX_LEN)
         _sync(device)
         t_gen = time.perf_counter() - t0
         launches["zoo_serve"] = _kernel_counts()
@@ -3127,14 +3178,15 @@ def phase_zoo(smi: str, device="cuda") -> dict:
         raise AssertionError(f"zoo generate returned {tuple(seqs.shape)}")
     steps = ZOO_PROMPT_LEN + ZOO_GEN - 1
     print(f"[zoo serve] generate {ZOO_PROMPTS} x ({ZOO_PROMPT_LEN} + "
-          f"{ZOO_GEN}) at max_len {ZOO_MAX_LEN} through the KV caches (the "
-          f"prompt token by token): {t_gen:.3f} s, {steps} decode steps "
-          f"({steps / t_gen:.1f} steps/s); kernel launches "
-          f"{launches['zoo_serve']}", flush=True)
-    host_ms, _, dec = _decode_timed(model, cfg, seqs, ZOO_PROMPT_LEN,
+          f"{ZOO_GEN}) at max_len {ZOO_MAX_LEN} through the KV caches of "
+          f"{cut_cfg.n_layers} layers (the prompt token by token): "
+          f"{t_gen:.3f} s, {steps} decode steps ({steps / t_gen:.1f} "
+          f"steps/s); kernel launches {launches['zoo_serve']}", flush=True)
+    host_ms, _, dec = _decode_timed(cut, cut_cfg, seqs, ZOO_PROMPT_LEN,
                                     ZOO_MAX_LEN, device)
     decode_rate = seqs.shape[0] / host_ms * 1e3
-    _check_decoded_bf16("[zoo serve]", cfg, model, ZOO_PROMPT_LEN, seqs, dec)
+    _check_decoded_bf16("[zoo serve]", cut_cfg, cut, ZOO_PROMPT_LEN, seqs,
+                        dec)
     del dec
 
     # (3) the paper's mixers in the zoo arch
@@ -3143,10 +3195,10 @@ def phase_zoo(smi: str, device="cuda") -> dict:
         launches[f"zoo_{mixer}"], rates[mixer] = _zoo_override(
             mixer, cfg, model, batch, device)
 
-    # (4) the same weights in fp32: decode against the forward, and the
+    # (4) the cut's weights in fp32: decode against the forward, and the
     # engine against solo decode, under the margin rule
-    cfg32, model32 = _fp32_copy(cfg, model, device)
-    del model
+    cfg32, model32 = _fp32_copy(cut_cfg, cut, device)
+    del model, cut
     _check_zoo_fp32(cfg32, model32, seqs[:1])
     launches["zoo_engine"], engine_rate = _zoo_engine("zoo", cfg32, model32,
                                                       device)
@@ -3162,9 +3214,11 @@ def phase_zoo(smi: str, device="cuda") -> dict:
     print(f"[zoo] rates ({smi}; host clock, recorded, not claimed): scoring "
           f"{score_tok_s:.0f} tokens/s; decode alone {decode_rate:.1f} new "
           f"tok/s ({ZOO_PROMPTS} rows at positions {ZOO_PROMPT_LEN}-"
-          f"{ZOO_MAX_LEN - 2}); fp32 engine {engine_rate:.1f} new tok/s over "
-          f"its generate steps; --mixer fd scoring {rates['fd']:.0f} tokens/s, "
-          f"--mixer ski {rates['ski']:.0f} tokens/s (6 layers)", flush=True)
+          f"{ZOO_MAX_LEN - 2}, {OVERRIDE_LAYERS} layers); fp32 engine "
+          f"{engine_rate:.1f} new tok/s over its generate steps "
+          f"({OVERRIDE_LAYERS} layers); --mixer fd scoring "
+          f"{rates['fd']:.0f} tokens/s, --mixer ski {rates['ski']:.0f} "
+          f"tokens/s ({OVERRIDE_LAYERS} layers)", flush=True)
     print(f"[zoo] phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return launches
@@ -4419,6 +4473,278 @@ def large_r_times(device="cuda") -> None:
           f"forward with the plan, grad of sum(y) for the RPE values and "
           f"taps; the pass-2 kernels alone at x (8, 512, 512)): "
           f"{json.dumps(times)}", flush=True)
+
+
+# -------------------------------------------------------------- phase 9a
+#: the bf16 SKI path: kernel launches a layer makes in one scoring forward
+#: and in one training step (forward + backward); the fp32 instances of
+#: the three templated kernels must launch none
+SKI_BF16_SCORE = {"interp_reduce_bf16": 1, "ski_fused_pass2_bf16": 1}
+SKI_BF16_STEP = {"interp_reduce_bf16": 3, "ski_fused_pass2_bf16": 1,
+                 "ski_fused_pass2_at_bf16": 1, "gram_grad_bf16": 1,
+                 "conv_tap_grad_bf16": 1}
+SKI_FP32_INSTANCES = ("interp_reduce", "ski_fused_pass2", "gram_grad")
+#: training of phase ski_bf16: AdamW steps of 8 x 512, and the batch rows
+#: of the card-vs-CPU gradient check
+SKI_BF16_STEPS, SKI_BF16_CPU_ROWS = 5, 2
+
+
+def _ski_bf16_cfg():
+    """ski-tnn-lm-wt103 at full width with dtype and param_dtype bf16."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("ski-tnn-lm-wt103"),
+                               dtype="bfloat16", param_dtype="bfloat16")
+
+
+def _ski_bf16_model(cfg, device):
+    """The bf16 model from seed 0 (drawn on the CPU generator, so the same
+    values on every device), its parameters through ``cast_params``."""
+    from repro_torch.models.transformer import init_model
+    from repro_torch.nn.layers import cast_params
+    return cast_params(init_model(cfg, torch.Generator().manual_seed(0),
+                                  device=device), torch.bfloat16)
+
+
+def _bf16_check(name, label, got, want, tol) -> None:
+    """``got`` within ``tol`` × max|want| (no timing)."""
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    if not err <= tol * scale:
+        raise AssertionError(f"{name} {label}: max abs err {err} > {tol} x "
+                             f"{scale}")
+
+
+def ski_bf16_kernels(peaks, device="cuda") -> dict:
+    """The bf16 instances against their plain versions on the same bf16
+    inputs on the card: ``interp_reduce_bf16``, ``ski_fused_pass2_bf16``
+    and ``ski_fused_pass2_at_bf16`` within BF16_TOL × max|plain| (fp32
+    sums in another order, rounded once to bf16: one ulp apart where the
+    two straddle a rounding), ``gram_grad_bf16`` within 1e-6 (products of
+    bf16 values are exact in fp32; b-term sums), the last bitwise against
+    a second call. At the SKI path's shapes (pass 2 at left 0, its Aᵀ
+    orientation at left 31, the backward's mirror; each also at the other
+    offset) each is timed beside its plain version and, for the reduce
+    and the Gram cotangent, a bf16 ``torch.einsum``; every SKI_SHAPES
+    shape is checked, untimed. Returns the path's entries by kernel."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ref, ski_fused, ski_grad
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(9)
+    out = {}
+    for label, b, n, d, r, m, _ in SKI_SHAPES:
+        x = torch.randn(b, n, d, device=device, generator=g).to(bf16)
+        z = torch.randn(b, r, d, device=device, generator=g).to(bf16)
+        gz = torch.randn(b, r, d, device=device, generator=g).to(bf16)
+        a = torch.randn(d, r, r, device=device, generator=g)
+        f = torch.randn(d, m, device=device, generator=g).to(bf16)
+        f_t = f.flip(-1).contiguous()
+        lo, w_lo, _ = ski.make_inducing(n, r, device)
+        lefts = {"forward": 0, "backward": m - 1}
+
+        def pass2(left, at, fn=ski_fused.ski_fused_pass2):
+            return lambda: fn(x, z, a, f_t if at else f, True, left=left,
+                              transpose_a=at)
+
+        def pass2_plain(left, at):
+            return pass2(left, at, ref.ski_fused_pass2_ref)
+        if label != "path":
+            _bf16_check("interp_reduce_bf16", label,
+                        interp_matvec.interp_reduce(x, lo, w_lo, r),
+                        ref.interp_reduce_ref(x, lo, w_lo, r), BF16_TOL)
+            for at in (False, True):
+                for left in lefts.values():
+                    _bf16_check(
+                        "ski_fused_pass2_at_bf16" if at else
+                        "ski_fused_pass2_bf16", f"{label} left={left}",
+                        pass2(left, at)(), pass2_plain(left, at)(), BF16_TOL)
+            _bf16_check("gram_grad_bf16", label,
+                        _repeat_equal("gram_grad_bf16", label,
+                                      lambda: ski_grad.gram_grad(gz, z)),
+                        ref.gram_grad_ref(gz, z), 1e-6)
+            continue
+        w = ref.dense_interp_matrix(lo, w_lo, r).to(bf16)
+        nnz_w = int((w != 0).sum())
+        out["interp_reduce_bf16"] = _kernel_entry(
+            "interp_reduce_bf16", "src/repro/kernels/interp_matvec.py:65",
+            interp_matvec.interp_reduce(x, lo, w_lo, r),
+            ref.interp_reduce_ref(x, lo, w_lo, r),
+            lambda: interp_matvec.interp_reduce(x, lo, w_lo, r),
+            lambda: ref.interp_reduce_ref(x, lo, w_lo, r),
+            lambda: torch.einsum("nr,bnd->brd", w, x),
+            nbytes=2 * (x.numel() + z.numel()), nops=2 * b * d * nnz_w,
+            peaks=peaks, tol=BF16_TOL, source=SKI_SRC)
+        print(f"[ski_bf16 kernel] interp_reduce_bf16 x ({b}, {n}, {d}) bf16, "
+              f"r={r}: {out['interp_reduce_bf16']}", flush=True)
+        # x, z (bf16), A (fp32), the taps (bf16) read once, y (bf16)
+        # written once; conv 2·b·n·d·m, Gram 2·b·d·r², expansion 2·2·b·n·d
+        nbytes = (2 * (2 * x.numel() + z.numel()) + 4 * a.numel()
+                  + 2 * f.numel())
+        nops = 2 * b * d * (n * m + r * r + 2 * n)
+        for at, name in ((False, "ski_fused_pass2_bf16"),
+                         (True, "ski_fused_pass2_at_bf16")):
+            left = lefts["backward" if at else "forward"]
+            other = lefts["forward" if at else "backward"]
+            _bf16_check(name, f"{label} left={other}", pass2(other, at)(),
+                        pass2_plain(other, at)(), BF16_TOL)
+            out[name] = _kernel_entry(
+                name, "src/repro/kernels/ski_fused.py:143", pass2(left, at)(),
+                pass2_plain(left, at)(), pass2(left, at),
+                pass2_plain(left, at), None, nbytes=nbytes, nops=nops,
+                peaks=peaks, tol=BF16_TOL, source=SKI_SRC)
+            print(f"[ski_bf16 kernel] {name} x ({b}, {n}, {d}), z ({b}, {r}, "
+                  f"{d}) bf16, A ({d}, {r}, {r}) fp32, bf16 taps m={m}, "
+                  f"left={left}{', A transposed in place' if at else ''}: "
+                  f"{out[name]}", flush=True)
+        out["gram_grad_bf16"] = _kernel_entry(
+            "gram_grad_bf16", "src/repro/kernels/ski_grad.py:149",
+            _repeat_equal("gram_grad_bf16", label,
+                          lambda: ski_grad.gram_grad(gz, z)),
+            ref.gram_grad_ref(gz, z), lambda: ski_grad.gram_grad(gz, z),
+            lambda: ref.gram_grad_ref(gz, z),
+            lambda: torch.einsum("bsc,btc->cst", gz, z),
+            nbytes=2 * 2 * z.numel() + 4 * d * r * r, nops=2 * b * d * r * r,
+            peaks=peaks, tol=1e-6, source=SKI_GRAD_SRC)
+        print(f"[ski_bf16 kernel] gram_grad_bf16 gz, z ({b}, {r}, {d}) bf16 "
+              f"-> dA fp32, two calls bitwise equal: {out['gram_grad_bf16']}",
+              flush=True)
+    print(f"[ski_bf16 kernel] the four bf16 instances also held at every "
+          f"SKI_SHAPES shape: {', '.join(s[0] for s in SKI_SHAPES[1:])}",
+          flush=True)
+    return out
+
+
+def _expect_bf16_launches(what: str, counts: dict, per_layer: dict,
+                          n_layers: int) -> None:
+    want = {k: per_layer.get(k, 0) * n_layers for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what} launched {counts}, not {want}")
+
+
+def phase_ski_bf16(smi: str, peaks, device="cuda") -> tuple:
+    """The bf16 SKI path (:func:`ski_bf16_kernels`, then the full-width
+    bf16 ski-tnn-lm-wt103 scored, its gradients taken and held to the
+    CPU's, and 5 steps trained; see the module docstring, item 9a).
+    Returns (the kernel entries, the launch counts by path)."""
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ski_vjp
+    from repro_torch.launch.steps import (loss_and_grads, make_forward,
+                                          make_train_step)
+    from repro_torch.nn.layers import cast_params
+    from repro_torch.optim import adamw
+    t_phase = time.perf_counter()
+    kernels = ski_bf16_kernels(peaks, device)
+    cfg = _ski_bf16_cfg()
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model = _ski_bf16_model(cfg, device)
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    print(f"[ski_bf16] {cfg.name}: {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"r={cfg.tno_rank}, m={cfg.tno_filter}, dtype {cfg.dtype}, "
+          f"parameters {dtypes} (cast_params), "
+          f"{sum(p.numel() for p in model.parameters())} parameters",
+          flush=True)
+    launches = {}
+
+    # scoring
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    logits, launches["ski_bf16_score"], score_tok_s = _zoo_score(
+        "[ski_bf16 score]", cfg, model, batch, device)
+    _expect_bf16_launches("[ski_bf16 score]", launches["ski_bf16_score"],
+                          SKI_BF16_SCORE, cfg.n_layers)
+    model32 = cast_params(_ski_bf16_model(cfg, device), torch.float32)
+    logits32 = make_forward(cfg32)(model32, batch["tokens"])
+    del model32
+    score_rel = _rel(logits, logits32)
+    print(f"[ski_bf16 score] bf16 logits against the same weights in fp32: "
+          f"max abs err {score_rel:.4e} of the fp32 logits' scale "
+          f"{float(logits32.abs().max()):.3f} (reported)", flush=True)
+    del logits, logits32
+
+    # training: one loss_and_grads at 8 x 512, counted
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_kernel_counts()
+    ski_vjp.reset_counters()
+    loss, _, grads = loss_and_grads(model, cfg, batch)
+    _sync(device)
+    launches["ski_bf16_train"] = _kernel_counts()
+    ops_counts = dict(ski_vjp.counters)
+    _expect_bf16_launches("[ski_bf16 train] loss_and_grads",
+                          launches["ski_bf16_train"], SKI_BF16_STEP,
+                          cfg.n_layers)
+    want_ops = {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
+                "bwd_ref": 0}
+    if ops_counts != want_ops or not all(
+            g.dtype == torch.bfloat16 for g in grads.values()):
+        raise AssertionError(f"[ski_bf16 train] SKIFusedTNO {ops_counts}, "
+                             f"gradient dtypes "
+                             f"{sorted({str(g.dtype) for g in grads.values()})}")
+    print(f"[ski_bf16 train] loss_and_grads {SCORE_BATCH} x {SCORE_SEQ}: "
+          f"loss {float(loss):.6f}; launches {launches['ski_bf16_train']}; "
+          f"SKIFusedTNO {ops_counts}; every gradient bf16", flush=True)
+    del grads
+
+    # the card's gradients against the CPU's, 2 x 512
+    rows = {k: v[:SKI_BF16_CPU_ROWS] for k, v in batch.items()}
+    t0 = time.perf_counter()
+    _, _, got = loss_and_grads(model, cfg, rows)
+    cpu = _ski_bf16_model(cfg, "cpu")
+    cpu_rows = {k: v.cpu() for k, v in rows.items()}
+    _, _, want = loss_and_grads(cpu, cfg, cpu_rows)
+    _, _, want32 = loss_and_grads(cast_params(cpu, torch.float32), cfg32,
+                                  cpu_rows)
+    del cpu
+    worst, report = 0.0, []
+    for k in want:
+        err = _rel_l2(got[k].cpu(), want[k])
+        tol = max(ZOO_BF16_TOL, 2 * _rel_l2(want32[k], want[k]))
+        worst = max(worst, err / tol)
+        report.append(f"{k} {err:.3e}/{tol:.3e} (max abs "
+                      f"{_rel(got[k].cpu(), want[k]):.3e})")
+        if not err <= tol:
+            raise AssertionError(f"[ski_bf16 train] {k}: card vs CPU "
+                                 f"relative L2 {err} > {tol}")
+    print(f"[ski_bf16 train] card vs CPU gradients, {SKI_BF16_CPU_ROWS} x "
+          f"{SCORE_SEQ} tokens, each leaf's relative L2 distance / limit "
+          f"max({ZOO_BF16_TOL}, 2 x the CPU bf16 gradients' own distance "
+          f"from the CPU fp32 ones): worst ratio {worst:.3f}; "
+          f"{'; '.join(report)}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del got, want, want32
+
+    # 5 AdamW steps at 8 x 512
+    ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=1,
+                           total_steps=SKI_BF16_STEPS)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step = make_train_step(cfg, ocfg)
+    data = DataConfig(vocab=cfg.vocab, seq_len=SCORE_SEQ,
+                      global_batch=SCORE_BATCH, seed=0)
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats(device)
+    for i in range(SKI_BF16_STEPS):
+        b = {k: torch.from_numpy(np.asarray(v)).long().to(device)
+             for k, v in batch_at(data, i).items()}
+        t0 = time.perf_counter()
+        opt, metrics = step(model, opt, b)
+        losses.append(float(metrics["loss"]))     # synchronises
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    step_ms = statistics.median(walls[1:]) * 1e3
+    train_tok_s = SCORE_BATCH * SCORE_SEQ / step_ms * 1e3
+    print(f"[ski_bf16 train] {SKI_BF16_STEPS} make_train_step steps of "
+          f"{SCORE_BATCH} x {SCORE_SEQ}: losses {[round(v, 6) for v in losses]}"
+          f"; median step (after the first) {step_ms:.3f} ms, "
+          f"{train_tok_s:.0f} tokens/s; max_memory_allocated {peak} bytes "
+          f"({peak / 2**30:.3f} GiB)", flush=True)
+    # each step draws a new batch of the synthetic stream, so the losses
+    # after the first must fall below it, not below each other
+    if not (all(math.isfinite(v) for v in losses)
+            and max(losses[1:]) < losses[0]):
+        raise AssertionError(f"[ski_bf16 train] losses {losses}")
+    print(f"[ski_bf16] rates ({smi}; host clock, recorded, not claimed): "
+          f"scoring {score_tok_s:.0f} tokens/s, training {train_tok_s:.0f} "
+          f"tokens/s; phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del model, opt
+    return kernels, launches
 
 
 # --------------------------------------------------------------- phase 7
@@ -5950,6 +6276,8 @@ def main() -> int:
     causal_ski_vs_fd()
     large_r = phase_large_r()
     large_r_times()
+    bf16_kernels, bf16_launches = phase_ski_bf16(smi, peaks)
+    kernels.update(bf16_kernels)
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     del model
     mamba_kernels, mamba_launches = phase_mamba(peaks)
@@ -5984,6 +6312,10 @@ def main() -> int:
                                    ("interp_reduce", "ski_expand_pass2")),
              "large_r_fft_train": (large_r["large_r_fft_train"],
                                    tuple(TRAIN_LAUNCHES["ski_fft"])),
+             "ski_bf16_score": (bf16_launches["ski_bf16_score"],
+                                tuple(SKI_BF16_SCORE)),
+             "ski_bf16_train": (bf16_launches["ski_bf16_train"],
+                                tuple(SKI_BF16_STEP)),
              **{path: (counts, ()) for path, counts in tno_launches.items()
                 if path != "fd_hist"},
              "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),
@@ -6010,6 +6342,12 @@ def main() -> int:
             if not counts[name] > 0:
                 raise AssertionError(f"{name} not launched on the {path} "
                                      "path")
+    # the bf16 paths run the bf16 instances alone
+    for path in ("ski_bf16_score", "ski_bf16_train"):
+        fp32 = {k: paths[path][0][k] for k in SKI_FP32_INSTANCES}
+        if any(fp32.values()):
+            raise AssertionError(f"the {path} path launched fp32 instances "
+                                 f"{fp32}")
     for name, e in kernels.items():
         by_path = {path: counts[name] for path, (counts, names)
                    in paths.items() if name in counts}

@@ -35,6 +35,7 @@ import torch
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import Model
+from repro_torch.nn.layers import cast_params
 from repro_torch.optim.adamw import OptState
 from repro_torch.serving_engine import state as st
 
@@ -128,11 +129,17 @@ def _check_leaf(name: str, arr, want: torch.Tensor) -> None:
                          f"{want.dtype}")
 
 
-def params_from_jax(tree, cfg: ArchConfig, device="cuda") -> Model:
+def params_from_jax(tree, cfg: ArchConfig, device="cuda",
+                    dtype: torch.dtype | None = None) -> Model:
     """Build the port's model holding exactly the JAX parameters, each in
-    its leaf's own dtype. Raises if a JAX leaf has no port parameter, a
-    port parameter gets no JAX leaf, or a shape or dtype differs."""
+    its leaf's own dtype. ``dtype``: the dtype JAX's ``cast_params`` gave
+    the tree's floating leaves, which the port's model then takes through
+    ``nn.layers.cast_params`` before the leaves are checked against it.
+    Raises if a JAX leaf has no port parameter, a port parameter gets no
+    JAX leaf, or a shape or dtype differs."""
     model = Model(cfg, device="meta")
+    if dtype is not None:
+        cast_params(model, dtype)
     want = dict(model.state_dict())
     leaves = _leaves_by_name(tree, cfg, want, "JAX tree")
     for name, arr in leaves.items():

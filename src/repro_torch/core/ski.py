@@ -154,7 +154,9 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
                   ) -> torch.Tensor:
     """x: (b, n, d) -> (b, n, d) through the fused ``ops.ski_fused_tno``
     ("dense"), ``ops.ski_fused_tno_coef`` ("windowed", "fft") or, for an
-    "unfused" plan, the four unfused ops. Bidirectional by
+    "unfused" plan, the four unfused ops. On the card a bf16 x runs the
+    "dense" route only (its bf16 kernels); the other plans raise a
+    TypeError. Bidirectional by
     default, as in the JAX package; the decoder LM runs it causal.
     ``plan`` — optional :func:`ski_plan` built with the same ``causal``
     flag and n; a stale plan raises."""
@@ -168,6 +170,13 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
             f"plan mismatch: built for causal={plan['causal']}, "
             f"n={plan['idx_lo'].shape[0]}; called with causal={causal}, n={n}")
     r, idx_lo, w_lo = plan["r"], plan["idx_lo"], plan["w_lo"]
+    if (x.device.type != "cpu" and x.dtype != torch.float32
+            and plan["variant"] != "dense"):
+        # no quiet upcast: only the dense route has bf16 kernels
+        raise TypeError(
+            f"SKI {plan['variant']!r} route: x {x.dtype} on the card; only "
+            "the dense route has bf16 kernels (the large-rank routes are "
+            "ROADMAP Step 11b, the unfused route Step 11c)")
     if plan["variant"] == "dense":
         y = ops.ski_fused_tno(x, plan["a_dense"], params.filt, idx_lo, w_lo,
                               r, causal)

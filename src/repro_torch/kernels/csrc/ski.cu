@@ -8,6 +8,11 @@
 // ski_fused.py. x, y are (b, n, d) fp32, z = W^T x is (b, r, d), A is the
 // (d, r, r) per-channel inducing Gram or its (d, 2r-1) Toeplitz
 // coefficients and f the (d, m) short-conv taps, all contiguous.
+// interp_reduce and the dense pass 2 also take the signal (x, z, y) in bf16
+// (the *_bf16 entries, the JAX kernels' bf16 tiles): each value is widened
+// to fp32 exactly where it is read, every sum runs in fp32 as in the fp32
+// instance, and an output is rounded to bf16 once, at its store. A and f
+// stay fp32 (the wrapper widens bf16 taps, exactly).
 //
 // W is the linear interpolation onto r uniform inducing points with spacing
 // h = (n-1)/(r-1): row i has two taps, w_lo on node lo = floor(i/h) and
@@ -49,6 +54,12 @@
 //   flight, the next rows loaded while the current are summed). This
 //   kernel's 2048 blocks of 4-byte loads keep more loads in flight across
 //   more warps than any of them.
+//   interp_reduce_bf16 is the same body over bf16 x and z (the bf16 SKI
+//   model's pass 1, and twice in its backward): 2-byte loads, each widened
+//   to fp32, and z rounded once. Bound: 2 (b n d + b r d) bytes, 4,718,592
+//   at the path, 1.41 us. On an H100 (NVIDIA H100 80GB HBM3, 700 W;
+//   chip_smoke.py phase ski_bf16, tools/ab_kernel.py ski --only bf16)
+//   0.0090-0.0095 ms at the path, one reading of 0.0165 on a busy host.
 //
 // interp_expand  replaces src/repro/kernels/interp_matvec.py _expand_kernel /
 //   _expand_call (interp_expand_pallas): y[b, i, c] = sum_j W[i, j] z[b, j, c],
@@ -148,6 +159,23 @@
 //   (csrc/short_conv.cu, x and y only) 0.0152. Splitting the Gram over a
 //   cluster of 8 blocks, so that x and y move in whole 128-byte lines,
 //   took 0.0352.
+//   ski_fused_pass2_bf16 and ski_fused_pass2_at_bf16 are the same body over
+//   bf16 x, z and y (A and f fp32): the x tile stays bf16 in shared memory
+//   (the first half of the fp32 tile's bytes, so the layout and the launch
+//   are the fp32 instance's), moved by 8-byte cp.async copies of 4
+//   channels (cp.async has no 2-byte form: the scalar path of d % 4 != 0
+//   loads and stores each value); conv_expand_store widens each value as
+//   it reads it into its register window. z is widened on its way into the
+//   chunk buffers by plain loads, so the Gram reads fp32 as before, and y
+//   is rounded once. Bound: 2 (2 b n d + b r d) + 4 (d r^2 + d m) bytes,
+//   17,367,040 at the path, 5.18 us: A's fp32 8.39 MB stays. On an H100
+//   (as above) 0.0388-0.0466 ms at the path, A^T 0.0466-0.0495, against
+//   the fp32 instance's 0.0291-0.0312 and 0.0377-0.0382 in the same calls
+//   (not measured, a likely cause: each thread waits on its plain z loads
+//   before it issues the x tile's copies).
+//   Loading z eight values at a time a thread before any store read
+//   0.0486-0.0497 (A^T 0.0571-0.0590) against this version's 0.0388-0.0409
+//   (0.0474-0.0495) in the same call, old/new/new/old: left out.
 //
 // ski_windowed_pass2  replaces src/repro/kernels/ski_fused.py _windowed_kernel /
 //   _windowed_call with banded=True (ski_windowed_pass2_pallas): the large-rank
@@ -215,10 +243,32 @@
 //   expansion from the window are conv_expand_store, the device function
 //   that ski_fused_pass2 runs too.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace {
+
+// bf16 values as their 16 bits. A bf16 is the high half of the fp32 of the
+// same value, so widening is a shift, exact; narrowing rounds to nearest
+// even (__float2bfloat16_rn), as torch's .to(torch.bfloat16) rounds.
+using bf16_t = unsigned short;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16_t v) {
+  return __uint_as_float(static_cast<unsigned>(v) << 16);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ bf16_t from_f32<bf16_t>(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
 
 constexpr int kReduceThreads = 128;
 constexpr int kExpandThreads = 256;  // interp_expand threads a block, at most
@@ -256,8 +306,9 @@ __host__ __device__ __forceinline__ int hat_row(long long i, float hf,
   return lo;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kReduceThreads)
-    interp_reduce_kernel(const float* __restrict__ x, float* __restrict__ z,
+    interp_reduce_kernel(const T* __restrict__ x, T* __restrict__ z,
                          long long n, long long d, int r, double h,
                          float hf) {
   __shared__ float ws[kReduceThreads];     // W[i, j] of a chunk of rows
@@ -269,7 +320,7 @@ __global__ void __launch_bounds__(kReduceThreads)
   long long hi = (long long)floor((j + 1) * h) + 1;
   lo = lo < 0 ? 0 : lo;
   hi = hi > n - 1 ? n - 1 : hi;
-  const float* xb = x + bi * n * d + (c < d ? c : 0);
+  const T* xb = x + bi * n * d + (c < d ? c : 0);
   float acc = 0.f;
   for (long long base = lo; base <= hi; base += kReduceThreads) {
     // the block's threads share the weights: one division per row
@@ -285,11 +336,12 @@ __global__ void __launch_bounds__(kReduceThreads)
                                                    : kReduceThreads;
     if (c < d) {
 #pragma unroll 8
-      for (int q = 0; q < cnt; ++q) acc = fmaf(ws[q], xb[(base + q) * d], acc);
+      for (int q = 0; q < cnt; ++q)
+        acc = fmaf(ws[q], to_f32(xb[(base + q) * d]), acc);
     }
     __syncthreads();
   }
-  if (c < d) z[(bi * r + j) * d + c] = acc;
+  if (c < d) z[(bi * r + j) * d + c] = from_f32<T>(acc);
 }
 
 // One hat row of y from its node pair, float or float4 lanes: the parent
@@ -398,6 +450,44 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                "l"(src), "r"(nbytes));
 }
 
+// Four consecutive channels global -> shared, zero-filling when !valid: fp32
+// one 16-byte copy, bf16 one 8-byte copy (both ends aligned to its size).
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src,
+                                              bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void cp_async_quad(bf16_t* dst, const bf16_t* src,
+                                              bool valid) {
+  const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int nbytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sdst),
+               "l"(src), "r"(nbytes));
+}
+
+// One channel global -> shared, zero when !valid (src is then not read):
+// fp32 by a 4-byte cp.async; bf16 by a plain load and store (cp.async has no
+// 2-byte form; the next __syncthreads publishes it as it publishes the
+// copies, and the slot it writes is free as the copy's would be).
+__device__ __forceinline__ void copy_one(float* dst, const float* src,
+                                         bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void copy_one(bf16_t* dst, const bf16_t* src,
+                                         bool valid) {
+  *dst = valid ? *src : static_cast<bf16_t>(0);
+}
+
+// One z value into a fp32 Gram chunk slot, zero when !valid: fp32 by a
+// 4-byte cp.async, bf16 widened by a plain load and store.
+__device__ __forceinline__ void copy_widened(float* dst, const float* src,
+                                             bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void copy_widened(float* dst, const bf16_t* src,
+                                             bool valid) {
+  *dst = valid ? to_f32(*src) : 0.f;
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -420,12 +510,12 @@ __host__ __device__ __forceinline__ int padded_taps(long long m) {
 // Request x rows [i0 - hl, i0 - hl + rows) of the block's 32 columns into
 // the tile buffer xs ([rows][kLanes]); rows outside [0, n) and columns past
 // b or d are zero-filled. vec16 (8 batch rows x 4 channels, d % 4 == 0, x
-// 16-byte aligned): one 16-byte copy per (row, batch row); otherwise one
-// 4-byte copy per (row, column).
-__device__ __forceinline__ void load_tile(float* xs, const float* x,
-                                          long long b0, long long c0,
-                                          long long i0, int hl, int rows,
-                                          long long b, long long n,
+// aligned to 4 channels): one copy of 4 channels (16 bytes fp32, 8 bytes
+// bf16) per (row, batch row); otherwise one channel per (row, column).
+template <typename T>
+__device__ __forceinline__ void load_tile(T* xs, const T* x, long long b0,
+                                          long long c0, long long i0, int hl,
+                                          int rows, long long b, long long n,
                                           long long d, int cb, bool vec16) {
   if (vec16) {
     for (int e = threadIdx.x; e < rows * kMaxCB; e += kLanes * kWarps) {
@@ -433,8 +523,8 @@ __device__ __forceinline__ void load_tile(float* xs, const float* x,
       const int bl = e - q * kMaxCB;
       const long long i = i0 - hl + q;
       const bool ok = b0 + bl < b && i >= 0 && i < n;
-      cp_async16(xs + q * kLanes + bl * 4,
-                 ok ? x + ((b0 + bl) * n + i) * d + c0 : x, ok);
+      cp_async_quad(xs + q * kLanes + bl * 4,
+                    ok ? x + ((b0 + bl) * n + i) * d + c0 : x, ok);
     }
     return;
   }
@@ -446,7 +536,7 @@ __device__ __forceinline__ void load_tile(float* xs, const float* x,
   for (int q = threadIdx.x >> 5; q < rows; q += kWarps) {
     const long long i = i0 - hl + q;
     const bool ok = valid && i >= 0 && i < n;
-    cp_async4(xs + q * kLanes + lane, ok ? x + (bg * n + i) * d + c : x, ok);
+    copy_one(xs + q * kLanes + lane, ok ? x + (bg * n + i) * d + c : x, ok);
   }
 }
 
@@ -457,11 +547,12 @@ __device__ __forceinline__ void load_tile(float* xs, const float* x,
 // z2w the rows of z2 from node w0 on ([.][kZ2Pitch]), hlo / hw the tile
 // rows' nodes and weights. Output row row0 + q with tap k reads tile row
 // row0 + q - k + mp - 1; the kKB + RPT - 1 rows a block of kKB taps needs
-// sit in registers, so each x value is read from shared memory once a block.
-template <int RPT>
+// sit in registers, so each x value is read from shared memory once a block
+// (a bf16 value widened as it is read); y is rounded to T at its store.
+template <int RPT, typename T>
 __device__ __forceinline__ void conv_expand_store(
-    const float* xt, const float* fs, int mp, const float* z2w, int w0,
-    const int* hlo, const float* hw, float* __restrict__ y, long long i0,
+    const T* xt, const float* fs, int mp, const float* z2w, int w0,
+    const int* hlo, const float* hw, T* __restrict__ y, long long i0,
     long long n, long long d, long long bg, long long c, bool valid) {
   const int lane = threadIdx.x & 31;
   const int row0 = (threadIdx.x >> 5) * RPT;
@@ -469,10 +560,10 @@ __device__ __forceinline__ void conv_expand_store(
 #pragma unroll
   for (int q = 0; q < RPT; ++q) acc[q] = 0.f;
   for (int kb = 0; kb < mp; kb += kKB) {
-    const float* xr = xt + (row0 + mp - kb - kKB) * kLanes + lane;
+    const T* xr = xt + (row0 + mp - kb - kKB) * kLanes + lane;
     float xw[RPT + kKB - 1];
 #pragma unroll
-    for (int e = 0; e < RPT + kKB - 1; ++e) xw[e] = xr[e * kLanes];
+    for (int e = 0; e < RPT + kKB - 1; ++e) xw[e] = to_f32(xr[e * kLanes]);
     float fk[kKB];
 #pragma unroll
     for (int kk = 0; kk < kKB; ++kk) fk[kk] = fs[(kb + kk) * kLanes + lane];
@@ -490,7 +581,7 @@ __device__ __forceinline__ void conv_expand_store(
       const float wl = hw[row0 + q];
       const float low = wl * z2w[lo * kZ2Pitch + lane] +
                         (1.f - wl) * z2w[(lo + 1) * kZ2Pitch + lane];
-      y[(bg * n + i) * d + c] = low + acc[q];
+      y[(bg * n + i) * d + c] = from_f32<T>(low + acc[q]);
     }
   }
 }
@@ -510,10 +601,12 @@ __host__ __device__ __forceinline__ int dense_chunk_floats(int kc, int bw,
 // ac[ch][s][t - t0], that is A[c, w0 + s, t] or, when a_t, A[c, t, w0 + s]
 // (A^T read in place). A by 16-byte copies when a_vec16 (A's rows 16-byte
 // aligned, not transposed), else 4-byte ones; zero past b, d and r and for
-// batch rows u >= cb. kc and kt are powers of two (kcl, ktl their
-// logarithms): the index arithmetic is shifts and masks.
+// batch rows u >= cb. A bf16 z is widened into zc (copy_widened). kc and
+// kt are powers of two (kcl, ktl their logarithms): the index arithmetic is
+// shifts and masks.
+template <typename T>
 __device__ __forceinline__ void load_dense_chunk(
-    float* zc, float* ac, const float* z, const float* a, long long b0,
+    float* zc, float* ac, const T* z, const float* a, long long b0,
     long long c0, int w0, int t0, int kcl, int cb, int bw, int ktl, int r,
     long long b, long long d, bool a_vec16, bool a_t) {
   const int nt = kLanes * kWarps;
@@ -523,8 +616,8 @@ __device__ __forceinline__ void load_dense_chunk(
     const int ch = e & (kc - 1), q = e >> kcl;      // q = t kMaxCB + u
     const int t = q >> 3, u = q & 7;
     const bool ok = u < cb && b0 + u < b && c0 + ch < d && t0 + t < r;
-    cp_async4(zc + ((ch << ktl) + t) * kMaxCB + u,
-              ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z, ok);
+    copy_widened(zc + ((ch << ktl) + t) * kMaxCB + u,
+                 ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z, ok);
   }
   const long long rr = (long long)r * r;
   const float* ab = a + c0 * rr;
@@ -625,14 +718,16 @@ __device__ __forceinline__ void dense_gram_chunk(const float* zc,
 // hat rows touch (ski_fused_pass2_f32 sizes bw so). A's window streams
 // through nbuf chunk buffers, kt columns at a time, beside z's kt rows;
 // the x tile with its halo is requested with the first chunks, so every
-// copy is in flight before the Gram starts.
-template <int TN>
+// copy is in flight before the Gram starts. T is the signal's type (x, z,
+// y: float or bf16_t); a bf16 x tile fills the first half of the fp32
+// tile's bytes, so the layout is the same for both.
+template <int TN, typename T>
 __global__ void __launch_bounds__(kLanes * kWarps, kDenseBlocksPerSM)
-    ski_dense_pass2_kernel(const float* __restrict__ x,
-                           const float* __restrict__ z,
+    ski_dense_pass2_kernel(const T* __restrict__ x,
+                           const T* __restrict__ z,
                            const float* __restrict__ a,
                            const float* __restrict__ filt,
-                           float* __restrict__ y, long long b, long long n,
+                           T* __restrict__ y, long long b, long long n,
                            long long d, int r, int m, int left, float hf,
                            int cb, int bw, int kt, int nbuf, bool x_vec16,
                            bool a_vec16, bool a_t) {
@@ -648,8 +743,8 @@ __global__ void __launch_bounds__(kLanes * kWarps, kDenseBlocksPerSM)
   const bool valid = bg < b && c < d;
   const int mp = padded_taps(m);        // taps m..mp-1 are zero
   const int rows = TN + mp - 1;         // tile rows with the conv halo
-  float* xs = smem;                     // [rows][kLanes]  x tile
-  float* fs = xs + rows * kLanes;       // [mp][kLanes]    f[c, k]
+  T* xs = reinterpret_cast<T*>(smem);   // [rows][kLanes]  x tile
+  float* fs = smem + rows * kLanes;     // [mp][kLanes]    f[c, k]
   float* z2w = fs + mp * kLanes;        // [bw][kZ2Pitch]  z2[bg, w0 + j, c]
   float* hw = z2w + (bw * kZ2Pitch + 3) / 4 * 4;       // [TN] w_lo of rows
   int* hlo = reinterpret_cast<int*>(hw + TN);          // [TN] their nodes
@@ -1181,7 +1276,7 @@ static int dense_tile(long long n, long long gx, long long gy, int sms) {
   return 32;
 }
 
-template <int TN>
+template <int TN, typename T>
 static int dense_launch(const dim3& grid, long long smem, cudaStream_t s,
                         int dev, const void* x, const void* z, const void* a,
                         const void* filt, void* y, long long b, long long n,
@@ -1190,18 +1285,20 @@ static int dense_launch(const dim3& grid, long long smem, cudaStream_t s,
                         bool x_vec16, bool a_vec16, bool a_t) {
   static long long smem_set[kMaxDevices] = {};
   const cudaError_t e = allow_smem(
-      reinterpret_cast<const void*>(ski_dense_pass2_kernel<TN>), smem, dev,
-      smem_set);
+      reinterpret_cast<const void*>(ski_dense_pass2_kernel<TN, T>), smem,
+      dev, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ski_dense_pass2_kernel<TN><<<grid, kLanes * kWarps, (size_t)smem, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(z),
+  ski_dense_pass2_kernel<TN, T><<<grid, kLanes * kWarps, (size_t)smem, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(z),
       static_cast<const float*>(a), static_cast<const float*>(filt),
-      static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb, bw,
+      static_cast<T*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb, bw,
       kt, nbuf, x_vec16, a_vec16, a_t);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dense pass 2 with A, or with A^T read in place (a_t).
+// The dense pass 2 with A, or with A^T read in place (a_t), over the
+// signal in T.
+template <typename T>
 static int dense_pass2(const void* x, const void* z, const void* a,
                        const void* filt, void* y, long long b, long long n,
                        long long d, long long r, long long m, long long left,
@@ -1237,24 +1334,37 @@ static int dense_pass2(const void* x, const void* z, const void* a,
     return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = dense_smem(tn, m, kc, bw, kt, nbuf);
   const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   const bool a_vec16 = !a_t && r % 4 == 0 &&
                        reinterpret_cast<uintptr_t>(a) % 16 == 0;
   const dim3 grid((unsigned)tiles, (unsigned)gx, (unsigned)gy);
   switch (tn) {
     case 128:
-      return dense_launch<128>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
-                               r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
-                               a_vec16, a_t);
+      return dense_launch<128, T>(grid, smem, s, dev, x, z, a, filt, y,
+                                  b, n, d, r, m, left, hf, cb, bw, kt, nbuf,
+                                  x_vec16, a_vec16, a_t);
     case 64:
-      return dense_launch<64>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
-                              r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
-                              a_vec16, a_t);
+      return dense_launch<64, T>(grid, smem, s, dev, x, z, a, filt, y,
+                                 b, n, d, r, m, left, hf, cb, bw, kt, nbuf,
+                                 x_vec16, a_vec16, a_t);
     default:
-      return dense_launch<32>(grid, smem, s, dev, x, z, a, filt, y, b, n, d,
-                              r, m, left, hf, cb, bw, kt, nbuf, x_vec16,
-                              a_vec16, a_t);
+      return dense_launch<32, T>(grid, smem, s, dev, x, z, a, filt, y,
+                                 b, n, d, r, m, left, hf, cb, bw, kt, nbuf,
+                                 x_vec16, a_vec16, a_t);
   }
+}
+
+// One interp_reduce launch over x and z in T (float or bf16_t).
+template <typename T>
+static int reduce_launch(const T* x, T* z, long long b, long long n,
+                         long long d, long long r, double h, float hf,
+                         void* stream) {
+  const dim3 grid((unsigned)((d + kReduceThreads - 1) / kReduceThreads),
+                  (unsigned)r, (unsigned)b);
+  interp_reduce_kernel<T><<<grid, kReduceThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, z, n, d, (int)r, h, hf);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" {
@@ -1273,13 +1383,16 @@ long long ski_fused_pass2_smem_bytes(long long r, long long m) {
 int interp_reduce_f32(const void* x, void* z, long long b, long long n,
                       long long d, long long r, double h, float hf,
                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((d + kReduceThreads - 1) / kReduceThreads),
-                  (unsigned)r, (unsigned)b);
-  interp_reduce_kernel<<<grid, kReduceThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<float*>(z), n, d, (int)r, h,
-      hf);
-  return static_cast<int>(cudaGetLastError());
+  return reduce_launch(static_cast<const float*>(x), static_cast<float*>(z),
+                       b, n, d, r, h, hf, stream);
+}
+
+// As interp_reduce_f32 over bf16 x and z (fp32 sums, z rounded once).
+int interp_reduce_bf16(const void* x, void* z, long long b, long long n,
+                       long long d, long long r, double h, float hf,
+                       void* stream) {
+  return reduce_launch(static_cast<const bf16_t*>(x),
+                       static_cast<bf16_t*>(z), b, n, d, r, h, hf, stream);
 }
 
 // z: (b, r, d), y: (b, n, d) contiguous fp32 on the device; 2 <= r <= n and
@@ -1329,8 +1442,8 @@ int ski_fused_pass2_f32(const void* x, const void* z, const void* a,
                         const void* filt, void* y, long long b, long long n,
                         long long d, long long r, long long m, long long left,
                         float hf, void* stream) {
-  return dense_pass2(x, z, a, filt, y, b, n, d, r, m, left, hf, false,
-                     stream);
+  return dense_pass2<float>(x, z, a, filt, y, b, n, d, r, m, left, hf, false,
+                            stream);
 }
 
 // As ski_fused_pass2_f32 with A^T in place of A, read from A as it lies
@@ -1339,8 +1452,27 @@ int ski_fused_pass2_at_f32(const void* x, const void* z, const void* a,
                            const void* filt, void* y, long long b,
                            long long n, long long d, long long r, long long m,
                            long long left, float hf, void* stream) {
-  return dense_pass2(x, z, a, filt, y, b, n, d, r, m, left, hf, true,
-                     stream);
+  return dense_pass2<float>(x, z, a, filt, y, b, n, d, r, m, left, hf, true,
+                            stream);
+}
+
+// As ski_fused_pass2_f32 and ski_fused_pass2_at_f32 with x, z and y bf16 (A
+// and filt fp32): the sums in fp32, y rounded once.
+int ski_fused_pass2_bf16(const void* x, const void* z, const void* a,
+                         const void* filt, void* y, long long b, long long n,
+                         long long d, long long r, long long m,
+                         long long left, float hf, void* stream) {
+  return dense_pass2<bf16_t>(x, z, a, filt, y, b, n, d, r, m, left, hf,
+                             false, stream);
+}
+
+int ski_fused_pass2_at_bf16(const void* x, const void* z, const void* a,
+                            const void* filt, void* y, long long b,
+                            long long n, long long d, long long r,
+                            long long m, long long left, float hf,
+                            void* stream) {
+  return dense_pass2<bf16_t>(x, z, a, filt, y, b, n, d, r, m, left, hf, true,
+                             stream);
 }
 
 
@@ -1380,12 +1512,13 @@ int ski_fused_pass2_blocks_per_sm() {
   const int bw = dense_window(512, 64, 128, 511.f / 63.f);
   const long long smem = dense_smem(128, 32, kLanes / kMaxCB, bw, 64, 1);
   cudaError_t e = cudaFuncSetAttribute(
-      ski_dense_pass2_kernel<128>,
+      ski_dense_pass2_kernel<128, float>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int nb = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, ski_dense_pass2_kernel<128>, kLanes * kWarps, (size_t)smem);
+      &nb, ski_dense_pass2_kernel<128, float>, kLanes * kWarps,
+      (size_t)smem);
   return e != cudaSuccess ? -static_cast<int>(e) : nb;
 }
 

@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels of the fused SKI-TNO backward's
 // parameter cotangents (paper §3.2), bound to PyTorch through a plain C
 // interface (ctypes) by src/repro_torch/kernels/ski_grad.py. All tensors are
-// contiguous fp32 (conv_tap_grad also takes bf16 inputs), and every sum runs
+// contiguous fp32 (both kernels also take bf16 inputs), and every sum runs
 // in fp32 in a fixed order (no atomics), so both results are bitwise the
 // same from run to run. The signal cotangent
 // needs no kernel of its own: it is the forward's pass 2 of csrc/ski.cu with
@@ -94,6 +94,16 @@
 //   by all 8 s-tiles of a channel group in 4-byte loads, scalar stores at
 //   the end) took 0.0182-0.0183 ms at the path, 0.0967 and 0.0755 at the
 //   ceilings; a first version that staged one batch row at a time 0.0203.
+//   gram_grad_bf16 is the same body over bf16 gz and z, dA fp32 (the TPU
+//   kernel's bf16 tiles, and JAX's fp32 dA): the stages keep gz and z as
+//   bf16, moved by 8-byte cp.async copies of an item's 4 channels (one
+//   value a copy when d % 4 != 0), and each quad is widened to fp32 where a
+//   thread reads it, so each dA element is the fp32 instance's fmaf chain
+//   over the same values. Bound: 2 (2 b r d) + 4 d r^2 bytes, 9,437,184 at
+//   the path, 2.82 us, nine tenths of it the fp32 write of dA. On an H100
+//   (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase ski_bf16) 0.0111 ms
+//   at the path, as the fp32 instance (0.0109-0.0110 in the same calls),
+//   one reading of 0.0184 on a busy host: the write of dA sets both.
 
 #include <cuda_runtime.h>
 
@@ -143,7 +153,7 @@ static_assert(kGThreads == (kGS / kGSR) * (kGT / 4),
 static_assert(kGB * kGS % kGThreads == 0 && kGB * kGT % kGThreads == 0,
               "a thread copies whole rows of the gz and z tiles a step");
 static_assert(kGStages * kGB * (kGS + kGT) * kGC * 4 <= 48 * 1024,
-              "the stages fit in static shared memory");
+              "the stages fit in static shared memory (fp32; bf16 half)");
 
 // 4-byte asynchronous copy global -> shared; zero-fills when !valid (src is
 // then not read, but must still be a valid address).
@@ -162,6 +172,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   const int nbytes = valid ? 16 : 0;
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sdst),
+               "l"(src), "r"(nbytes));
+}
+
+// 8-byte asynchronous copy global -> shared (both 8-byte aligned),
+// zero-filling when !valid.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned sdst = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int nbytes = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(sdst),
                "l"(src), "r"(nbytes));
 }
 
@@ -207,6 +227,26 @@ __device__ __forceinline__ void copy_vec(T* dst, const T* base, const T* row,
   } else {
 #pragma unroll
     for (int u = 0; u < kPer16<T>; ++u) {
+      const bool v = ok && c + u < d;
+      copy_one(dst + u, v ? row + c + u : base, v);
+    }
+  }
+}
+
+// Four consecutive channels c.. c+3 of one row into shared memory: one copy
+// of 16 (fp32) or 8 (bf16) bytes (kVec: d % 4 == 0, aligned to the copy),
+// else one copy a channel, each channel past d zero-filled; a row that is
+// not `ok` is zero. For fp32 this is copy_vec.
+template <bool kVec, typename T>
+__device__ __forceinline__ void copy_quad(T* dst, const T* base, const T* row,
+                                          long long c, long long d, bool ok) {
+  if constexpr (sizeof(T) == 4) {
+    copy_vec<kVec>(dst, base, row, c, d, ok);
+  } else if (kVec) {
+    cp_async8(dst, ok && c < d ? row + c : base, ok && c < d);
+  } else {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
       const bool v = ok && c + u < d;
       copy_one(dst + u, v ? row + c + u : base, v);
     }
@@ -472,11 +512,10 @@ __device__ __forceinline__ GramStep gram_step(long long step, long long nb,
   return s;
 }
 
-template <bool kVec>
-__device__ __forceinline__ void gram_load(float* gs, float* zs,
-                                          const GramStep& s,
-                                          const float* __restrict__ gz,
-                                          const float* __restrict__ z,
+template <bool kVec, typename T>
+__device__ __forceinline__ void gram_load(T* gs, T* zs, const GramStep& s,
+                                          const T* __restrict__ gz,
+                                          const T* __restrict__ z,
                                           long long b, long long r,
                                           long long d) {
   const long long c = s.cg * kGC;
@@ -485,7 +524,7 @@ __device__ __forceinline__ void gram_load(float* gs, float* zs,
     const int e = threadIdx.x + u * kGThreads;
     const int bb = e / kGS, row = e % kGS;
     const long long bi = s.bc * kGB + bb, si = s.st * kGS + row;
-    copy_vec<kVec>(gs + (bb * kGS + row) * kGC, gz, gz + (bi * r + si) * d,
+    copy_quad<kVec>(gs + (bb * kGS + row) * kGC, gz, gz + (bi * r + si) * d,
                     c, d, bi < b && si < r);
   }
 #pragma unroll
@@ -493,22 +532,23 @@ __device__ __forceinline__ void gram_load(float* gs, float* zs,
     const int e = threadIdx.x + u * kGThreads;
     const int bb = e / kGT, row = e % kGT;
     const long long bi = s.bc * kGB + bb, ti = s.tt * kGT + row;
-    copy_vec<kVec>(zs + (bb * kGT + swz(row)) * kGC, z,
+    copy_quad<kVec>(zs + (bb * kGT + swz(row)) * kGC, z,
                     z + (bi * r + ti) * d, c, d, bi < b && ti < r);
   }
 }
 
 // Grid: at most kGBlocksPerSM blocks an SM, block i taking items i, i +
-// gridDim.x, ...; kVecIn: 16-byte copies (d % 4 == 0, aligned); kVecOut:
-// 16-byte stores (r % 4 == 0, aligned).
-template <bool kVecIn, bool kVecOut>
+// gridDim.x, ...; kVecIn: copies of 4 channels (d % 4 == 0, aligned);
+// kVecOut: 16-byte stores (r % 4 == 0, aligned); T the type of gz and z
+// (float or bf16_t), dA fp32.
+template <bool kVecIn, bool kVecOut, typename T>
 __global__ void __launch_bounds__(kGThreads, kGBlocksPerSM)
-    gram_grad_kernel(const float* __restrict__ gz,
-                     const float* __restrict__ z, float* __restrict__ da,
+    gram_grad_kernel(const T* __restrict__ gz,
+                     const T* __restrict__ z, float* __restrict__ da,
                      long long b, long long r, long long d, long long items,
                      long long nst, long long ntt) {
-  __shared__ __align__(16) float gs[kGStages][kGB * kGS * kGC];
-  __shared__ __align__(16) float zs[kGStages][kGB * kGT * kGC];
+  __shared__ __align__(16) T gs[kGStages][kGB * kGS * kGC];
+  __shared__ __align__(16) T zs[kGStages][kGB * kGT * kGC];
   const long long nb = (b + kGB - 1) / kGB;
   const long long mine =
       blockIdx.x < items ? (items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
@@ -544,11 +584,10 @@ __global__ void __launch_bounds__(kGThreads, kGBlocksPerSM)
       float4 gv[kGSR], zv[4];
 #pragma unroll
       for (int i = 0; i < kGSR; ++i)
-        gv[i] = *reinterpret_cast<const float4*>(
-            &gs[cur][(bb * kGS + kGSR * sq + i) * kGC]);
+        gv[i] = load4(&gs[cur][(bb * kGS + kGSR * sq + i) * kGC]);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        zv[j] = *reinterpret_cast<const float4*>(
+        zv[j] = load4(
             &zs[cur][(bb * kGT + swz(gram_col<kVecOut>(tq, j))) * kGC]);
 #pragma unroll
       for (int i = 0; i < kGSR; ++i)
@@ -634,6 +673,38 @@ int launch_conv_tap_grad(const T* g, const T* x, void* part, void* df,
   return static_cast<int>(cudaGetLastError());
 }
 
+// One gram_grad launch over gz and z in T (float or bf16_t), dA fp32: the
+// instance of copies of 4 channels when d % 4 == 0 and both are aligned to
+// the copy, of 16-byte stores when r % 4 == 0 and dA is 16-byte aligned.
+template <typename T>
+int launch_gram_grad(const T* gz, const T* z, void* da, long long b,
+                     long long r, long long d, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long nst = (r + kGS - 1) / kGS, ntt = (r + kGT - 1) / kGT;
+  const long long items = (d + kGC - 1) / kGC * nst * ntt;
+  const long long most = (long long)sms * kGBlocksPerSM;
+  const unsigned grid = (unsigned)(items < most ? items : most);
+  const auto quad = static_cast<std::uintptr_t>(4 * sizeof(T));
+  const bool vin = d % 4 == 0 &&
+                   reinterpret_cast<std::uintptr_t>(gz) % quad == 0 &&
+                   reinterpret_cast<std::uintptr_t>(z) % quad == 0;
+  const bool vout = r % 4 == 0 && aligned16(da);
+  void (*kernel)(const T*, const T*, float*, long long, long long,
+                 long long, long long, long long, long long) =
+      vin ? (vout ? gram_grad_kernel<true, true, T>
+                  : gram_grad_kernel<true, false, T>)
+          : (vout ? gram_grad_kernel<false, true, T>
+                  : gram_grad_kernel<false, false, T>);
+  kernel<<<grid, kGThreads, 0, s>>>(gz, z, static_cast<float*>(da), b, r, d,
+                                    items, nst, ntt);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -686,7 +757,8 @@ int conv_tap_grad_blocks_per_sm() {
 int gram_grad_blocks_per_sm() {
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, gram_grad_kernel<true, true>, kGThreads, 0) != cudaSuccess)
+          &blocks, gram_grad_kernel<true, true, float>, kGThreads, 0) !=
+      cudaSuccess)
     return -1;
   return blocks;
 }
@@ -695,28 +767,16 @@ int gram_grad_blocks_per_sm() {
 // cudaGetLastError() after the launch.
 int gram_grad_f32(const void* gz, const void* z, void* da, long long b,
                   long long r, long long d, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long nst = (r + kGS - 1) / kGS, ntt = (r + kGT - 1) / kGT;
-  const long long items = (d + kGC - 1) / kGC * nst * ntt;
-  const long long most = (long long)sms * kGBlocksPerSM;
-  const unsigned grid = (unsigned)(items < most ? items : most);
-  const bool vin = d % 4 == 0 && aligned16(gz) && aligned16(z);
-  const bool vout = r % 4 == 0 && aligned16(da);
-  void (*kernel)(const float*, const float*, float*, long long, long long,
-                 long long, long long, long long, long long) =
-      vin ? (vout ? gram_grad_kernel<true, true>
-                  : gram_grad_kernel<true, false>)
-          : (vout ? gram_grad_kernel<false, true>
-                  : gram_grad_kernel<false, false>);
-  kernel<<<grid, kGThreads, 0, s>>>(
-      static_cast<const float*>(gz), static_cast<const float*>(z),
-      static_cast<float*>(da), b, r, d, items, nst, ntt);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gram_grad(static_cast<const float*>(gz),
+                          static_cast<const float*>(z), da, b, r, d, stream);
+}
+
+// The same sums over bf16 gz and z (each value widened to fp32 where it is
+// read), dA fp32: the instance of the JAX kernel's bf16 inputs.
+int gram_grad_bf16(const void* gz, const void* z, void* da, long long b,
+                   long long r, long long d, void* stream) {
+  return launch_gram_grad(static_cast<const bf16_t*>(gz),
+                          static_cast<const bf16_t*>(z), da, b, r, d, stream);
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -13,9 +13,14 @@ and read no weights, so they are exact adjoints of each other. Each
 wrapper takes the plain version (``ref.interp_reduce_ref``,
 ``ref.interp_expand_ref``, the dense hat contractions) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting the launch in
-:data:`counters`; another device, dtype or layout raises. On the card a
-kernel writes a tensor that autograd cannot see, so a wrapper called on
-its own refuses an input that requires grad while grad is enabled.
+:data:`counters` under the instance's name; another device, dtype or
+layout raises. :func:`interp_reduce` takes x fp32 or bf16 (the
+``interp_reduce_bf16`` instance: fp32 sums, z rounded once to bf16, as the
+plain version rounds it); :func:`interp_expand` takes fp32 only on the
+card, and a bf16 z raises (its bf16 instance, for the unfused route, is
+ROADMAP Step 11c). On the card a kernel writes a tensor that autograd
+cannot see, so a wrapper called on its own refuses an input that requires
+grad while grad is enabled.
 
 The differentiable forms are :class:`InterpReduce` and
 :class:`InterpExpand` (``ops.interp_reduce``, ``ops.interp_expand``), as
@@ -40,7 +45,11 @@ from repro_torch.kernels import backend, ref
 from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"interp_reduce": 0, "interp_expand": 0}
+counters = {"interp_reduce": 0, "interp_reduce_bf16": 0, "interp_expand": 0}
+#: interp_reduce's (entry point, launch counter) for each element type
+_REDUCE_ENTRIES = {torch.float32: ("interp_reduce_f32", "interp_reduce"),
+                   torch.bfloat16: ("interp_reduce_bf16",
+                                    "interp_reduce_bf16")}
 #: differentiated forwards (grad enabled and an input that requires grad)
 #: and backwards (the kernel, or autograd through the plain version) of
 #: :class:`InterpReduce` and of :class:`InterpExpand`
@@ -79,9 +88,13 @@ def hat_spacing(n: int, r: int) -> tuple[float, float]:
 def _lib() -> ctypes.CDLL:
     lib = backend.library("ski")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.interp_reduce_f32.argtypes = [p, p, i64, i64, i64, i64,
-                                      ctypes.c_double, ctypes.c_float, p]
-    lib.interp_reduce_f32.restype = ctypes.c_int
+    # an earlier build, loaded by tools/ab_kernel.py, may have no bf16
+    # entry: a bf16 call then fails on the missing symbol
+    for name, _ in _REDUCE_ENTRIES.values():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, i64, i64, i64, i64,
+                                           ctypes.c_double, ctypes.c_float, p]
+            getattr(lib, name).restype = ctypes.c_int
     lib.interp_expand_f32.argtypes = [p, p, i64, i64, i64, i64,
                                       ctypes.c_float, p]
     lib.interp_expand_f32.restype = ctypes.c_int
@@ -93,11 +106,15 @@ def interp_reduce(x: torch.Tensor, idx_lo: torch.Tensor | None,
     """z = Wᵀ x: x (b, n, d) -> (b, r, d). ``idx_lo``/``w_lo`` (the
     inducing geometry of ``core/ski.make_inducing``) feed the plain version
     only; the kernel regenerates the weights from (n, r), as the Pallas
-    kernel does. CPU: :func:`ref.interp_reduce_ref`."""
+    kernel does. z is in x's dtype: on the card x fp32 or bf16, one launch
+    of that dtype's instance. CPU: :func:`ref.interp_reduce_ref`."""
     if x.device.type == "cpu":
         return ref.interp_reduce_ref(x, idx_lo, w_lo, r)
     forward_only("interp_reduce", x)
-    backend.require_cuda(x, "interp_reduce x", torch.float32)
+    if x.dtype not in _REDUCE_ENTRIES:
+        raise TypeError(f"interp_reduce: x {x.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    backend.require_cuda(x, "interp_reduce x", x.dtype)
     if x.dim() != 3 or x.numel() == 0:
         raise ValueError(f"interp_reduce: x {tuple(x.shape)} is not a "
                          "non-empty (b, n, d)")
@@ -105,13 +122,14 @@ def interp_reduce(x: torch.Tensor, idx_lo: torch.Tensor | None,
     h, hf = hat_spacing(n, r)
     if max(b, r) > 65535:                 # grid (d tiles, r, b)
         raise ValueError(f"interp_reduce: b={b} or r={r} over 65535")
-    z = torch.empty((b, r, d), dtype=torch.float32, device=x.device)
+    z = torch.empty((b, r, d), dtype=x.dtype, device=x.device)
+    entry, counter = _REDUCE_ENTRIES[x.dtype]
     lib = _lib()
     with torch.cuda.device(x.device):
-        rc = lib.interp_reduce_f32(x.data_ptr(), z.data_ptr(), b, n, d, r,
-                                   h, hf, backend.stream(x))
-    backend.check(lib, rc, "interp_reduce")
-    counters["interp_reduce"] += 1
+        rc = getattr(lib, entry)(x.data_ptr(), z.data_ptr(), b, n, d, r, h,
+                                 hf, backend.stream(x))
+    backend.check(lib, rc, f"interp_reduce {x.dtype}")
+    counters[counter] += 1
     return z
 
 
@@ -123,6 +141,11 @@ def interp_expand(z: torch.Tensor, idx_lo: torch.Tensor,
     if z.device.type == "cpu":
         return ref.interp_expand_ref(z, idx_lo, w_lo)
     forward_only("interp_expand", z)
+    if z.dtype == torch.bfloat16:
+        raise TypeError("interp_expand: z bfloat16 on the card; the kernel "
+                        "has no bf16 instance yet (ROADMAP Step 11c, the "
+                        "unfused route in bf16), and a bf16 z is not widened "
+                        "quietly")
     backend.require_cuda(z, "interp_expand z", torch.float32)
     if z.dim() != 3 or z.numel() == 0:
         raise ValueError(f"interp_expand: z {tuple(z.shape)} is not a "

@@ -111,7 +111,9 @@ def ski_fused_tno(x, a_dense, filt, idx_lo, w_lo, r: int, causal: bool):
 
     x (b, n, d); a_dense (d, r, r) per-channel inducing Gram; filt (d, m);
     idx_lo / w_lo the inducing geometry (plain versions only: the kernels
-    regenerate the hat weights). The op the TNN block trains through,
+    regenerate the hat weights). x fp32 or bf16 (fp32 sums, y in x's
+    dtype; on the card the bf16 instances). The op the TNN block trains
+    through,
     ``ski_vjp.SKIFusedTNO`` on both devices: on the card the forward is
     ``interp_reduce`` then ``ski_fused_pass2`` and the backward is kernel
     launches too (``interp_reduce`` twice, the transposed pass 2,
@@ -154,9 +156,13 @@ def ski_counters() -> dict:
     """Launch counts of the eight SKI kernels (``interp_reduce``,
     ``interp_expand``, ``short_conv``, ``ski_fused_pass2``,
     ``ski_windowed_pass2``, ``ski_expand_pass2``, ``gram_grad``,
-    ``conv_tap_grad``) and of ``conv_tap_grad``'s bf16 instance
-    (``conv_tap_grad_bf16``, Mamba's conv backward) since their last
-    reset."""
+    ``conv_tap_grad``) and of their bf16 instances, each under its own
+    name: ``interp_reduce_bf16``, ``ski_fused_pass2_bf16`` and
+    ``ski_fused_pass2_at_bf16`` (Aᵀ, the bf16 signal backward),
+    ``gram_grad_bf16`` (the bf16 SKI model's pass 1, pass 2 and Gram
+    cotangent) and ``conv_tap_grad_bf16`` (Mamba's conv backward and the
+    bf16 SKI model's), since their last reset. ``short_conv`` counts both
+    of its dtypes."""
     return {**interp_matvec.counters, **sc.counters, **ski_fused.counters,
             **ski_grad.counters}
 

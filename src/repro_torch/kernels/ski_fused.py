@@ -27,7 +27,13 @@ the windowed one) for CPU tensors and launches the kernel for CUDA
 tensors, counting the launch in :data:`counters`; another device, dtype or
 layout raises, as does an input that requires grad while grad is enabled
 (a kernel on its own is forward-only; gradients go through
-``ops.ski_fused_tno`` and ``ops.ski_fused_tno_coef``). The kernels handle
+``ops.ski_fused_tno`` and ``ops.ski_fused_tno_coef``). The dense pass 2
+takes the signal (x, z, and so y) fp32 or bf16, one instance each
+(``ski_fused_pass2_bf16``, and ``ski_fused_pass2_at_bf16`` for Aᵀ, each
+counted under its own name); A and the taps reach the kernel as fp32, a
+bf16 A or bf16 taps widened by the wrapper (exactly). The windowed
+kernels take fp32 only, and a bf16 input raises: their bf16 instances are
+ROADMAP Step 11b. The kernels handle
 every n >= 2 and 2 <= r <= n themselves, n < m and r = n included: the TPU
 wrappers' padding copies and plain fallbacks for tiny shapes have no
 counterpart here. The windowed kernels tile the sequence by
@@ -44,8 +50,18 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.interp_matvec import forward_only, hat_spacing
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"ski_fused_pass2": 0, "ski_windowed_pass2": 0,
+counters = {"ski_fused_pass2": 0, "ski_fused_pass2_bf16": 0,
+            "ski_fused_pass2_at_bf16": 0, "ski_windowed_pass2": 0,
             "ski_expand_pass2": 0}
+#: the dense pass 2's (entry point, launch counter) for each signal dtype
+#: and orientation (``transpose_a``); the fp32 instance counts both
+#: orientations as one kernel, as it always has
+_DENSE_ENTRIES = {
+    (torch.float32, False): ("ski_fused_pass2_f32", "ski_fused_pass2"),
+    (torch.float32, True): ("ski_fused_pass2_at_f32", "ski_fused_pass2"),
+    (torch.bfloat16, False): ("ski_fused_pass2_bf16", "ski_fused_pass2_bf16"),
+    (torch.bfloat16, True): ("ski_fused_pass2_at_bf16",
+                             "ski_fused_pass2_at_bf16")}
 
 #: shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
@@ -63,13 +79,12 @@ def _lib() -> ctypes.CDLL:
     lib = backend.library("ski")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     dense = [p, p, p, p, p, i64, i64, i64, i64, i64, i64, ctypes.c_float, p]
-    lib.ski_fused_pass2_f32.argtypes = dense
-    lib.ski_fused_pass2_f32.restype = ctypes.c_int
     # a build of an earlier version of ski.cu (tools/ab_kernel.py --old)
-    # has no transposing entry point: it stays unbound there
-    if hasattr(lib, "ski_fused_pass2_at_f32"):
-        lib.ski_fused_pass2_at_f32.argtypes = dense
-        lib.ski_fused_pass2_at_f32.restype = ctypes.c_int
+    # may have no transposing or bf16 entry point: it stays unbound there
+    for name, _ in _DENSE_ENTRIES.values():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = dense
+            getattr(lib, name).restype = ctypes.c_int
     lib.ski_fused_pass2_smem_bytes.argtypes = [i64, i64]
     lib.ski_fused_pass2_smem_bytes.restype = i64
     window = [i64, i64, i64, i64, i64, i64, ctypes.c_float, i64, i64, p]
@@ -106,14 +121,21 @@ def _check_shapes(what: str, x, z, gram, filt, left: int) -> None:
         raise ValueError(f"{what}: b={b} over 65535")
 
 
-def _require_kernel_inputs(what: str, ts, names) -> None:
-    """The CUDA path's checks: forward-only, fp32, contiguous, one device."""
+def _require_kernel_inputs(what: str, ts, names, dtypes) -> None:
+    """The CUDA path's checks: forward-only, each input of its dtype in
+    ``dtypes``, contiguous, one device."""
     forward_only(what, *ts)
-    for name, t in zip(names, ts):
-        backend.require_cuda(t, f"{what} {name}", torch.float32)
+    for name, t, dtype in zip(names, ts, dtypes):
+        backend.require_cuda(t, f"{what} {name}", dtype)
     if any(t.device != ts[0].device for t in ts):
         raise ValueError(f"{what}: inputs on "
                          f"{sorted({str(t.device) for t in ts})}")
+
+
+def _widened(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 Gram or taps as the fp32 the dense kernels read (exact);
+    anything else as it is, for the checks to judge."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
@@ -124,7 +146,9 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
     (d, r, r), filt (d, m) → (b, n, d). ``left`` overrides the
     causal-derived tap offset (0 causal, m//2 bidirectional);
     ``transpose_a`` applies Aᵀ, read from ``a_dense`` as it lies (the
-    signal backward), with no transposed copy.
+    signal backward), with no transposed copy. y is in x's dtype: on the
+    card x and z both fp32 or both bf16, one launch of that instance, A
+    and the taps fp32 or bf16 (read as fp32).
     CPU: :func:`ref.ski_fused_pass2_ref`."""
     m = filt.shape[-1]
     if left is None:
@@ -133,7 +157,13 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
     if all(t.device.type == "cpu" for t in ts):
         return ref.ski_fused_pass2_ref(x, z, a_dense, filt, causal,
                                        left=left, transpose_a=transpose_a)
-    _require_kernel_inputs("ski_fused_pass2", ts, ("x", "z", "A", "taps"))
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"ski_fused_pass2: x {x.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    a_dense, filt = _widened(a_dense), _widened(filt)
+    ts = (x, z, a_dense, filt)
+    _require_kernel_inputs("ski_fused_pass2", ts, ("x", "z", "A", "taps"),
+                           (x.dtype, x.dtype, torch.float32, torch.float32))
     _check_shapes("ski_fused_pass2", x, z, a_dense, filt, left)
     b, n, d = x.shape
     r = z.shape[1]
@@ -144,13 +174,14 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
         raise ValueError(f"ski_fused_pass2: r={r}, m={m} need {smem} bytes "
                          f"of shared memory a block, over {_MAX_SMEM}")
     y = torch.empty_like(x)
-    fn = lib.ski_fused_pass2_at_f32 if transpose_a else lib.ski_fused_pass2_f32
+    entry, counter = _DENSE_ENTRIES[x.dtype, bool(transpose_a)]
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), z.data_ptr(), a_dense.data_ptr(),
-                filt.data_ptr(), y.data_ptr(), b, n, d, r, m, left, hf,
-                backend.stream(x))
-    backend.check(lib, rc, "ski_fused_pass2")
-    counters["ski_fused_pass2"] += 1
+        rc = getattr(lib, entry)(x.data_ptr(), z.data_ptr(),
+                                 a_dense.data_ptr(), filt.data_ptr(),
+                                 y.data_ptr(), b, n, d, r, m, left, hf,
+                                 backend.stream(x))
+    backend.check(lib, rc, f"ski_fused_pass2 {x.dtype}")
+    counters[counter] += 1
     return y
 
 
@@ -165,8 +196,14 @@ def _window_pass2(what: str, x, z, a_coef, filt, causal: bool,
     if all(t.device.type == "cpu" for t in ts):
         z2 = z if a_coef is None else ref.toeplitz_gram_matvec_ref(a_coef, z)
         return ref.ski_expand_pass2_ref(x, z2, filt, causal, left=left)
+    if any(t.dtype == torch.bfloat16 for t in ts):
+        raise TypeError(f"{what}: a bfloat16 input on the card; the kernel "
+                        "has no bf16 instance yet (ROADMAP Step 11b, the "
+                        "large-rank pass 2 in bf16), and bf16 is not "
+                        "widened quietly")
     _require_kernel_inputs(what, ts, ("x", "z" if a_coef is not None
-                                      else "z2", "taps", "coefficients"))
+                                      else "z2", "taps", "coefficients"),
+                           (torch.float32,) * len(ts))
     _check_shapes(what, x, z, a_coef, filt, left)
     b, n, d = x.shape
     r = z.shape[1]

@@ -8,10 +8,10 @@ kernels of ``csrc/ski_grad.cu``, counterpart of ``repro/kernels/ski_grad.py``:
   dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c] (replaces ``_gram_grad_kernel`` /
   ``_gram_grad_call``).
 
-Both sum in fp32 and return fp32, as in JAX. :func:`conv_tap_grad` takes
-g and x both fp32 or both bf16 (one instance of the kernel body each, the
-bf16 one for Mamba's conv backward, as the TPU kernel takes bf16 tiles),
-:func:`gram_grad` fp32. Each wrapper takes the plain version
+Both sum in fp32 and return fp32, as in JAX. Each takes its two inputs
+both fp32 or both bf16, one instance of the kernel body each, as the TPU
+kernels take bf16 tiles: ``conv_tap_grad_bf16`` for Mamba's conv backward
+and the bf16 SKI model's, ``gram_grad_bf16`` for the bf16 SKI model's. Each wrapper takes the plain version
 (``ref.conv_tap_grad_ref``, ``ref.gram_grad_ref``) for CPU tensors and
 launches its kernel for CUDA tensors, counting the launch in
 :data:`counters` under the instance's name; another device, dtype or
@@ -35,11 +35,15 @@ from repro_torch.kernels import backend, ref
 from repro_torch.kernels.interp_matvec import forward_only
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"gram_grad": 0, "conv_tap_grad": 0, "conv_tap_grad_bf16": 0}
+counters = {"gram_grad": 0, "gram_grad_bf16": 0, "conv_tap_grad": 0,
+            "conv_tap_grad_bf16": 0}
 
 #: conv_tap_grad's (entry point, launch counter) for each element type
 _TAP_ENTRIES = {torch.float32: ("conv_tap_grad_f32", "conv_tap_grad"),
                 torch.bfloat16: ("conv_tap_grad_bf16", "conv_tap_grad_bf16")}
+#: gram_grad's (entry point, launch counter) for each element type
+_GRAM_ENTRIES = {torch.float32: ("gram_grad_f32", "gram_grad"),
+                 torch.bfloat16: ("gram_grad_bf16", "gram_grad_bf16")}
 
 
 def reset_counters() -> None:
@@ -60,8 +64,10 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
     lib.conv_tap_grad_workspace_floats.argtypes = [i64, i64, i64, i64]
     lib.conv_tap_grad_workspace_floats.restype = i64
-    lib.gram_grad_f32.argtypes = [p, p, p, i64, i64, i64, p]
-    lib.gram_grad_f32.restype = ctypes.c_int
+    for name, _ in _GRAM_ENTRIES.values():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, p, i64, i64, i64, p]
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -115,19 +121,22 @@ def conv_tap_grad(g: torch.Tensor, x: torch.Tensor, m: int,
 
 
 def gram_grad(gz: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c]: gz, z (b, r, d) → (d, r, r)
-    fp32, the batch summed in order. CPU: :func:`ref.gram_grad_ref`."""
+    """dA[c, s, t] = Σ_b gz[b,s,c] · z[b,t,c]: gz, z (b, r, d), both fp32
+    or both bf16 → (d, r, r) fp32, the batch summed in order. On the card
+    one launch of the dtype's instance (``gram_grad`` or
+    ``gram_grad_bf16``). CPU: :func:`ref.gram_grad_ref`."""
     if gz.device.type == "cpu" and z.device.type == "cpu":
         return ref.gram_grad_ref(gz, z)
-    _require_pair("gram_grad", gz, z)
+    _require_pair("gram_grad", gz, z, tuple(_GRAM_ENTRIES))
     b, r, d = z.shape
+    entry, counter = _GRAM_ENTRIES[z.dtype]
     da = torch.empty((d, r, r), dtype=torch.float32, device=z.device)
     lib = _lib()
     with torch.cuda.device(z.device):
-        rc = lib.gram_grad_f32(gz.data_ptr(), z.data_ptr(), da.data_ptr(), b,
-                               r, d, backend.stream(z))
-    backend.check(lib, rc, f"gram_grad (r={r})")
-    counters["gram_grad"] += 1
+        rc = getattr(lib, entry)(gz.data_ptr(), z.data_ptr(), da.data_ptr(),
+                                 b, r, d, backend.stream(z))
+    backend.check(lib, rc, f"gram_grad {z.dtype} (r={r})")
+    counters[counter] += 1
     return da
 
 

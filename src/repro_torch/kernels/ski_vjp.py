@@ -24,7 +24,16 @@ lag-flipped coefficients, and dA as ``gram_coef_grad_fft`` (the diagonal
 sums of gz zᵀ by FFT, no (r, r) panel).
 
 Residuals are the op's inputs (x, A, f) only: no O(n·r) activation is
-kept. Both Functions run on both devices: on the card every step above
+kept. :class:`SKIFusedTNO` runs in x's dtype, fp32 or bf16 (the bf16 SKI
+model: x bf16, A fp32 from the RPE's fp32 lags, the taps bf16): on the
+card a bf16 x launches the bf16 instances (``interp_reduce_bf16``
+twice in the backward, ``ski_fused_pass2_bf16`` and
+``ski_fused_pass2_at_bf16``, ``gram_grad_bf16``, ``conv_tap_grad_bf16``),
+each summing in fp32; z, gz and dx are rounded to bf16 where the plain
+versions round them, and the cotangents come back in the primal dtypes
+(dx in x's, dA in A's, df in the taps'), as JAX's custom VJP returns them.
+:class:`SKIFusedTNOCoef` has fp32 kernels only on the card (its bf16
+instances are ROADMAP Step 11b). Both Functions run on both devices: on the card every step above
 is a CUDA kernel (or ``torch.fft``), on the CPU its plain version, so the
 CPU tests check the adjoint structure itself. :data:`counters` and
 :data:`coef_counters` count the differentiated forwards and which

@@ -161,10 +161,10 @@ def mixer_apply(params, cfg: ArchConfig, mixer: str, x, *,
     if mixer == "mamba":
         return mamba_apply(params, cfg, x)
     causal = mask_kind in ("causal", "local")
-    # the GTU's leaves are fp32: JAX's x @ w promotes a bf16 x to fp32, so
-    # the mixer computes in fp32; keep the residual dtype stable
-    return gtu_apply(params, _tno_cfg(cfg, mixer, causal),
-                     x.float()).to(x.dtype)
+    # the GTU computes in the dtype JAX's x @ w promotes x and its leaves to
+    # (``nn.layers.dense``): fp32 leaves take a bf16 x to fp32, bf16 leaves
+    # (``cast_params``) keep a bf16 x in bf16; keep the residual dtype
+    return gtu_apply(params, _tno_cfg(cfg, mixer, causal), x).to(x.dtype)
 
 
 def layer_apply(params: Layer, cfg: ArchConfig, mixer: str, ffn: str, x, *,

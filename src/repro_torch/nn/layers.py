@@ -49,9 +49,22 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator,
     return w
 
 
+def cast_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every floating-point parameter (and buffer) of ``model`` to
+    ``dtype`` in place and return the model: the counterpart of
+    ``repro/nn/layers.cast_params``, the mixed-precision helper of the
+    kernel training path (activations and parameters in bf16, the SKI
+    kernels summing in fp32). Integer tensors keep their dtype."""
+    return model.to(dtype=dtype)
+
+
 # ---------------------------------------------------------------- dense
 def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None):
-    y = x @ w
+    """x @ w (+ b) in the dtype JAX's ``x @ w`` promotes to: bf16 × bf16
+    stays bf16, fp32 × bf16 computes in fp32 (torch's matmul refuses mixed
+    dtypes, so the narrower operand is widened first, exactly)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    y = x.to(dt) @ w.to(dt)
     if b is not None:
         y = y + b.to(y.dtype)
     return y

@@ -32,7 +32,8 @@ see what that phase costs). For ``ski`` the interp pair is also timed as
 ``ms_run`` (``chip_smoke.time_ms_run``: 64 launches an event pair, cold),
 ``interp_expand`` at ``chip_smoke.EXPAND_RUN_SHAPES`` beside the write
 floor (``y.zero_()`` of the path's y); ``--only interp`` (or ``dense``,
-``windowed``; repeatable) times those groups of :data:`SKI_TIMERS` alone.
+``windowed``, ``bf16``: the bf16 instances at the path; repeatable) times
+those groups of :data:`SKI_TIMERS` alone.
 Where :data:`OUTPUTS` has the library, each build's outputs on the same
 fixed inputs are compared with the current build's (max |build - new|,
 printed and kept in the report).
@@ -212,9 +213,42 @@ def _time_windowed(peaks) -> dict:
     return out
 
 
+def _time_bf16(peaks) -> dict:
+    """The dense route's bf16 instances at the SKI path's shape (x (8, 512,
+    512) bf16, r = 64, m = 32): ``interp_reduce_bf16``, and
+    ``ski_fused_pass2_bf16`` (left 0) and ``ski_fused_pass2_at_bf16`` (Aᵀ,
+    left 31) with z bf16, A fp32 and bf16 taps, with their bytes bounds.
+    A build without the bf16 entries (an earlier ``ski.cu``) times
+    none."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ski_fused
+    if not hasattr(ski_fused._lib(), "ski_fused_pass2_bf16"):
+        return {}
+    b, n, d, r, m = 8, 512, 512, 64, 32
+    x, z, a, f = _dense_inputs(b, n, d, r, m, seed=12)
+    x, z, f = x.bfloat16(), z.bfloat16(), f.bfloat16()
+    f_t = f.flip(-1).contiguous()
+    lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
+    pass2 = (2 * (2 * x.numel() + z.numel()) + 4 * a.numel()
+             + 2 * f.numel()) / peaks[0] * 1e3
+    return {
+        "interp_reduce_bf16": {
+            "ms": chip_smoke.time_ms(
+                lambda: interp_matvec.interp_reduce(x, lo, w_lo, r)),
+            "bound_ms": 2 * (x.numel() + z.numel()) / peaks[0] * 1e3},
+        "ski_fused_pass2_bf16": {
+            "ms": chip_smoke.time_ms(
+                lambda: ski_fused.ski_fused_pass2(x, z, a, f, True)),
+            "bound_ms": pass2},
+        "ski_fused_pass2_at_bf16": {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_fused_pass2(
+                x, z, a, f_t, True, left=m - 1, transpose_a=True)),
+            "bound_ms": pass2}}
+
+
 #: the groups of the ski timing (``--only`` picks some)
 SKI_TIMERS = {"interp": _time_interp, "dense": _time_dense,
-              "windowed": _time_windowed}
+              "windowed": _time_windowed, "bf16": _time_bf16}
 
 
 def _time_ski(peaks, only=None) -> dict:
@@ -270,10 +304,19 @@ def _ski_outputs() -> dict:
     and ski_fused_pass2 at DENSE_SHAPES (causal), and the backward's pass 2
     (Aᵀ, taps flipped, left m - 1); ski_expand_pass2 at every shape of
     ``_expand_shapes``; interp_expand at every call of
-    ``_expand_output_inputs``."""
+    ``_expand_output_inputs``; ski_windowed_pass2 at the large-rank path's
+    shape (x (8, 512, 512), r = 512, m = 32), causal."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
     out = _expand_outputs(seed=10)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    b, n, d, r, m = 8, 512, 512, 512, 32
+    x = torch.randn(b, n, d, device="cuda", generator=g)
+    z = torch.randn(b, r, d, device="cuda", generator=g)
+    coef = torch.randn(d, 2 * r - 1, device="cuda", generator=g) / r ** 0.5
+    f = torch.randn(d, m, device="cuda", generator=g)
+    out["ski_windowed_pass2 path"] = ski_fused.ski_windowed_pass2(
+        x, z, coef, f, True)
     for label, b, n, d, r, m in DENSE_SHAPES:
         x, z, a, f = _dense_inputs(b, n, d, r, m, seed=6)
         lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
