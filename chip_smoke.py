@@ -5,9 +5,10 @@ hist-replay serving, the attention decoder gemma3-4b's and the MoE
 decoder granite-moe-3b-a800m's scoring and serving (with the paper's
 mixers dropped in), the encoder-decoder whisper-medium's scoring and
 serving with cross-attention, the prefix-VLM paligemma-3b's scoring under
-the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI training, unfused SKI, large-rank
-SKI, bf16 SKI scoring and training, Mamba-2 serving and training and the jamba hybrid's scoring and
-serving paths on one NVIDIA card and check them.
+the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI
+training, unfused SKI, large-rank SKI, bf16 SKI scoring and training on
+every SKI route, Mamba-2 serving and training and the jamba hybrid's
+scoring and serving paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -317,6 +318,29 @@ card or outside a checkout of this repository. Phases:
    own distance from the CPU fp32 ones)), and takes 5 ``make_train_step``
    steps at 8 × 512 (a new batch each), every loss after the first below
    it and all finite (tokens/s, peak memory);
+9b. ski_bf16_routes: bf16 SKI past the dense route.
+   ``ski_windowed_pass2_bf16`` and ``ski_expand_pass2_bf16`` at x (8, 512,
+   512), z (8, 512, 512) bf16, r = 512, m = 32 (fp32 coefficients, bf16
+   taps) and ``interp_expand_bf16`` at z (8, 64, 512) against their plain
+   versions on the same bf16 inputs on the card (1e-2 × max|plain|), pass
+   2 at left 0 and 16 and in the backward's orientation of each
+   (coefficients and taps flipped, left 31 and 15), all three also at
+   every other SKI_SHAPES shape, each timed beside its plain version and
+   its fp32 instance on the same values widened (interp_expand also beside
+   a bf16 ``torch.einsum``); SKIFusedTNOCoef on a bf16 x at (8, 512, 512),
+   r = 512, both variants, causal and bidirectional, against autograd
+   through ``ref.ski_fused_tno_coef_ref`` in bf16 (2e-2 × max, 3 / 2 / 1
+   bf16 launches); the full-width bf16 ski-tnn-lm-wt103 at tno_rank 512
+   (``cast_params``, seed 0) on the "windowed" route and, under
+   ``REPRO_SKI_WINDOWED_RMAX=256``, the "fft" route: scores 8 × 512 (6 +
+   6 bf16 launches), one ``loss_and_grads`` (18 / 12 / 6 launches of
+   ``interp_reduce_bf16`` / the route's pass 2 / ``conv_tap_grad_bf16``,
+   6 kernel backwards of SKIFusedTNOCoef, no fp32 SKI instance), 3
+   ``make_train_step`` steps with finite losses, and the first row's
+   logits against the CPU's under the zoo's bf16 rule (fp32 rates: phase
+   large-r's lines); the unfused layer in bf16 at x (8, 512, 512),
+   r = 64, forward and backward against autograd through the plain
+   versions (``interp_expand_bf16`` once each way);
 10. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
@@ -1278,11 +1302,12 @@ def phase_grad_kernels(peaks, device="cuda") -> dict:
 
 #: the launch count of every SKI kernel at 0, for the exact-count checks
 NO_SKI_LAUNCHES = {"interp_reduce": 0, "interp_reduce_bf16": 0,
-                   "interp_expand": 0, "short_conv": 0,
-                   "ski_fused_pass2": 0, "ski_fused_pass2_bf16": 0,
-                   "ski_fused_pass2_at_bf16": 0, "ski_windowed_pass2": 0,
-                   "ski_expand_pass2": 0, "gram_grad": 0,
-                   "gram_grad_bf16": 0, "conv_tap_grad": 0,
+                   "interp_expand": 0, "interp_expand_bf16": 0,
+                   "short_conv": 0, "ski_fused_pass2": 0,
+                   "ski_fused_pass2_bf16": 0, "ski_fused_pass2_at_bf16": 0,
+                   "ski_windowed_pass2": 0, "ski_windowed_pass2_bf16": 0,
+                   "ski_expand_pass2": 0, "ski_expand_pass2_bf16": 0,
+                   "gram_grad": 0, "gram_grad_bf16": 0, "conv_tap_grad": 0,
                    "conv_tap_grad_bf16": 0}
 #: SKIFusedTNO backward checks (label, r, d, causal), b = 8, n = 512, m = 32
 SKI_BACKWARD = (("causal", 64, 512, True), ("bidirectional", 64, 512, False),
@@ -4477,13 +4502,15 @@ def large_r_times(device="cuda") -> None:
 
 # -------------------------------------------------------------- phase 9a
 #: the bf16 SKI path: kernel launches a layer makes in one scoring forward
-#: and in one training step (forward + backward); the fp32 instances of
-#: the three templated kernels must launch none
+#: and in one training step (forward + backward); no fp32 instance of a
+#: SKI kernel may launch
 SKI_BF16_SCORE = {"interp_reduce_bf16": 1, "ski_fused_pass2_bf16": 1}
 SKI_BF16_STEP = {"interp_reduce_bf16": 3, "ski_fused_pass2_bf16": 1,
                  "ski_fused_pass2_at_bf16": 1, "gram_grad_bf16": 1,
                  "conv_tap_grad_bf16": 1}
-SKI_FP32_INSTANCES = ("interp_reduce", "ski_fused_pass2", "gram_grad")
+SKI_FP32_INSTANCES = ("interp_reduce", "interp_expand", "ski_fused_pass2",
+                      "ski_windowed_pass2", "ski_expand_pass2", "gram_grad",
+                      "conv_tap_grad")
 #: training of phase ski_bf16: AdamW steps of 8 x 512, and the batch rows
 #: of the card-vs-CPU gradient check
 SKI_BF16_STEPS, SKI_BF16_CPU_ROWS = 5, 2
@@ -4744,6 +4771,430 @@ def phase_ski_bf16(smi: str, peaks, device="cuda") -> tuple:
           f"tokens/s; phase took {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     del model, opt
+    return kernels, launches
+
+
+# ---------------------------------------------------------- phase 9b
+#: bf16 SKI on the large-rank routes: launches a layer makes in one
+#: scoring forward and in one loss_and_grads, by route (pass 2's bf16
+#: instance counts the forward and the backward's orientation alike)
+LARGE_BF16_PASS2 = {"windowed": "ski_windowed_pass2_bf16",
+                    "fft": "ski_expand_pass2_bf16"}
+LARGE_BF16_STEPS = 3                  # AdamW steps of 8 x 512 a route
+#: the unfused op's bf16 launches: forward, and forward + backward
+UNFUSED_BF16_FWD = {**NO_SKI_LAUNCHES, "interp_reduce_bf16": 1,
+                    "interp_expand_bf16": 1, "short_conv": 1}
+UNFUSED_BF16_STEP = {**NO_SKI_LAUNCHES, "interp_reduce_bf16": 2,
+                     "interp_expand_bf16": 2, "short_conv": 2,
+                     "conv_tap_grad_bf16": 1}
+
+
+def _large_bf16_launches(variant: str, step: bool) -> dict:
+    """Launches a layer: 1 + 1 a forward; 3 interp_reduce_bf16, 2 pass 2
+    and 1 conv_tap_grad_bf16 a loss_and_grads."""
+    pass2 = LARGE_BF16_PASS2[variant]
+    if not step:
+        return {"interp_reduce_bf16": 1, pass2: 1}
+    return {"interp_reduce_bf16": 3, pass2: 2, "conv_tap_grad_bf16": 1}
+
+
+def _check_orientations(name, label, kernel, plain, m) -> None:
+    """``kernel(left, flip)`` against ``plain(left, flip)`` within BF16_TOL
+    × max|plain| at both offsets of the forward (causal left 0,
+    bidirectional m // 2) and the backward's orientation of each
+    (coefficients and taps flipped, left mirrored to m - 1 - left)."""
+    for left in (0, m // 2):
+        for flip in (False, True):
+            at = m - 1 - left if flip else left
+            _bf16_check(name, f"{label} left={at}"
+                        f"{' flipped' if flip else ''}", kernel(at, flip),
+                        plain(at, flip), BF16_TOL)
+
+
+def ski_bf16_route_kernels(peaks, device="cuda") -> dict:
+    """The three bf16 instances of the large-rank and unfused routes
+    against their plain versions on the same bf16 inputs on the card,
+    within BF16_TOL × max|plain| (fp32 sums in another order, y rounded
+    once; the plain windowed version also rounds z₂ = A z to bf16, as
+    JAX's does, where the kernel keeps it in fp32): ski_windowed_pass2_bf16
+    and ski_expand_pass2_bf16 at the large-rank path (x (8, 512, 512) bf16,
+    r = 512, m = 32, fp32 coefficients, bf16 taps) and interp_expand_bf16
+    at the unfused path (z (8, 64, 512) -> y (8, 512, 512)), each timed
+    beside its plain version and its fp32 instance on the same values
+    widened, interp_expand_bf16 also beside a bf16 ``torch.einsum``; then
+    every SKI_SHAPES shape, untimed. Pass 2 is held at both offsets and
+    in both orientations everywhere. Returns the path's entries."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ref, ski_fused
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(13)
+    shapes = (("path", 8, 512, 512, LARGE_RANK, 32, 0),
+              *(s for s in SKI_SHAPES if not s[0].startswith("path")))
+    out = {}
+    for label, b, n, d, r, m, _ in shapes:
+        x = torch.randn(b, n, d, device=device, generator=g).to(bf16)
+        z = torch.randn(b, r, d, device=device, generator=g).to(bf16)
+        coef = torch.randn(d, 2 * r - 1, device=device,
+                           generator=g) / math.sqrt(r)
+        f = torch.randn(d, m, device=device, generator=g).to(bf16)
+        lo, w_lo, _ = ski.make_inducing(n, r, device)
+
+        def windowed(left, flip, xx=x, zz=z, cc=coef, ff=f,
+                     fn=ski_fused.ski_windowed_pass2):
+            if flip:
+                cc, ff = cc.flip(-1).contiguous(), ff.flip(-1).contiguous()
+            return fn(xx, zz, cc, ff, True, left=left)
+
+        def windowed_plain(left, flip):
+            return windowed(left, flip, fn=lambda xx, zz, cc, ff, causal,
+                            left: ref.ski_expand_pass2_ref(
+                                xx, ref.toeplitz_gram_matvec_ref(cc, zz),
+                                ff, causal, left=left))
+
+        def expand(left, flip, xx=x, zz=z, ff=f,
+                   fn=ski_fused.ski_expand_pass2):
+            return fn(xx, zz, ff.flip(-1).contiguous() if flip else ff,
+                      True, left=left)
+
+        def expand_plain(left, flip):
+            return expand(left, flip, fn=ref.ski_expand_pass2_ref)
+        _check_orientations("ski_windowed_pass2_bf16", label, windowed,
+                            windowed_plain, m)
+        _check_orientations("ski_expand_pass2_bf16", label, expand,
+                            expand_plain, m)
+        _bf16_check("interp_expand_bf16", label,
+                    interp_matvec.interp_expand(z, lo, w_lo),
+                    ref.interp_expand_ref(z, lo, w_lo), BF16_TOL)
+        if label != "path":
+            continue
+        # timed on taps widened beforehand (the wrapper widens bf16 taps
+        # with a launch of its own, which would sit between the events),
+        # the backward's flipped coefficients and taps made beforehand;
+        # the fp32 instances on the same values, widened
+        x32, z32, f32 = x.float(), z.float(), f.float()
+        coef_t, f32_t = coef.flip(-1).contiguous(), f32.flip(-1).contiguous()
+        # x, z (bf16), the coefficients (fp32) and the taps (bf16) read
+        # once, y (bf16) written once; the Gram as two TF32 products on
+        # the tensor cores (a bf16 z has no lo half), the conv and the
+        # expansion on the CUDA cores beside them
+        nbytes, gram, rest = _windowed_cost(b, n, d, r, m)
+        nbytes = (2 * (2 * x.numel() + z.numel()) + 4 * coef.numel()
+                  + 2 * f.numel())
+        e = _kernel_entry(
+            "ski_windowed_pass2_bf16", WINDOWED_REPLACES, windowed(0, False),
+            windowed_plain(0, False),
+            lambda: windowed(0, False, ff=f32),
+            lambda: windowed_plain(0, False), None, nbytes=nbytes,
+            nops=((2 * gram, peaks[2], "tensor cores"),
+                  (rest, peaks[1], "cuda cores")),
+            peaks=peaks, tol=BF16_TOL, source=SKI_SRC)
+        e["fp32_ms"] = time_ms(lambda: ski_fused.ski_windowed_pass2(
+            x32, z32, coef, f32, True, left=0))
+        e["ms_backward"] = time_ms(lambda: ski_fused.ski_windowed_pass2(
+            x, z, coef_t, f32_t, True, left=m - 1))
+        e["fp32_ms_backward"] = time_ms(lambda: ski_fused.ski_windowed_pass2(
+            x32, z32, coef_t, f32_t, True, left=m - 1))
+        e["ms_taps_widened"] = time_ms(lambda: windowed(0, False))
+        out["ski_windowed_pass2_bf16"] = e
+        print(f"[ski_bf16_routes kernel] ski_windowed_pass2_bf16 x ({b}, {n}, "
+              f"{d}), z ({b}, {r}, {d}) bf16, coefficients ({d}, {2 * r - 1})"
+              f" fp32, bf16 taps m={m}, left=0 (ms_backward: flipped, left="
+              f"{m - 1}; fp32_ms: the fp32 instance on the same values; "
+              f"these timed on the taps widened beforehand, ms_taps_widened "
+              f"with the wrapper widening them): {e}", flush=True)
+        # x, z2 (bf16), the taps (bf16) read once, y (bf16) written once
+        e = _kernel_entry(
+            "ski_expand_pass2_bf16", WINDOWED_REPLACES, expand(0, False),
+            expand_plain(0, False), lambda: expand(0, False, ff=f32),
+            lambda: expand_plain(0, False), None,
+            nbytes=2 * (2 * x.numel() + z.numel() + f.numel()), nops=rest,
+            peaks=peaks, tol=BF16_TOL, source=SKI_SRC)
+        e["fp32_ms"] = time_ms(lambda: ski_fused.ski_expand_pass2(
+            x32, z32, f32, True, left=0))
+        e["ms_taps_widened"] = time_ms(lambda: expand(0, False))
+        out["ski_expand_pass2_bf16"] = e
+        print(f"[ski_bf16_routes kernel] ski_expand_pass2_bf16 x ({b}, {n}, "
+              f"{d}), z2 ({b}, {r}, {d}) bf16, bf16 taps m={m}, left=0 (ms "
+              f"and fp32_ms: the taps widened beforehand, fp32_ms the fp32 "
+              f"instance on the same values; ms_taps_widened: the wrapper "
+              f"widening them): {e}", flush=True)
+        # interp_expand at the unfused path: z (8, 64, 512) -> (8, 512, 512)
+        ru = 64
+        zu = torch.randn(b, ru, d, device=device, generator=g).to(bf16)
+        lou, wu, _ = ski.make_inducing(n, ru, device)
+        w = ref.dense_interp_matrix(lou, wu, ru)
+        wb = w.to(bf16)
+        e = _kernel_entry(
+            "interp_expand_bf16", "src/repro/kernels/interp_matvec.py:154",
+            interp_matvec.interp_expand(zu, lou, wu),
+            ref.interp_expand_ref(zu, lou, wu),
+            lambda: interp_matvec.interp_expand(zu, lou, wu),
+            lambda: ref.interp_expand_ref(zu, lou, wu),
+            lambda: torch.einsum("nr,brd->bnd", wb, zu),
+            nbytes=2 * (zu.numel() + b * n * d),
+            nops=2 * b * d * int((w != 0).sum()), peaks=peaks, tol=BF16_TOL,
+            source=SKI_SRC)
+        zu32 = zu.float()
+        e["fp32_ms"] = time_ms(lambda: interp_matvec.interp_expand(
+            zu32, lou, wu))
+        out["interp_expand_bf16"] = e
+        print(f"[ski_bf16_routes kernel] interp_expand_bf16 z ({b}, {ru}, "
+              f"{d}) bf16 -> y ({b}, {n}, {d}) (library: bf16 einsum with "
+              f"the bf16 hat matrix; fp32_ms: the fp32 instance): {e}",
+              flush=True)
+    # interp_expand_bf16's three lane widths: 8 channels (d % 8 == 0, z
+    # and y 16-byte aligned: the shapes above with d = 512 or 40), 4
+    # (d = 12; and the path's z 8 bytes past alignment) and 1 (odd d
+    # above; and the path's z 2 bytes past it)
+    cases = [("d=12", torch.randn(2, 20, 12, device=device,
+                                  generator=g).to(bf16), 77)]
+    flat = torch.randn(8 * 64 * 512 + 4, device=device, generator=g).to(bf16)
+    for skip in (4, 1):
+        cases.append((f"path z {2 * skip} bytes past 16-byte alignment",
+                      flat[skip:skip + 8 * 64 * 512].view(8, 64, 512), 512))
+    for label, zz, n in cases:
+        lo, w_lo, _ = ski.make_inducing(n, zz.shape[1], device)
+        _bf16_check("interp_expand_bf16", label,
+                    interp_matvec.interp_expand(zz, lo, w_lo),
+                    ref.interp_expand_ref(zz, lo, w_lo), BF16_TOL)
+    print(f"[ski_bf16_routes kernel] the three bf16 instances also held at "
+          f"{', '.join(s[0] for s in shapes[1:])}, pass 2 at both offsets "
+          f"and both orientations; interp_expand_bf16 also at "
+          f"{', '.join(c[0] for c in cases)}", flush=True)
+    return out
+
+
+def check_coef_backward_bf16(device="cuda") -> None:
+    """SKIFusedTNOCoef on a bf16 x at x (8, 512, 512), r = 512, m = 32
+    (fp32 coefficients, bf16 taps, as the bf16 model hands them), both
+    variants, causal and bidirectional: (dx, dcoef, df) against autograd
+    through ref.ski_fused_tno_coef_ref in bf16 on the card within 2e-2 ×
+    max|reference| (JAX's TOL[bf16]), in the primal dtypes, with 3
+    interp_reduce_bf16, 2 pass-2 bf16 and 1 conv_tap_grad_bf16 launches,
+    one kernel backward and no fp32 instance."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import ops, ref, ski_vjp
+    g = torch.Generator(device=device).manual_seed(14)
+    b, n, d, r, m = 8, 512, 512, LARGE_RANK, 32
+    lo, w_lo, _ = ski.make_inducing(n, r, device)
+    for variant, pass2 in LARGE_BF16_PASS2.items():
+        for causal in (True, False):
+            tag = f"{variant}, {'causal' if causal else 'bidirectional'}"
+            x = torch.randn(b, n, d, device=device, generator=g).to(
+                torch.bfloat16).requires_grad_()
+            coef = (torch.randn(d, 2 * r - 1, device=device, generator=g)
+                    / math.sqrt(r)).requires_grad_()
+            f = torch.randn(d, m, device=device, generator=g).to(
+                torch.bfloat16).requires_grad_()
+            cot = torch.randn(b, n, d, device=device, generator=g).to(
+                torch.bfloat16)
+            ops.reset_ski_counters()
+            got = torch.autograd.grad(ops.ski_fused_tno_coef(
+                x, coef, f, lo, w_lo, r, causal, variant), (x, coef, f), cot)
+            ran = dict(ops.ski_counters(), **ski_vjp.coef_counters)
+            want = torch.autograd.grad(ref.ski_fused_tno_coef_ref(
+                x, coef, f, lo, w_lo, r, causal), (x, coef, f), cot)
+            report = []
+            for name, p, q in zip(("dx", "dcoef", "df"), got, want):
+                if p.dtype != q.dtype:
+                    raise AssertionError(f"SKIFusedTNOCoef bf16 ({tag}) {name}"
+                                         f" {p.dtype}, not {q.dtype}")
+                err = float((p.float() - q.float()).abs().max())
+                scale = float(q.float().abs().max())
+                report.append(f"{name} {p.dtype} max abs err {err:.3e} "
+                              f"(scale {scale:.3e}, limit {2e-2 * scale:.3e})")
+                if not err <= 2e-2 * scale:
+                    raise AssertionError(f"SKIFusedTNOCoef bf16 ({tag}) "
+                                         f"{name}: {err} > 2e-2 x {scale}")
+            if ran != {**NO_SKI_LAUNCHES, "interp_reduce_bf16": 3, pass2: 2,
+                       "conv_tap_grad_bf16": 1, "fwd": 1, "bwd_kernel": 1,
+                       "bwd_ref": 0}:
+                raise AssertionError(f"SKIFusedTNOCoef bf16 ({tag}) launched "
+                                     f"{ran}")
+            print(f"[ski_bf16_routes] SKIFusedTNOCoef backward ({tag}) x ({b},"
+                  f" {n}, {d}) bf16, r={r}, m={m} vs autograd through "
+                  f"ref.ski_fused_tno_coef_ref in bf16: {'; '.join(report)}; "
+                  f"launches {ran}", flush=True)
+
+
+def _large_bf16_route(variant: str, cfg, model, batch, device) -> dict:
+    """One route of the bf16 large-rank model: score the batch (counted),
+    one counted loss_and_grads, LARGE_BF16_STEPS AdamW steps. Returns
+    {"score", "train": launch counts, "logits_one": the card's logits of
+    the first row, "score_tok_s", "train_tok_s", "losses"}."""
+    from repro_torch.kernels import ski_vjp
+    from repro_torch.launch.steps import (loss_and_grads, make_forward,
+                                          make_train_step)
+    from repro_torch.optim import adamw
+    tag = f"[ski_bf16_routes {variant}]"
+    logits, score, score_tok_s = _zoo_score(f"{tag} score", cfg, model,
+                                            batch, device)
+    _expect_bf16_launches(f"{tag} score", score,
+                          _large_bf16_launches(variant, False), cfg.n_layers)
+    del logits
+    logits_one = make_forward(cfg)(model, batch["tokens"][:1]).float().cpu()
+    _reset_kernel_counts()
+    ski_vjp.reset_counters()
+    loss, _, grads = loss_and_grads(model, cfg, batch)
+    _sync(device)
+    train = _kernel_counts()
+    ops_counts = dict(ski_vjp.coef_counters)
+    _expect_bf16_launches(f"{tag} loss_and_grads", train,
+                          _large_bf16_launches(variant, True), cfg.n_layers)
+    want_ops = {"fwd": cfg.n_layers, "bwd_kernel": cfg.n_layers,
+                "bwd_ref": 0}
+    dtypes = sorted({str(v.dtype) for v in grads.values()})
+    if (ops_counts != want_ops or dtypes != ["torch.bfloat16"]
+            or not math.isfinite(float(loss))):
+        raise AssertionError(f"{tag} SKIFusedTNOCoef {ops_counts}, gradient "
+                             f"dtypes {dtypes}, loss {float(loss)}")
+    print(f"{tag} loss_and_grads {SCORE_BATCH} x {SCORE_SEQ}: loss "
+          f"{float(loss):.6f}; launches {train}; SKIFusedTNOCoef "
+          f"{ops_counts}; every gradient bf16", flush=True)
+    del grads
+    ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=1,
+                           total_steps=LARGE_BF16_STEPS)
+    opt = adamw.init(ocfg, dict(model.named_parameters()))
+    step = make_train_step(cfg, ocfg)
+    losses, walls = [], []
+    for i in range(LARGE_BF16_STEPS):
+        t0 = time.perf_counter()
+        opt, metrics = step(model, opt, batch)
+        losses.append(float(metrics["loss"]))     # synchronises
+        walls.append(time.perf_counter() - t0)
+    train_tok_s = batch["tokens"].numel() / statistics.median(walls[1:])
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{tag} losses {losses}")
+    print(f"{tag} {LARGE_BF16_STEPS} make_train_step steps of {SCORE_BATCH} x"
+          f" {SCORE_SEQ} (the same batch): losses "
+          f"{[round(v, 6) for v in losses]}; step walls ms "
+          f"{[round(t * 1e3, 3) for t in walls]}, {train_tok_s:.0f} tokens/s "
+          f"(median after the first)", flush=True)
+    del opt
+    return {"score": score, "train": train, "logits_one": logits_one,
+            "score_tok_s": score_tok_s, "train_tok_s": train_tok_s,
+            "losses": losses}
+
+
+def check_unfused_bf16(device="cuda") -> dict:
+    """The unfused SKI layer (``TNOConfig(variant="ski", fused=False)``) in
+    bf16 at ski-tnn-lm-wt103's SKI width (x (8, 512, 512), r = 64, m =
+    32, parameters from seed 0 through ``cast_params``), causal: y within
+    BF16_TOL × max and the gradients of Σ y·g for x, the taps and the RPE
+    values within 2e-2 × max of autograd through the plain versions in
+    bf16 on the card, every one bf16, with UNFUSED_BF16_FWD /
+    UNFUSED_BF16_STEP launches (interp_expand_bf16 once each way) and
+    one kernel backward each of ShortConv, InterpReduce and InterpExpand.
+    Returns the forward + backward's launches (the path's counts)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tno
+    from repro_torch.kernels import ops
+    from repro_torch.nn.layers import cast_params
+    arch = get_config("ski-tnn-lm-wt103")
+    b, n, d, r, m = 8, 512, arch.d_model, arch.tno_rank, arch.tno_filter
+    g = torch.Generator(device=device).manual_seed(15)
+    x = torch.randn(b, n, d, device=device, generator=g).to(
+        torch.bfloat16).requires_grad_()
+    cot = torch.randn(b, n, d, device=device, generator=g).to(torch.bfloat16)
+    cfg, params = _ski_tno(d, r, m, True, device, lam=arch.tno_lam)
+    params = cast_params(params, torch.bfloat16)
+    leaves = (x, params.filt, params.rpe.vals)
+    ops.reset_ski_counters()
+    y = tno.tno_apply(params, cfg, x, plan=tno.tno_plan(params, cfg, n))
+    fwd = ops.ski_counters()
+    grads = torch.autograd.grad(y, leaves, cot)
+    step, op_counts = ops.ski_counters(), ops.ski_op_counters()
+    want_ops = {name: {"fwd": 1, "bwd_kernel": 1, "bwd_ref": 0}
+                for name in _UNFUSED_FUNCTIONS}
+    want_ops["SKIFusedTNO"] = want_ops["SKIFusedTNOCoef"] = {
+        "fwd": 0, "bwd_kernel": 0, "bwd_ref": 0}
+    if (fwd != UNFUSED_BF16_FWD or step != UNFUSED_BF16_STEP
+            or op_counts != want_ops):
+        raise AssertionError(f"unfused bf16 SKI launched {fwd} forward, "
+                             f"{step} in all, Functions {op_counts}")
+    plain = _ski_grads(params, cfg, x, cot, fn=_unfused_plain)
+    report = []
+    for name, p, q, tol in zip(("y", "dx", "dfilt", "dvals"),
+                               (y.detach(), *grads), plain,
+                               (BF16_TOL, 2e-2, 2e-2, 2e-2)):
+        if p.dtype != torch.bfloat16:
+            raise AssertionError(f"unfused bf16 {name} is {p.dtype}")
+        err = float((p.float() - q.float()).abs().max())
+        scale = float(q.float().abs().max())
+        report.append(f"{name} max abs err {err:.3e} (scale {scale:.3e}, "
+                      f"limit {tol * scale:.3e})")
+        if not err <= tol * scale:
+            raise AssertionError(f"unfused bf16 {name}: {err} > {tol} x "
+                                 f"{scale}")
+    print(f"[ski_bf16_routes unfused] causal x ({b}, {n}, {d}) bf16, r={r}, "
+          f"m={m}, bf16 leaves: vs autograd through the plain versions in "
+          f"bf16: {'; '.join(report)}; launches forward {fwd}, forward + "
+          f"backward {step}; Functions {op_counts}", flush=True)
+    return step
+
+
+def phase_ski_bf16_routes(smi: str, peaks, device="cuda") -> tuple:
+    """bf16 SKI on the routes past the dense one (module docstring, item
+    9b): :func:`ski_bf16_route_kernels`; SKIFusedTNOCoef's bf16 cotangents
+    (:func:`check_coef_backward_bf16`); the full-width bf16
+    ski-tnn-lm-wt103 at tno_rank 512 scored (8 × 512) and trained (one
+    counted loss_and_grads, LARGE_BF16_STEPS steps) on the "windowed"
+    route and, under REPRO_SKI_WINDOWED_RMAX=256, the "fft" route, its
+    first row's logits held to the CPU's under the zoo's bf16 rule; the
+    unfused layer in bf16 (:func:`check_unfused_bf16`). Returns (the
+    kernel entries, the launch counts by path)."""
+    from repro_torch.kernels import backend
+    from repro_torch.launch.steps import make_forward
+    from repro_torch.nn.layers import cast_params
+    t_phase = time.perf_counter()
+    kernels = ski_bf16_route_kernels(peaks, device)
+    check_coef_backward_bf16(device)
+    cfg = dataclasses.replace(_ski_bf16_cfg(), tno_rank=LARGE_RANK)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    r = min(cfg.tno_rank, SCORE_SEQ)
+    batch = _ski_batch(cfg, SCORE_BATCH, SCORE_SEQ, device)
+    launches, runs = {}, {}
+    for variant, env in (("windowed", {}), ("fft", {
+            "REPRO_SKI_WINDOWED_RMAX": str(LARGE_RANK // 2)})):
+        with mock.patch.dict(os.environ, env):
+            if backend.ski_rank_variant(r, cfg.d_model) != variant:
+                raise AssertionError(f"r={r}, d={cfg.d_model} is not routed "
+                                     f"{variant}")
+            model = _ski_bf16_model(cfg, device)
+            runs[variant] = _large_bf16_route(variant, cfg, model, batch,
+                                              device)
+            del model
+        suffix = "" if variant == "windowed" else "_fft"
+        launches[f"ski_bf16_large_r{suffix}_score"] = runs[variant]["score"]
+        launches[f"ski_bf16_large_r{suffix}_train"] = runs[variant]["train"]
+    # card vs CPU on the first row: the CPU's plain versions compute the
+    # same bits on both routes (one rfft Gram), so one CPU forward in bf16
+    # and one in fp32 (the noise floor) serve both
+    t0 = time.perf_counter()
+    cpu = _ski_bf16_model(cfg, "cpu")
+    one = batch["tokens"][:1].cpu()
+    want = make_forward(cfg)(cpu, one).float()
+    want32 = make_forward(cfg32)(cast_params(cpu, torch.float32), one)
+    del cpu
+    limit = max(ZOO_BF16_TOL, 2 * _rel(want32, want))
+    for variant, run in runs.items():
+        err = _rel(run["logits_one"], want)
+        print(f"[ski_bf16_routes {variant}] card vs CPU logits, 1 x "
+              f"{SCORE_SEQ} tokens: max abs err {err:.4e} of the CPU bf16 "
+              f"logits' scale (limit {limit:.4e}: max({ZOO_BF16_TOL}, 2 x "
+              f"the CPU bf16 logits' own distance from the CPU fp32 ones)); "
+              f"{time.perf_counter() - t0:.1f} s of CPU", flush=True)
+        if not err <= limit:
+            raise AssertionError(f"[ski_bf16_routes {variant}] card vs CPU "
+                                 f"logits {err} > {limit}")
+    launches["ski_bf16_unfused"] = check_unfused_bf16(device)
+    rates = "; ".join(
+        f"{v}: scoring {run['score_tok_s']:.0f}, training "
+        f"{run['train_tok_s']:.0f} tokens/s" for v, run in runs.items())
+    print(f"[ski_bf16_routes] rates ({smi}; host clock, recorded, not "
+          f"claimed) bf16 {rates} (the same model in fp32: this run's "
+          f"[large-r score], [large-r train] and their fft lines); phase "
+          f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return kernels, launches
 
 
@@ -6278,6 +6729,9 @@ def main() -> int:
     large_r_times()
     bf16_kernels, bf16_launches = phase_ski_bf16(smi, peaks)
     kernels.update(bf16_kernels)
+    route_kernels, route_launches = phase_ski_bf16_routes(smi, peaks)
+    kernels.update(route_kernels)
+    bf16_launches.update(route_launches)
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     del model
     mamba_kernels, mamba_launches = phase_mamba(peaks)
@@ -6316,6 +6770,13 @@ def main() -> int:
                                 tuple(SKI_BF16_SCORE)),
              "ski_bf16_train": (bf16_launches["ski_bf16_train"],
                                 tuple(SKI_BF16_STEP)),
+             **{f"ski_bf16_large_r{suffix}_{kind}": (
+                 bf16_launches[f"ski_bf16_large_r{suffix}_{kind}"],
+                 tuple(_large_bf16_launches(variant, kind == "train")))
+                for variant, suffix in (("windowed", ""), ("fft", "_fft"))
+                for kind in ("score", "train")},
+             "ski_bf16_unfused": (bf16_launches["ski_bf16_unfused"], tuple(
+                 k for k, v in UNFUSED_BF16_STEP.items() if v)),
              **{path: (counts, ()) for path, counts in tno_launches.items()
                 if path != "fd_hist"},
              "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),
@@ -6343,7 +6804,7 @@ def main() -> int:
                 raise AssertionError(f"{name} not launched on the {path} "
                                      "path")
     # the bf16 paths run the bf16 instances alone
-    for path in ("ski_bf16_score", "ski_bf16_train"):
+    for path in (p for p in paths if p.startswith("ski_bf16_")):
         fp32 = {k: paths[path][0][k] for k in SKI_FP32_INSTANCES}
         if any(fp32.values()):
             raise AssertionError(f"the {path} path launched fp32 instances "

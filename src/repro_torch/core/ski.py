@@ -154,12 +154,17 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
                   ) -> torch.Tensor:
     """x: (b, n, d) -> (b, n, d) through the fused ``ops.ski_fused_tno``
     ("dense"), ``ops.ski_fused_tno_coef`` ("windowed", "fft") or, for an
-    "unfused" plan, the four unfused ops. On the card a bf16 x runs the
-    "dense" route only (its bf16 kernels); the other plans raise a
-    TypeError. Bidirectional by
-    default, as in the JAX package; the decoder LM runs it causal.
-    ``plan`` — optional :func:`ski_plan` built with the same ``causal``
-    flag and n; a stale plan raises."""
+    "unfused" plan, the four unfused ops. x fp32 or bf16 on every route,
+    on the card through each kernel's instance of x's dtype. The unfused
+    route's short conv on the card takes x and the taps in one dtype (its
+    bf16 kernel reads bf16 taps): bf16 x beside fp32 taps raises a
+    TypeError before any launch, where JAX sums the fp32 taps against the
+    bf16 x in fp32. Rounding the taps to bf16 would change that result and
+    widening x would run fp32 quietly; the model never meets the case
+    (``cast_params`` gives bf16 leaves, and fp32 leaves make the mixer's
+    x fp32). Bidirectional by default, as in the JAX package; the decoder
+    LM runs it causal. ``plan`` — optional :func:`ski_plan` built with the
+    same ``causal`` flag and n; a stale plan raises."""
     n = x.shape[1]
     if plan is None:
         plan = ski_plan(params, cfg, n, causal)
@@ -170,13 +175,12 @@ def ski_tno_apply(params: SKIParams, cfg: SKIConfig, x: torch.Tensor,
             f"plan mismatch: built for causal={plan['causal']}, "
             f"n={plan['idx_lo'].shape[0]}; called with causal={causal}, n={n}")
     r, idx_lo, w_lo = plan["r"], plan["idx_lo"], plan["w_lo"]
-    if (x.device.type != "cpu" and x.dtype != torch.float32
-            and plan["variant"] != "dense"):
-        # no quiet upcast: only the dense route has bf16 kernels
+    if (plan["variant"] == "unfused" and x.device.type != "cpu"
+            and x.dtype != params.filt.dtype):
         raise TypeError(
-            f"SKI {plan['variant']!r} route: x {x.dtype} on the card; only "
-            "the dense route has bf16 kernels (the large-rank routes are "
-            "ROADMAP Step 11b, the unfused route Step 11c)")
+            f"SKI unfused route: x {x.dtype} and taps {params.filt.dtype} on "
+            "the card; the short conv kernel takes both in one dtype (see "
+            "ski_tno_apply's docstring)")
     if plan["variant"] == "dense":
         y = ops.ski_fused_tno(x, plan["a_dense"], params.filt, idx_lo, w_lo,
                               r, causal)

@@ -8,11 +8,11 @@
 // ski_fused.py. x, y are (b, n, d) fp32, z = W^T x is (b, r, d), A is the
 // (d, r, r) per-channel inducing Gram or its (d, 2r-1) Toeplitz
 // coefficients and f the (d, m) short-conv taps, all contiguous.
-// interp_reduce and the dense pass 2 also take the signal (x, z, y) in bf16
-// (the *_bf16 entries, the JAX kernels' bf16 tiles): each value is widened
-// to fp32 exactly where it is read, every sum runs in fp32 as in the fp32
-// instance, and an output is rounded to bf16 once, at its store. A and f
-// stay fp32 (the wrapper widens bf16 taps, exactly).
+// Every kernel here also takes the signal (x, z, y) in bf16 (the *_bf16
+// entries, the JAX kernels' bf16 tiles): each value is widened to fp32
+// exactly where it is read, every sum runs in fp32 as in the fp32
+// instance, and an output is rounded to bf16 once, at its store. A, its
+// coefficients and f stay fp32 (the wrapper widens bf16 ones, exactly).
 //
 // W is the linear interpolation onto r uniform inducing points with spacing
 // h = (n-1)/(r-1): row i has two taps, w_lo on node lo = floor(i/h) and
@@ -102,6 +102,17 @@
 //   8.95-8.99 but 0.2-0.6 us slower at the smallest smoke shapes (more
 //   serial work a thread); 2 rows 6.34-6.40 at the path; plain stores in
 //   place of __stcs 6.20 / 5.68-5.69.
+//   interp_expand_bf16 is the same body over bf16 z and y (the unfused
+//   route's last step in bf16, and InterpReduce's backward there): a lane
+//   carries 8 channels (16-byte loads and stores; d % 8 == 0 and z, y
+//   16-byte aligned), else 4 (8 bytes; d % 4 == 0, 8-byte aligned), else
+//   one; each value is widened, y is the fp32 instance's expression, rounded
+//   once. Bound: 2 (b r d + b n d) bytes, 4,718,592 at the unfused path
+//   (z (8, 64, 512) -> y (8, 512, 512)), 1.41 us at 3.35 TB/s. On an H100
+//   (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py phase ski_bf16_routes,
+//   tools/ab_kernel.py ski --time-only --only bf16; PERF.md) 0.0072-0.0074
+//   ms (one launch an event pair, about 6 us of it the timer), the fp32
+//   instance 0.0082 beside it.
 //
 // ski_fused_pass2  replaces src/repro/kernels/ski_fused.py _fused_kernel /
 //   _fused_call (ski_fused_pass2_pallas):
@@ -242,10 +253,35 @@
 //   bn < m have no counterpart. The conv over the tile and the two-tap
 //   expansion from the window are conv_expand_store, the device function
 //   that ski_fused_pass2 runs too.
+//
+//   ski_windowed_pass2_bf16 and ski_expand_pass2_bf16 are the same bodies
+//   over bf16 x, z (z2) and y; the coefficients and f stay fp32. The x tile
+//   stays bf16 in the first half of the fp32 tile's bytes, as in the dense
+//   bf16 pass 2 (8-byte cp.async copies of 4 channels). A bf16 value is a
+//   TF32 value (8 significant bits of TF32's 11, the same exponent range),
+//   so z's lo half is zero: the Gram stage takes z by 8-byte copies of the
+//   kGramC = 4 channels into the first half of the raw z buffer, widens
+//   them where the stage is split, and runs two TF32 products, hi.hi and
+//   lo.hi, not three (the coefficients are still split); the zl buffer
+//   stays in the layout unused, so the shared memory and the launch are
+//   the fp32 instance's. ski_expand_pass2_bf16 widens its window of z2 by
+//   plain loads, eight rows a thread in flight before their stores. y is
+//   rounded once from the same fp32 sums. Bounds at (8, 512, 512), r = 512,
+//   m = 32: windowed 14,743,552 bytes (4.40 us) and 2 x 2,147 MFLOP TF32
+//   (8.68 us at 495 TFLOP/s): 8.68 us, by operations; expand 12,648,448
+//   bytes, 3.78 us. On an H100 (as above; tools/ab_kernel.py, the taps
+//   widened before the timed call) the windowed bf16 instance took 0.0800
+//   ms in both runs of one call, beside the fp32 instance's 0.0658-0.0804
+//   and a build with the three products' 0.0817-0.1019: it does not beat
+//   fp32 (the copies, split, conv and store, most of the kernel's time,
+//   take as many instructions and 32-byte sectors as in fp32; not
+//   measured further). The expand bf16 instance 0.0266-0.0291, the fp32
+//   one 0.0274-0.0290.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -270,6 +306,29 @@ __device__ __forceinline__ bf16_t from_f32<bf16_t>(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
+// The fp32 instance of a templated kernel: its operands split into TF32
+// halves, its copies the 4-byte and 16-byte cp.async forms.
+template <typename T>
+constexpr bool kIsF32 = std::is_same<T, float>::value;
+
+// Four consecutive channels from shared memory as fp32: one 16-byte load
+// (fp32) or one 8-byte load of four bf16 values, each widened (the first
+// channel in the low half of the first word).
+__device__ __forceinline__ void load_quad(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void load_quad(const bf16_t* p, float (&v)[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
 constexpr int kReduceThreads = 128;
 constexpr int kExpandThreads = 256;  // interp_expand threads a block, at most
 constexpr int kExpandSpan = 4;   // rows of y an interp_expand thread stores
@@ -290,6 +349,7 @@ constexpr int kGramC = 4;        // channels of a ski_windowed_pass2 block
 constexpr int kStageT = 128;     // z rows of a Gram stage
 constexpr int kMaxMT = 9;        // window m-tiles of 16 rows, at most
 constexpr int kWindowedBlocksPerSM = 2;   // ski_windowed_pass2 blocks a SM
+constexpr int kZ2Batch = 8;      // bf16 z2 rows a thread loads at once
 constexpr int kDenseBlocksPerSM = 4;      // ski_fused_pass2 blocks a SM
 
 // The two taps of W's row i: node lo and weight w_lo (1 - w_lo on lo + 1).
@@ -361,13 +421,40 @@ __device__ __forceinline__ float4 expand_row(float wl, float4 a, float4 b) {
   return o;
 }
 
-// V is float4 (d % 4 == 0, z and y 16-byte aligned) or float; cols = d / 4
-// or d lanes of V a row. Block (qx, sy): qx lanes of V along a row (a power
+// bf16 lanes of 1, 4 (uint2) or 8 (uint4) channels: each value widened,
+// the fp32 expression above, rounded once.
+__device__ __forceinline__ bf16_t expand_row(float wl, bf16_t a, bf16_t b) {
+  return from_f32<bf16_t>(expand_row(wl, to_f32(a), to_f32(b)));
+}
+
+// Two bf16 channels of one word, the first in the low half.
+__device__ __forceinline__ unsigned expand_pair(float wl, unsigned a,
+                                                unsigned b) {
+  const float lo = expand_row(wl, __uint_as_float(a << 16),
+                              __uint_as_float(b << 16));
+  const float hi = expand_row(wl, __uint_as_float(a & 0xffff0000u),
+                              __uint_as_float(b & 0xffff0000u));
+  return static_cast<unsigned>(from_f32<bf16_t>(lo)) |
+         (static_cast<unsigned>(from_f32<bf16_t>(hi)) << 16);
+}
+
+__device__ __forceinline__ uint2 expand_row(float wl, uint2 a, uint2 b) {
+  return make_uint2(expand_pair(wl, a.x, b.x), expand_pair(wl, a.y, b.y));
+}
+
+__device__ __forceinline__ uint4 expand_row(float wl, uint4 a, uint4 b) {
+  return make_uint4(expand_pair(wl, a.x, b.x), expand_pair(wl, a.y, b.y),
+                    expand_pair(wl, a.z, b.z), expand_pair(wl, a.w, b.w));
+}
+
+// V is float4 (d % 4 == 0, z and y 16-byte aligned) or float; for bf16 z
+// and y uint4 (8 channels), uint2 (4) or bf16_t; cols = d / (channels of
+// V) lanes of V a row. Block (qx, sy): qx lanes of V along a row (a power
 // of two, kExpandSpan <= qx <= 32) by sy spans of kExpandSpan rows;
 // blockIdx.x = span block * slabs + slab, blockIdx.y the batch row.
 template <typename V>
 __global__ void __launch_bounds__(kExpandThreads)
-    interp_expand_kernel(const float* __restrict__ z, float* __restrict__ y,
+    interp_expand_kernel(const V* __restrict__ z, V* __restrict__ y,
                          int n, int cols, int r, float hf, int slabs) {
   const int qx = blockDim.x, lane_x = threadIdx.x;
   const int sb = blockIdx.x / slabs;                 // 32-bit, once
@@ -390,8 +477,8 @@ __global__ void __launch_bounds__(kExpandThreads)
     wl[j] = __shfl_sync(0xffffffffu, w_row, group + j);
   }
   if (c >= cols || i0 >= n) return;
-  const V* zc = reinterpret_cast<const V*>(z) + bi * r * cols + c;
-  V* yc = reinterpret_cast<V*>(y) + (bi * n + i0) * cols + c;
+  const V* zc = z + bi * r * cols + c;
+  V* yc = y + (bi * n + i0) * cols + c;
   const int rows = n - i0 < kExpandSpan ? n - i0 : kExpandSpan;
   const int l0 = lo[0];
   if (lo[kExpandSpan - 1] - l0 < kExpandWindow - 1) {
@@ -839,26 +926,29 @@ __host__ __device__ __forceinline__ int gram_stage_floats(int mt) {
 
 // Request Gram stage t0 .. t0 + kStageT - 1 into the raw buffers: z rows of
 // the block's 32 columns as zr[t][lane] (lane = batch row * 4 + channel;
-// 16-byte copies of 4 channels when vec16), and coefficients
+// one copy of 4 channels, 16 bytes fp32 or 8 bytes bf16, when vec16; a bf16
+// stage fills the first half of zr's bytes), and coefficients
 // base .. base + span - 1 of its kGramC channels as cr[ch][e]; zero past r,
 // b, d and outside [0, 2r - 1).
+template <typename T>
 __device__ __forceinline__ void load_gram_stage(
-    float* zr, float* cr, const float* z, const float* coef, long long b0,
+    float* zr, float* cr, const T* z, const float* coef, long long b0,
     long long c0, int t0, long long base, int span, int r, long long b,
     long long d, bool vec16) {
+  T* zs = reinterpret_cast<T*>(zr);
   if (vec16) {
     for (int e = threadIdx.x; e < kStageT * kMaxCB; e += kLanes * kWarps) {
       const int t = e >> 3, u = e & 7;
       const bool ok = b0 + u < b && t0 + t < r;
-      cp_async16(zr + 4 * e, ok ? z + ((b0 + u) * r + t0 + t) * d + c0 : z,
-                 ok);
+      cp_async_quad(zs + 4 * e,
+                    ok ? z + ((b0 + u) * r + t0 + t) * d + c0 : z, ok);
     }
   } else {
     for (int e = threadIdx.x; e < kStageT * kLanes; e += kLanes * kWarps) {
       const int t = e >> 5, u = (e >> 2) & 7, ch = e & 3;
       const bool ok = b0 + u < b && c0 + ch < d && t0 + t < r;
-      cp_async4(zr + e, ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z,
-                ok);
+      copy_one(zs + e, ok ? z + ((b0 + u) * r + t0 + t) * d + c0 + ch : z,
+               ok);
     }
   }
   const long long ncoef = 2LL * r - 1;
@@ -872,19 +962,25 @@ __device__ __forceinline__ void load_gram_stage(
 
 // The raw stage split into TF32 halves, v = hi + lo with hi = rna(v) and
 // lo = rna(v - hi): z transposed to [ch][t][batch row] (a B fragment's 32
-// lanes then read 32 consecutive words), the coefficients in place.
+// lanes then read 32 consecutive words), the coefficients in place. A bf16
+// z is widened here; it is a TF32 value, so hi = v and no lo is written.
+template <typename T>
 __device__ __forceinline__ void split_gram_stage(const float* zr,
                                                  const float* cr, float* zh,
                                                  float* zl, float* csh,
                                                  float* csl, int span) {
   for (int e = threadIdx.x; e < kStageT * kMaxCB; e += kLanes * kWarps) {
-    const float4 v = *reinterpret_cast<const float4*>(zr + 4 * e);
-    const float vs[kGramC] = {v.x, v.y, v.z, v.w};
+    float vs[kGramC];
+    load_quad(reinterpret_cast<const T*>(zr) + 4 * e, vs);
 #pragma unroll
     for (int ch = 0; ch < kGramC; ++ch) {
-      const float hi = tf32_rna(vs[ch]);
-      zh[ch * kStageT * kMaxCB + e] = hi;    // e = t * kMaxCB + batch row
-      zl[ch * kStageT * kMaxCB + e] = tf32_rna(vs[ch] - hi);
+      if constexpr (kIsF32<T>) {
+        const float hi = tf32_rna(vs[ch]);
+        zh[ch * kStageT * kMaxCB + e] = hi;  // e = t * kMaxCB + batch row
+        zl[ch * kStageT * kMaxCB + e] = tf32_rna(vs[ch] - hi);
+      } else {
+        zh[ch * kStageT * kMaxCB + e] = vs[ch];
+      }
     }
   }
   for (int p = threadIdx.x; p < kGramC * span; p += kLanes * kWarps) {
@@ -898,7 +994,8 @@ __device__ __forceinline__ void split_gram_stage(const float* zr,
 // One warp's share of a Gram stage: acc[mi] += A[16 (m0 + mi) .., t]
 // z[t, ..] for mi < NM over the stage's kStageT / 8 k-steps of 8 z rows,
 // for one channel, in 3xTF32: hi.hi and hi.lo in a first sweep, lo.hi in
-// a second, all into the same fp32 accumulators in a fixed order.
+// a second, all into the same fp32 accumulators in a fixed order. Without
+// kZLo (a bf16 z, whose lo half is zero) the hi.lo product is left out.
 //
 // A[j, t] = coef[w0 + j - t + r - 1] is Toeplitz, so the A fragment of
 // m-tile mi at k-step ks depends on 2 mi - ks alone: its four values are
@@ -910,7 +1007,7 @@ __device__ __forceinline__ void split_gram_stage(const float* zr,
 // the diagonals repeat (m-tile mi + 1 at k-step ks + 2 is m-tile mi at
 // ks). A thread's slots are 11 consecutive words across the warp: no bank
 // conflicts.
-template <int MA, int NM>
+template <int MA, int NM, bool kZLo>
 __device__ __forceinline__ void gram_stage_mma(float (&acc)[MA][4],
                                                const float* zh,
                                                const float* zl,
@@ -946,7 +1043,7 @@ __device__ __forceinline__ void gram_stage_mma(float (&acc)[MA][4],
         const int q = 4 * mi - 2 * ks + 2 * kSteps - 1;
         mma_tf32(acc[mi], w[q], w[q + 2], w[q - 1], w[q + 1], bh0, bh1);
       }
-      if (sweep == 0) {
+      if (kZLo && sweep == 0) {
         const uint32_t bl0 = __float_as_uint(zl[zk]);
         const uint32_t bl1 = __float_as_uint(zl[zk + 4 * kMaxCB]);
 #pragma unroll
@@ -964,10 +1061,11 @@ __device__ __forceinline__ void gram_stage_mma(float (&acc)[MA][4],
 // m-tiles [m0, m0 + nm) with m0 = 0, nm = (MT + 1) / 2 for w < 4 and the
 // rest for w >= 4. The stages of kStageT z rows stream through the raw
 // buffers by cp.async (stage s + 1 lands while stage s multiplies) and
-// are split into TF32 halves once, for every warp.
-template <int MT>
+// are split into TF32 halves once, for every warp (z in T, float or
+// bf16_t; a bf16 z has no lo half, and its products are two).
+template <int MT, typename T>
 __device__ __forceinline__ void gram_window_tc(
-    const float* __restrict__ z, const float* __restrict__ coef, float* z2w,
+    const T* __restrict__ z, const float* __restrict__ coef, float* z2w,
     float* stage, int w0, int bw, int r, long long b, long long d,
     long long b0, long long c0, bool z_vec16) {
   constexpr int MA = (MT + 1) / 2, MB = MT / 2;
@@ -993,7 +1091,7 @@ __device__ __forceinline__ void gram_window_tc(
   for (int s = 0; s < nst; ++s) {
     cp_async_wait(0);                  // stage s (and the x tile) landed
     __syncthreads();                   // ... for every thread; halves free
-    split_gram_stage(zr, cr, zh, zl, csh, csl, span);
+    split_gram_stage<T>(zr, cr, zh, zl, csh, csl, span);
     __syncthreads();                   // halves ready; the raw buffers free
     if (s + 1 < nst) {
       load_gram_stage(zr, cr, z, coef, b0, c0, (s + 1) * kStageT,
@@ -1004,11 +1102,11 @@ __device__ __forceinline__ void gram_window_tc(
     const float* zhc = zh + ch * kStageT * kMaxCB;
     const float* zlc = zl + ch * kStageT * kMaxCB;
     if (half == 0)
-      gram_stage_mma<MA, MA>(acc, zhc, zlc, csh + ch * span, csl + ch * span,
-                             m0);
+      gram_stage_mma<MA, MA, kIsF32<T>>(acc, zhc, zlc, csh + ch * span,
+                                        csl + ch * span, m0);
     else
-      gram_stage_mma<MA, MB>(acc, zhc, zlc, csh + ch * span, csl + ch * span,
-                             m0);
+      gram_stage_mma<MA, MB, kIsF32<T>>(acc, zhc, zlc, csh + ch * span,
+                                        csl + ch * span, m0);
   }
   const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
@@ -1026,16 +1124,18 @@ __device__ __forceinline__ void gram_window_tc(
 // ski_fused_pass2. kBanded (ski_windowed_pass2; cb = 8, kc = kGramC): the
 // window of z2 = A z is computed from z and the coefficients on the tensor
 // cores, MT m-tiles of 16 rows covering bw; otherwise z holds z2 and the
-// window is copied (ski_expand_pass2; coef unused).
-template <int TN, bool kBanded, int MT>
+// window is copied (ski_expand_pass2; coef unused). T is the signal's
+// type (x, z, y: float or bf16_t); a bf16 x tile fills the first half of
+// the fp32 tile's bytes, so the layout is the same for both.
+template <int TN, bool kBanded, int MT, typename T>
 __global__ void __launch_bounds__(kLanes * kWarps,
                                   kBanded ? kWindowedBlocksPerSM
                                           : kBlocksPerSM)
-    ski_window_pass2_kernel(const float* __restrict__ x,
-                            const float* __restrict__ z,
+    ski_window_pass2_kernel(const T* __restrict__ x,
+                            const T* __restrict__ z,
                             const float* __restrict__ coef,
                             const float* __restrict__ filt,
-                            float* __restrict__ y, long long b, long long n,
+                            T* __restrict__ y, long long b, long long n,
                             long long d, int r, int m, int left, float hf,
                             int cb, int bw, bool x_vec16, bool z_vec16) {
   extern __shared__ float smem[];
@@ -1050,9 +1150,9 @@ __global__ void __launch_bounds__(kLanes * kWarps,
   const bool valid = bg < b && c < d;
   const int mp = padded_taps(m);        // taps m..mp-1 are zero
   const int rows = TN + mp - 1;         // tile rows with the conv halo
-  float* xs = smem;                     // [rows][kLanes]  x tile (16-byte
+  T* xs = reinterpret_cast<T*>(smem);   // [rows][kLanes]  x tile (16-byte
                                         //   aligned: first)
-  float* fs = xs + rows * kLanes;       // [mp][kLanes]    f[c, k]
+  float* fs = smem + rows * kLanes;     // [mp][kLanes]    f[c, k]
   float* z2w = fs + mp * kLanes;        // [bw][kZ2Pitch]  z2[bg, w0 + j, c]
   float* hw = z2w + bw * kZ2Pitch;      // [TN] w_lo of the tile's rows
   int* hlo = reinterpret_cast<int*>(hw + TN);          // [TN] their nodes
@@ -1072,12 +1172,30 @@ __global__ void __launch_bounds__(kLanes * kWarps,
     const int span = gram_span(MT);
     load_gram_stage(stage, stage + kStageT * kLanes, z, coef, b0, c0, 0,
                     (long long)w0 + r - kStageT, span, r, b, d, z_vec16);
-  } else {
+  } else if constexpr (kIsF32<T>) {
     for (int j = warp; j < bw; j += kWarps) {
       const long long t = w0 + j;
       const bool ok = valid && t < r;
       cp_async4(z2w + j * kZ2Pitch + lane, ok ? z + (bg * r + t) * d + c : z,
                 ok);
+    }
+  } else {
+    // bf16 z2 widened by plain loads (cp.async has no 2-byte form), a
+    // thread's kZ2Batch rows issued before any of their stores
+    for (int j0 = warp; j0 < bw; j0 += kWarps * kZ2Batch) {
+      float v[kZ2Batch];
+#pragma unroll
+      for (int k = 0; k < kZ2Batch; ++k) {
+        const int j = j0 + k * kWarps;
+        const long long t = w0 + j;
+        const bool ok = valid && j < bw && t < r;
+        v[k] = ok ? to_f32(__ldg(z + (bg * r + t) * d + c)) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kZ2Batch; ++k) {
+        const int j = j0 + k * kWarps;
+        if (j < bw) z2w[j * kZ2Pitch + lane] = v[k];
+      }
     }
   }
   cp_async_commit();
@@ -1090,8 +1208,8 @@ __global__ void __launch_bounds__(kLanes * kWarps,
   }
   // 2. banded: the window of z2 = A z
   if constexpr (kBanded)
-    gram_window_tc<MT>(z, coef, z2w, stage, w0, bw, r, b, d, b0, c0,
-                       z_vec16);
+    gram_window_tc<MT, T>(z, coef, z2w, stage, w0, bw, r, b, d, b0, c0,
+                          z_vec16);
   cp_async_wait(0);
   __syncthreads();
   // 3. conv, expansion, one store
@@ -1131,7 +1249,7 @@ static long long window_smem(long long tn, long long bw, long long m,
   return 4 * floats;
 }
 
-template <int TN, bool kBanded, int MT>
+template <int TN, bool kBanded, int MT, typename T>
 static int window_launch(const dim3& grid, long long smem, cudaStream_t s,
                          const void* x, const void* z, const void* coef,
                          const void* filt, void* y, long long b, long long n,
@@ -1147,22 +1265,23 @@ static int window_launch(const dim3& grid, long long smem, cudaStream_t s,
   if (dev < 0 || dev >= kMaxDevices)
     return static_cast<int>(cudaErrorInvalidDevice);
   if (smem > 48 * 1024 && smem > smem_set[dev]) {
-    e = cudaFuncSetAttribute(ski_window_pass2_kernel<TN, kBanded, MT>,
+    e = cudaFuncSetAttribute(ski_window_pass2_kernel<TN, kBanded, MT, T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     smem_set[dev] = smem;
   }
-  ski_window_pass2_kernel<TN, kBanded, MT>
+  ski_window_pass2_kernel<TN, kBanded, MT, T>
       <<<grid, kLanes * kWarps, (size_t)smem, s>>>(
-          static_cast<const float*>(x), static_cast<const float*>(z),
+          static_cast<const T*>(x), static_cast<const T*>(z),
           static_cast<const float*>(coef), static_cast<const float*>(filt),
-          static_cast<float*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
+          static_cast<T*>(y), b, n, d, (int)r, (int)m, (int)left, hf, cb,
           (int)bw, x_vec16, z_vec16);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBanded>
+// The windowed pass 2 over the signal in T (float or bf16_t).
+template <bool kBanded, typename T>
 static int window_pass2(const void* x, const void* z, const void* coef,
                         const void* filt, void* y, long long b, long long n,
                         long long d, long long r, long long m, long long left,
@@ -1179,16 +1298,17 @@ static int window_pass2(const void* x, const void* z, const void* coef,
   if (smem > kMaxSmem || tiles > 2147483647LL || gx > 65535 || gy > 65535 ||
       bw < 8 || bw % 8 != 0 || (kBanded && mt == 0))
     return static_cast<int>(cudaErrorInvalidValue);
+  // one copy of 4 channels: 16 bytes fp32, 8 bytes bf16
   const bool x_vec16 = cb == kMaxCB && d % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) == 0;
   const bool z_vec16 = kBanded && d % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(z) % 16 == 0;
+                       reinterpret_cast<uintptr_t>(z) % (4 * sizeof(T)) == 0;
   const dim3 grid((unsigned)tiles, (unsigned)gx, (unsigned)gy);
 #define REPRO_WINDOW_CASE(TN, MT)                                            \
   case TN:                                                                   \
-    return window_launch<TN, kBanded, MT>(grid, smem, s, x, z, coef, filt, y, \
-                                          b, n, d, r, m, left, hf, cb, bw,    \
-                                          x_vec16, z_vec16);
+    return window_launch<TN, kBanded, MT, T>(grid, smem, s, x, z, coef, filt, \
+                                             y, b, n, d, r, m, left, hf, cb,  \
+                                             bw, x_vec16, z_vec16);
   if constexpr (!kBanded) {
     switch (tn) {
       REPRO_WINDOW_CASE(128, 0)
@@ -1367,6 +1487,66 @@ static int reduce_launch(const T* x, T* z, long long b, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// interp_expand_kernel with lanes of V over z and y.
+template <typename V>
+static void expand_launch(const dim3& grid, const dim3& block, cudaStream_t s,
+                          const void* z, void* y, int n, int cols, int r,
+                          float hf, int slabs) {
+  interp_expand_kernel<V><<<grid, block, 0, s>>>(
+      static_cast<const V*>(z), static_cast<V*>(y), n, cols, r, hf, slabs);
+}
+
+// One interp_expand launch over z and y in T (float or bf16_t). A lane
+// carries the widest vector of channels that d and both pointers allow:
+// fp32 4 (16 bytes) or 1; bf16 8 (16 bytes), 4 (8 bytes) or 1.
+template <typename T>
+static int expand_pass(const void* z, void* y, long long b, long long n,
+                       long long d, long long r, float hf, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  const cudaError_t e = current_sms(&dev, &sms);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto aligned = [&](int bytes) {
+    return reinterpret_cast<uintptr_t>(z) % bytes == 0 &&
+           reinterpret_cast<uintptr_t>(y) % bytes == 0;
+  };
+  int vec = 1;
+  for (int v = 16 / (int)sizeof(T); v >= 4 && vec == 1; v /= 2)
+    if (d % v == 0 && aligned(v * (int)sizeof(T))) vec = v;
+  const long long cols = d / vec;
+  // qx lanes along a row: 32, or the row's lanes rounded up to a power of
+  // two, at least a span; sy spans a block, halved (down to
+  // kExpandMinThreads threads) until every SM has kExpandWave blocks
+  int qx = kExpandSpan;
+  while (qx < 32 && qx < cols) qx *= 2;
+  int sy = kExpandThreads / qx;
+  const long long spans = (n + kExpandSpan - 1) / kExpandSpan;
+  const long long slabs = (cols + qx - 1) / qx;
+  while (qx * sy > kExpandMinThreads &&
+         (spans + sy - 1) / sy * slabs * b < (long long)kExpandWave * sms)
+    sy /= 2;
+  const long long blocks = (spans + sy - 1) / sy * slabs;
+  if (blocks > 2147483647LL || b > 65535 || n > 2147483647LL - kExpandSpan ||
+      cols > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((unsigned)blocks, (unsigned)b), block(qx, sy);
+  const int ni = (int)n, ci = (int)cols, ri = (int)r, si = (int)slabs;
+  if constexpr (kIsF32<T>) {
+    if (vec == 4)
+      expand_launch<float4>(grid, block, s, z, y, ni, ci, ri, hf, si);
+    else
+      expand_launch<float>(grid, block, s, z, y, ni, ci, ri, hf, si);
+  } else {
+    if (vec == 8)
+      expand_launch<uint4>(grid, block, s, z, y, ni, ci, ri, hf, si);
+    else if (vec == 4)
+      expand_launch<uint2>(grid, block, s, z, y, ni, ci, ri, hf, si);
+    else
+      expand_launch<bf16_t>(grid, block, s, z, y, ni, ci, ri, hf, si);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" {
 
 // The least dynamic shared memory of a dense pass-2 block (tiles of 32
@@ -1400,38 +1580,13 @@ int interp_reduce_bf16(const void* x, void* z, long long b, long long n,
 // cudaErrorInvalidValue when the grid exceeds its bounds.
 int interp_expand_f32(const void* z, void* y, long long b, long long n,
                       long long d, long long r, float hf, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  const cudaError_t e = current_sms(&dev, &sms);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(y) % 16 == 0;
-  const long long cols = vec4 ? d / 4 : d;
-  // qx lanes along a row: 32, or the row's lanes rounded up to a power of
-  // two, at least a span; sy spans a block, halved (down to
-  // kExpandMinThreads threads) until every SM has kExpandWave blocks
-  int qx = kExpandSpan;
-  while (qx < 32 && qx < cols) qx *= 2;
-  int sy = kExpandThreads / qx;
-  const long long spans = (n + kExpandSpan - 1) / kExpandSpan;
-  const long long slabs = (cols + qx - 1) / qx;
-  while (qx * sy > kExpandMinThreads &&
-         (spans + sy - 1) / sy * slabs * b < (long long)kExpandWave * sms)
-    sy /= 2;
-  const long long blocks = (spans + sy - 1) / sy * slabs;
-  if (blocks > 2147483647LL || b > 65535 || n > 2147483647LL - kExpandSpan ||
-      cols > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((unsigned)blocks, (unsigned)b), block(qx, sy);
-  if (vec4)
-    interp_expand_kernel<float4><<<grid, block, 0, s>>>(
-        static_cast<const float*>(z), static_cast<float*>(y), (int)n,
-        (int)cols, (int)r, hf, (int)slabs);
-  else
-    interp_expand_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(z), static_cast<float*>(y), (int)n,
-        (int)cols, (int)r, hf, (int)slabs);
-  return static_cast<int>(cudaGetLastError());
+  return expand_pass<float>(z, y, b, n, d, r, hf, stream);
+}
+
+// As interp_expand_f32 over bf16 z and y (fp32 arithmetic, y rounded once).
+int interp_expand_bf16(const void* z, void* y, long long b, long long n,
+                       long long d, long long r, float hf, void* stream) {
+  return expand_pass<bf16_t>(z, y, b, n, d, r, hf, stream);
 }
 
 // x, y: (b, n, d); z: (b, r, d); a: (d, r, r); filt: (d, m), contiguous fp32
@@ -1494,13 +1649,13 @@ long long ski_window_pass2_smem_bytes(long long b, long long tn, long long bw,
 int ski_windowed_pass2_blocks_per_sm() {
   const long long smem = window_smem(kTN, 136, 32, true);
   cudaError_t e = cudaFuncSetAttribute(
-      ski_window_pass2_kernel<kTN, true, kMaxMT>,
+      ski_window_pass2_kernel<kTN, true, kMaxMT, float>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   int nb = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &nb, ski_window_pass2_kernel<kTN, true, kMaxMT>, kLanes * kWarps,
-      (size_t)smem);
+      &nb, ski_window_pass2_kernel<kTN, true, kMaxMT, float>,
+      kLanes * kWarps, (size_t)smem);
   return e != cudaSuccess ? -static_cast<int>(e) : nb;
 }
 
@@ -1532,8 +1687,8 @@ int ski_windowed_pass2_f32(const void* x, const void* z, const void* coef,
                            long long n, long long d, long long r, long long m,
                            long long left, float hf, long long tn,
                            long long bw, void* stream) {
-  return window_pass2<true>(x, z, coef, filt, y, b, n, d, r, m, left, hf, tn,
-                            bw, stream);
+  return window_pass2<true, float>(x, z, coef, filt, y, b, n, d, r, m, left,
+                                   hf, tn, bw, stream);
 }
 
 // As ski_windowed_pass2_f32 with z2 = A z (b, r, d) in place of z and no
@@ -1542,8 +1697,27 @@ int ski_expand_pass2_f32(const void* x, const void* z2, const void* filt,
                          void* y, long long b, long long n, long long d,
                          long long r, long long m, long long left, float hf,
                          long long tn, long long bw, void* stream) {
-  return window_pass2<false>(x, z2, nullptr, filt, y, b, n, d, r, m, left, hf,
-                             tn, bw, stream);
+  return window_pass2<false, float>(x, z2, nullptr, filt, y, b, n, d, r, m,
+                                    left, hf, tn, bw, stream);
+}
+
+// As ski_windowed_pass2_f32 and ski_expand_pass2_f32 with x, z (z2) and y
+// bf16 (the coefficients and filt fp32): the sums in fp32, y rounded once.
+int ski_windowed_pass2_bf16(const void* x, const void* z, const void* coef,
+                            const void* filt, void* y, long long b,
+                            long long n, long long d, long long r,
+                            long long m, long long left, float hf,
+                            long long tn, long long bw, void* stream) {
+  return window_pass2<true, bf16_t>(x, z, coef, filt, y, b, n, d, r, m, left,
+                                    hf, tn, bw, stream);
+}
+
+int ski_expand_pass2_bf16(const void* x, const void* z2, const void* filt,
+                          void* y, long long b, long long n, long long d,
+                          long long r, long long m, long long left, float hf,
+                          long long tn, long long bw, void* stream) {
+  return window_pass2<false, bf16_t>(x, z2, nullptr, filt, y, b, n, d, r, m,
+                                     left, hf, tn, bw, stream);
 }
 
 const char* repro_cuda_error_string(int code) {

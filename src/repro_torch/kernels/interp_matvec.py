@@ -14,13 +14,11 @@ wrapper takes the plain version (``ref.interp_reduce_ref``,
 ``ref.interp_expand_ref``, the dense hat contractions) for a CPU tensor
 and launches its kernel for a CUDA tensor, counting the launch in
 :data:`counters` under the instance's name; another device, dtype or
-layout raises. :func:`interp_reduce` takes x fp32 or bf16 (the
-``interp_reduce_bf16`` instance: fp32 sums, z rounded once to bf16, as the
-plain version rounds it); :func:`interp_expand` takes fp32 only on the
-card, and a bf16 z raises (its bf16 instance, for the unfused route, is
-ROADMAP Step 11c). On the card a kernel writes a tensor that autograd
-cannot see, so a wrapper called on its own refuses an input that requires
-grad while grad is enabled.
+layout raises. Both take their input fp32 or bf16: the bf16 instances
+(``interp_reduce_bf16``, ``interp_expand_bf16``) sum in fp32 and round the
+output once to bf16, as the plain versions round it. On the card a kernel
+writes a tensor that autograd cannot see, so a wrapper called on its own
+refuses an input that requires grad while grad is enabled.
 
 The differentiable forms are :class:`InterpReduce` and
 :class:`InterpExpand` (``ops.interp_reduce``, ``ops.interp_expand``), as
@@ -45,11 +43,16 @@ from repro_torch.kernels import backend, ref
 from repro_torch.obs.devstats import kernel_region
 
 #: kernel launches (CUDA path only; the CPU path counts nothing)
-counters = {"interp_reduce": 0, "interp_reduce_bf16": 0, "interp_expand": 0}
-#: interp_reduce's (entry point, launch counter) for each element type
+counters = {"interp_reduce": 0, "interp_reduce_bf16": 0, "interp_expand": 0,
+            "interp_expand_bf16": 0}
+#: interp_reduce's and interp_expand's (entry point, launch counter) for
+#: each element type
 _REDUCE_ENTRIES = {torch.float32: ("interp_reduce_f32", "interp_reduce"),
                    torch.bfloat16: ("interp_reduce_bf16",
                                     "interp_reduce_bf16")}
+_EXPAND_ENTRIES = {torch.float32: ("interp_expand_f32", "interp_expand"),
+                   torch.bfloat16: ("interp_expand_bf16",
+                                    "interp_expand_bf16")}
 #: differentiated forwards (grad enabled and an input that requires grad)
 #: and backwards (the kernel, or autograd through the plain version) of
 #: :class:`InterpReduce` and of :class:`InterpExpand`
@@ -95,9 +98,11 @@ def _lib() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [p, p, i64, i64, i64, i64,
                                            ctypes.c_double, ctypes.c_float, p]
             getattr(lib, name).restype = ctypes.c_int
-    lib.interp_expand_f32.argtypes = [p, p, i64, i64, i64, i64,
-                                      ctypes.c_float, p]
-    lib.interp_expand_f32.restype = ctypes.c_int
+    for name, _ in _EXPAND_ENTRIES.values():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, i64, i64, i64, i64,
+                                           ctypes.c_float, p]
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -137,16 +142,16 @@ def interp_expand(z: torch.Tensor, idx_lo: torch.Tensor,
                   w_lo: torch.Tensor | None) -> torch.Tensor:
     """y = W z: z (b, r, d) -> (b, n, d), n = ``idx_lo.shape[0]``. The
     geometry's values feed the plain version only; the kernel regenerates
-    the weights from (n, r). CPU: :func:`ref.interp_expand_ref`."""
+    the weights from (n, r). y is in z's dtype: on the card z fp32 or
+    bf16, one launch of that dtype's instance.
+    CPU: :func:`ref.interp_expand_ref`."""
     if z.device.type == "cpu":
         return ref.interp_expand_ref(z, idx_lo, w_lo)
     forward_only("interp_expand", z)
-    if z.dtype == torch.bfloat16:
-        raise TypeError("interp_expand: z bfloat16 on the card; the kernel "
-                        "has no bf16 instance yet (ROADMAP Step 11c, the "
-                        "unfused route in bf16), and a bf16 z is not widened "
-                        "quietly")
-    backend.require_cuda(z, "interp_expand z", torch.float32)
+    if z.dtype not in _EXPAND_ENTRIES:
+        raise TypeError(f"interp_expand: z {z.dtype}; the kernel takes "
+                        "float32 or bfloat16")
+    backend.require_cuda(z, "interp_expand z", z.dtype)
     if z.dim() != 3 or z.numel() == 0:
         raise ValueError(f"interp_expand: z {tuple(z.shape)} is not a "
                          "non-empty (b, r, d)")
@@ -155,13 +160,14 @@ def interp_expand(z: torch.Tensor, idx_lo: torch.Tensor,
     _, hf = hat_spacing(n, r)
     if b > 65535:                         # grid (row blocks, b)
         raise ValueError(f"interp_expand: b={b} over 65535")
-    y = torch.empty((b, n, d), dtype=torch.float32, device=z.device)
+    y = torch.empty((b, n, d), dtype=z.dtype, device=z.device)
+    entry, counter = _EXPAND_ENTRIES[z.dtype]
     lib = _lib()
     with torch.cuda.device(z.device):
-        rc = lib.interp_expand_f32(z.data_ptr(), y.data_ptr(), b, n, d, r,
-                                   hf, backend.stream(z))
-    backend.check(lib, rc, "interp_expand")
-    counters["interp_expand"] += 1
+        rc = getattr(lib, entry)(z.data_ptr(), y.data_ptr(), b, n, d, r, hf,
+                                 backend.stream(z))
+    backend.check(lib, rc, f"interp_expand {z.dtype}")
+    counters[counter] += 1
     return y
 
 

@@ -157,12 +157,13 @@ def ski_counters() -> dict:
     ``interp_expand``, ``short_conv``, ``ski_fused_pass2``,
     ``ski_windowed_pass2``, ``ski_expand_pass2``, ``gram_grad``,
     ``conv_tap_grad``) and of their bf16 instances, each under its own
-    name: ``interp_reduce_bf16``, ``ski_fused_pass2_bf16`` and
-    ``ski_fused_pass2_at_bf16`` (Aᵀ, the bf16 signal backward),
-    ``gram_grad_bf16`` (the bf16 SKI model's pass 1, pass 2 and Gram
-    cotangent) and ``conv_tap_grad_bf16`` (Mamba's conv backward and the
-    bf16 SKI model's), since their last reset. ``short_conv`` counts both
-    of its dtypes."""
+    name: ``interp_reduce_bf16``, ``interp_expand_bf16`` (the unfused
+    route), ``ski_fused_pass2_bf16`` and ``ski_fused_pass2_at_bf16`` (Aᵀ,
+    the bf16 signal backward), ``ski_windowed_pass2_bf16`` and
+    ``ski_expand_pass2_bf16`` (the large-rank routes, both orientations),
+    ``gram_grad_bf16`` and ``conv_tap_grad_bf16`` (Mamba's conv backward
+    and the bf16 SKI model's), since their last reset. ``short_conv``
+    counts both of its dtypes."""
     return {**interp_matvec.counters, **sc.counters, **ski_fused.counters,
             **ski_grad.counters}
 

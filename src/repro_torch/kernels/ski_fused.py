@@ -32,8 +32,11 @@ takes the signal (x, z, and so y) fp32 or bf16, one instance each
 (``ski_fused_pass2_bf16``, and ``ski_fused_pass2_at_bf16`` for Aᵀ, each
 counted under its own name); A and the taps reach the kernel as fp32, a
 bf16 A or bf16 taps widened by the wrapper (exactly). The windowed
-kernels take fp32 only, and a bf16 input raises: their bf16 instances are
-ROADMAP Step 11b. The kernels handle
+kernels do the same: ``ski_windowed_pass2_bf16`` and
+``ski_expand_pass2_bf16`` take x and z (z₂) bf16, the coefficients and
+the taps as fp32 (bf16 ones widened exactly), and sum in fp32. x and z of
+different dtypes, or a dtype other than fp32 and bf16, raise: no signal
+is widened quietly. The kernels handle
 every n >= 2 and 2 <= r <= n themselves, n < m and r = n included: the TPU
 wrappers' padding copies and plain fallbacks for tiny shapes have no
 counterpart here. The windowed kernels tile the sequence by
@@ -52,7 +55,8 @@ from repro_torch.kernels.interp_matvec import forward_only, hat_spacing
 #: kernel launches (CUDA path only; the CPU path counts nothing)
 counters = {"ski_fused_pass2": 0, "ski_fused_pass2_bf16": 0,
             "ski_fused_pass2_at_bf16": 0, "ski_windowed_pass2": 0,
-            "ski_expand_pass2": 0}
+            "ski_windowed_pass2_bf16": 0, "ski_expand_pass2": 0,
+            "ski_expand_pass2_bf16": 0}
 #: the dense pass 2's (entry point, launch counter) for each signal dtype
 #: and orientation (``transpose_a``); the fp32 instance counts both
 #: orientations as one kernel, as it always has
@@ -62,6 +66,15 @@ _DENSE_ENTRIES = {
     (torch.bfloat16, False): ("ski_fused_pass2_bf16", "ski_fused_pass2_bf16"),
     (torch.bfloat16, True): ("ski_fused_pass2_at_bf16",
                              "ski_fused_pass2_at_bf16")}
+#: the windowed kernels' (entry point, launch counter) for each signal
+#: dtype, banded (ski_windowed_pass2) or not (ski_expand_pass2)
+_WINDOW_ENTRIES = {
+    (torch.float32, True): ("ski_windowed_pass2_f32", "ski_windowed_pass2"),
+    (torch.bfloat16, True): ("ski_windowed_pass2_bf16",
+                             "ski_windowed_pass2_bf16"),
+    (torch.float32, False): ("ski_expand_pass2_f32", "ski_expand_pass2"),
+    (torch.bfloat16, False): ("ski_expand_pass2_bf16",
+                              "ski_expand_pass2_bf16")}
 
 #: shared memory a block may use on Hopper (227 KB)
 _MAX_SMEM = 232448
@@ -88,10 +101,11 @@ def _lib() -> ctypes.CDLL:
     lib.ski_fused_pass2_smem_bytes.argtypes = [i64, i64]
     lib.ski_fused_pass2_smem_bytes.restype = i64
     window = [i64, i64, i64, i64, i64, i64, ctypes.c_float, i64, i64, p]
-    lib.ski_windowed_pass2_f32.argtypes = [p, p, p, p, p, *window]
-    lib.ski_windowed_pass2_f32.restype = ctypes.c_int
-    lib.ski_expand_pass2_f32.argtypes = [p, p, p, p, *window]
-    lib.ski_expand_pass2_f32.restype = ctypes.c_int
+    for (_, banded), (name, _) in _WINDOW_ENTRIES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p, p, *([p] if banded else []),
+                                           p, p, *window]
+            getattr(lib, name).restype = ctypes.c_int
     lib.ski_window_pass2_smem_bytes.argtypes = [i64, i64, i64, i64,
                                                 ctypes.c_int]
     lib.ski_window_pass2_smem_bytes.restype = i64
@@ -188,7 +202,8 @@ def ski_fused_pass2(x: torch.Tensor, z: torch.Tensor, a_dense: torch.Tensor,
 def _window_pass2(what: str, x, z, a_coef, filt, causal: bool,
                   left: int | None) -> torch.Tensor:
     """The two windowed pass-2 kernels: a_coef None is ski_expand_pass2
-    (z holds z₂), else ski_windowed_pass2."""
+    (z holds z₂), else ski_windowed_pass2. On the card x and z both fp32
+    or both bf16, one launch of that dtype's instance."""
     m = filt.shape[-1]
     if left is None:
         left = 0 if causal else m // 2
@@ -196,14 +211,16 @@ def _window_pass2(what: str, x, z, a_coef, filt, causal: bool,
     if all(t.device.type == "cpu" for t in ts):
         z2 = z if a_coef is None else ref.toeplitz_gram_matvec_ref(a_coef, z)
         return ref.ski_expand_pass2_ref(x, z2, filt, causal, left=left)
-    if any(t.dtype == torch.bfloat16 for t in ts):
-        raise TypeError(f"{what}: a bfloat16 input on the card; the kernel "
-                        "has no bf16 instance yet (ROADMAP Step 11b, the "
-                        "large-rank pass 2 in bf16), and bf16 is not "
-                        "widened quietly")
+    if x.dtype not in (torch.float32, torch.bfloat16) or z.dtype != x.dtype:
+        raise TypeError(f"{what}: x {x.dtype} and z {z.dtype}; the kernel "
+                        "takes both float32 or both bfloat16")
+    filt = _widened(filt)
+    a_coef = None if a_coef is None else _widened(a_coef)
+    ts = (x, z, filt) + (() if a_coef is None else (a_coef,))
     _require_kernel_inputs(what, ts, ("x", "z" if a_coef is not None
                                       else "z2", "taps", "coefficients"),
-                           (torch.float32,) * len(ts))
+                           (x.dtype, x.dtype) + (torch.float32,) * (
+                               len(ts) - 2))
     _check_shapes(what, x, z, a_coef, filt, left)
     b, n, d = x.shape
     r = z.shape[1]
@@ -216,18 +233,14 @@ def _window_pass2(what: str, x, z, a_coef, filt, causal: bool,
         raise ValueError(f"{what}: tile {bn}, band {bw}, m={m} need {smem} "
                          f"bytes of shared memory a block, over {_MAX_SMEM}")
     y = torch.empty_like(x)
+    entry, counter = _WINDOW_ENTRIES[x.dtype, banded]
+    gram = () if a_coef is None else (a_coef.data_ptr(),)
     with torch.cuda.device(x.device):
-        if banded:
-            rc = lib.ski_windowed_pass2_f32(
-                x.data_ptr(), z.data_ptr(), a_coef.data_ptr(),
-                filt.data_ptr(), y.data_ptr(), b, n, d, r, m, left, hf, bn,
-                bw, backend.stream(x))
-        else:
-            rc = lib.ski_expand_pass2_f32(
-                x.data_ptr(), z.data_ptr(), filt.data_ptr(), y.data_ptr(), b,
-                n, d, r, m, left, hf, bn, bw, backend.stream(x))
-    backend.check(lib, rc, f"{what} (r={r}, tile {bn}, band {bw})")
-    counters[what] += 1
+        rc = getattr(lib, entry)(
+            x.data_ptr(), z.data_ptr(), *gram, filt.data_ptr(), y.data_ptr(),
+            b, n, d, r, m, left, hf, bn, bw, backend.stream(x))
+    backend.check(lib, rc, f"{what} {x.dtype} (r={r}, tile {bn}, band {bw})")
+    counters[counter] += 1
     return y
 
 

@@ -32,8 +32,14 @@ twice in the backward, ``ski_fused_pass2_bf16`` and
 each summing in fp32; z, gz and dx are rounded to bf16 where the plain
 versions round them, and the cotangents come back in the primal dtypes
 (dx in x's, dA in A's, df in the taps'), as JAX's custom VJP returns them.
-:class:`SKIFusedTNOCoef` has fp32 kernels only on the card (its bf16
-instances are ROADMAP Step 11b). Both Functions run on both devices: on the card every step above
+:class:`SKIFusedTNOCoef` runs in x's dtype too: a bf16 x launches
+``interp_reduce_bf16`` (three times a step), ``ski_windowed_pass2_bf16``
+or ``ski_expand_pass2_bf16`` (forward, and the backward with the
+lag-flipped coefficients) and ``conv_tap_grad_bf16``; on the "fft" route
+:func:`_gram_fft` sums in fp32 and hands pass 2 a bf16 z₂, as JAX's
+``_gram_fft`` does, and ``gram_coef_grad_fft`` widens gz and z before its
+transforms (the card's FFT has no bf16). Both Functions run on both
+devices: on the card every step above
 is a CUDA kernel (or ``torch.fft``), on the CPU its plain version, so the
 CPU tests check the adjoint structure itself. :data:`counters` and
 :data:`coef_counters` count the differentiated forwards and which

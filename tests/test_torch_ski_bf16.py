@@ -345,10 +345,10 @@ def test_ski_reference_backward_switch_bf16(monkeypatch):
 
 # ------------------------------------------------------------- refusals
 def test_bf16_wrappers_off_the_cpu():
-    """Off the CPU the bf16 instances' wrappers reach the device check (the
-    card would launch them); the kernels with no bf16 instance refuse a
-    bf16 input with a TypeError, never widening it; the CPU path counts no
-    launch."""
+    """Off the CPU every bf16 instance's wrapper reaches the device check
+    (the card would launch it): the dense route's, and since the windowed,
+    expand and interp_expand kernels have bf16 instances too, theirs; the
+    CPU path counts no launch."""
     bf = dict(dtype=torch.bfloat16, device="meta")
     x, z = torch.empty(2, 16, 8, **bf), torch.empty(2, 4, 8, **bf)
     a = torch.empty(8, 4, 4, device="meta")
@@ -369,24 +369,25 @@ def test_bf16_wrappers_off_the_cpu():
                 x, z, coef, f, True)),
             ("ski_expand_pass2", lambda: ski_fused.ski_expand_pass2(
                 x, z, f, True))):
-        with pytest.raises(TypeError, match=r"Step 11[bc]"):
+        with pytest.raises(ValueError, match="tensor on meta"):
             call()
     ops.reset_ski_counters()
     ski_fused.ski_fused_pass2(torch.ones(1, 8, 4, dtype=torch.bfloat16),
                               torch.ones(1, 2, 4, dtype=torch.bfloat16),
                               torch.ones(4, 2, 2), torch.ones(4, 3), True)
     counts = ops.ski_counters()
-    assert {"interp_reduce_bf16", "ski_fused_pass2_bf16",
-            "ski_fused_pass2_at_bf16", "gram_grad_bf16",
-            "conv_tap_grad_bf16"} <= set(counts)
+    assert {"interp_reduce_bf16", "interp_expand_bf16",
+            "ski_fused_pass2_bf16", "ski_fused_pass2_at_bf16",
+            "ski_windowed_pass2_bf16", "ski_expand_pass2_bf16",
+            "gram_grad_bf16", "conv_tap_grad_bf16"} <= set(counts)
     assert not any(counts.values())
 
 
 @pytest.mark.parametrize("variant", ["windowed", "fft", "unfused"])
 def test_bf16_plans_without_kernels_refuse_off_the_cpu(variant):
-    """A bf16 model's windowed, fft and unfused plans off the CPU raise a
-    TypeError before any launch (only the dense route has bf16 kernels);
-    the dense plan goes on to the kernels."""
+    """A bf16 model's windowed, fft and unfused plans off the CPU go on to
+    their bf16 kernels, as the dense plan does: each reaches the device
+    check (the card would launch) and counts no launch."""
     cfg = ski.SKIConfig(d=8, rank=4, filter_size=3,
                         fused=variant != "unfused")
     params = cast_params(ski.ski_init(cfg, device="meta"), torch.bfloat16)
@@ -394,7 +395,7 @@ def test_bf16_plans_without_kernels_refuse_off_the_cpu(variant):
     plan = ski.ski_plan(params, cfg, 16, causal=True,
                         variant=None if variant == "unfused" else variant)
     ops.reset_ski_counters()
-    with pytest.raises(TypeError, match="only the dense route"):
+    with pytest.raises(ValueError, match="tensor on meta"):
         ski.ski_tno_apply(params, cfg, x, causal=True, plan=plan)
     assert not any(ops.ski_counters().values())
     dense = ski.ski_plan(params, cfg, 16, causal=True, variant="dense")

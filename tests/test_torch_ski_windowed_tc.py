@@ -99,7 +99,8 @@ def _fragment_slots(nm: int, m0: int, ks: int):
 def _kernel_model(x, z, coef, f, left, tn, bw, products=3):
     """The kernel's arithmetic: x (b, n, d), z (b, r, d), coef (d, 2r-1),
     f (d, m) fp32 → y (b, n, d). ``products`` 3 is the kernel's 3xTF32,
-    1 a single TF32 product (hi·hi)."""
+    2 its bf16 instance's (hi·hi and lo·hi: a bf16 z has no lo half), 1 a
+    single TF32 product (hi·hi)."""
     b, n, d = x.shape
     r = z.shape[1]
     mt = _gram_mt(bw)
@@ -132,7 +133,7 @@ def _kernel_model(x, z, coef, f, left, tn, bw, products=3):
             if products == 3:
                 bl = zl[:, t0:t0 + 8].permute(2, 1, 0)
                 acc = acc + torch.einsum("tdjk,dkb->tdjb", ah, bl)
-        if products == 3:                                # lo.hi
+        if products >= 2:                                # lo.hi
             for _, al, t0 in frags:
                 bh = zh[:, t0:t0 + 8].permute(2, 1, 0)
                 acc = acc + torch.einsum("tdjk,dkb->tdjb", al, bh)

@@ -214,12 +214,12 @@ def _time_windowed(peaks) -> dict:
 
 
 def _time_bf16(peaks) -> dict:
-    """The dense route's bf16 instances at the SKI path's shape (x (8, 512,
-    512) bf16, r = 64, m = 32): ``interp_reduce_bf16``, and
+    """The bf16 instances: the dense route's at the SKI path's shape (x (8,
+    512, 512) bf16, r = 64, m = 32): ``interp_reduce_bf16``, and
     ``ski_fused_pass2_bf16`` (left 0) and ``ski_fused_pass2_at_bf16`` (Aᵀ,
-    left 31) with z bf16, A fp32 and bf16 taps, with their bytes bounds.
-    A build without the bf16 entries (an earlier ``ski.cu``) times
-    none."""
+    left 31) with z bf16, A fp32 and bf16 taps; then those of the other
+    routes (:func:`_time_bf16_routes`), with their bounds. A build without
+    a bf16 entry (an earlier ``ski.cu``) times none of its kernels."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
     if not hasattr(ski_fused._lib(), "ski_fused_pass2_bf16"):
@@ -228,6 +228,7 @@ def _time_bf16(peaks) -> dict:
     x, z, a, f = _dense_inputs(b, n, d, r, m, seed=12)
     x, z, f = x.bfloat16(), z.bfloat16(), f.bfloat16()
     f_t = f.flip(-1).contiguous()
+    f32, f32_t = f.float(), f_t.float()
     lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
     pass2 = (2 * (2 * x.numel() + z.numel()) + 4 * a.numel()
              + 2 * f.numel()) / peaks[0] * 1e3
@@ -243,7 +244,76 @@ def _time_bf16(peaks) -> dict:
         "ski_fused_pass2_at_bf16": {
             "ms": chip_smoke.time_ms(lambda: ski_fused.ski_fused_pass2(
                 x, z, a, f_t, True, left=m - 1, transpose_a=True)),
-            "bound_ms": pass2}}
+            "bound_ms": pass2},
+        # the same two with the taps widened beforehand: the wrapper's
+        # widening launch out of the timed call
+        "ski_fused_pass2_bf16 fp32 taps": {
+            "ms": chip_smoke.time_ms(
+                lambda: ski_fused.ski_fused_pass2(x, z, a, f32, True)),
+            "bound_ms": pass2},
+        "ski_fused_pass2_at_bf16 fp32 taps": {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_fused_pass2(
+                x, z, a, f32_t, True, left=m - 1, transpose_a=True)),
+            "bound_ms": pass2},
+        **_time_bf16_routes(peaks)}
+
+
+def _large_inputs(seed, dtype=torch.float32):
+    """x, z (8, 512, 512), coefficients (512, 1023) / sqrt(512) fp32 and
+    taps (512, 32) at the large-rank path; x, z and the taps in
+    ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, n, d, r, m = 8, 512, 512, 512, 32
+    x = torch.randn(b, n, d, device="cuda", generator=g)
+    z = torch.randn(b, r, d, device="cuda", generator=g)
+    coef = torch.randn(d, 2 * r - 1, device="cuda", generator=g) / r ** 0.5
+    f = torch.randn(d, m, device="cuda", generator=g)
+    return x.to(dtype), z.to(dtype), coef, f.to(dtype)
+
+
+def _time_bf16_routes(peaks) -> dict:
+    """``ski_windowed_pass2_bf16`` (left 0, and the backward's orientation:
+    coefficients and taps flipped, left 31) and ``ski_expand_pass2_bf16``
+    at the large-rank path (x, z (8, 512, 512) bf16, r = 512, m = 32, fp32
+    coefficients, the taps' bf16 values as the fp32 the kernel reads, so
+    that no widening launch sits in the timed call), and
+    ``interp_expand_bf16`` at the unfused path (z (8, 64, 512) bf16 -> y
+    (8, 512, 512)), each with its bound (the windowed one's Gram as two
+    TF32 products). A build without these entries times none."""
+    from repro_torch.core import ski
+    from repro_torch.kernels import interp_matvec, ski_fused
+    if not hasattr(ski_fused._lib(), "ski_windowed_pass2_bf16"):
+        return {}
+    x, z, coef, f = _large_inputs(13, torch.bfloat16)
+    f = f.float()                # the taps as the kernel reads them
+    b, n, d = x.shape
+    r, m = z.shape[1], f.shape[1]
+    coef_t, f_t = coef.flip(-1).contiguous(), f.flip(-1).contiguous()
+    nbytes, gram, rest = chip_smoke._windowed_cost(b, n, d, r, m)
+    nbytes = 2 * (2 * x.numel() + z.numel()) + 4 * (coef.numel() + f.numel())
+    windowed, _ = chip_smoke._bound(
+        nbytes, ((2 * gram, peaks[2], "tensor cores"),
+                 (rest, peaks[1], "cuda cores")), peaks)
+    zu = z[:, :64].contiguous()
+    lo, w_lo, _ = ski.make_inducing(n, 64, "cuda")
+    return {
+        "ski_windowed_pass2_bf16": {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_windowed_pass2(
+                x, z, coef, f, True)),
+            "bound_ms": windowed},
+        "ski_windowed_pass2_bf16 backward": {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_windowed_pass2(
+                x, z, coef_t, f_t, True, left=m - 1)),
+            "bound_ms": windowed},
+        "ski_expand_pass2_bf16": {
+            "ms": chip_smoke.time_ms(lambda: ski_fused.ski_expand_pass2(
+                x, z, f, True)),
+            "bound_ms": (2 * (2 * x.numel() + z.numel()) + 4 * f.numel())
+            / peaks[0] * 1e3},
+        "interp_expand_bf16": {
+            "ms": chip_smoke.time_ms(lambda: interp_matvec.interp_expand(
+                zu, lo, w_lo)),
+            "bound_ms": 2 * (zu.numel() + b * n * d) / peaks[0] * 1e3}}
 
 
 #: the groups of the ski timing (``--only`` picks some)
@@ -305,18 +375,43 @@ def _ski_outputs() -> dict:
     (Aᵀ, taps flipped, left m - 1); ski_expand_pass2 at every shape of
     ``_expand_shapes``; interp_expand at every call of
     ``_expand_output_inputs``; ski_windowed_pass2 at the large-rank path's
-    shape (x (8, 512, 512), r = 512, m = 32), causal."""
+    shape (x (8, 512, 512), r = 512, m = 32), causal, and at every
+    WINDOW_SHAPES shape and offset in both orientations (coefficients and
+    taps flipped, left mirrored); the bf16 instances, where the build has
+    them, at the large-rank path (pass 2 both ways) and interp_expand_bf16
+    at the unfused path and every SKI_SHAPES shape."""
     from repro_torch.core import ski
     from repro_torch.kernels import interp_matvec, ski_fused
     out = _expand_outputs(seed=10)
-    g = torch.Generator(device="cuda").manual_seed(11)
-    b, n, d, r, m = 8, 512, 512, 512, 32
-    x = torch.randn(b, n, d, device="cuda", generator=g)
-    z = torch.randn(b, r, d, device="cuda", generator=g)
-    coef = torch.randn(d, 2 * r - 1, device="cuda", generator=g) / r ** 0.5
-    f = torch.randn(d, m, device="cuda", generator=g)
+    x, z, coef, f = _large_inputs(11)
     out["ski_windowed_pass2 path"] = ski_fused.ski_windowed_pass2(
         x, z, coef, f, True)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    for label, b, n, d, r, m, left in chip_smoke.WINDOW_SHAPES:
+        x = torch.randn(b, n, d, device="cuda", generator=g)
+        z = torch.randn(b, r, d, device="cuda", generator=g)
+        coef = torch.randn(d, 2 * r - 1, device="cuda", generator=g) / r ** 0.5
+        f = torch.randn(d, m, device="cuda", generator=g)
+        out[f"ski_windowed_pass2 {label}"] = ski_fused.ski_windowed_pass2(
+            x, z, coef, f, True, left=left)
+        out[f"ski_windowed_pass2 {label} backward"] = (
+            ski_fused.ski_windowed_pass2(
+                x, z, coef.flip(-1).contiguous(), f.flip(-1).contiguous(),
+                True, left=m - 1 - left))
+    if hasattr(ski_fused._lib(), "ski_windowed_pass2_bf16"):
+        x, z, coef, f = _large_inputs(14, torch.bfloat16)
+        out["ski_windowed_pass2_bf16 path"] = ski_fused.ski_windowed_pass2(
+            x, z, coef, f, True)
+        out["ski_windowed_pass2_bf16 path backward"] = (
+            ski_fused.ski_windowed_pass2(x, z, coef.flip(-1).contiguous(),
+                                         f.flip(-1).contiguous(), True,
+                                         left=31))
+        out["ski_expand_pass2_bf16 path"] = ski_fused.ski_expand_pass2(
+            x, z, f, True)
+        for label, zz, n in _expand_output_inputs(seed=15):
+            lo, w_lo, _ = ski.make_inducing(n, zz.shape[1], "cuda")
+            out[f"interp_expand_bf16 {label}"] = interp_matvec.interp_expand(
+                zz.bfloat16(), lo, w_lo)
     for label, b, n, d, r, m in DENSE_SHAPES:
         x, z, a, f = _dense_inputs(b, n, d, r, m, seed=6)
         lo, w_lo, _ = ski.make_inducing(n, r, "cuda")
@@ -585,6 +680,8 @@ def main() -> int:
     for old in args.old:
         print(f"[ptxas] {old.stem}: {ptxas_summary(ptxas_report(old))}",
               flush=True)
+    if args.old:
+        print(f"[ptxas] new: {ptxas_summary(ptxas_report(src))}", flush=True)
     paths = {"new": backend.build(args.name)[0]}
     paths.update(build_variants(args.old))
     report = {"device": smi, "torch": torch.__version__,
