@@ -7,8 +7,10 @@ mixers dropped in), the encoder-decoder whisper-medium's scoring and
 serving with cross-attention, the prefix-VLM paligemma-3b's scoring under
 the prefix mask (the paper's SKI there bidirectional), SKI scoring, SKI
 training, unfused SKI, large-rank SKI, bf16 SKI scoring and training on
-every SKI route, Mamba-2 serving and training and the jamba hybrid's
-scoring and serving paths on one NVIDIA card and check them.
+every SKI route, the TNN models trained through the distribution layer's
+``StepBuilder`` on a one-rank mesh, Mamba-2 serving and training and the
+jamba hybrid's scoring and serving paths on one NVIDIA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -126,7 +128,8 @@ card or outside a checkout of this repository. Phases:
    its launch's correlation id): every launch of ``causal_spectrum``,
    ``causal_spectrum_adjoint``, ``fd_mul`` and ``fd_khat_grad`` lies under
    the ``fd_tno`` region; printed (``[obs train]``), beside the card's name
-   and power limit: the region's ms a step, its share of the steps'
+   and power limit: the launcher's median ``train_step`` span (one
+   device, the mesh-free step, under the profiler), the region's ms a step, its share of the steps'
    device ranges, its host ranges, its kernels' busy time, and its
    achieved fraction of the roofline bound (the causal FD plan's
    ``obs.cost`` cost times the region's forwards and backwards, against
@@ -341,6 +344,18 @@ card or outside a checkout of this repository. Phases:
    large-r's lines); the unfused layer in bf16 at x (8, 512, 512),
    r = 64, forward and backward against autograd through the plain
    versions (``interp_expand_bf16`` once each way);
+9c. mesh: the distribution layer on the card. A one-rank NCCL process
+   group in this process (``file://`` rendezvous), ``make_host_mesh()``
+   on the card, and the full-width ``ski-tnn-lm-wt103`` (r = 64, m = 32)
+   and ``fd-tnn-lm-wt103`` trained 3 steps of 8 × 512 through
+   ``StepBuilder`` (DTensor parameters and moments, the mixers' kernels
+   on the local tensors) beside the mesh-free ``make_train_step`` from
+   the same init and batches: the losses and every parameter and moment
+   after 3 steps must agree within 1e-6 × max (bitwise expected; the
+   worst difference is printed), the kernel launches and the autograd
+   Functions' forwards and kernel backwards of the two runs must be equal
+   (the plain backward never), and the median ``train_step`` ms of both
+   paths is printed (the DTensor path's host cost);
 10. check: the kernel-path forward over the generated sequences reproduces
    every decoded token whose top-2 logit margin exceeds 1e-3; the
    smoke-size model gives the same logits, step-0 gradients and three
@@ -2370,10 +2385,19 @@ def phase_obs(cfg, smi: str, drain: dict, device="cuda") -> dict:
         raise AssertionError(f"kernel regions {sorted(regions)}")
     top = sorted(((s, n, c) for n, (c, s) in
                   by_region.get("fd_tno", {}).items()), reverse=True)[:8]
+    begun, walls = {}, []
+    for e in spans:
+        if e["ph"] == "B":
+            begun[e["attrs"]["step"]] = e["ts"]
+        else:
+            walls.append((e["ts"] - begun[e["attrs"]["step"]]) * 1e3)
     print(f"[obs train] {cfg.name} via launch.train.main, {n_step} steps of "
           f"{TRAIN_BATCH} x {TRAIN_SEQ} ({smi}; peaks of {name}: "
           f"{pk.flops / 1e12} TFLOP/s fp32, {pk.mem_bw / 1e12} TB/s): "
-          + "; ".join(rows), flush=True)
+          f"the launcher's train_step span (ends after a synchronise, "
+          f"under the profiler) median {statistics.median(walls[1:]):.3f} "
+          f"ms after the first ({walls[0]:.3f} ms); " + "; ".join(rows),
+          flush=True)
     print(f"[obs train] under fd_tno, by device time over {n_step} steps: "
           + "; ".join(f"{n[:60]} x{c} {t * 1e3:.3f} ms" for t, n, c in top)
           + f"; launches {launches}; the phase took "
@@ -5198,6 +5222,135 @@ def phase_ski_bf16_routes(smi: str, peaks, device="cuda") -> tuple:
     return kernels, launches
 
 
+# -------------------------------------------------------------- phase 9c
+MESH_STEPS = 3
+MESH_TOL = 1e-6
+
+
+def _mesh_train(step, model, opt, put, data, device):
+    """MESH_STEPS steps; (opt, losses, train_step ms, kernel launches,
+    the mixer Functions' counts)."""
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.kernels import fd_fused, ski_vjp
+    _reset_kernel_counts()
+    losses, ms = [], []
+    for i in range(MESH_STEPS):
+        batch = put(batch_at(data, i))
+        _sync(device)
+        t0 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        _sync(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    ops = {k: fd_fused.op_counters[k] + ski_vjp.counters[k]
+           for k in ("fwd", "bwd_kernel", "bwd_ref")}
+    return opt, losses, ms, _kernel_counts(), ops
+
+
+def _state_diff(model, opt, ref, ropt) -> tuple:
+    """(worst |mesh - mesh-free| / max|mesh-free| over every parameter and
+    moment, its leaf)."""
+    want = {f"param {k}": p.detach() for k, p in ref.named_parameters()}
+    want.update({f"mu {k}": v for k, v in ropt.mu.items()})
+    want.update({f"nu {k}": v for k, v in ropt.nu.items()})
+    got = {f"param {k}": p.detach() for k, p in model.named_parameters()}
+    got.update({f"mu {k}": v for k, v in opt.mu.items()})
+    got.update({f"nu {k}": v for k, v in opt.nu.items()})
+    worst = (0.0, "")
+    for k, w in want.items():
+        g = got[k].full_tensor()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, (err, k))
+    return worst
+
+
+def phase_mesh(smi: str, device="cuda") -> dict:
+    """The distribution layer on the card (module docstring, item 9c).
+    Returns the launch counts of the mesh runs by path."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import StepBuilder
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import _device_batch, put_batch
+    t_phase = time.perf_counter()
+    store = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_")) / "store"
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    launches, backend = {}, dist.get_backend()
+    try:
+        mesh = mesh_mod.make_host_mesh(device)
+        for arch, mixer in (("ski-tnn-lm-wt103", "ski"),
+                            ("fd-tnn-lm-wt103", "fd")):
+            cfg = get_config(arch)
+            ocfg = adamw.OptConfig(lr=3e-4, warmup_steps=1,
+                                   total_steps=MESH_STEPS)
+            data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                              global_batch=TRAIN_BATCH, seed=0)
+            sb = StepBuilder(cfg, mesh, opt_cfg=ocfg)
+            model, opt = sb.init_state(torch.Generator().manual_seed(0),
+                                       device=device)
+            free = StepBuilder(cfg, None, opt_cfg=ocfg)
+            ref, ropt = free.init_state(torch.Generator().manual_seed(0),
+                                        device=device)
+            ropt, rlosses, rms, rcounts, rops = _mesh_train(
+                free.make_train_step(), ref, ropt, _device_batch(device),
+                data, device)
+            opt, losses, ms, counts, ops = _mesh_train(
+                sb.make_train_step(), model, opt, put_batch(mesh), data,
+                device)
+            err, leaf = _state_diff(model, opt, ref, ropt)
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(losses, rlosses))
+            tag = f"[mesh {mixer}]"
+            print(f"{tag} {arch} on make_host_mesh() ({backend}, one rank, "
+                  f"{smi}): {MESH_STEPS} StepBuilder steps of {TRAIN_BATCH}"
+                  f" x {TRAIN_SEQ} beside the mesh-free make_train_step: "
+                  f"losses {losses} vs {rlosses} (max rel diff "
+                  f"{loss_err:.3e}); worst parameter or moment |mesh - "
+                  f"mesh-free| / max {err:.3e} ({leaf or 'none'}; limit "
+                  f"{MESH_TOL})", flush=True)
+            if err or loss_err:
+                print(f"{tag} not bitwise: the sharded step runs the same "
+                      "ops on the same local tensors, so a difference "
+                      "comes from a kernel or library call that is not "
+                      "deterministic run to run on the card (cuBLAS "
+                      "split-k, atomics), not from the mesh", flush=True)
+            print(f"{tag} median train_step ms: mesh {statistics.median(ms):.3f}"
+                  f", mesh-free {statistics.median(rms):.3f} (all: "
+                  f"{[round(t, 3) for t in ms]} vs "
+                  f"{[round(t, 3) for t in rms]}; host clock after a "
+                  "synchronise, the first step included)", flush=True)
+            print(f"{tag} kernel launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; Functions "
+                  f"{ops}; mesh-free "
+                  f"{ {k: v for k, v in rcounts.items() if v} }, {rops}",
+                  flush=True)
+            if not (err <= MESH_TOL and loss_err <= MESH_TOL):
+                raise AssertionError(f"{tag} mesh vs mesh-free: {err} "
+                                     f"({leaf}), losses {loss_err}")
+            if counts != rcounts or ops != rops or ops["bwd_ref"] != 0:
+                raise AssertionError(f"{tag} launches {counts}, {ops} vs "
+                                     f"mesh-free {rcounts}, {rops}")
+            want = {k: TRAIN_LAUNCHES[mixer].get(k, 0) * cfg.n_layers
+                    * MESH_STEPS for k in counts}
+            want_ops = {"fwd": cfg.n_layers * MESH_STEPS,
+                        "bwd_kernel": cfg.n_layers * MESH_STEPS,
+                        "bwd_ref": 0}
+            if counts != want or ops != want_ops:
+                raise AssertionError(f"{tag} launches {counts}, {ops}; "
+                                     f"want {want}, {want_ops}")
+            launches[f"mesh_{mixer}"] = counts
+            del model, opt, ref, ropt
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
 # --------------------------------------------------------------- phase 7
 def check_train_card_vs_cpu(small, device) -> None:
     """Same init and batches on the card and on the CPU: step-0 gradients
@@ -6732,6 +6885,7 @@ def main() -> int:
     route_kernels, route_launches = phase_ski_bf16_routes(smi, peaks)
     kernels.update(route_kernels)
     bf16_launches.update(route_launches)
+    mesh_launches = phase_mesh(smi)
     phase_check(cfg, model, prompt_len, seqs, "cuda")
     del model
     mamba_kernels, mamba_launches = phase_mamba(peaks)
@@ -6777,6 +6931,10 @@ def main() -> int:
                 for kind in ("score", "train")},
              "ski_bf16_unfused": (bf16_launches["ski_bf16_unfused"], tuple(
                  k for k, v in UNFUSED_BF16_STEP.items() if v)),
+             "mesh_ski": (mesh_launches["mesh_ski"],
+                          tuple(TRAIN_LAUNCHES["ski"])),
+             "mesh_fd": (mesh_launches["mesh_fd"], tuple(
+                 k for k, v in TRAIN_LAUNCHES["fd"].items() if v)),
              **{path: (counts, ()) for path, counts in tno_launches.items()
                 if path != "fd_hist"},
              "fd_hist": (tno_launches["fd_hist"], ("hilbert_window",)),

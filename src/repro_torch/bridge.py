@@ -25,6 +25,12 @@ the same way into the port's list of per-layer caches, and
 slots) into the port's; the engine's snapshots store
 :func:`decode_state_to_jax`'s layout, so a snapshot written by either
 package's scheduler resumes in the port.
+
+Sharded models (DTensor parameters, ``launch/steps.StepBuilder``):
+:func:`params_from_jax` with a ``mesh`` places the carried weights on it
+by the arch's sharding rules, :func:`load_train_state` puts weights and
+moments with the model's placements, and the way back gathers full
+tensors (every rank joins).
 """
 from __future__ import annotations
 
@@ -32,11 +38,16 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.transformer import Model
 from repro_torch.nn.layers import cast_params
+from repro_torch.nn.params import param_axes
 from repro_torch.optim.adamw import OptState
+from repro_torch.parallel.sharding import (full, place_like, rules_for_arch,
+                                           shard_as, shard_module,
+                                           tree_shardings)
 from repro_torch.serving_engine import state as st
 
 
@@ -130,11 +141,14 @@ def _check_leaf(name: str, arr, want: torch.Tensor) -> None:
 
 
 def params_from_jax(tree, cfg: ArchConfig, device="cuda",
-                    dtype: torch.dtype | None = None) -> Model:
+                    dtype: torch.dtype | None = None, *, mesh=None,
+                    rules=None) -> Model:
     """Build the port's model holding exactly the JAX parameters, each in
     its leaf's own dtype. ``dtype``: the dtype JAX's ``cast_params`` gave
     the tree's floating leaves, which the port's model then takes through
     ``nn.layers.cast_params`` before the leaves are checked against it.
+    ``mesh``: place each parameter on it (DTensor shards) by ``rules``
+    (default ``rules_for_arch``), as ``StepBuilder.param_shardings``.
     Raises if a JAX leaf has no port parameter, a port parameter gets no
     JAX leaf, or a shape or dtype differs."""
     model = Model(cfg, device="meta")
@@ -146,6 +160,10 @@ def params_from_jax(tree, cfg: ArchConfig, device="cuda",
         _check_leaf(name, arr, want[name])
     state = {k: _tensor(v, device) for k, v in leaves.items()}
     model.load_state_dict(state, assign=True)
+    if mesh is not None:
+        shard_module(model, tree_shardings(
+            mesh, rules or rules_for_arch(cfg, mesh), param_axes(model),
+            dict(model.named_parameters())))
     return model
 
 
@@ -299,25 +317,37 @@ def _lists(node):
 
 def params_to_jax(model: Model) -> dict:
     """The model's parameters in the JAX layout (detached tensors on the
-    model's device; the scanned stack is a new stacked tensor)."""
-    return _jax_tree({k: p.detach() for k, p in model.named_parameters()},
-                     model.cfg)
+    model's device, a DTensor's full value; the scanned stack is a new
+    stacked tensor)."""
+    return _jax_tree({k: full(p.detach())
+                      for k, p in model.named_parameters()}, model.cfg)
 
 
 def opt_to_jax(opt: OptState, cfg: ArchConfig) -> OptState:
-    """The optimizer state with each moment tree in the JAX layout."""
-    return OptState(opt.step, *(_jax_tree(t, cfg)
+    """The optimizer state with each moment tree in the JAX layout (a
+    DTensor moment's full value)."""
+    return OptState(opt.step, *(_jax_tree({k: full(v) for k, v in t.items()},
+                                          cfg)
                                 for t in (opt.mu, opt.nu, opt.err)))
 
 
-def opt_from_jax(tree: OptState, cfg: ArchConfig, device) -> OptState:
+def opt_from_jax(tree: OptState, cfg: ArchConfig, device,
+                 like: dict | None = None) -> OptState:
     """A JAX-layout ``OptState`` (numpy or tensor leaves) → the port's, on
-    ``device``. Raises on a missing or unconsumed leaf."""
+    ``device``; with ``like`` (the model's parameters by name), each
+    moment of a parameter's shape is placed as that parameter is (a
+    DTensor's mesh and placements). Raises on a missing or unconsumed
+    leaf."""
     names = dict(Model(cfg, device="meta").named_parameters())
     trees = []
     for what, sub in zip(("mu", "nu", "err"), tree[1:]):
         leaves = _leaves_by_name(sub, cfg, names, f"JAX optimizer {what}")
-        trees.append({k: _tensor(leaves[k], device) for k in names})
+        t = {k: _tensor(leaves[k], device) for k in names}
+        if like is not None:
+            t = {k: (shard_as(v, like[k]) if isinstance(like[k], DTensor)
+                     and v.shape == like[k].shape else v)
+                 for k, v in t.items()}
+        trees.append(t)
     return OptState(_tensor(tree[0], device, torch.int32), *trees)
 
 
@@ -338,5 +368,6 @@ def load_train_state(model: Model, tree: dict) -> OptState:
     leaves = _leaves_by_name(tree["params"], cfg, params, "JAX params")
     for k, p in params.items():
         _check_leaf(k, leaves[k], p)
-        p.copy_(_as_torch(leaves[k]))
-    return opt_from_jax(tree["opt"], cfg, params["embed"].device)
+        p.copy_(place_like(_as_torch(leaves[k]), p)
+                if isinstance(p, DTensor) else _as_torch(leaves[k]))
+    return opt_from_jax(tree["opt"], cfg, params["embed"].device, like=params)

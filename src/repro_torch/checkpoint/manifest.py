@@ -22,6 +22,12 @@ directories are fsync'd before the step directory is renamed into place
 and the COMMITTED marker and LATEST are written; restore reads only
 committed steps. ``AsyncCheckpointer`` copies the state to host memory
 synchronously and writes it in a background thread.
+
+Sharded state (DTensor leaves, ``launch/steps.StepBuilder``) is stored as
+full tensors in the same layout: every rank joins the gathers, rank 0 of
+the process group writes, and the others wait for its commit. ``restore``
+places each leaf as its ``like`` is placed, or by ``shardings`` (JAX's
+elastic restore): the files hold full values, so any mesh reads them.
 """
 from __future__ import annotations
 
@@ -33,6 +39,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.parallel.sharding import full, place_like
 
 _NP_NATIVE = {"float64", "float32", "float16", "int64", "int32", "int16",
               "int8", "uint64", "uint32", "uint16", "uint8", "bool",
@@ -87,12 +96,23 @@ def _treedef_str(tree) -> str:
 
 
 def to_host(tree):
-    """A copy of ``tree`` in host memory: tensors become CPU tensors that
-    share no storage with the originals (so a background write never sees
-    a later in-place update), numpy leaves are copied."""
-    return tree_map(lambda x: (x.detach().to("cpu", copy=True)
+    """A copy of ``tree`` in host memory: tensors (a DTensor's full value)
+    become CPU tensors that share no storage with the originals (so a
+    background write never sees a later in-place update), numpy leaves are
+    copied."""
+    return tree_map(lambda x: (full(x.detach()).to("cpu", copy=True)
                                if isinstance(x, torch.Tensor)
                                else np.array(x)), tree)
+
+
+def _group_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the process
+    group, or a process outside one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _as_stored(leaf):
@@ -124,7 +144,20 @@ def _fsync_dir(path: str):
 
 
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None):
-    """Synchronous atomic save of a tree of tensors / arrays."""
+    """Synchronous atomic save of a tree of tensors / arrays. In a process
+    group every rank calls it (DTensor leaves are gathered), rank 0 writes
+    and every rank returns after the commit."""
+    tree = tree_map(lambda x: full(x.detach())
+                    if isinstance(x, torch.Tensor) else x, tree)
+    step_dir = _write(ckpt_dir, step, tree, extra) if _writes() else None
+    if _group_size() > 1:
+        dist.barrier()
+    return step_dir or os.path.join(ckpt_dir, f"step_{step:09d}")
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict]):
+    """The atomic write of a tree of full tensors / arrays (one writer; no
+    collective, so the async saver's thread runs it too)."""
     leaves = tree_leaves(tree)
     step_dir = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp_dir = step_dir + ".tmp"
@@ -201,10 +234,15 @@ def _load_leaf(step_dir: str, meta: dict) -> torch.Tensor:
     return t
 
 
-def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None):
+def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None,
+            shardings: Any = None):
     """Restore into the structure of ``tree_like`` (tensors): each leaf
-    takes its ``like``'s dtype and device. Raises ``ValueError`` if the
-    leaf count or a shape differs. Returns (tree, extra)."""
+    takes its ``like``'s dtype and device, and a DTensor ``like``'s mesh
+    and placements. ``shardings`` (a tree of
+    ``parallel/sharding.NamedSharding`` matching ``tree_like``) places
+    each leaf by its sharding instead: the elastic restore onto any mesh.
+    Raises ``ValueError`` if the leaf count or a shape differs. Returns
+    (tree, extra)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -217,13 +255,16 @@ def restore(ckpt_dir: str, tree_like: Any, *, step: Optional[int] = None):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, "
             f"model expects {len(leaves_like)}")
+    shard_leaves = (tree_leaves(shardings) if shardings is not None
+                    else [None] * len(leaves_like))
     out = []
-    for meta, like in zip(manifest["leaves"], leaves_like):
+    for meta, like, sh in zip(manifest["leaves"], leaves_like, shard_leaves):
         t = _load_leaf(step_dir, meta)
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"leaf {meta['file']}: shape mismatch "
                              f"{tuple(t.shape)} vs {tuple(like.shape)}")
-        out.append(t.to(device=like.device, dtype=like.dtype))
+        out.append(sh.place(t.to(like.dtype)) if sh is not None
+                   else place_like(t, like))
     it = iter(out)
     return _fill(tree_like, it), manifest["extra"]
 
@@ -249,23 +290,40 @@ class AsyncCheckpointer:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False
         os.makedirs(ckpt_dir, exist_ok=True)
 
     def wait(self):
+        """Block until the pending write has committed, and raise its
+        error. In a process group every rank calls it at the same points
+        (``save_async`` does): rank 0 sends its write's outcome to every
+        rank, so all of them see the commit or the failure at once."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._pending and _group_size() > 1:
+            outcome = [None if err is None else repr(err)]
+            dist.broadcast_object_list(outcome, src=0)
+            if err is None and outcome[0] is not None:
+                err = RuntimeError("rank 0's checkpoint write failed: "
+                                   + outcome[0])
+        self._pending = False
+        if err is not None:
             raise err
 
     def save_async(self, step: int, tree: Any, *, extra: Optional[dict] = None):
+        """Snapshot ``tree`` to host memory (every rank of a process group
+        joins the gathers) and write it in the background (rank 0)."""
         self.wait()                                    # block on previous save
         host_tree = to_host(tree)
+        self._pending = True
+        if not _writes():
+            return
 
         def _work():
             try:
-                save(self.ckpt_dir, step, host_tree, extra=extra)
+                _write(self.ckpt_dir, step, host_tree, extra)
                 self._gc()
             except BaseException as e:   # surfaced on next wait()
                 self._error = e

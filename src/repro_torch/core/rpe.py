@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from repro_torch.nn.layers import MLP, draw_buffer, mlp_apply, mlp_init
+from repro_torch.nn.params import set_axes
 
 
 # ----------------------------------------------------------------- MLP RPE
@@ -56,6 +57,7 @@ class InterpRPE(nn.Module):
         super().__init__()
         self.vals = nn.Parameter(torch.empty(cfg.d_out, cfg.grid_size,
                                              device=device))
+        set_axes(self, vals=("tno_channel", None))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         v = draw_buffer(self.vals.shape, generator)

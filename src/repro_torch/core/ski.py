@@ -45,6 +45,7 @@ from repro_torch.core.rpe import (InterpRPE, InterpRPEConfig,
                                   interp_rpe_apply)
 from repro_torch.kernels import backend, ops, ref
 from repro_torch.nn.layers import draw_buffer
+from repro_torch.nn.params import set_axes
 
 @dataclasses.dataclass(frozen=True)
 class SKIConfig:
@@ -101,6 +102,7 @@ class SKIParams(nn.Module):
                              device=device)
         self.filt = nn.Parameter(torch.empty(cfg.d, cfg.filter_size,
                                              device=device))
+        set_axes(self, filt=("tno_channel", None))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         v = draw_buffer(self.filt.shape, generator)

@@ -1,9 +1,19 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>
 [--smoke] [--device cpu] [...]``, counterpart of ``repro/launch/train.py``.
 
-Wires ``launch/steps.make_train_step`` (loss, autograd, AdamW) + the data
-pipeline + the fault-tolerant ``runtime/trainer.Trainer`` on one device:
-``cuda`` by default, where every FD-TNO and SKI-TNO forward and backward
+Wires ``launch/steps.StepBuilder``'s train step (loss, autograd, AdamW)
++ the data pipeline + the fault-tolerant ``runtime/trainer.Trainer``.
+Without a mesh flag it trains on one device with the mesh-free
+``make_train_step`` (plain tensors, no process group). Under ``torchrun
+--nproc-per-node N`` (NCCL ranks on the cards, gloo with ``--device
+cpu``) ``--mesh DxM`` lays the N ranks out as (data=D, model=M) and
+``--production-mesh`` as JAX's (16, 16). The TNN decoders train sharded
+on it (DTensor state, FSDP over data, channel TP over model, each rank's
+rows of JAX's global batch through ``trainer.put_batch``); every other
+arch takes only a one-rank mesh for now (ROADMAP slice 16b), and runs the
+mesh-free step there. Only rank 0 prints and writes the metrics and trace
+files. The device is ``cuda`` by
+default, where every FD-TNO and SKI-TNO forward and backward
 runs the hand-written kernels (``fd-tnn-lm-wt103``, ``ski-tnn-lm-wt103``)
 and the baseline ``tnn-lm-wt103`` runs cuFFT and cuBLAS (no hand kernel,
 as XLA ran it); ``--device cpu`` runs the plain versions. The attention
@@ -24,24 +34,25 @@ dumped on exit; ``train_step`` span events (the end after a
 ``torch.cuda.synchronize`` on the card) streamed as JSONL with a Chrome
 export beside them. With ``REPRO_PROFILE_DIR`` set the run is one
 profiler session whose kernel regions ``obs.devstats.aggregate_chrome``
-reads. Multi-device meshes (``--production-mesh``) come with a later
-slice (ROADMAP Queue 1 item 12).
+reads.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import logging
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.data.pipeline import DataConfig
-from repro_torch.launch.steps import make_train_step
-from repro_torch.models.transformer import init_model
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.steps import StepBuilder
 from repro_torch.optim import adamw
-from repro_torch.runtime.trainer import Trainer, TrainerConfig
+from repro_torch.runtime.trainer import Trainer, TrainerConfig, put_batch
 
 
 def main(argv=None):
@@ -64,6 +75,11 @@ def main(argv=None):
     ap.add_argument("--data-path", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="JAX's (data=16, model=16) mesh over 256 ranks")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="a (data=D, model=M) mesh over the torchrun ranks, "
+                         "e.g. 2x2 (the port's own flag)")
     ap.add_argument("--metrics-file", default=None, metavar="PATH",
                     help="dump the obs metrics registry on exit "
                          "(.json = JSON dump, anything else = Prometheus "
@@ -76,18 +92,44 @@ def main(argv=None):
                          "and write a Chrome trace_event export "
                          "(PATH + '.chrome.json') on exit")
     args = ap.parse_args(argv)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    device = torch.device(args.device)
+    meshed = args.production_mesh or args.mesh is not None
+    if not meshed and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        ap.error("several ranks need --mesh DxM or --production-mesh")
+    started = meshed and mesh_mod.init_distributed(device.type)
+    try:
+        return _run(args, device, meshed)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _mesh(args, device_type: str):
+    """The flag's mesh over the process group's ranks, or None (one
+    device, the mesh-free step)."""
+    if args.production_mesh:
+        return mesh_mod.make_production_mesh(device_type=device_type)
+    if args.mesh is not None:
+        shape = tuple(int(x) for x in args.mesh.lower().split("x"))
+        return mesh_mod.make_mesh(shape, ("data", "model"), device_type)
+    return None
+
+
+def _run(args, device: torch.device, meshed: bool) -> int:
+    rank0 = not meshed or dist.get_rank() == 0
+    logging.basicConfig(level=logging.INFO if rank0 else logging.WARNING,
+                        format="%(message)s")
 
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.obs import tracing as obs_tracing
     reg = None
-    if args.metrics_file is not None:
+    if args.metrics_file is not None and rank0:
         reg = obs_metrics.Registry()
         # process default too: the compile watchdog and the Trainer's own
         # counters report into the same dump (parity with launch/serve.py)
         obs_metrics.set_default_registry(reg)
     tracer = (obs_tracing.Tracer(args.trace_file)
-              if args.trace_file is not None else None)
+              if args.trace_file is not None and rank0 else None)
     if tracer is not None:
         obs_tracing.set_default_tracer(tracer)
 
@@ -96,15 +138,18 @@ def main(argv=None):
         cfg = reduce_for_smoke(cfg)
     if args.mixer:
         cfg = dataclasses.replace(cfg, mixer_override=args.mixer)
-    device = torch.device(args.device)
-    model = init_model(cfg, torch.Generator().manual_seed(args.seed),
-                       device=device)
+    mesh = _mesh(args, device.type)
     opt_cfg = adamw.OptConfig(lr=args.lr, warmup_steps=args.warmup,
                               total_steps=args.steps)
-    opt = adamw.init(opt_cfg, dict(model.named_parameters()))
+    sb = StepBuilder(cfg, mesh, opt_cfg=opt_cfg)
+    model, opt = sb.init_state(torch.Generator().manual_seed(args.seed),
+                               device=device)
+    host_id, num_hosts = (mesh_mod.data_rank(mesh) if mesh is not None
+                          else (0, 1))
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=args.seq_len,
                           global_batch=args.global_batch, seed=args.seed,
-                          kind=args.data, path=args.data_path)
+                          kind=args.data, path=args.data_path,
+                          host_id=host_id, num_hosts=num_hosts)
     tcfg = TrainerConfig(total_steps=args.steps, ckpt_dir=args.ckpt_dir,
                          ckpt_every=args.ckpt_every)
     # compile watchdog over the trainer's entry point: one first call is
@@ -114,7 +159,7 @@ def main(argv=None):
     from repro_torch.obs import compilewatch as obs_compile
     watch = obs_compile.CompileWatch(prefix="train.")
     watch.expect("train_step", 1)
-    train_step = watch.wrap("train_step", make_train_step(cfg, opt_cfg))
+    train_step = watch.wrap("train_step", sb.make_train_step())
     if tracer is not None:
         import itertools
         inner_step, counter = train_step, itertools.count()
@@ -130,7 +175,9 @@ def main(argv=None):
             tracer.end("train_step", step=i)
             return out
 
-    trainer = Trainer(tcfg, train_step, data_cfg)
+    trainer = Trainer(tcfg, train_step, data_cfg,
+                      put_batch=put_batch(mesh) if sb.sharded else None,
+                      log=None if rank0 else (lambda line: None))
 
     opt, start = trainer.try_restore(model, opt)
     t0 = time.time()
@@ -138,6 +185,8 @@ def main(argv=None):
     dt = time.time() - t0
     steps_done = max(end - start, 1)
     final = (trainer.metrics_history[-1] if trainer.metrics_history else {})
+    if not rank0:
+        return 0
     print(f"[train] {steps_done} steps in {dt:.1f}s "
           f"({steps_done / dt:.2f} it/s); final metrics: "
           f"{ {k: float(v) for k, v in final.items()} }")

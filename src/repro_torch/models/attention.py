@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.layers import lecun_normal_
+from repro_torch.nn.params import set_axes
 
 class Attention(nn.Module):
     """JAX leaves {wq, wk, wv, wo}, and {bq, bk, bv} with ``qkv_bias``, each
@@ -43,6 +44,9 @@ class Attention(nn.Module):
             self.bv = nn.Parameter(torch.empty(kvh * hd, **kw))
         else:
             self.bq = self.bk = self.bv = None
+        set_axes(self, wq=("embed", "heads"), wk=("embed", "kv_proj"),
+                 wv=("embed", "kv_proj"), wo=("heads", "embed"),
+                 bq=("heads",), bk=("kv_proj",), bv=("kv_proj",))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):

@@ -22,6 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ssd_chunked import ssd_decode_step
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.layers import draw_buffer, lecun_normal_
+from repro_torch.nn.params import set_axes
 
 
 def _dims(cfg: ArchConfig):
@@ -54,6 +55,10 @@ class Mamba(nn.Module):
         self.d_skip = param(h)
         self.norm_scale = param(di)
         self.out_proj = param(di, d, dtype=pdt)
+        set_axes(self, in_proj=("embed", "ssm_inner"),
+                 conv_w=("ssm_inner", None), a_log=("ssm_heads",),
+                 dt_bias=("ssm_heads",), d_skip=("ssm_heads",),
+                 norm_scale=("ssm_inner",), out_proj=("ssm_inner", "embed"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun, normal × 0.3, zeros, zeros, ones, ones, lecun."""

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.nn.layers import ACTS, lecun_normal_
+from repro_torch.nn.params import set_axes
 
 #: tokens a capacity chunk holds (JAX ``_moe_local``)
 CHUNK = 8192
@@ -56,6 +57,10 @@ class MoE(nn.Module):
         self.w_gate = nn.Parameter(torch.empty(e, d, f, **kw))
         self.w_up = nn.Parameter(torch.empty(e, d, f, **kw))
         self.w_down = nn.Parameter(torch.empty(e, f, d, **kw))
+        set_axes(self, router=("embed", "expert"),
+                 w_gate=("expert", "embed", "ffn"),
+                 w_up=("expert", "embed", "ffn"),
+                 w_down=("expert", "ffn", "embed"))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         for w in (self.router, self.w_gate, self.w_up, self.w_down):

@@ -93,11 +93,13 @@ def is_kv_cache(cache) -> bool:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               params: Model | None = None, dtype=None) -> list:
-    """One cache per layer (see the module docstring), on the parameters'
-    device (without them, on the CPU). ``dtype`` (a torch dtype; default
-    the activation dtype ``cfg.dtype``) is the hist and Mamba caches'
-    dtype, as in the JAX package."""
+               params: Model | None = None, dtype=None,
+               device=None) -> list:
+    """One cache per layer (see the module docstring), on ``device``, else
+    on the parameters' device (without them, on the CPU; ``"meta"``
+    allocates nothing). ``dtype`` (a torch dtype; default the activation
+    dtype ``cfg.dtype``) is the hist and Mamba caches' dtype, as in the
+    JAX package."""
     mixers = {mixer for mixer, _ in cfg.layers_spec}
     if "ski" in mixers:          # as repro/models/serving.py:99 raises
         raise NotImplementedError("decode for mixer ski (ski: Appendix "
@@ -107,7 +109,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
         raise NotImplementedError(f"decode for mixers {sorted(mixers)}: "
                                   "only attention, local, tno, fd and mamba "
                                   "are ported")
-    device = None if params is None else params.embed.device
+    if device is None and params is not None:
+        device = params.embed.device
     dtype = dtype or getattr(torch, cfg.dtype)
     cache = []
     for i, (mixer, _) in enumerate(cfg.layers_spec):

@@ -6,7 +6,10 @@ containers (named like the JAX leaves) that the plain functions read;
 constructors allocate (``device="meta"`` allocates nothing) and
 ``reset_parameters(generator)`` draws the values, as ``repro/nn/params.py``
 does: lecun truncated normal for weights, zeros for biases, ones for norm
-scales.
+scales. Each module records its parameters' logical axes as the JAX
+package boxes them (``nn/params.set_axes``); :func:`dense` and
+:func:`rmsnorm` gather a weight sharded over the data axes at use
+(``nn/params.gathered``, a no-op on a plain tensor).
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.nn.params import gathered, set_axes
 
 ACTS = {
     "relu": F.relu,
@@ -63,20 +68,22 @@ def dense(w: torch.Tensor, x: torch.Tensor, b: torch.Tensor | None = None):
     """x @ w (+ b) in the dtype JAX's ``x @ w`` promotes to: bf16 × bf16
     stays bf16, fp32 × bf16 computes in fp32 (torch's matmul refuses mixed
     dtypes, so the narrower operand is widened first, exactly)."""
+    w = gathered(w)
     dt = torch.promote_types(x.dtype, w.dtype)
     y = x.to(dt) @ w.to(dt)
     if b is not None:
-        y = y + b.to(y.dtype)
+        y = y + gathered(b).to(y.dtype)
     return y
 
 
 class Dense(nn.Module):
     def __init__(self, d_in: int, d_out: int, *, use_bias: bool = False,
-                 device=None):
+                 axes=("embed", "mlp"), device=None):
         super().__init__()
         self.w = nn.Parameter(torch.empty(d_in, d_out, device=device))
         self.b = (nn.Parameter(torch.empty(d_out, device=device))
                   if use_bias else None)
+        set_axes(self, w=axes, b=axes[-1:])
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         lecun_normal_(self.w, generator)
@@ -90,7 +97,7 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     y = x * torch.rsqrt(var + eps)
-    return (y * scale.float()).to(dt)
+    return (y * gathered(scale).float()).to(dt)
 
 
 def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
@@ -107,16 +114,18 @@ class RMSNorm(nn.Module):
     def __init__(self, d: int, device=None):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(d, device=device))
+        set_axes(self, scale=("embed",))
 
     def reset_parameters(self, generator=None) -> None:
         nn.init.ones_(self.scale)
 
 
 class LayerNorm(nn.Module):
-    def __init__(self, d: int, device=None):
+    def __init__(self, d: int, axes=("embed",), device=None):
         super().__init__()
         self.scale = nn.Parameter(torch.empty(d, device=device))
         self.bias = nn.Parameter(torch.empty(d, device=device))
+        set_axes(self, scale=axes, bias=axes)
 
     def reset_parameters(self, generator=None) -> None:
         nn.init.ones_(self.scale)
@@ -129,9 +138,11 @@ class MLPLayer(Dense):
     applied before the activation — the JAX leaf layout {w, b, ln}."""
 
     def __init__(self, d_in: int, d_out: int, *, use_layernorm: bool,
-                 device=None):
-        super().__init__(d_in, d_out, use_bias=True, device=device)
-        self.ln = LayerNorm(d_out, device=device) if use_layernorm else None
+                 axes=("embed", "mlp"), device=None):
+        super().__init__(d_in, d_out, use_bias=True, axes=axes,
+                         device=device)
+        self.ln = (LayerNorm(d_out, axes=axes[-1:], device=device)
+                   if use_layernorm else None)
 
 
 class MLP(nn.Module):
@@ -143,11 +154,17 @@ class MLP(nn.Module):
 def mlp_init(d_in, d_hidden, d_out, n_layers, *, use_layernorm=True,
              device=None) -> MLP:
     """n_layers >= 1 linear layers with activations between (none on
-    output); a layernorm after every hidden layer when ``use_layernorm``."""
+    output); a layernorm after every hidden layer when ``use_layernorm``.
+    Axes as JAX's: the hidden dims ``"rpe_hidden"``, the output dim
+    ``"tno_channel"`` (the MLP is the TNN mixer's RPE)."""
     dims = [d_in] + [d_hidden] * (n_layers - 1) + [d_out]
+
+    def axes(i):
+        return ("rpe_hidden" if i > 0 else None,
+                "rpe_hidden" if i < n_layers - 1 else "tno_channel")
     return MLP([MLPLayer(dims[i], dims[i + 1],
                          use_layernorm=use_layernorm and i < n_layers - 1,
-                         device=device)
+                         axes=axes(i), device=device)
                 for i in range(n_layers)])
 
 

@@ -14,6 +14,12 @@ functional, :func:`step` updates the parameters and the moment (and
 error-feedback) tensors in place under ``torch.no_grad()`` and returns the
 state with the new step count; a caller that may need the pre-step state
 back (``runtime/trainer.py``'s retry) clones it first.
+
+Sharded parameters (DTensors, ``launch/steps.StepBuilder``) keep their
+moments with the same placements, and the update runs on each rank's
+local shards (elementwise, so it is the whole update's restriction); the
+clipping norm is taken over the whole of every gradient with one
+all-reduce (:func:`global_norm`).
 """
 from __future__ import annotations
 
@@ -22,6 +28,10 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
+
+from repro_torch.parallel.sharding import local as _local
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,14 +69,15 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(cfg: OptConfig, params: dict) -> OptState:
+    """Zero moments like the parameters (a DTensor's with its
+    placements)."""
     mdt = getattr(torch, cfg.moments_dtype)
     device = next(iter(params.values())).device
-    mu = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-          for k, p in params.items()}
-    nu = {k: torch.zeros(p.shape, dtype=mdt, device=p.device)
-          for k, p in params.items()}
-    err = {k: torch.zeros(p.shape if cfg.compress_grads else (),
-                          dtype=torch.float32, device=p.device)
+    mu = {k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()}
+    nu = {k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()}
+    err = {k: (torch.zeros_like(p, dtype=torch.float32)
+               if cfg.compress_grads
+               else torch.zeros((), dtype=torch.float32, device=p.device))
            for k, p in params.items()}
     return OptState(torch.zeros((), dtype=torch.int32, device=device),
                     mu, nu, err)
@@ -95,25 +106,61 @@ def compress_with_feedback(g: torch.Tensor, err: torch.Tensor):
 
 
 # ---------------------------------------------------------------- update
+def _sq(g: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of ``g``'s local values; for a DTensor divided by
+    the number of ranks holding each copy, so that the sum over all ranks
+    counts every element of the whole gradient once."""
+    sq = torch.sum(torch.square(_local(g).float()))
+    if isinstance(g, DTensor):
+        mesh = g.device_mesh
+        if any(p.is_partial() and mesh.size(i) > 1
+               for i, p in enumerate(g.placements)):
+            raise ValueError(f"partial gradient {g.placements}: "
+                             "redistribute it to its parameter's placements")
+        copies = math.prod(mesh.size(i) for i, p in enumerate(g.placements)
+                           if not p.is_shard())
+        if copies > 1:
+            sq = sq / copies
+    return sq
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    """The L2 norm over every leaf of ``grads``; with DTensor leaves (their
+    mesh spanning the process group) one all-reduce of the local sums."""
+    sq = sum(_sq(g) for g in grads.values())
+    if any(isinstance(g, DTensor) for g in grads.values()):
+        dist.all_reduce(sq)
+    return torch.sqrt(sq)
+
+
+def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+
+
 def clip_by_global_norm(grads: dict, max_norm: float):
-    sq = sum(torch.sum(torch.square(g.float())) for g in grads.values())
-    gnorm = torch.sqrt(sq)
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, max_norm)
     return {k: (g * scale).to(g.dtype) for k, g in grads.items()}, gnorm
 
 
 @torch.no_grad()
 def step(cfg: OptConfig, state: OptState, grads: dict, params: dict):
     """One AdamW step: updates ``params`` (and the state's moment and
-    error tensors) in place. Returns (new_state, {"grad_norm", "lr"})."""
+    error tensors) in place. Returns (new_state, {"grad_norm", "lr"}).
+    DTensor parameters take gradients with their placements."""
     if cfg.compress_grads:
+        if any(isinstance(g, DTensor) for g in grads.values()):
+            raise NotImplementedError(
+                "compress_grads on a mesh: the int8 scale is per tensor, "
+                "which a shard's own max is not")
         deq = {}
         for k, g in grads.items():
             deq[k], new_err = compress_with_feedback(g, state.err[k])
             state.err[k].copy_(new_err)
         grads = deq
 
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
     count = state.step + 1
     lr = schedule(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
@@ -121,8 +168,9 @@ def step(cfg: OptConfig, state: OptState, grads: dict, params: dict):
     c2 = 1.0 - b2 ** count.float()
 
     for k, p in params.items():
-        m, v = state.mu[k], state.nu[k]
-        g32 = grads[k].float()
+        m, v, p = _local(state.mu[k]), _local(state.nu[k]), _local(p)
+        g = _local(grads[k])
+        g32 = (g * scale).to(g.dtype).float()
         m32 = b1 * m.float() + (1 - b1) * g32
         v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
         mhat = m32 / c1

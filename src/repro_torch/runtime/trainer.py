@@ -43,12 +43,14 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import bridge
 from repro_torch.checkpoint import manifest as ckpt
 from repro_torch.data.pipeline import DataConfig, batch_at
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import profiling as obs_prof
+from repro_torch.parallel.sharding import data_axes_of
 
 
 @dataclasses.dataclass
@@ -86,6 +88,25 @@ class StragglerMonitor:
 def _device_batch(device):
     def put(host_batch):
         return {k: torch.from_numpy(np.asarray(v)).to(device, torch.long)
+                for k, v in host_batch.items()}
+    return put
+
+
+def put_batch(mesh):
+    """``put_batch`` for a mesh, as JAX's ``launch/train.put_batch``: the
+    pipeline's host batch (this rank's rows of the global batch, its
+    ``DataConfig`` built with ``launch/mesh.data_rank``) as int64
+    DTensors sharded on the rows over the data axes and replicated over
+    the rest."""
+    data_axes = data_axes_of(mesh)
+    pl = [Shard(0) if n in data_axes else Replicate()
+          for n in mesh.mesh_dim_names]
+
+    def put(host_batch):
+        return {k: DTensor.from_local(
+                    torch.from_numpy(np.asarray(v)).to(mesh.device_type,
+                                                       torch.long),
+                    mesh, pl, run_check=False)
                 for k, v in host_batch.items()}
     return put
 

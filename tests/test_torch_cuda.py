@@ -178,3 +178,36 @@ def test_causal_spectrum_runs_on_each_card():
             got = fd_fused.causal_spectrum_adjoint(dk, n)
             torch.cuda.synchronize(dev)
             _close(got, ref.causal_spectrum_adjoint_ref(dk, n), 1e-5)
+
+
+def test_mesh_train_on_cards(tmp_path):
+    """The full-width ski-tnn-lm-wt103 trained 3 steps of 8 × 512 through
+    ``StepBuilder`` on one NCCL rank a card (2 cards, or 4 where there
+    are 4 or more), on meshes (1, w) and (w/2, 2): FSDP over data, channel
+    TP over model, the SKI kernels on each rank's channels. Held to the
+    mesh-free run on one card from the same init and batches: losses
+    within 1e-5 relative, parameters within 2·Σ lr per element with 99%
+    within 1e-5 (``tests/test_torch_train.py``'s Adam rule)."""
+    _two_cards()
+    import json
+
+    import _mesh_ranks
+    w = 4 if torch.cuda.device_count() >= 4 else 2
+    for shape in sorted({f"1x{w}", f"{w // 2}x2"}):
+        store = tmp_path / f"store_{shape}"
+        _mesh_ranks.spawn(lambda r: ("cards", r, w, store, shape, tmp_path),
+                          w, timeout=600)
+        res = json.loads((tmp_path / f"cards_{shape}.json").read_text())
+        print(f"[cards {shape}] {w} ranks: losses {res['losses']}, one "
+              f"card {res['ref_losses']}; worst parameter diff "
+              f"{max(res['max_diff'].values()):.3e} (bound "
+              f"{2 * sum(res['lrs']):.3e}); least share within 1e-5 "
+              f"{min(res['within_1e-5'].values()):.4f}")
+        data, model = map(int, shape.split("x"))
+        assert res["local_wu"] == [512 // data, 512 // model], shape
+        for got, want in zip(res["losses"], res["ref_losses"]):
+            assert abs(got - want) <= 1e-5 * abs(want), (shape, got, want)
+        bound = 2 * sum(res["lrs"])
+        for k, d in res["max_diff"].items():
+            assert d <= bound, (shape, k, d)
+            assert res["within_1e-5"][k] >= 0.99, (shape, k)

@@ -35,3 +35,25 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules, bad = int(out[0]), out[1].strip()
     assert n_modules >= 34, n_modules      # serving + training slices
     assert bad == "[]", bad
+
+
+_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "repro")))
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.nn.params", "repro_torch.parallel.sharding",
+    "repro_torch.launch.mesh", "repro_torch.models.context",
+    "repro_torch.launch.steps", "repro_torch.launch.train"])
+def test_distribution_layer_imports_no_jax(module):
+    """Each module of the distribution layer, imported alone in a fresh
+    interpreter, loads no jax and nothing of repro."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _ONE, module], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.strip()
+    assert out == "[]", out
